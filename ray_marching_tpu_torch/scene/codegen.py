@@ -1,0 +1,326 @@
+"""Scene tree → kernel code.
+
+The Pallas kernels of the JAX package trace the scene's ``sdf_c`` into the
+kernel body; CUDA C++ has no tracer, so this module lowers a node tree to a
+small SSA op list and emits it twice:
+
+(a) :meth:`SdfProgram.cuda_source`: a CUDA C++ device function
+    ``template <typename T> T scene_sdf(const T* P, T x, T y, T z)`` that
+    reads every parameter at its offset in the flat vector of
+    :func:`ray_marching_tpu_torch.ops.params.split_params_padded` (the
+    values stay a runtime pointer, so new parameter values never rebuild);
+(b) :meth:`SdfProgram.evaluate`: a tensor evaluator of the same op list.
+    The tests hold it equal, bit for bit, to the plain SDF of
+    :func:`ray_marching_tpu_torch.scene.graph.compile_node`, which catches a
+    wrong offset, op order or tie rule in the generated code on a machine
+    without ``nvcc``.
+
+Each op of the list is one IEEE operation in the order of the plain SDF;
+selects keep the select semantics of ``utils.vmin``/``vmax``/``clamp`` (a NaN
+compare takes the false branch), and the smooth-union max propagates NaN like
+``jnp.max``.
+
+Op count convention (:meth:`SdfProgram.op_counts`): one per add, sub, mul,
+div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
+the query point. Parameter loads and arithmetic on parameters alone are not
+counted (they do not depend on the ray and may be hoisted out of the march).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from ray_marching_tpu_torch.scene.graph import (
+    Affine,
+    Box,
+    Disk,
+    Line,
+    Node,
+    Onion,
+    Plane,
+    Rounding,
+    SmoothUnion,
+    Sphere,
+    Torus,
+    Union,
+    _unknown,
+    compile_node,
+    init_params,
+)
+
+# kind -> (arity, C++ expression template, count class)
+_OPS = {
+    "add": (2, "{0} + {1}", "add"),
+    "sub": (2, "{0} - {1}", "add"),
+    "mul": (2, "{0} * {1}", "mul"),
+    "div": (2, "{0} / {1}", "div"),
+    "neg": (1, "-{0}", "abs_neg"),
+    "abs": (1, "rm_abs({0})", "abs_neg"),
+    "sqrt": (1, "rm_sqrt({0})", "sqrt"),
+    "exp": (1, "rm_exp({0})", "exp"),
+    "log": (1, "rm_log({0})", "log"),
+    "max": (2, "rm_max_nan({0}, {1})", "select"),
+    # sel_lt(a, b, t, f) = a < b ? t : f; sel_gt likewise with >.
+    "sel_lt": (4, "({0} < {1}) ? {2} : {3}", "select"),
+    "sel_gt": (4, "({0} > {1}) ? {2} : {3}", "select"),
+}
+
+COUNT_CLASSES = ("add", "mul", "div", "sqrt", "exp", "log", "abs_neg", "select")
+
+
+class _Builder:
+    """Appends SSA ops; value ids index the op list. Ids 0-2 are x, y, z."""
+
+    def __init__(self, offsets: Dict[str, int]):
+        self.offsets = offsets
+        self.ops: List[Tuple] = [("x",), ("y",), ("z",)]
+        self.dep: List[bool] = [True, True, True]
+        self._memo: Dict[Tuple, int] = {}
+
+    def _push(self, op, dep):
+        self.ops.append(op)
+        self.dep.append(dep)
+        return len(self.ops) - 1
+
+    def param(self, path, index=0):
+        key = ("param", self.offsets[path] + index)
+        if key not in self._memo:
+            self._memo[key] = self._push(key, False)
+        return self._memo[key]
+
+    def const(self, value):
+        key = ("const", float(value))
+        if key not in self._memo:
+            self._memo[key] = self._push(key, False)
+        return self._memo[key]
+
+    def __getattr__(self, kind):
+        if kind not in _OPS:
+            raise AttributeError(kind)
+
+        def emit(*args):
+            assert len(args) == _OPS[kind][0], kind
+            return self._push((kind,) + args, any(self.dep[a] for a in args))
+
+        return emit
+
+    # Select forms of utils.vmin / vmax / clamp.
+    def vmin(self, a, b):
+        return self.sel_lt(b, a, b, a)
+
+    def vmax(self, a, b):
+        return self.sel_gt(b, a, b, a)
+
+    def clamp01(self, v):
+        zero, one = self.const(0.0), self.const(1.0)
+        v = self.sel_lt(v, zero, zero, v)
+        return self.sel_gt(v, one, one, v)
+
+
+def _path(prefix, key):
+    return f"{prefix}/{key}" if prefix else key
+
+
+def _lower(node: Node, b: _Builder, prefix: str, x: int, y: int, z: int) -> int:
+    """Emit ``node``'s SDF at (x, y, z), in the op order of the plain SDF
+    (scene/primitives.py, scene/ops.py)."""
+    p = lambda key, i=0: b.param(_path(prefix, key), i)  # noqa: E731
+    if isinstance(node, Sphere):
+        s = b.add(b.add(b.mul(x, x), b.mul(y, y)), b.mul(z, z))
+        return b.sub(b.sqrt(s), p("radius"))
+    if isinstance(node, Box):
+        q = [b.sub(b.abs(c), p("halfsides", i)) for i, c in enumerate((x, y, z))]
+        q_max = b.vmax(b.vmax(q[0], q[1]), q[2])
+        zero = b.const(0.0)
+        r = [b.sel_gt(qi, zero, qi, zero) for qi in q]
+        s = b.add(b.add(b.mul(r[0], r[0]), b.mul(r[1], r[1])), b.mul(r[2], r[2]))
+        inside = b.sel_lt(q_max, zero, q_max, zero)
+        return b.add(b.sqrt(s), inside)
+    if isinstance(node, Plane):
+        return x
+    if isinstance(node, Line):
+        s = [p("start", i) for i in range(3)]
+        e = [p("end", i) for i in range(3)]
+        ab = [b.sub(e[i], s[i]) for i in range(3)]
+        length2 = b.add(b.add(b.mul(ab[0], ab[0]), b.mul(ab[1], ab[1])),
+                        b.mul(ab[2], ab[2]))
+        ap = [b.sub(c, s[i]) for i, c in enumerate((x, y, z))]
+        dot = b.add(b.add(b.mul(ap[0], ab[0]), b.mul(ap[1], ab[1])),
+                    b.mul(ap[2], ab[2]))
+        t = b.clamp01(b.div(dot, length2))
+        dv = [b.sub(b.mul(t, ab[i]), ap[i]) for i in range(3)]
+        s2 = b.add(b.add(b.mul(dv[0], dv[0]), b.mul(dv[1], dv[1])),
+                   b.mul(dv[2], dv[2]))
+        return b.sub(b.sqrt(s2), p("radius"))
+    if isinstance(node, Disk):
+        r_dist = b.sub(b.sqrt(b.add(b.mul(y, y), b.mul(z, z))), p("radius"))
+        zero = b.const(0.0)
+        rr = b.sel_gt(r_dist, zero, r_dist, zero)
+        return b.sqrt(b.add(b.mul(x, x), b.mul(rr, rr)))
+    if isinstance(node, Torus):
+        a = b.sub(b.sqrt(b.add(b.mul(x, x), b.mul(z, z))), p("radius1"))
+        return b.sub(b.sqrt(b.add(b.mul(a, a), b.mul(y, y))), p("radius2"))
+    if isinstance(node, Affine):
+        qw = p("orientation", 0)
+        qx, qy, qz = (b.neg(p("orientation", i)) for i in (1, 2, 3))
+        vx, vy, vz = (b.sub(c, p("translation", i))
+                      for i, c in enumerate((x, y, z)))
+        lx, ly, lz = _rotate(b, qw, qx, qy, qz, vx, vy, vz)
+        return _lower(node.child, b, _path(prefix, "child"), lx, ly, lz)
+    if isinstance(node, Union):
+        out = _lower(node.children[0], b, _path(prefix, "c0"), x, y, z)
+        for i, c in enumerate(node.children[1:], start=1):
+            out = b.vmin(out, _lower(c, b, _path(prefix, f"c{i}"), x, y, z))
+        return out
+    if isinstance(node, SmoothUnion):
+        ds = [_lower(c, b, _path(prefix, f"c{i}"), x, y, z)
+              for i, c in enumerate(node.children)]
+        neg_k = b.neg(p("blend_k"))
+        a = [b.mul(d, neg_k) for d in ds]
+        m = a[0]
+        for ai in a[1:]:
+            m = b.max(m, ai)
+        total = b.exp(b.sub(a[0], m))
+        for ai in a[1:]:
+            total = b.add(total, b.exp(b.sub(ai, m)))
+        return b.div(b.add(b.log(total), m), neg_k)
+    if isinstance(node, Rounding):
+        d = _lower(node.child, b, _path(prefix, "child"), x, y, z)
+        return b.sub(d, p("rounding"))
+    if isinstance(node, Onion):
+        d = _lower(node.child, b, _path(prefix, "child"), x, y, z)
+        return b.sub(b.abs(d), p("radius"))
+    return _unknown(node)
+
+
+def _cross(b, ux, uy, uz, vx, vy, vz):
+    return (b.sub(b.mul(uy, vz), b.mul(uz, vy)),
+            b.sub(b.mul(uz, vx), b.mul(ux, vz)),
+            b.sub(b.mul(ux, vy), b.mul(uy, vx)))
+
+
+def _rotate(b, qw, qx, qy, qz, x, y, z):
+    """quat.rotate_c: ``v + w·t + q_v × t`` with ``t = 2 q_v × v``."""
+    two = b.const(2.0)
+    tx, ty, tz = (b.mul(two, t) for t in _cross(b, qx, qy, qz, x, y, z))
+    cx, cy, cz = _cross(b, qx, qy, qz, tx, ty, tz)
+    return tuple(b.add(b.add(c, b.mul(qw, t)), v)
+                 for c, t, v in ((cx, tx, x), (cy, ty, y), (cz, tz, z)))
+
+
+def _c_literal(value: float) -> str:
+    return f"static_cast<T>({float(value).hex()})"
+
+
+class SdfProgram:
+    """A scene lowered to SSA ops, with its flat-parameter layout.
+
+    ``specs`` is the layout of
+    :func:`ray_marching_tpu_torch.ops.params.split_params_padded` and
+    ``n_flat`` the flat vector's length; ``sdf_c``/:meth:`rebuild` give the
+    plain SDF over the same vector (the kernel's plain version uses them)."""
+
+    def __init__(self, node: Node):
+        from ray_marching_tpu_torch.ops.params import split_params_padded
+
+        self._template = init_params(node, torch.float64)
+        flat, specs = split_params_padded(self._template, torch.float64)
+        self.node = node
+        self.specs = specs
+        self.n_flat = flat.shape[0]
+        self.sdf_c = compile_node(node)
+        b = _Builder({s.path: s.offset for s in specs})
+        self.out = _lower(node, b, "", 0, 1, 2)
+        self.ops = b.ops
+        self.ray_dependent = b.dep
+
+    def rebuild(self, flat):
+        """Flat parameter vector → nested params dict (views into ``flat``)."""
+        specs = {s.path: s for s in self.specs}
+
+        def walk(tree, prefix):
+            out = {}
+            for key, val in tree.items():
+                path = _path(prefix, key)
+                if isinstance(val, dict):
+                    out[key] = walk(val, path)
+                else:
+                    s = specs[path]
+                    out[key] = flat[s.offset:s.offset + s.size].reshape(s.shape)
+            return out
+
+        return walk(self._template, "")
+
+    def evaluate(self, flat, x, y, z):
+        """Backend (b): run the op list on tensors."""
+        vals = [x, y, z]
+        for op in self.ops[3:]:
+            kind, args = op[0], op[1:]
+            if kind == "param":
+                v = flat[args[0]]
+            elif kind == "const":
+                v = torch.tensor(args[0], dtype=flat.dtype, device=flat.device)
+            else:
+                a = [vals[i] for i in args]
+                if kind == "add":
+                    v = a[0] + a[1]
+                elif kind == "sub":
+                    v = a[0] - a[1]
+                elif kind == "mul":
+                    v = a[0] * a[1]
+                elif kind == "div":
+                    v = a[0] / a[1]
+                elif kind == "neg":
+                    v = -a[0]
+                elif kind == "abs":
+                    v = torch.abs(a[0])
+                elif kind == "sqrt":
+                    v = torch.sqrt(a[0])
+                elif kind == "exp":
+                    v = torch.exp(a[0])
+                elif kind == "log":
+                    v = torch.log(a[0])
+                elif kind == "max":
+                    v = torch.maximum(a[0], a[1])
+                elif kind == "sel_lt":
+                    v = torch.where(a[0] < a[1], a[2], a[3])
+                else:  # sel_gt
+                    v = torch.where(a[0] > a[1], a[2], a[3])
+            vals.append(v)
+        return vals[self.out]
+
+    def cuda_source(self) -> str:
+        """Backend (a): the ``scene_sdf`` device function, C++ for nvcc."""
+        names = ["x", "y", "z"] + [f"v{i}" for i in range(3, len(self.ops))]
+        lines = [
+            "// Generated by ray_marching_tpu_torch/scene/codegen.py from",
+            f"// {self.node!r}",
+            "template <typename T>",
+            "__device__ __forceinline__ T scene_sdf(const T* __restrict__ P,"
+            " T x, T y, T z) {",
+        ]
+        for i, op in enumerate(self.ops[3:], start=3):
+            kind, args = op[0], op[1:]
+            if kind == "param":
+                expr = f"P[{args[0]}]"
+            elif kind == "const":
+                expr = _c_literal(args[0])
+            else:
+                expr = _OPS[kind][1].format(*(names[a] for a in args))
+            lines.append(f"  const T {names[i]} = {expr};")
+        lines += [f"  return {names[self.out]};", "}", ""]
+        return "\n".join(lines)
+
+    def op_counts(self) -> Dict[str, int]:
+        """Ray-dependent ops of one SDF evaluation, by class."""
+        counts = dict.fromkeys(COUNT_CLASSES, 0)
+        for op, dep in zip(self.ops[3:], self.ray_dependent[3:]):
+            if dep and op[0] in _OPS:
+                counts[_OPS[op[0]][2]] += 1
+        return counts
+
+    @property
+    def ops_per_eval(self) -> int:
+        return sum(self.op_counts().values())

@@ -1,0 +1,232 @@
+"""Declarative scene graphs and their compiler (counterpart of
+``ray_marching_tpu/scene/graph.py``).
+
+The node dataclasses carry the same names and fields as the JAX package's,
+so a scene tree reads the same in both. :func:`compile_scene` returns the
+componentwise tensor SDF ``sdf_c(params, x, y, z)`` and the initial
+parameter dict (nested dicts of tensors, the same layout and key names as
+the JAX pytree). :func:`params_from_jax` carries a JAX parameter pytree,
+given as numpy arrays, across.
+
+The union bounding-sphere short-circuit (``compile_node(prune=True)`` in the
+JAX package) is not ported: it is off by default there and was measured as
+a loss. Custom nodes (``NeuralSDF``, ``Mandelbulb``) come with the neural
+slice of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from ray_marching_tpu_torch.scene import ops, primitives
+
+
+class Node:
+    """Base class for scene-graph nodes."""
+
+
+@dataclass(frozen=True)
+class Sphere(Node):
+    radius: float
+
+
+@dataclass(frozen=True)
+class Box(Node):
+    halfsides: Tuple[float, float, float]
+
+
+@dataclass(frozen=True)
+class Plane(Node):
+    pass
+
+
+@dataclass(frozen=True)
+class Line(Node):
+    start: Tuple[float, float, float]
+    end: Tuple[float, float, float]
+    radius: float
+
+
+@dataclass(frozen=True)
+class Disk(Node):
+    radius: float
+
+
+@dataclass(frozen=True)
+class Torus(Node):
+    radius1: float
+    radius2: float
+
+
+@dataclass(frozen=True)
+class Affine(Node):
+    """Rigid transform of a child SDF: unit quaternion + translation."""
+
+    child: Node
+    orientation: Tuple[float, float, float, float]
+    translation: Tuple[float, float, float]
+
+
+@dataclass(frozen=True)
+class Union(Node):
+    children: Tuple[Node, ...]
+
+
+@dataclass(frozen=True)
+class SmoothUnion(Node):
+    children: Tuple[Node, ...]
+    blend_k: float
+
+
+@dataclass(frozen=True)
+class Rounding(Node):
+    child: Node
+    rounding: float
+
+
+@dataclass(frozen=True)
+class Onion(Node):
+    child: Node
+    radius: float
+
+
+_PRIMITIVE_FNS = {
+    Sphere: primitives.sphere,
+    Box: primitives.box,
+    Plane: primitives.plane,
+    Line: primitives.line,
+    Disk: primitives.disk,
+    Torus: primitives.torus,
+}
+
+CUSTOM_NODE_SLICE = (
+    "custom scene nodes (NeuralSDF, Mandelbulb) are not ported yet: they "
+    "come with the neural slice of the PyTorch port (see ROADMAP.md)"
+)
+
+
+def _unknown(node):
+    if isinstance(node, Node):
+        raise NotImplementedError(f"{type(node).__name__}: {CUSTOM_NODE_SLICE}")
+    raise TypeError(f"unknown scene node: {node!r}")
+
+
+def init_params(node: Node, dtype=torch.float32, device="cpu"):
+    """Initial parameter dict of a scene tree: primitives contribute their
+    fields, combinators nest children under ``c{i}`` keys."""
+    def arr(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    if isinstance(node, Sphere):
+        return {"radius": arr(node.radius)}
+    if isinstance(node, Box):
+        return {"halfsides": arr(node.halfsides)}
+    if isinstance(node, Plane):
+        return {}
+    if isinstance(node, Line):
+        return {"start": arr(node.start), "end": arr(node.end),
+                "radius": arr(node.radius)}
+    if isinstance(node, Disk):
+        return {"radius": arr(node.radius)}
+    if isinstance(node, Torus):
+        return {"radius1": arr(node.radius1), "radius2": arr(node.radius2)}
+    if isinstance(node, Affine):
+        return {
+            "orientation": arr(node.orientation),
+            "translation": arr(node.translation),
+            "child": init_params(node.child, dtype, device),
+        }
+    if isinstance(node, Union):
+        return {f"c{i}": init_params(c, dtype, device)
+                for i, c in enumerate(node.children)}
+    if isinstance(node, SmoothUnion):
+        out = {f"c{i}": init_params(c, dtype, device)
+               for i, c in enumerate(node.children)}
+        out["blend_k"] = arr(node.blend_k)
+        return out
+    if isinstance(node, Rounding):
+        return {"rounding": arr(node.rounding),
+                "child": init_params(node.child, dtype, device)}
+    if isinstance(node, Onion):
+        return {"radius": arr(node.radius),
+                "child": init_params(node.child, dtype, device)}
+    return _unknown(node)
+
+
+def compile_node(node: Node) -> Callable:
+    """Compile a node tree into ``f(params, x, y, z) -> d`` (componentwise)."""
+    if type(node) in _PRIMITIVE_FNS:
+        return _PRIMITIVE_FNS[type(node)]
+    if isinstance(node, Affine):
+        child = compile_node(node.child)
+
+        def affine_fn(params, x, y, z):
+            lx, ly, lz = ops.affine_inverse_query(
+                params["orientation"], params["translation"], x, y, z
+            )
+            return child(params["child"], lx, ly, lz)
+
+        return affine_fn
+    if isinstance(node, Union):
+        children = [compile_node(c) for c in node.children]
+
+        def union_fn(params, x, y, z):
+            return ops.union([fn(params[f"c{i}"], x, y, z)
+                              for i, fn in enumerate(children)])
+
+        return union_fn
+    if isinstance(node, SmoothUnion):
+        children = [compile_node(c) for c in node.children]
+
+        def smooth_union_fn(params, x, y, z):
+            ds = [fn(params[f"c{i}"], x, y, z) for i, fn in enumerate(children)]
+            return ops.smooth_union(params["blend_k"], ds)
+
+        return smooth_union_fn
+    if isinstance(node, Rounding):
+        child = compile_node(node.child)
+
+        def rounding_fn(params, x, y, z):
+            return ops.rounding(params["rounding"], child(params["child"], x, y, z))
+
+        return rounding_fn
+    if isinstance(node, Onion):
+        child = compile_node(node.child)
+
+        def onion_fn(params, x, y, z):
+            return ops.onion(params["radius"], child(params["child"], x, y, z))
+
+        return onion_fn
+    return _unknown(node)
+
+
+def compile_scene(node: Node, dtype=torch.float32, device="cpu"):
+    """Compile a scene tree → ``(sdf_c, params)``: the componentwise SDF and
+    the initial parameter dict on ``device``."""
+    return compile_node(node), init_params(node, dtype, device)
+
+
+def param_paths(params, prefix=""):
+    """Flatten a parameter dict into sorted ``path -> leaf`` pairs."""
+    out = {}
+    for key in sorted(params):
+        val = params[key]
+        path = f"{prefix}{key}" if not prefix else f"{prefix}/{key}"
+        if isinstance(val, dict):
+            out.update(param_paths(val, path))
+        else:
+            out[path] = val
+    return out
+
+
+def params_from_jax(tree, dtype=torch.float32, device="cpu"):
+    """The JAX package's parameter pytree, given as nested dicts of numpy
+    arrays (``jax.device_get`` of it, or ``np.asarray`` per leaf), as this
+    package's nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, dtype, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
