@@ -5,11 +5,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--out DIR]
 
-It builds the CUDA kernel for each scene it uses (nvcc, all builds started
-together), holds the kernel against its plain PyTorch version on the card,
-drives the main path (``FastRenderer.render``, test_scene2, 1920×1080,
-32 steps, mode 0, degree 2) through the kernel, checks the output, times
-kernel, plain version and frame with CUDA events, and prints:
+It builds the CUDA kernels (forward and backward, one library per scene it
+uses; nvcc, all builds started together), holds each kernel against its
+plain PyTorch version on the card, drives the main paths through the
+kernels and counts their launches (serving: ``FastRenderer.render``,
+test_scene2, 1920×1080, 32 steps, mode 0, degree 2; training:
+``optim.inverse.optimize`` on the same setup, with and without the
+silhouette loss, and with the implicit backward), checks the outputs (golden images and golden gradients in
+f64), times kernels, plain versions, frame and training step with CUDA
+events and the profiler, and prints:
 
 - the card's name and power limit, the torch/CUDA/nvcc versions and the
   ``-Xptxas -v`` report of each build;
@@ -49,6 +53,29 @@ TOL_F32 = (1e-4, 1e-4, 1e-4, 1e-4, 1e-3, 1e-3, 1e-3, 1e-2)
 MAX_SHARE_OUT_F32 = 1e-3
 TOL_F64 = 1e-9
 PLANES = ("x", "y", "z", "d", "nx", "ny", "nz", "lap")
+#: Training outputs of the forward kernel (min_f, arg-min step and position,
+#: history, live-step count) against the plain version: both run the same
+#: IEEE op sequence, so they are expected equal bit for bit; at most this
+#: share of the valid rays may differ (an ulp in a libm call can move a
+#: ray's exit step).
+MAX_SHARE_DIFF_TRAIN = 1e-3
+#: Backward kernel vs plain version, relative to the largest reference
+#: entry: the 6 ray-cotangent planes on converged rays and the parameter
+#: cotangent. The kernel applies the adjoint rules by hand and the plain
+#: version through autograd, an ulp apart per op, carried over 32 steps; the
+#: parameter cotangent is summed block-wise (128 rays, then 16,200 blocks)
+#: where the plain version sums 2 M terms in torch's order. The valid plane
+#: is the main path's own, so every valid ray adds to the parameter
+#: cotangent. Only where the plain version's parameter cotangent is itself
+#: non-finite (test_scene in f32: non-converged rays overflow, in the kernel
+#: and the plain version alike, and in the JAX package too,
+#: tests/test_torch_train.py) are the non-converged rays marked invalid.
+TOL_BWD = {"f32": 1e-4, "f64": 1e-10}
+#: Golden gradients on the card (f64): tests/test_fast_golden.py's rtol 1e-7
+#: and atol 1e-9, the rtol loosened to 1e-6 because the card's
+#: log/pow/atan2 may differ from the CPU libm behind the golden by an ulp.
+GOLDEN_GRAD_RTOL, GOLDEN_GRAD_ATOL = 1e-6, 1e-9
+TRAIN_STEPS, SILHOUETTE_STEPS, IMPLICIT_STEPS = 5, 3, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -126,6 +153,133 @@ def compare(label, program, flat, rays7, tau, f64):
     return max(diffs)
 
 
+def same_bits(a, b):
+    import torch
+
+    if a.dtype.is_floating_point:
+        return (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return a == b
+
+
+def compare_training_outputs(label, program, flat, rays7, tau):
+    """The forward kernel's training configuration on the card: its 8
+    planes bitwise equal to the serving configuration's, its extra outputs
+    against the plain version. Returns the plain version's 9 planes."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    serve, _ = rk.march_forward(program, flat, rays7, STEPS, tau, 5e-2)
+    out, ex = rk.march_forward(program, flat, rays7, STEPS, tau, 5e-2,
+                               track_min=True, log_hist=True,
+                               track_argpos=True)
+    ref, rex = rk._reference_march(program, flat, rays7, STEPS, tau, 5e-2,
+                                   track_min=True, log_hist=True,
+                                   track_argpos=True)
+    torch.cuda.synchronize()
+    check(bool(same_bits(out[:8], serve).all()),
+          f"{label}: training configuration changes the 8 serving planes")
+    valid = rays7[6] > 0.5
+    n_valid = int(valid.sum())
+    # History entries a ray did not run stay unwritten in the kernel.
+    steps_idx = torch.arange(STEPS + 1, device=rays7.device)[:, None, None]
+    ran = (steps_idx <= ex["nlive"][None]) | (steps_idx == STEPS)
+    diffs = {
+        "min_f": ~same_bits(out[8], ref[8]),
+        "amin": ~same_bits(ex["amin"], rex["amin"]),
+        "argpos": ~same_bits(ex["argpos"], rex["argpos"]).all(0),
+        "nlive": ~same_bits(ex["nlive"], rex["nlive"]),
+        "hist": (~same_bits(ex["hist"], rex["hist"]).all(1) & ran).any(0),
+    }
+    shares = {k: int((v & valid).sum()) / n_valid for k, v in diffs.items()}
+    mean_live = float(ex["nlive"][valid].float().mean())
+    print(f"training outputs {label}: 8 planes bitwise equal to serving; "
+          f"share of valid rays that differ from plain: "
+          + " ".join(f"{k}={v:.3e}" for k, v in shares.items())
+          + f"; mean live steps {mean_live:.3f}")
+    for k, v in shares.items():
+        check(v <= MAX_SHARE_DIFF_TRAIN, f"{label}: {k} differs on {v:.3e} "
+                                         "of the valid rays")
+    pad = ~valid
+    check(bool((out[8][pad] == torch.finfo(out.dtype).max).all())
+          and not bool(ex["nlive"][pad].any()), f"{label}: pad slots")
+    return ref
+
+
+def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
+    """Backward kernel vs plain version (same history), and history on vs
+    off bitwise, with and without the min_f plane, at the valid plane the
+    main path gives the kernel. The ray cotangents are compared on the rays
+    that converged by ``ref`` (the plain forward's planes), the parameter
+    cotangent whole. Where the plain version's own parameter cotangent is
+    non-finite, the comparison is made again with the non-converged rays
+    marked invalid. Returns the largest absolute difference of the ray
+    cotangents and of the parameter cotangent for the run without min_f."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    conv = (rays7[6] > 0.5) & (ref[3].abs() < CONVERGED)
+    check(int(conv.sum()) > 0, f"{label}: no converged rays")
+    rng = np.random.default_rng(seed)
+    g9 = torch.as_tensor(rng.standard_normal((9,) + tuple(rays7.shape[1:])),
+                         dtype=rays7.dtype).to(rays7.device)
+    tol = TOL_BWD["f64" if f64 else "f32"]
+    for masked in (False, True):
+        if masked:
+            rays7 = rays7.clone()
+            rays7[6] = conv.to(rays7.dtype)
+        out, ex = rk.march_forward(program, flat, rays7, STEPS, tau, 5e-2,
+                                   track_min=True, log_hist=True)
+        runs = {}
+        for track_min in (False, True):
+            g = g9 if track_min else g9[:8].contiguous()
+            handoff = dict(hist=ex["hist"], nlive=ex["nlive"])
+            if track_min:
+                handoff.update(minf=out[8].contiguous(), amin=ex["amin"])
+            runs[track_min] = (
+                bk.fused_backward(program, flat, rays7, g, STEPS, tau, 5e-2,
+                                  track_min=track_min, **handoff),
+                bk.fused_backward(program, flat, rays7, g, STEPS, tau, 5e-2,
+                                  track_min=track_min),
+                bk.reference_backward(program, flat, rays7, g, STEPS, tau,
+                                      5e-2, track_min=track_min, **handoff))
+        torch.cuda.synchronize()
+        if masked or all(bool(torch.isfinite(plain[0]).all())
+                         for _, _, plain in runs.values()):
+            break
+        print(f"backward {label}: with every valid ray the plain version's "
+              "parameter cotangent is non-finite (kernel's finite: "
+              f"{bool(torch.isfinite(runs[False][0][0]).all())}); comparing "
+              "with the non-converged rays marked invalid")
+    which = "converged rays only" if masked else "every valid ray"
+    errs = None
+    for track_min, (with_hist, recomputed, plain) in runs.items():
+        bitwise = all(bool(same_bits(a, b).all())
+                      for a, b in zip(with_hist, recomputed))
+        check(bitwise, f"{label} min_f={track_min}: history on and off give "
+                       "different bits")
+        e_flat = float((with_hist[0] - plain[0]).abs().max())
+        s_flat = float(plain[0].abs().max())
+        e_rays = float((with_hist[1] - plain[1])[:, conv].abs().max())
+        s_rays = float(plain[1][:, conv].abs().max())
+        print(f"backward {label} min_f={track_min} ({which}): history "
+              f"on/off bitwise equal; vs plain: ray cotangents max abs diff "
+              f"{e_rays:.3e} of {s_rays:.3e}, parameter cotangent "
+              f"{e_flat:.3e} of {s_flat:.3e} (tolerance {tol:g} relative)")
+        check(torch.isfinite(with_hist[0]).all()
+              and torch.isfinite(with_hist[1][:, conv]).all(),
+              f"{label} min_f={track_min}: non-finite cotangents")
+        check(e_rays <= tol * s_rays and e_flat <= tol * s_flat,
+              f"{label} min_f={track_min}: kernel and plain disagree")
+        check(not bool(with_hist[1][:, rays7[6] < 0.5].any()),
+              f"{label}: pad slots got a cotangent")
+        if not track_min:
+            errs = (e_rays, e_flat)
+    return errs, masked
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -156,9 +310,12 @@ def profile_frames(fn, frame_ms, frames=5):
         for _ in range(frames):
             fn()
         torch.cuda.synchronize()
+    # Device-side entries only; "Optimizer.step#..." is an annotation that
+    # spans the optimizer's kernels, not a kernel.
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("Optimizer.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     if busy_ms == 0.0:
         print("profile: no device time recorded (busy share not measured)")
@@ -171,10 +328,154 @@ def profile_frames(fn, frame_ms, frames=5):
     return {e.key: e.self_device_time_total / 1e3 / frames for e in kernels}
 
 
+def leaf_params(tree):
+    return {k: leaf_params(v) if isinstance(v, dict)
+            else v.clone().requires_grad_(True) for k, v in tree.items()}
+
+
+def golden_gradients(root: Path):
+    """f64 gradients through the kernels against the reference-produced
+    composite_512 fixture: modes 0, 2, 3, 6, 7 by value; mode 5, where the
+    reference is all-NaN, finite through the march given the shader's
+    cotangents (tests/test_torch_train_golden.py says why those of the
+    arg-max ties are left out)."""
+    import torch
+
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.scene import registry
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    g = np.load(root / "tests" / "golden" / "composite_512.npz")
+    w, h = int(g["meta_width"]), int(g["meta_height"])
+    from ray_marching_tpu_torch.render.pipeline import RenderConfig
+
+    cfg = RenderConfig(px_width=w, px_height=h, focal_length=PX * h,
+                       sensor_width=PX * w, sensor_height=PX * h,
+                       marching_steps=int(g["meta_steps"]),
+                       normals_eps=float(g["meta_normals_eps"]))
+    r = FastRenderer(registry.make_scene(str(g["meta_scene"])), cfg,
+                     dtype=torch.float64, grid_dtype=np.float64)
+    weights = torch.as_tensor(g["loss_weights"], device=r.device)
+    degree = int(g["meta_degree"])
+
+    def leaves():
+        return (leaf_params(r.init_params),
+                r._tensor(g["meta_orientation"][None]).requires_grad_(True),
+                r._tensor(g["meta_translation"][None]).requires_grad_(True))
+
+    def collect(params, q, t):
+        flat = dict(param_paths(params), camera_orientation=q,
+                    camera_translation=t)
+        return {k: torch.zeros_like(v) if v.grad is None else v.grad
+                for k, v in flat.items()}
+
+    for mode in (0, 2, 3, 6, 7):
+        params, q, t = leaves()
+        image = r.render(params, q, t, mode=mode, degree=degree)
+        (image * weights).sum().backward()
+        for path, got in collect(params, q, t).items():
+            want = g[f"grad_{mode}/{path}"]
+            np.testing.assert_allclose(
+                got.cpu().numpy().reshape(want.shape), want,
+                rtol=GOLDEN_GRAD_RTOL, atol=GOLDEN_GRAD_ATOL, equal_nan=True,
+                err_msg=f"golden composite_512 mode={mode} param={path}")
+    params, q, t = leaves()
+    orientation, translation = r._pose(q, t)
+    origin, dirs = r._pose_planes(orientation, translation)
+    hit, final_dirs = r._march_planes(params, origin, dirs,
+                                      cfg.marching_steps)
+    image = r._assemble(r._shade(5, degree, orientation, origin, final_dirs,
+                                 hit))
+    cots = torch.autograd.grad((image * weights).sum(), hit,
+                               allow_unused=True)
+    cots = [torch.zeros_like(p) if c is None else c for p, c in zip(hit, cots)]
+    lap = hit[7].detach()
+    top = lap.abs() == lap[r._valid_b].abs().max()
+    for i, c in enumerate(cots):
+        bad = ~torch.isfinite(c)
+        check(not bool(bad.any()) or (i == 7 and bool(top[bad].all())),
+              f"mode 5: non-finite shader cotangent off the arg-max ties "
+              f"(plane {i})")
+    torch.autograd.backward(hit, [torch.nan_to_num(c, nan=0.0, posinf=0.0,
+                                                   neginf=0.0) for c in cots])
+    for path, got in collect(params, q, t).items():
+        check(bool(torch.isfinite(got).all()),
+              f"mode 5: non-finite gradient of {path}")
+    print("golden composite_512 gradients (512x512, f64, 48 steps, on the "
+          "card): modes 0 2 3 6 7 ok, mode 5 finite through the march")
+
+
+def perturbed(params, path, factor):
+    """``params`` with the leaf at ``path`` (a/b/c) multiplied by
+    ``factor``."""
+    key, _, rest = path.partition("/")
+    out = dict(params)
+    out[key] = (perturbed(params[key], rest, factor) if rest
+                else params[key] * factor)
+    return out
+
+
+def drive_training(main, steps, silhouette=False, bwd_per_step=1):
+    """optimize() at 1080p through the kernels, counted: the CLI's selftest
+    (the target is the render with c1/c0/radius 20 % larger).
+    ``bwd_per_step`` is 0 for a renderer with the implicit backward, which
+    launches no backward kernel. Returns (losses, forward launches, backward
+    launches, seconds per step after the first by the host clock; every
+    step ends in a synchronising read of the loss)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
+
+    true = perturbed(main.init_params, "c1/c0/radius", 1.2)
+    with torch.no_grad():
+        if silhouette:
+            target, target_alpha = main.render_with_alpha(
+                true, BENCH_Q, BENCH_T, mode=0, degree=2, beta=5e-2)
+        else:
+            target = main.render(true, BENCH_Q, BENCH_T, mode=0, degree=2)
+            target_alpha = None
+    cfg = InverseConfig(learning_rate=1e-2, steps=steps, mode=0, degree=2,
+                        trainable=["c1/c0/radius"],
+                        silhouette_beta=5e-2 if silhouette else 0.0)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    bk.LAUNCHES = 0
+    stamps = [time.perf_counter()]
+    out = optimize(main, target, BENCH_Q, BENCH_T, cfg,
+                   target_alpha=target_alpha,
+                   callback=lambda *_: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    fwd, bwd = rk.LAUNCHES, bk.LAUNCHES
+    first = stamps[1] - stamps[0]
+    dt = (stamps[-1] - stamps[1]) / (steps - 1)
+    label = "render_with_alpha" if silhouette else "render"
+    if main.config.backward != "unroll":
+        label += f", backward={main.config.backward}"
+    radius = float(out["params"]["c1"]["c0"]["radius"])
+    print(f"training path ({label}, {steps} Adam steps, 1080p): losses "
+          + " ".join(f"{v:.6e}" for v in out["losses"])
+          + f"; radius {float(main.init_params['c1']['c0']['radius']):.4f} "
+          f"-> {radius:.4f} (target "
+          f"{float(true['c1']['c0']['radius']):.4f}); forward launches "
+          f"{fwd}, backward launches {bwd}; {dt * 1e3:.3f} ms per step "
+          f"after the first, which took {first * 1e3:.1f} ms (host clock)")
+    check(out["steps_run"] == steps, "optimize stopped early")
+    check(all(np.isfinite(out["losses"])), "non-finite loss")
+    check(out["losses"][-1] < out["losses"][0],
+          f"{label}: loss did not go down")
+    check(fwd == steps and bwd == steps * bwd_per_step,
+          f"{label}: {fwd} forward and {bwd} backward launches in {steps} "
+          "steps")
+    return out["losses"], fwd, bwd, dt
+
+
 def run(out_dir: Path):
     import torch
 
     from ray_marching_tpu_torch.io.image import write_png
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
     from ray_marching_tpu_torch.ops import render_kernel as rk
     from ray_marching_tpu_torch.render.fast import FastRenderer
     from ray_marching_tpu_torch.render.shaders import MODES
@@ -202,28 +503,43 @@ def run(out_dir: Path):
         print(f"ptxas report ({s}, {key}):")
         print(rk.BUILD_LOG.get(key, "(built before this run)").strip())
 
-    # 2. Kernel vs plain version on the card.
+    # 2. Kernels vs plain versions on the card: the forward's serving
+    # configuration, its training outputs, and the backward (history on and
+    # off bitwise equal, with and without min_f).
     cfg = config(1920, 1080)
     main = FastRenderer(registry.make_scene("test_scene2"), cfg,
                         dtype=torch.float32)
-    max_err = None
+    max_err = bwd_err = None
+    seed = 100
     for s in scenes:
         r = main if s == "test_scene2" else FastRenderer(
             registry.make_scene(s), cfg, dtype=torch.float32)
         flat, rays7 = main_rays(r, BENCH_Q, BENCH_T)
         for tau in (0.0, 1e-3):
-            err = compare(f"f32 1080p {s} tau={tau:g}", r.program, flat,
-                          rays7, tau, f64=False)
+            label = f"f32 1080p {s} tau={tau:g}"
+            err = compare(label, r.program, flat, rays7, tau, f64=False)
+            ref = compare_training_outputs(label, r.program, flat, rays7, tau)
+            seed += 1
+            errs, masked = compare_backward(label, r.program, flat, rays7,
+                                            tau, False, ref, seed)
+            # The main path's scene is held at the main path's own inputs.
+            check(not (masked and s == "test_scene2"),
+                  f"{label}: plain backward non-finite on the main path")
             if s == "test_scene2" and tau == 0.0:
-                max_err = err
+                max_err, bwd_err = err, errs
+            del ref
         del r, flat, rays7
     for s in scenes:
         r = FastRenderer(registry.make_scene(s), config(256, 192),
                          dtype=torch.float64, grid_dtype=np.float64)
         flat, rays7 = main_rays(r, BENCH_Q, BENCH_T)
         for tau in (0.0, 1e-3):
-            compare(f"f64 256x192 {s} tau={tau:g}", r.program, flat, rays7,
-                    tau, f64=True)
+            label = f"f64 256x192 {s} tau={tau:g}"
+            compare(label, r.program, flat, rays7, tau, f64=True)
+            ref = compare_training_outputs(label, r.program, flat, rays7, tau)
+            seed += 1
+            compare_backward(label, r.program, flat, rays7, tau, True, ref,
+                             seed)
 
     # 3. The main path, counted: 3 poses of mode 0, then all 8 modes.
     poses = [
@@ -259,6 +575,20 @@ def run(out_dir: Path):
             check(nan_share == 0.0, f"mode {name}: NaN pixels")
         write_png(out_dir / f"test_scene2_{name}.png", img)
 
+    # 3b. The training paths, counted: optimize() through render and through
+    # render_with_alpha, one forward and one backward launch per step.
+    _, fwd_train, bwd_train, step_s = drive_training(main, TRAIN_STEPS)
+    _, fwd_sil, bwd_sil, sil_step_s = drive_training(main, SILHOUETTE_STEPS,
+                                                     silhouette=True)
+    # The implicit backward: the same forward kernel, then plain torch at
+    # the endpoint, so no backward launch.
+    implicit = FastRenderer(registry.make_scene("test_scene2"),
+                            config(1920, 1080, backward="implicit"),
+                            dtype=torch.float32)
+    _, fwd_ift, _, ift_step_s = drive_training(implicit, IMPLICIT_STEPS,
+                                               bwd_per_step=0)
+    del implicit
+
     # 4. End to end against the golden reference images (f64, 96×64).
     golden = np.load(Path(__file__).resolve().parent / "tests" / "golden"
                      / "scene2_room.npz")
@@ -280,6 +610,7 @@ def run(out_dir: Path):
                                    atol=1e-9, equal_nan=True,
                                    err_msg=f"golden scene2_room mode {name}")
     print("golden scene2_room (96x64, f64, 8 modes, on the card): ok")
+    golden_gradients(Path(__file__).resolve().parent)
 
     # 5. Timing at the main path's shapes.
     flat, rays7 = main_rays(main, BENCH_Q, BENCH_T)
@@ -294,26 +625,136 @@ def run(out_dir: Path):
     tau_ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7, STEPS,
                                                     1e-3, 5e-2), 50)
     n_valid = int((rays7[6] > 0.5).sum())
+    plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
     ops = rk.kernel_ops(prog, n_valid, STEPS)
-    nbytes = 15 * rays7.shape[1] * rays7.shape[2] * rays7.element_size()
+    nbytes = 15 * plane_bytes
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    # tau = 1e-3: a ray evaluates the SDF once per live step, once more when
+    # it freezes before the last step, and 5 times in the tail.
+    _, ex_tau = rk.march_forward(prog, flat, rays7, STEPS, 1e-3, 5e-2,
+                                 log_hist=True)
+    nlive = ex_tau["nlive"][rays7[6] > 0.5].long()
+    live_sum = int(nlive.sum())
+    tau_ops = ((live_sum + int((nlive < STEPS).sum()) + 5 * n_valid)
+               * prog.ops_per_eval + live_sum * rk.OPS_PER_STEP
+               + n_valid * rk.OPS_TAIL)
+    del ex_tau
     print(f"timing on {card}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"frame (FastRenderer.render) {frame_ms:.4f} ms; bound: "
           f"{ops} ops ({prog.ops_per_eval} per SDF evaluation) -> "
           f"{t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms; kernel at "
-          f"tau=1e-3 {tau_ms:.4f} ms")
+          f"tau=1e-3 {tau_ms:.4f} ms, mean live steps "
+          f"{live_sum / n_valid:.3f}, {tau_ops} ops -> "
+          f"{tau_ops / PEAK_F32_FLOPS * 1e3:.4f} ms")
     prof = profile_frames(lambda: main.render(main.init_params, q, t,
                                               mode=0, degree=2), frame_ms)
     kernel_dev_ms = next((v for k, v in (prof or {}).items()
                           if k.startswith("void render_fwd_kernel<float>")),
                          None)
+
+    # 5b. The training kernels: forward with history, backward with the
+    # history and with its own recompute (in turns), the plain backward.
+    def fwd_hist():
+        return rk.march_forward(prog, flat, rays7, STEPS, 0.0, 5e-2,
+                                log_hist=True)
+
+    out_h, ex_h = fwd_hist()
+    g8 = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=rays7.dtype).to(rays7.device)
+
+    def bwd(hist):
+        kw = dict(hist=ex_h["hist"], nlive=ex_h["nlive"]) if hist else {}
+        return bk.fused_backward(prog, flat, rays7, g8, STEPS, 0.0, 5e-2,
+                                 **kw)
+
+    fwd_hist_ms = cuda_ms(fwd_hist, 20)
+    turns = [(h, cuda_ms(lambda: bwd(h), 10))
+             for h in (True, False, False, True)]
+    bwd_hist_ms = sum(v for h, v in turns if h) / 2
+    bwd_rec_ms = sum(v for h, v in turns if not h) / 2
+    plain_bwd_ms = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, rays7, g8, STEPS, 0.0, 5e-2, hist=ex_h["hist"],
+        nlive=ex_h["nlive"]), 1)
+    swept = n_valid * STEPS
+    n_blocks = -(-rays7.shape[1] * rays7.shape[2] // 128)
+    partial_bytes = (n_blocks * len(prog.scalar_offsets)
+                     * rays7.element_size())
+    hist_bytes = (STEPS + 1) * 3 * plane_bytes
+    # Bytes the function must move. With the history: 4 ray planes (the
+    # direction and valid; every position comes from the history), 8
+    # cotangent planes, 6 output planes, the live-step plane, the history
+    # and the partial rows. With the recompute: all 7 ray planes, no
+    # live-step plane, and the scratch history is neither input nor output.
+    bwd_ops = bk.backward_ops(prog, n_valid, swept)
+    bwd_bytes = 19 * plane_bytes + hist_bytes + partial_bytes
+    rec_ops = bk.backward_ops(prog, n_valid, swept, recomputed_steps=swept)
+    rec_bytes = 21 * plane_bytes + partial_bytes
+    tb_ops, tb_bytes = (bwd_ops / PEAK_F32_FLOPS * 1e3,
+                        bwd_bytes / PEAK_BYTES * 1e3)
+    tr_ops, tr_bytes = (rec_ops / PEAK_F32_FLOPS * 1e3,
+                        rec_bytes / PEAK_BYTES * 1e3)
+    default_hist = rk.BWD_HIST
+    print(f"training kernels on {card}: forward with history "
+          f"{fwd_hist_ms:.4f} ms (serving {ms:.4f} ms; history "
+          f"{hist_bytes} bytes); backward with history {bwd_hist_ms:.4f} ms "
+          f"(turns {[round(v, 4) for h, v in turns if h]}), with recompute "
+          f"{bwd_rec_ms:.4f} ms (turns "
+          f"{[round(v, 4) for h, v in turns if not h]}); default: "
+          f"{'history' if default_hist else 'recompute'}; plain backward "
+          f"{plain_bwd_ms:.3f} ms; bound with history: {bwd_ops} ops "
+          f"({prog.vjp_ops_per_eval} per SDF VJP) -> {tb_ops:.4f} ms, "
+          f"{bwd_bytes} bytes -> {tb_bytes:.4f} ms; bound with recompute: "
+          f"{rec_ops} ops -> {tr_ops:.4f} ms, {rec_bytes} bytes -> "
+          f"{tr_bytes:.4f} ms")
+    del out_h, ex_h, g8
+
+    # 5c. The whole training step (render + backward + Adam), history on
+    # and off, and where its device time goes.
+    step_ms = {}
+    r = main
+    for hist in (True, False):
+        rk.BWD_HIST = hist
+        params = leaf_params(r.init_params)
+        leaves = [params["c1"]["c0"]["radius"]]
+        opt = torch.optim.Adam(leaves, lr=1e-2)
+        with torch.no_grad():
+            target = r.render(perturbed(r.init_params, "c1/c0/radius", 1.2),
+                              q, t, mode=0, degree=2)
+
+        def train_step():
+            opt.zero_grad(set_to_none=True)
+            loss = torch.mean((r.render(params, q, t, mode=0, degree=2)
+                               - target) ** 2)
+            loss.backward()
+            opt.step()
+
+        step_ms[hist] = cuda_ms(train_step, 10)
+        print(f"training step (render + backward + Adam, 1080p, "
+              f"{'history' if hist else 'recompute'}): "
+              f"{step_ms[hist]:.4f} ms")
+        if hist == default_hist:
+            step_prof = profile_frames(train_step, step_ms[hist])
+    rk.BWD_HIST = default_hist
+    bwd_dev_ms = next((v for k, v in (step_prof or {}).items()
+                       if k.startswith("void render_bwd_kernel<float")), None)
+    fwd_train_dev_ms = next(
+        (v for k, v in (step_prof or {}).items()
+         if k.startswith("void render_fwd_train_kernel<float>")), None)
+
+    bwd_ms = bwd_hist_ms if default_hist else bwd_rec_ms
+    bwd_bound = (max(tb_ops, tb_bytes) if default_hist
+                 else max(tr_ops, tr_bytes))
+    bwd_bound_by = ("operations" if (tb_ops >= tb_bytes if default_hist
+                                     else tr_ops >= tr_bytes) else "bytes")
     kernels = {"kernels": [{
         "name": "render_fwd",
         "route": "cuda",
         "source": "ray_marching_tpu_torch/ops/csrc/render_fwd.cu",
         "replaces": "ray_marching_tpu/ops/pallas_render.py:227",
-        "launches": launches,
+        "launches": launches + fwd_train + fwd_sil + fwd_ift,
+        "launches_serving": launches,
         "launches_per_frame": launches / n_frames,
+        "launches_training": fwd_train + fwd_sil + fwd_ift,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -322,7 +763,35 @@ def run(out_dir: Path):
         "library_ms": None,
         "frame_ms": frame_ms,
         "ms_tau_1e-3": tau_ms,
+        "bound_ms_tau_1e-3": tau_ops / PEAK_F32_FLOPS * 1e3,
+        "ms_with_history": fwd_hist_ms,
         "profiler_kernel_ms": kernel_dev_ms,
+        "profiler_train_kernel_ms": fwd_train_dev_ms,
+        "card": card,
+    }, {
+        "name": "render_bwd",
+        "route": "cuda",
+        "source": "ray_marching_tpu_torch/ops/csrc/render_bwd.cu",
+        "replaces": "ray_marching_tpu/ops/pallas_backward.py:119",
+        "launches": bwd_train + bwd_sil,
+        "launches_per_step": (bwd_train + bwd_sil)
+        / (TRAIN_STEPS + SILHOUETTE_STEPS),
+        "max_abs_err": bwd_err[0],
+        "max_abs_err_params": bwd_err[1],
+        "ms": bwd_ms,
+        "plain_ms": plain_bwd_ms,
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_bound_by,
+        "library_ms": None,
+        "ms_with_history": bwd_hist_ms,
+        "ms_with_recompute": bwd_rec_ms,
+        "default": "history" if default_hist else "recompute",
+        "step_ms_history": step_ms[True],
+        "step_ms_recompute": step_ms[False],
+        "optimize_step_ms": step_s * 1e3,
+        "optimize_silhouette_step_ms": sil_step_s * 1e3,
+        "optimize_implicit_step_ms": ift_step_s * 1e3,
+        "profiler_kernel_ms": bwd_dev_ms,
         "card": card,
     }]}
     print(card)

@@ -1,8 +1,10 @@
-"""Command-line entry point of the PyTorch port (``render`` only so far).
+"""Command-line entry point of the PyTorch port (``render``, ``optimize``).
 
   python -m ray_marching_tpu_torch.cli render --scene test_scene2 -o out.png
   python -m ray_marching_tpu_torch.cli render --device cpu --width 96 \
       --height 64 --mode normal -o small.png
+  python -m ray_marching_tpu_torch.cli optimize --target selftest \
+      --trainable c1/c0/radius --opt-steps 50
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ import argparse
 import numpy as np
 import torch
 
+from ray_marching_tpu_torch.io.checkpoint import load_pytree, save_pytree
 from ray_marching_tpu_torch.io.image import write_png
+from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
 from ray_marching_tpu_torch.render.fast import FastRenderer
 from ray_marching_tpu_torch.render.pipeline import RenderConfig
 from ray_marching_tpu_torch.render.shaders import MODES
@@ -33,7 +37,7 @@ def _parse_pose(spec):
     return q[None], t[None]
 
 
-def cmd_render(args):
+def _build_renderer(args):
     px = args.px_size
     cfg = RenderConfig(
         px_width=args.width,
@@ -44,22 +48,78 @@ def cmd_render(args):
         marching_steps=args.steps,
         tau=args.tau,
     )
-    renderer = FastRenderer(registry.make_scene(args.scene), cfg,
-                            dtype=getattr(torch, args.dtype),
-                            device=args.device)
+    return FastRenderer(registry.make_scene(args.scene), cfg,
+                        dtype=getattr(torch, args.dtype), device=args.device)
+
+
+def _initial_params(args, renderer):
+    """The renderer's initial parameters, or those of ``--params`` (a file
+    written by ``--save-params`` of either package)."""
+    if not args.params:
+        return renderer.init_params
+    return load_pytree(args.params, renderer.init_params)
+
+
+def cmd_render(args):
+    renderer = _build_renderer(args)
     q, t = _parse_pose(args.pose)
-    image = renderer.render(renderer.init_params, q, t,
+    image = renderer.render(_initial_params(args, renderer), q, t,
                             mode=_parse_mode(args.mode), degree=args.degree)
     print(f"wrote {write_png(args.out, image)}")
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(prog="ray_marching_tpu_torch")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("render", help="render one frame to PNG")
+def _scale_leaves(params, wanted, factor, prefix=""):
+    """``params`` with every leaf whose path contains one of ``wanted``
+    (every leaf when ``wanted`` is empty) multiplied by ``factor``."""
+    out = {}
+    for key, val in params.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            out[key] = _scale_leaves(val, wanted, factor, path)
+        elif not wanted or any(w in path for w in wanted):
+            out[key] = val * factor
+        else:
+            out[key] = val
+    return out
+
+
+def cmd_optimize(args):
+    renderer = _build_renderer(args)
+    q, t = _parse_pose(args.pose)
+    # nargs='*' can give an empty list, which would mean "perturb every
+    # leaf" to the selftest but "train no leaf" to the mask: None (all
+    # trainable) makes the two agree.
+    trainable = args.trainable or None
+    if args.target != "selftest":
+        raise NotImplementedError(
+            "a PNG file as target is not ported yet (see ROADMAP.md); use "
+            "--target selftest")
+    # Built-in demo: the target is rendered from the trainable leaves
+    # perturbed by +20 %, then recovered from the unperturbed start.
+    with torch.no_grad():
+        target = renderer.render(
+            _scale_leaves(renderer.init_params, trainable or [], 1.2), q, t,
+            mode=args.optimize_mode, degree=args.degree)
+    cfg = InverseConfig(
+        learning_rate=args.lr,
+        steps=args.opt_steps,
+        mode=args.optimize_mode,
+        degree=args.degree,
+        trainable=trainable,
+        optimize_pose=args.optimize_pose,
+        checkpoint_dir=args.checkpoint_dir,
+        metrics_path=args.metrics,
+    )
+    out = optimize(renderer, target, q, t, cfg,
+                   init_params=_initial_params(args, renderer))
+    print(f"first loss: {out['losses'][0]:.3e}, final loss: "
+          f"{out['losses'][-1]:.3e} after {out['steps_run']} steps")
+    if args.save_params:
+        print(f"wrote {save_pytree(args.save_params, out['params'])}")
+
+
+def _add_render_args(p):
     p.add_argument("--scene", default="test_scene2")
-    p.add_argument("--mode", default="lambertian",
-                   help=f"shader: one of {', '.join(MODES)} or an index")
     p.add_argument("--degree", type=int, default=2)
     p.add_argument("--width", type=int, default=1440)
     p.add_argument("--height", type=int, default=900)
@@ -73,8 +133,33 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
+    p.add_argument("--params", default=None,
+                   help="scene parameters saved by --save-params")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="ray_marching_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("render", help="render one frame to PNG")
+    _add_render_args(p)
+    p.add_argument("--mode", default="lambertian",
+                   help=f"shader: one of {', '.join(MODES)} or an index")
     p.add_argument("-o", "--out", default="render.png")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("optimize", help="inverse rendering against a target")
+    _add_render_args(p)
+    p.add_argument("--target", default="selftest",
+                   help="'selftest' (a PNG target is not ported yet)")
+    p.add_argument("--optimize-mode", type=int, default=0)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--opt-steps", type=int, default=100)
+    p.add_argument("--trainable", nargs="*", default=None)
+    p.add_argument("--optimize-pose", action="store_true")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--metrics", default=None)
+    p.add_argument("--save-params", default=None)
+    p.set_defaults(fn=cmd_optimize)
     args = parser.parse_args(argv)
     args.fn(args)
 

@@ -1,0 +1,241 @@
+"""Backward of the fused march + normals kernel: the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Counterpart of ``ray_marching_tpu/ops/pallas_backward.py::fused_backward``
+(``_bwd_kernel``). The kernel source is ``csrc/render_bwd.cu``; it lives in
+the same per-scene library as the forward kernel
+(:mod:`ray_marching_tpu_torch.ops.render_kernel` builds and binds it) and
+calls the generated ``scene_sdf_vjp`` of
+:mod:`ray_marching_tpu_torch.scene.codegen`.
+
+:func:`fused_backward` takes the plain version only for tensors on the CPU.
+For CUDA tensors it launches the kernel or raises; it never falls back.
+
+The plain version (:func:`reference_backward`) is the kernel's own algorithm
+written with tensors: one VJP of the tail, then the reverse sweep over the
+steps from the history, one ``torch.autograd.grad`` of the step per step,
+with the kernel's freeze and ``min_f`` tie rules. It is not whole-graph
+autograd over the unrolled march: that would route cotangents through
+diverged rays differently (NaN where this stays finite) and keep every
+step's intermediates alive.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import torch
+
+from ray_marching_tpu_torch.ops import render_kernel as rk
+from ray_marching_tpu_torch.scene.codegen import SdfProgram
+
+LANES = rk.LANES
+
+#: Backward-kernel launches so far (the wrapper adds one per launch, nowhere
+#: else).
+LAUNCHES = 0
+
+# (SdfProgram -> {device: flat offsets of the scene's scalars, on device}).
+_SCALAR_INDEX = weakref.WeakKeyDictionary()
+
+
+def _scalar_index(program, device):
+    per_device = _SCALAR_INDEX.setdefault(program, {})
+    if device not in per_device:
+        per_device[device] = torch.tensor(program.scalar_offsets,
+                                          dtype=torch.long, device=device)
+    return per_device[device]
+
+
+def _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
+           nlive):
+    rk._check(program, params_flat, rays7, steps)
+    plane = tuple(rays7.shape[1:])
+    n_g = 9 if track_min else 8
+    if tuple(g.shape) != (n_g,) + plane or g.dtype != rays7.dtype:
+        raise ValueError(f"g must be {(n_g,) + plane} of {rays7.dtype}, got "
+                         f"{tuple(g.shape)} of {g.dtype}")
+    if hist is None:
+        return
+    if nlive is None or (track_min and (minf is None or amin is None)):
+        raise ValueError("a history needs nlive and, with track_min, minf "
+                         "and amin")
+    want = {"hist": ((int(steps) + 1, 3) + plane, rays7.dtype),
+            "nlive": (plane, torch.int32)}
+    given = {"hist": hist, "nlive": nlive}
+    if track_min:
+        want.update(minf=(plane, rays7.dtype), amin=(plane, torch.int32))
+        given.update(minf=minf, amin=amin)
+    for name, (shape, dtype) in want.items():
+        t = given[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} of {dtype}, got "
+                             f"{tuple(t.shape)} of {t.dtype}")
+        if t.device != rays7.device:
+            raise ValueError(f"{name} on {t.device}, rays7 on {rays7.device}")
+
+
+def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
+                   normals_eps, track_min=False, hist=None, minf=None,
+                   amin=None, nlive=None):
+    """Backward of ``fused_march_normals`` (``track_min``: of ``_cov``).
+
+    ``g`` holds the cotangents of the 8 (or 9) output planes. ``hist``
+    (steps + 1, 3, rows, 128) and ``nlive`` (int32) are the forward's march
+    history and live-step counts (:func:`render_kernel.march_forward` with
+    ``log_hist``), and with ``track_min`` ``minf`` and ``amin`` its closest
+    approach and arg-min step; without a history the positions are
+    recomputed (in the kernel, into a scratch history allocated here). The
+    two give bitwise the same result.
+
+    Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``;
+    the validity plane's cotangent is zero."""
+    global LAUNCHES
+    _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
+           nlive)
+    if rays7.device.type == "cpu":
+        return reference_backward(program, params_flat, rays7, g, steps, tau,
+                                  normals_eps, track_min=track_min, hist=hist,
+                                  minf=minf, amin=amin, nlive=nlive)
+    if rays7.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays7.device}")
+    tensors = [params_flat, rays7, g] + [t for t in (hist, minf, amin, nlive)
+                                         if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the backward kernel takes contiguous tensors")
+    lib = rk._load(program)
+    dev, dtype = rays7.device, rays7.dtype
+    plane_shape = tuple(rays7.shape[1:])
+    n = rays7.shape[1] * LANES
+    recompute = hist is None
+    if recompute:
+        hist = torch.empty((int(steps) + 1, 3) + plane_shape, dtype=dtype,
+                           device=dev)
+    block = lib.rm_render_bwd_block()
+    n_blocks = -(-n // block)
+    n_scalars = len(program.scalar_offsets)
+    out = torch.empty((7,) + plane_shape, dtype=dtype, device=dev)
+    out[6].zero_()
+    partials = torch.empty((n_blocks, n_scalars), dtype=dtype, device=dev)
+    consts = rk._host_consts(dtype, tau, normals_eps)
+    fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
+          else lib.rm_render_bwd_f64)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        LAUNCHES += 1
+        err = fn(params_flat.data_ptr(), rays7.data_ptr(), g.data_ptr(),
+                 int(track_min), hist.data_ptr(), int(recompute),
+                 rk._ptr(minf), rk._ptr(amin), rk._ptr(nlive),
+                 out.data_ptr(), partials.data_ptr(), n_blocks, n_scalars, n,
+                 int(steps), consts.ctypes.data_as(ctypes.c_void_p), stream)
+    if err != 0:
+        raise RuntimeError(f"render_bwd kernel launch failed: cudaError {err}")
+    gflat = torch.zeros_like(params_flat)
+    if n_scalars:
+        gflat[_scalar_index(program, dev)] = partials.sum(0)
+    return gflat, out
+
+
+def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
+                       normals_eps, track_min=False, hist=None, minf=None,
+                       amin=None, nlive=None):
+    """The plain PyTorch version of :func:`fused_backward`.
+
+    Pad slots (``valid <= 0.5``) are left out before anything is evaluated,
+    as a kernel thread returns early on them: they get zero cotangents by
+    construction, never by multiplying a possibly non-finite value by 0."""
+    if hist is None:
+        fwd, extras = rk._reference_march(
+            program, params_flat.detach(), rays7.detach(), steps, tau,
+            normals_eps, track_min=track_min, log_hist=True)
+        hist, nlive = extras["hist"], extras["nlive"]
+        if track_min:
+            minf, amin = fwd[8], extras["amin"]
+    steps = int(steps)
+    sdf = program.sdf_c
+    off, inv, lap_scale, _ = rk._plain_consts(rays7.dtype, tau, normals_eps)
+    valid = (rays7[6] > 0.5).reshape(-1)
+    pick = lambda plane: plane.reshape(-1)[valid]  # noqa: E731
+    vx, vy, vz = (pick(rays7[i]).detach() for i in (3, 4, 5))
+    gv = [pick(g[i]) for i in range(g.shape[0])]
+    nlive_v = pick(nlive)
+    flat = params_flat.detach().requires_grad_(True)
+    with torch.enable_grad():
+        params = program.rebuild(flat)
+
+    def position(s):
+        return [pick(hist[s, c]).detach().requires_grad_(True)
+                for c in range(3)]
+
+    # Tail VJP into the terminal position.
+    end = position(steps)
+    with torch.enable_grad():
+        tail = rk._tail_planes(sdf, params, *end, off, inv, lap_scale)
+    gflat, gx, gy, gz = torch.autograd.grad(
+        tail, [flat] + end, [gv[3], gv[4], gv[5], gv[6], gv[7]],
+        allow_unused=True)
+    gflat = torch.zeros_like(flat) if gflat is None else gflat
+    gx, gy, gz = gx + gv[0], gy + gv[1], gz + gv[2]
+
+    # Reverse sweep; frozen steps sit at the terminal position.
+    gvx, gvy, gvz = (torch.zeros_like(gx) for _ in range(3))
+    if track_min:
+        minf_v, amin_v, carry = pick(minf), pick(amin), gv[8]
+    n_sweep = steps if track_min or not nlive_v.numel() else int(nlive_v.max())
+    for s in reversed(range(n_sweep)):
+        live = nlive_v > s
+        pos = [torch.where(live, p, e.detach()).requires_grad_(True)
+               for p, e in zip(position(s), end)]
+        with torch.enable_grad():
+            d = sdf(params, *pos)
+        gd = torch.where(live, gx * vx + gy * vy + gz * vz, 0.0)
+        if track_min:
+            first = amin_v == s
+            tie = (d.detach() == minf_v) & ~first
+            share = torch.where(tie, 0.5 * carry, 0.0)
+            gd = gd + torch.where(first, carry, share)
+            carry = torch.where(first, 0.0, torch.where(tie, share, carry))
+        dflat, sx, sy, sz = torch.autograd.grad(d, [flat] + pos, gd,
+                                                allow_unused=True)
+        if dflat is not None:
+            gflat = gflat + dflat
+        dd = d.detach()
+        gvx = gvx + torch.where(live, gx * dd, 0.0)
+        gvy = gvy + torch.where(live, gy * dd, 0.0)
+        gvz = gvz + torch.where(live, gz * dd, 0.0)
+        gx, gy, gz = gx + sx, gy + sy, gz + sz
+
+    out = torch.zeros((7, valid.shape[0]), dtype=rays7.dtype,
+                      device=rays7.device)
+    for i, plane in enumerate((gx, gy, gz, gvx, gvy, gvz)):
+        out[i, valid] = plane
+    return gflat.detach(), out.reshape(rays7.shape)
+
+
+#: Ray-dependent operations per valid ray outside the SDF VJPs. Tail: 27
+#: offset adds, the forward tail's 3 subs, 15 for the 3×3 inverse and 6 for
+#: the norm, then 12 for the norm's cotangent, 2 for sqrt's, 15 into N, 15
+#: through the inverse's transpose, 3 + 7 for the Laplacian and the offsets'
+#: cotangents, 15 position adds. Step: 5 for the distance's cotangent, 6 for
+#: the direction's, 3 position adds.
+OPS_BWD_TAIL = 27 + 3 + 15 + 6 + 12 + 2 + 15 + 15 + 10 + 15
+OPS_BWD_STEP = 14
+
+
+def backward_ops(program: SdfProgram, n_valid: int, swept_steps: int,
+                 recomputed_steps: int = 0, track_min: bool = False) -> int:
+    """Operations the backward needs, by the op-count convention of
+    scene/codegen.py: per valid ray 5 SDF VJPs for the tail (a VJP holds
+    its own primal evaluation, which also gives the tail its 5 distances;
+    the kernel evaluates the 4 offset distances once more before them, and
+    that is not counted as needed), and one VJP per swept step
+    (``swept_steps`` is their sum over the rays; with ``track_min`` the tie
+    test evaluates the SDF once more). ``recomputed_steps`` (summed over
+    the rays) are the forward steps the kernel marches again when it gets
+    no history."""
+    ev, vjp = program.ops_per_eval, program.vjp_ops_per_eval
+    tail = n_valid * (5 * vjp + OPS_BWD_TAIL)
+    per_step = vjp + OPS_BWD_STEP + (ev + 4 if track_min else 0)
+    return (tail + swept_steps * per_step
+            + recomputed_steps * (ev + rk.OPS_PER_STEP))

@@ -1,0 +1,298 @@
+// Backward of the fused march + normals kernel (render_fwd.cu) for one scene
+// whose SDF and its vector-Jacobian product are generated into scene_sdf.cuh.
+//
+// Replaces: ray_marching_tpu/ops/pallas_backward.py::_bwd_kernel, launched
+// there by fused_backward.
+//
+// Contract: rays (7, plane) as the forward took them; g (8 or 9, plane) the
+// cotangents of x y z d nx ny nz lap and, with TRACK_MIN, of min_f;
+// out (6, plane) = the cotangents of x0 y0 z0 dx dy dz; partials
+// (blocks, SCENE_N_SCALARS) = each block's share of the parameter cotangent,
+// summed over the blocks by the caller. Invalid slots (valid <= 0.5) get
+// zero cotangents and add nothing.
+//
+// What it computes, per ray:
+//  1. the march positions: read from the history the forward wrote, or
+//     recomputed here (the same op sequence, so the same bits) into a
+//     scratch history the caller allocated;
+//  2. one VJP of the tail (terminal distance, 4 offset evaluations, 3x3
+//     inverse, normalisation, Laplacian) into the terminal position;
+//  3. the reverse sweep over the steps x' = x + d(x) * v, each adding to the
+//     parameter and direction cotangents. With tau > 0 the sweep covers the
+//     ray's own live steps only: a frozen step is the identity map;
+//  4. with TRACK_MIN the min_f cotangent is spread as autodiff of a chain of
+//     minimum() would: going backwards, a tied step (d == min_f, not the
+//     first attaining one) takes half of what is left, the first attaining
+//     step takes the rest. A converged ray ties at every later step, so the
+//     sweep then covers all steps, frozen ones at the terminal position.
+//
+// Bound on an H100: with the forward's history, bytes by a small margin
+// over operations; with the recompute, operations. Per valid ray and step
+// it runs one scene_sdf_vjp (226 operations for test_scene2 against 65 for
+// the SDF alone, scene/codegen.py counts them) and reads 12 bytes of
+// history. With the history the start position planes of rays are never
+// read: every position comes from the history.
+//
+// Design: one thread per ray slot, every plane access coalesced, the
+// history plane-major for the same reason. Each thread keeps the parameter
+// cotangent of the scalars the scene really has in registers; a block sums
+// them with warp shuffles and shared memory in a fixed order and writes one
+// row of partials, so the result is the same from run to run and with the
+// history on or off (no atomics). The TPU kernel's tiles, VMEM history and
+// unrolled sweep are not carried over.
+#include <cuda_runtime.h>
+
+#include <limits>
+
+#include "sdf_prims.cuh"
+#include "scene_sdf.cuh"
+#include "render_consts.cuh"
+
+constexpr int BWD_BLOCK = 128;
+constexpr int N_ACC = SCENE_N_SCALARS > 0 ? SCENE_N_SCALARS : 1;
+
+template <typename T>
+struct BwdArgs {
+  const T* P;
+  const T* rays;
+  const T* g;
+  T* hist;           // (steps + 1, 3, plane): the forward's, or scratch
+  const T* minf;     // the forward's min_f plane (history given, TRACK_MIN)
+  const int* amin;   // the forward's arg-min step (history given, TRACK_MIN)
+  const int* nlive;  // the forward's live-step count (history given)
+  T* out;            // (6, plane)
+  T* partials;       // (blocks, SCENE_N_SCALARS)
+  long long plane;
+  int steps;
+  int recompute;  // 1: fill hist here instead of reading the forward's
+};
+
+template <typename T, bool TRACK_MIN>
+__global__ void __launch_bounds__(BWD_BLOCK)
+render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
+  const long long plane = a.plane;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const T zero = static_cast<T>(0);
+  const T half = static_cast<T>(0.5);
+  T gP[N_ACC];
+#pragma unroll
+  for (int k = 0; k < N_ACC; ++k) gP[k] = zero;
+  const bool valid = i < plane && a.rays[6 * plane + i] > static_cast<T>(0.5);
+  if (i < plane && !valid) {
+    for (int k = 0; k < 6; ++k) a.out[k * plane + i] = zero;
+  }
+  if (valid) {
+    const long long p3 = 3 * plane;
+    const int steps = a.steps;
+    const T vx = a.rays[3 * plane + i];
+    const T vy = a.rays[4 * plane + i];
+    const T vz = a.rays[5 * plane + i];
+    T* hend = a.hist + (long long)steps * p3;
+    T x, y, z;  // terminal position
+    T minf = big;
+    int amin = -1;
+    int nlive;
+    if (a.recompute) {
+      x = a.rays[i];
+      y = a.rays[plane + i];
+      z = a.rays[2 * plane + i];
+      const bool freeze = c.tau != zero;
+      int s = 0;
+      for (; s < steps; ++s) {
+        T* h = a.hist + s * p3;
+        h[i] = x;
+        h[plane + i] = y;
+        h[2 * plane + i] = z;
+        const T d = scene_sdf<T>(a.P, x, y, z);
+        if (TRACK_MIN && d < minf) {
+          minf = d;
+          amin = s;
+        }
+        if (freeze && !(rm_abs(d) >= c.tau)) break;
+        x = x + d * vx;
+        y = y + d * vy;
+        z = z + d * vz;
+      }
+      nlive = s;
+      hend[i] = x;
+      hend[plane + i] = y;
+      hend[2 * plane + i] = z;
+    } else {
+      x = hend[i];
+      y = hend[plane + i];
+      z = hend[2 * plane + i];
+      nlive = a.nlive[i];
+      if (TRACK_MIN) {
+        minf = a.minf[i];
+        amin = a.amin[i];
+      }
+    }
+
+    // ---- tail VJP into the terminal position ----
+    T ox[5], oy[5], oz[5], gf[5];
+    T f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ox[k] = c.off[k][0];
+      oy[k] = c.off[k][1];
+      oz[k] = c.off[k][2];
+      f[k] = scene_sdf<T>(a.P, x + ox[k], y + oy[k], z + oz[k]);
+    }
+    ox[4] = zero;
+    oy[4] = zero;
+    oz[4] = zero;
+    const T d1 = f[1] - f[0];
+    const T d2 = f[2] - f[0];
+    const T d3 = f[3] - f[0];
+    const T nx = c.inv[0][0] * d1 + c.inv[0][1] * d2 + c.inv[0][2] * d3;
+    const T ny = c.inv[1][0] * d1 + c.inv[1][1] * d2 + c.inv[1][2] * d3;
+    const T nz = c.inv[2][0] * d1 + c.inv[2][1] * d2 + c.inv[2][2] * d3;
+    const T norm = rm_sqrt(nx * nx + ny * ny + nz * nz);
+    const T g4 = a.g[4 * plane + i];
+    const T g5 = a.g[5 * plane + i];
+    const T g6 = a.g[6 * plane + i];
+    // n = N / norm: to N directly, and through norm = sqrt(N . N).
+    const T gnorm = -(g4 * ((nx / norm) / norm) + g5 * ((ny / norm) / norm) +
+                      g6 * ((nz / norm) / norm));
+    const T gs = gnorm / (static_cast<T>(2) * norm);
+    const T gnx = g4 / norm + (gs * nx + gs * nx);
+    const T gny = g5 / norm + (gs * ny + gs * ny);
+    const T gnz = g6 / norm + (gs * nz + gs * nz);
+    const T gd1 = c.inv[0][0] * gnx + c.inv[1][0] * gny + c.inv[2][0] * gnz;
+    const T gd2 = c.inv[0][1] * gnx + c.inv[1][1] * gny + c.inv[2][1] * gnz;
+    const T gd3 = c.inv[0][2] * gnx + c.inv[1][2] * gny + c.inv[2][2] * gnz;
+    // lap = (d_centre - mean4) * lap_scale, mean4 = (f0 + f1 + f2 + f3) / 4.
+    const T glap = a.g[7 * plane + i] * c.lap_scale;
+    const T gmean = -glap * static_cast<T>(0.25);
+    gf[0] = gmean - (gd1 + gd2 + gd3);
+    gf[1] = gmean + gd1;
+    gf[2] = gmean + gd2;
+    gf[3] = gmean + gd3;
+    gf[4] = a.g[3 * plane + i] + glap;
+    T gx = a.g[i];
+    T gy = a.g[plane + i];
+    T gz = a.g[2 * plane + i];
+#pragma unroll 1
+    for (int k = 0; k < 5; ++k) {
+      T sx, sy, sz;
+      scene_sdf_vjp<T>(a.P, x + ox[k], y + oy[k], z + oz[k], gf[k], sx, sy,
+                       sz, gP);
+      gx = gx + sx;
+      gy = gy + sy;
+      gz = gz + sz;
+    }
+
+    // ---- reverse sweep over the march ----
+    T gvx = zero, gvy = zero, gvz = zero;
+    T carry = TRACK_MIN ? a.g[8 * plane + i] : zero;
+    const int n = TRACK_MIN ? steps : nlive;
+#pragma unroll 1
+    for (int s = n - 1; s >= 0; --s) {
+      const bool live = s < nlive;
+      const T* h = live ? a.hist + s * p3 : hend;
+      const T px = h[i];
+      const T py = h[plane + i];
+      const T pz = h[2 * plane + i];
+      T gd = live ? gx * vx + gy * vy + gz * vz : zero;
+      if (TRACK_MIN) {
+        const T d = scene_sdf<T>(a.P, px, py, pz);
+        const bool first = amin == s;
+        const bool tie = d == minf && !first;
+        gd = gd + (first ? carry : (tie ? half * carry : zero));
+        carry = first ? zero : (tie ? half * carry : carry);
+      }
+      T sx, sy, sz;
+      const T d = scene_sdf_vjp<T>(a.P, px, py, pz, gd, sx, sy, sz, gP);
+      if (live) {
+        gvx = gvx + gx * d;
+        gvy = gvy + gy * d;
+        gvz = gvz + gz * d;
+      }
+      gx = gx + sx;
+      gy = gy + sy;
+      gz = gz + sz;
+    }
+    a.out[i] = gx;
+    a.out[plane + i] = gy;
+    a.out[2 * plane + i] = gz;
+    a.out[3 * plane + i] = gvx;
+    a.out[4 * plane + i] = gvy;
+    a.out[5 * plane + i] = gvz;
+  }
+
+  // ---- the block's share of the parameter cotangent, in a fixed order ----
+  __shared__ T red[BWD_BLOCK / 32][N_ACC];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N_ACC; ++k) {
+    T v = gP[k];
+    for (int off = 16; off > 0; off >>= 1) {
+      v = v + __shfl_down_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < SCENE_N_SCALARS; k += BWD_BLOCK) {
+    T s = red[0][k];
+    for (int w = 1; w < BWD_BLOCK / 32; ++w) s = s + red[w][k];
+    a.partials[(long long)blockIdx.x * SCENE_N_SCALARS + k] = s;
+  }
+}
+
+template <typename T>
+static int launch(BwdArgs<T> a, int track_min, long long n_blocks,
+                  int n_scalars, const T* host_consts, void* stream) {
+  const long long grid = (a.plane + BWD_BLOCK - 1) / BWD_BLOCK;
+  if (n_scalars != SCENE_N_SCALARS || n_blocks != grid) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const RenderConsts<T> c = unpack_consts<T>(host_consts);
+  const T big = std::numeric_limits<T>::max();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (track_min) {
+    render_bwd_kernel<T, true><<<(unsigned int)grid, BWD_BLOCK, 0, st>>>(
+        a, c, big);
+  } else {
+    render_bwd_kernel<T, false><<<(unsigned int)grid, BWD_BLOCK, 0, st>>>(
+        a, c, big);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C interface (bound with ctypes). g has 9 planes when track_min is
+// set, else 8. hist is the forward's history (recompute = 0; then nlive and,
+// with track_min, minf and amin are the forward's planes) or an
+// uninitialised scratch of the same shape (recompute = 1; the three may be
+// null). partials is (n_blocks, n_scalars) with n_blocks =
+// ceil(plane / rm_render_bwd_block()) and n_scalars the scene's scalar
+// count; a mismatch returns cudaErrorInvalidValue. host_consts as in
+// render_fwd.cu. Returns the cudaError_t of the launch (0 on success).
+extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
+
+#define RM_BWD_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const T* P, const T* rays, const T* g, int track_min,  \
+                      T* hist, int recompute, const T* minf,                 \
+                      const int* amin, const int* nlive, T* out,             \
+                      T* partials, long long n_blocks, int n_scalars,        \
+                      long long plane, int steps, const T* host_consts,      \
+                      void* stream) {                                        \
+    BwdArgs<T> a;                                                            \
+    a.P = P;                                                                 \
+    a.rays = rays;                                                           \
+    a.g = g;                                                                 \
+    a.hist = hist;                                                           \
+    a.minf = minf;                                                           \
+    a.amin = amin;                                                           \
+    a.nlive = nlive;                                                         \
+    a.out = out;                                                             \
+    a.partials = partials;                                                   \
+    a.plane = plane;                                                         \
+    a.steps = steps;                                                         \
+    a.recompute = recompute;                                                 \
+    return launch<T>(a, track_min, n_blocks, n_scalars, host_consts,         \
+                     stream);                                                \
+  }
+
+RM_BWD_ENTRY(rm_render_bwd_f32, float)
+RM_BWD_ENTRY(rm_render_bwd_f64, double)

@@ -1,13 +1,30 @@
 // Fused sphere-trace march + terminal distance + tetrahedral normals +
 // Laplacian, for one scene whose SDF is generated into scene_sdf.cuh.
 //
-// Replaces: ray_marching_tpu/ops/pallas_render.py::_render_kernel (the
-// forward configuration: track_min=False, log_hist=False, dual=False),
-// launched there by _call_render_kernel for fused_march_normals.
+// Replaces: ray_marching_tpu/ops/pallas_render.py::_render_kernel, launched
+// there by _call_render_kernel for fused_march_normals (and _cov, _ift,
+// _cov_ift). Two kernels: render_fwd_kernel is the serving configuration
+// (track_min=False, log_hist=False); render_fwd_train_kernel adds the
+// outputs a differentiated forward hands to the backward kernel
+// (render_bwd.cu). The dual branch is not carried over.
 //
 // Contract: rays (7, plane) = x y z dx dy dz valid; out (8, plane) =
 // x y z d nx ny nz lap (pallas_render.py:318-330). Invalid slots
 // (valid <= 0.5) do not move and get d = normals = lap = 0.
+//
+// Training outputs, each optional (a null pointer leaves it out):
+//  - min_f, plane 8 of out: the least distance over the march's pre-step
+//    evaluations (not the terminal one); pad slots get the largest finite T;
+//  - amin (int32 plane): the first step that attains min_f (strict "<"
+//    updates), -1 if none did;
+//  - argpos (3 planes): the position at that step;
+//  - hist (steps + 1, 3, plane), plane-major so that every store is
+//    coalesced: the position before each step and, at [steps], the terminal
+//    one. With tau > 0 a ray writes only the steps it ran; the rest of its
+//    column stays unwritten;
+//  - nlive (int32 plane): the number of steps the ray moved (steps at
+//    tau = 0). It takes the place of the TPU kernel's per-tile exit step:
+//    rays break out one by one here.
 //
 // Bound on an H100: compute. Per valid ray it runs 37 scene SDF
 // evaluations (steps march evaluations, the terminal one and 4 offsets) and
@@ -40,16 +57,51 @@
 //    jnp.abs(d) >= tau does.
 #include <cuda_runtime.h>
 
+#include <limits>
+
 #include "sdf_prims.cuh"
 #include "scene_sdf.cuh"
+#include "render_consts.cuh"
 
 template <typename T>
-struct RenderConsts {
-  T off[4][3];  // tetrahedral offsets, scaled by normals_eps
-  T inv[3][3];  // inverse of the relative-offset matrix
-  T lap_scale;  // 6 / eps^2
-  T tau;        // early-exit threshold (0: march every step)
+struct TrainOuts {
+  T* minf;     // plane 8 of out, or null
+  int* amin;   // or null
+  T* argpos;   // (3, plane), or null
+  T* hist;     // (steps + 1, 3, plane), or null
+  int* nlive;  // or null
 };
+
+// Terminal distance, tetrahedral normals and Laplacian at (x, y, z):
+// planes 0..7 of out.
+template <typename T>
+__device__ __forceinline__ void store_hit(const T* __restrict__ P,
+                                          T* __restrict__ out, long long plane,
+                                          long long i, T x, T y, T z,
+                                          const RenderConsts<T>& c) {
+  const T d_centre = scene_sdf<T>(P, x, y, z);
+  T f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[k] = scene_sdf<T>(P, x + c.off[k][0], y + c.off[k][1], z + c.off[k][2]);
+  }
+  const T d1 = f[1] - f[0];
+  const T d2 = f[2] - f[0];
+  const T d3 = f[3] - f[0];
+  const T nx = c.inv[0][0] * d1 + c.inv[0][1] * d2 + c.inv[0][2] * d3;
+  const T ny = c.inv[1][0] * d1 + c.inv[1][1] * d2 + c.inv[1][2] * d3;
+  const T nz = c.inv[2][0] * d1 + c.inv[2][1] * d2 + c.inv[2][2] * d3;
+  const T norm = rm_sqrt(nx * nx + ny * ny + nz * nz);
+  const T mean4 = (f[0] + f[1] + f[2] + f[3]) * static_cast<T>(0.25);
+  out[i] = x;
+  out[plane + i] = y;
+  out[2 * plane + i] = z;
+  out[3 * plane + i] = d_centre;
+  out[4 * plane + i] = nx / norm;
+  out[5 * plane + i] = ny / norm;
+  out[6 * plane + i] = nz / norm;
+  out[7 * plane + i] = (d_centre - mean4) * c.lap_scale;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -80,38 +132,91 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ rays,
     y = y + d * dy;
     z = z + d * dz;
   }
-  const T d_centre = scene_sdf<T>(P, x, y, z);
-  T f[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[k] = scene_sdf<T>(P, x + c.off[k][0], y + c.off[k][1], z + c.off[k][2]);
+  store_hit<T>(P, out, plane, i, x, y, z, c);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ rays,
+                        T* __restrict__ out, long long plane, int steps,
+                        RenderConsts<T> c, T big, TrainOuts<T> t) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  T x = rays[i];
+  T y = rays[plane + i];
+  T z = rays[2 * plane + i];
+  const T zero = static_cast<T>(0);
+  const long long p3 = 3 * plane;
+  if (!(rays[6 * plane + i] > static_cast<T>(0.5))) {
+    out[i] = x;
+    out[plane + i] = y;
+    out[2 * plane + i] = z;
+    for (int k = 3; k < 8; ++k) out[k * plane + i] = zero;
+    if (t.minf) t.minf[i] = big;
+    if (t.amin) t.amin[i] = -1;
+    if (t.argpos) {
+      t.argpos[i] = x;
+      t.argpos[plane + i] = y;
+      t.argpos[2 * plane + i] = z;
+    }
+    if (t.hist) {
+      T* h = t.hist + (long long)steps * p3;
+      h[i] = x;
+      h[plane + i] = y;
+      h[2 * plane + i] = z;
+    }
+    if (t.nlive) t.nlive[i] = 0;
+    return;
   }
-  const T d1 = f[1] - f[0];
-  const T d2 = f[2] - f[0];
-  const T d3 = f[3] - f[0];
-  const T nx = c.inv[0][0] * d1 + c.inv[0][1] * d2 + c.inv[0][2] * d3;
-  const T ny = c.inv[1][0] * d1 + c.inv[1][1] * d2 + c.inv[1][2] * d3;
-  const T nz = c.inv[2][0] * d1 + c.inv[2][1] * d2 + c.inv[2][2] * d3;
-  const T norm = rm_sqrt(nx * nx + ny * ny + nz * nz);
-  const T mean4 = (f[0] + f[1] + f[2] + f[3]) * static_cast<T>(0.25);
-  out[i] = x;
-  out[plane + i] = y;
-  out[2 * plane + i] = z;
-  out[3 * plane + i] = d_centre;
-  out[4 * plane + i] = nx / norm;
-  out[5 * plane + i] = ny / norm;
-  out[6 * plane + i] = nz / norm;
-  out[7 * plane + i] = (d_centre - mean4) * c.lap_scale;
+  const T dx = rays[3 * plane + i];
+  const T dy = rays[4 * plane + i];
+  const T dz = rays[5 * plane + i];
+  const bool freeze = c.tau != zero;
+  T minf = big;
+  int amin = -1;
+  T ax = x, ay = y, az = z;
+  int s = 0;
+  for (; s < steps; ++s) {
+    if (t.hist) {
+      T* h = t.hist + s * p3;
+      h[i] = x;
+      h[plane + i] = y;
+      h[2 * plane + i] = z;
+    }
+    const T d = scene_sdf<T>(P, x, y, z);
+    if (d < minf) {
+      minf = d;
+      amin = s;
+      ax = x;
+      ay = y;
+      az = z;
+    }
+    if (freeze && !(rm_abs(d) >= c.tau)) break;
+    x = x + d * dx;
+    y = y + d * dy;
+    z = z + d * dz;
+  }
+  if (t.minf) t.minf[i] = minf;
+  if (t.amin) t.amin[i] = amin;
+  if (t.argpos) {
+    t.argpos[i] = ax;
+    t.argpos[plane + i] = ay;
+    t.argpos[2 * plane + i] = az;
+  }
+  if (t.hist) {
+    T* h = t.hist + (long long)steps * p3;
+    h[i] = x;
+    h[plane + i] = y;
+    h[2 * plane + i] = z;
+  }
+  if (t.nlive) t.nlive[i] = s;
+  store_hit<T>(P, out, plane, i, x, y, z, c);
 }
 
 template <typename T>
 static int launch(const T* P, const T* rays, T* out, long long plane,
                   int steps, const T* host_consts, void* stream) {
-  RenderConsts<T> c;
-  for (int k = 0; k < 12; ++k) c.off[k / 3][k % 3] = host_consts[k];
-  for (int k = 0; k < 9; ++k) c.inv[k / 3][k % 3] = host_consts[12 + k];
-  c.lap_scale = host_consts[21];
-  c.tau = host_consts[22];
+  const RenderConsts<T> c = unpack_consts<T>(host_consts);
   const int block = 256;
   const long long grid = (plane + block - 1) / block;
   render_fwd_kernel<T><<<(unsigned int)grid, block, 0,
@@ -120,9 +225,30 @@ static int launch(const T* P, const T* rays, T* out, long long plane,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+static int launch_train(const T* P, const T* rays, T* out, long long plane,
+                        int steps, const T* host_consts, int track_min,
+                        int* amin, T* argpos, T* hist, int* nlive,
+                        void* stream) {
+  const RenderConsts<T> c = unpack_consts<T>(host_consts);
+  TrainOuts<T> t;
+  t.minf = track_min ? out + 8 * plane : nullptr;
+  t.amin = amin;
+  t.argpos = argpos;
+  t.hist = hist;
+  t.nlive = nlive;
+  const int block = 256;
+  const long long grid = (plane + block - 1) / block;
+  render_fwd_train_kernel<T><<<(unsigned int)grid, block, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      P, rays, out, plane, steps, c, std::numeric_limits<T>::max(), t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Plain C interface (bound with ctypes). host_consts: 23 values of T on the
-// host: offsets (4x3, row-major), inverse (3x3), 6/eps^2, tau. Returns the
-// cudaError_t of the launch (0 on success).
+// host: offsets (4x3, row-major), inverse (3x3), 6/eps^2, tau. Returns the cudaError_t of the launch (0 on success). The
+// training entry points take out with 9 planes when track_min is set, and a
+// null pointer for each extra output that is not wanted.
 extern "C" int rm_render_fwd_f32(const float* P, const float* rays, float* out,
                                  long long plane, int steps,
                                  const float* host_consts, void* stream) {
@@ -133,4 +259,23 @@ extern "C" int rm_render_fwd_f64(const double* P, const double* rays,
                                  double* out, long long plane, int steps,
                                  const double* host_consts, void* stream) {
   return launch<double>(P, rays, out, plane, steps, host_consts, stream);
+}
+
+extern "C" int rm_render_fwd_train_f32(const float* P, const float* rays,
+                                       float* out, long long plane, int steps,
+                                       const float* host_consts, int track_min,
+                                       int* amin, float* argpos, float* hist,
+                                       int* nlive, void* stream) {
+  return launch_train<float>(P, rays, out, plane, steps, host_consts,
+                             track_min, amin, argpos, hist, nlive, stream);
+}
+
+extern "C" int rm_render_fwd_train_f64(const double* P, const double* rays,
+                                       double* out, long long plane, int steps,
+                                       const double* host_consts,
+                                       int track_min, int* amin, double* argpos,
+                                       double* hist, int* nlive,
+                                       void* stream) {
+  return launch_train<double>(P, rays, out, plane, steps, host_consts,
+                              track_min, amin, argpos, hist, nlive, stream);
 }

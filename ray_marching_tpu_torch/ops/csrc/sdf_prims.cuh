@@ -22,6 +22,12 @@ __device__ __forceinline__ double rm_log(double a) { return log(a); }
 __device__ __forceinline__ float rm_abs(float a) { return fabsf(a); }
 __device__ __forceinline__ double rm_abs(double a) { return fabs(a); }
 
+// Slope of abs: -1, 0 or 1 (0 at 0, as torch.sign and jnp.sign have it).
+template <typename T>
+__device__ __forceinline__ T rm_sign(T a) {
+  return static_cast<T>((a > static_cast<T>(0)) - (a < static_cast<T>(0)));
+}
+
 // NaN-propagating max: a NaN in either operand gives NaN.
 template <typename T>
 __device__ __forceinline__ T rm_max_nan(T a, T b) {

@@ -1,20 +1,26 @@
 """Fused march + normals + Laplacian: the CUDA kernel, its build and binding,
-and its plain PyTorch version.
+its plain PyTorch version, and the differentiable entry points.
 
-Counterpart of ``ray_marching_tpu/ops/pallas_render.py`` (forward
-configuration of ``_render_kernel``; ``fused_march_normals`` there, and
+Counterpart of ``ray_marching_tpu/ops/pallas_render.py`` (``_render_kernel``;
+``fused_march_normals`` and ``fused_march_normals_cov`` there, and
 ``_reference_fn`` for the plain version). The kernel source is
 ``csrc/render_fwd.cu``; the scene's SDF is generated per scene by
 :mod:`ray_marching_tpu_torch.scene.codegen` and included into it.
 
 Build: ``nvcc`` compiles one shared library with a plain C interface per
-scene, at first use, into ``_build/<hash>/`` beside this module (the hash
-covers the generated SDF, the kernel sources and the flags), and ctypes
-binds it. Launches go on the current CUDA stream and allocate nothing
-inside the kernel; the wrapper allocates the output.
+scene, holding the forward and the backward kernel
+(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`), at first use,
+into ``_build/<hash>/`` beside this module (the hash covers the generated
+SDF, the kernel sources and the flags), and ctypes binds it. Launches go on
+the current CUDA stream and allocate nothing inside the kernel; the wrapper
+allocates the outputs.
 
-:func:`fused_march_normals` takes the plain version only for tensors on the
-CPU. For CUDA tensors it launches the kernel or raises; it never falls back.
+:func:`fused_march_normals` and :func:`fused_march_normals_cov` are
+differentiable: when an input requires grad the forward launches the
+training configuration of the kernel (with the march history when
+``bwd_hist``) and ``backward()`` launches the backward kernel. Both take the
+plain versions only for tensors on the CPU. For CUDA tensors they launch the
+kernels or raise; they never fall back.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from ray_marching_tpu_torch.scene.codegen import SdfProgram
 LANES = 128
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_SOURCES = ("render_fwd.cu", "sdf_prims.cuh")
+KERNEL_UNITS = ("render_fwd.cu", "render_bwd.cu")
+KERNEL_SOURCES = KERNEL_UNITS + ("sdf_prims.cuh", "render_consts.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     # Op-for-op parity with the plain version: no FMA contraction, and no
@@ -46,8 +53,17 @@ NVCC_FLAGS = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: Kernel launches so far (the wrapper adds one per launch, nowhere else).
+#: Forward-kernel launches so far (the wrapper adds one per launch, nowhere
+#: else; the backward kernel counts its own in backward_kernel.LAUNCHES).
 LAUNCHES = 0
+#: Whether a differentiated forward logs its march history for the backward
+#: kernel; the counterpart of the JAX package's RM_TPU_BWD_HIST, and the one
+#: default (the ``bwd_hist`` argument of the two entry points is the one
+#: override). The other choice is the backward kernel's own recompute; the
+#: two give bitwise the same gradients. PERF.md has both times on the H100.
+#: There is no size cap: a history that does not fit fails in its
+#: allocation with the card's out-of-memory error.
+BWD_HIST = True
 #: nvcc/ptxas output of each build, keyed by build hash.
 BUILD_LOG: dict = {}
 
@@ -75,7 +91,7 @@ def kernel_key(program: SdfProgram) -> str:
 
 
 def _lib_path(key: str) -> Path:
-    return BUILD_DIR / key / "librender_fwd.so"
+    return BUILD_DIR / key / "librender.so"
 
 
 def build_kernels(programs) -> None:
@@ -92,9 +108,9 @@ def build_kernels(programs) -> None:
             out_dir = BUILD_DIR / key
             out_dir.mkdir(parents=True, exist_ok=True)
             (out_dir / "scene_sdf.cuh").write_text(program.cuda_source())
-            tmp = out_dir / f"librender_fwd.so.tmp{os.getpid()}"
+            tmp = out_dir / f"librender.so.tmp{os.getpid()}"
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
-                   "-o", str(tmp), str(CSRC / "render_fwd.cu")]
+                   "-o", str(tmp), *(str(CSRC / u) for u in KERNEL_UNITS)]
             procs.append((key, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -120,12 +136,23 @@ def _load(program: SdfProgram):
     if lib is None:
         build_kernels([program])
         lib = ctypes.CDLL(str(_lib_path(key)))
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for name in ("rm_render_fwd_f32", "rm_render_fwd_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
+            fn.restype = i32
+        for name in ("rm_render_fwd_train_f32", "rm_render_fwd_train_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32, ptr, ptr, ptr,
+                           ptr, ptr]
+            fn.restype = i32
+        for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, ptr, ptr,
+                           ptr, i64, i32, i64, i32, ptr, ptr]
+            fn.restype = i32
+        lib.rm_render_bwd_block.argtypes = []
+        lib.rm_render_bwd_block.restype = i32
         _LIBS[key] = lib
     _BOUND[program] = lib
     return lib
@@ -166,73 +193,328 @@ def _check(program, params_flat, rays7, steps):
         raise ValueError(f"steps must be a non-negative int, got {steps!r}")
 
 
-def fused_march_normals(program: SdfProgram, params_flat, rays7, steps, tau,
-                        normals_eps):
-    """rays7 (7, rows, 128) → (8, rows, 128): x y z d nx ny nz lap.
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
-    ``program`` is the scene (:class:`scene.codegen.SdfProgram`),
-    ``params_flat`` its flat parameter vector
-    (:func:`ops.params.split_params_padded`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+
+def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
+                  normals_eps, track_min=False, log_hist=False,
+                  track_argpos=False):
+    """One forward march, not differentiable: ``(out, extras)``.
+
+    ``out`` is (8, rows, 128), or (9, rows, 128) with ``track_min`` (plane 8
+    is ``min_f``). ``extras`` holds what was asked for: ``amin`` (int32
+    arg-min step, with ``track_min`` and ``log_hist``), ``argpos``
+    (3, rows, 128), ``hist`` (steps + 1, 3, rows, 128) and ``nlive`` (int32
+    live-step count). With none of the options this is the serving
+    configuration of the kernel. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     global LAUNCHES
     _check(program, params_flat, rays7, steps)
     if rays7.device.type == "cpu":
-        return reference_march_normals(program, params_flat, rays7, steps,
-                                       tau, normals_eps)
+        return _reference_march(program, params_flat, rays7, steps, tau,
+                                normals_eps, track_min, log_hist,
+                                track_argpos)
     if rays7.device.type != "cuda":
         raise ValueError(f"unsupported device {rays7.device}")
     if not (rays7.is_contiguous() and params_flat.is_contiguous()):
         raise ValueError("rays7 and params_flat must be contiguous")
     lib = _load(program)
-    out = torch.empty((8,) + tuple(rays7.shape[1:]), dtype=rays7.dtype,
-                      device=rays7.device)
-    consts = _host_consts(rays7.dtype, tau, normals_eps)
-    fn = (lib.rm_render_fwd_f32 if rays7.dtype == torch.float32
-          else lib.rm_render_fwd_f64)
-    with torch.cuda.device(rays7.device):
-        stream = torch.cuda.current_stream(rays7.device).cuda_stream
+    plane_shape = tuple(rays7.shape[1:])
+    dev, dtype = rays7.device, rays7.dtype
+    out = torch.empty((9 if track_min else 8,) + plane_shape, dtype=dtype,
+                      device=dev)
+    consts = _host_consts(dtype, tau, normals_eps)
+    consts_p = consts.ctypes.data_as(ctypes.c_void_p)
+    n = rays7.shape[1] * LANES
+    f32 = dtype == torch.float32
+    extras = {}
+    if track_min and log_hist:
+        extras["amin"] = torch.empty(plane_shape, dtype=torch.int32,
+                                     device=dev)
+    if track_min and track_argpos:
+        extras["argpos"] = torch.empty((3,) + plane_shape, dtype=dtype,
+                                       device=dev)
+    if log_hist:
+        extras["hist"] = torch.empty((int(steps) + 1, 3) + plane_shape,
+                                     dtype=dtype, device=dev)
+        extras["nlive"] = torch.empty(plane_shape, dtype=torch.int32,
+                                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         LAUNCHES += 1
-        err = fn(params_flat.data_ptr(), rays7.data_ptr(), out.data_ptr(),
-                 rays7.shape[1] * LANES, int(steps),
-                 consts.ctypes.data_as(ctypes.c_void_p), stream)
+        if track_min or extras:
+            fn = (lib.rm_render_fwd_train_f32 if f32
+                  else lib.rm_render_fwd_train_f64)
+            err = fn(params_flat.data_ptr(), rays7.data_ptr(), out.data_ptr(),
+                     n, int(steps), consts_p, int(track_min),
+                     _ptr(extras.get("amin")), _ptr(extras.get("argpos")),
+                     _ptr(extras.get("hist")), _ptr(extras.get("nlive")),
+                     stream)
+        else:
+            fn = lib.rm_render_fwd_f32 if f32 else lib.rm_render_fwd_f64
+            err = fn(params_flat.data_ptr(), rays7.data_ptr(), out.data_ptr(),
+                     n, int(steps), consts_p, stream)
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: cudaError {err}")
-    return out
+    return out, extras
 
 
-def reference_march_normals(program: SdfProgram, params_flat, rays7, steps,
-                            tau, normals_eps):
-    """The plain PyTorch version: plane-wise march + normals with the
-    semantics of ``pallas_render._reference_fn`` (forward only)."""
-    npd = _np_dtype(rays7.dtype)
+class _FusedMarch(torch.autograd.Function):
+    """Forward: the kernel's training configuration; backward: the backward
+    kernel (counterpart of the ``custom_vjp`` pairs ``_fwd``/``_bwd`` and
+    ``_fwd_cov``/``_bwd_cov`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
+                track_min, log_hist):
+        out, extras = march_forward(program, params_flat, rays7, steps, tau,
+                                    normals_eps, track_min=track_min,
+                                    log_hist=log_hist)
+        ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist)
+        saved = [params_flat, rays7]
+        if log_hist:
+            saved += [extras["hist"], extras["nlive"]]
+            if track_min:
+                saved += [out[8].clone(), extras["amin"]]
+        ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from ray_marching_tpu_torch.ops.backward_kernel import fused_backward
+
+        program, steps, tau, normals_eps, track_min, log_hist = ctx.cfg
+        params_flat, rays7, *rest = ctx.saved_tensors
+        handoff = {}
+        if log_hist:
+            handoff = dict(hist=rest[0], nlive=rest[1])
+            if track_min:
+                handoff.update(minf=rest[2], amin=rest[3])
+        gflat, grays = fused_backward(program, params_flat, rays7,
+                                      g.contiguous(), steps, tau,
+                                      normals_eps, track_min=track_min,
+                                      **handoff)
+        return gflat, grays, None, None, None, None, None, None
+
+
+def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
+           bwd_hist):
+    if torch.is_grad_enabled() and (params_flat.requires_grad
+                                    or rays7.requires_grad):
+        return _FusedMarch.apply(params_flat, rays7, program, steps, tau,
+                                 normals_eps, track_min,
+                                 BWD_HIST if bwd_hist is None
+                                 else bool(bwd_hist))
+    return march_forward(program, params_flat, rays7, steps, tau,
+                         normals_eps, track_min=track_min)[0]
+
+
+def fused_march_normals(program: SdfProgram, params_flat, rays7, steps, tau,
+                        normals_eps, bwd_hist=None):
+    """rays7 (7, rows, 128) → (8, rows, 128): x y z d nx ny nz lap.
+
+    ``program`` is the scene (:class:`scene.codegen.SdfProgram`),
+    ``params_flat`` its flat parameter vector
+    (:func:`ops.params.split_params_padded`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel. Differentiable in
+    ``params_flat`` and ``rays7``; ``bwd_hist`` chooses between the history
+    handoff and the backward kernel's recompute (see :data:`BWD_HIST`)."""
+    return _fused(program, params_flat, rays7, steps, tau, normals_eps, False,
+                  bwd_hist)
+
+
+def fused_march_normals_cov(program: SdfProgram, params_flat, rays7, steps,
+                            tau, normals_eps, bwd_hist=None):
+    """Coverage variant: (9, rows, 128), the 8 planes of
+    :func:`fused_march_normals` plus the along-ray closest approach
+    ``min_f`` (plane 8), the carrier of silhouette gradients
+    (render/silhouette.py). Its cotangent is routed to the arg-min march
+    step inside the backward kernel."""
+    return _fused(program, params_flat, rays7, steps, tau, normals_eps, True,
+                  bwd_hist)
+
+
+class _FusedMarchIFT(torch.autograd.Function):
+    """Same forward kernel, O(1) backward by the implicit function theorem
+    (counterpart of ``fused_march_normals_ift`` / ``_cov_ift`` of the JAX
+    package, whose backward is tensor code outside any kernel too): no
+    reverse sweep. Exact on converged rays; silhouette gradients differ
+    from the unrolled backward."""
+
+    @staticmethod
+    def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
+                track_min, hit_threshold, denom_eps):
+        out, extras = march_forward(program, params_flat, rays7, steps, tau,
+                                    normals_eps, track_min=track_min,
+                                    track_argpos=track_min)
+        ctx.cfg = (program, tau, normals_eps, hit_threshold, denom_eps)
+        ctx.save_for_backward(params_flat, rays7, out.clone(),
+                              *([extras["argpos"]] if track_min else []))
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        params_flat, rays7, out, *argpos = ctx.saved_tensors
+        gflat, grays = _ift_backward(*ctx.cfg, params_flat, rays7, out, g,
+                                     argpos[0] if argpos else None)
+        return gflat, grays, None, None, None, None, None, None, None
+
+
+def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
+                  params_flat, rays7, out, g, argpos):
+    """IFT routing at the fixed point (``_ift_bwd`` / ``_cov_ift_bwd`` of
+    the JAX package): the tail's VJP into the endpoint, then
+    ``w = −(g·v)/(∇f·v)`` on hit rays carries the endpoint cotangent to the
+    parameters through one VJP of f; with ``argpos`` the ``min_f`` cotangent
+    goes through f at the arg-min position, held fixed. Pad slots are left
+    out before anything is evaluated."""
+    sdf = program.sdf_c
+    off, inv, lap_scale, _ = _plain_consts(rays7.dtype, tau, normals_eps)
+    valid = (rays7[6] > 0.5).reshape(-1)
+    pick = lambda plane: plane.reshape(-1)[valid].detach()  # noqa: E731
+    px, py, pz, vx, vy, vz = (pick(rays7[i]) for i in range(6))
+    gv = [pick(g[i]) for i in range(g.shape[0])]
+    d_star = pick(out[3])
+    flat = params_flat.detach().requires_grad_(True)
+    end = [pick(out[i]).requires_grad_(True) for i in range(3)]
+    with torch.enable_grad():
+        params = program.rebuild(flat)
+        tail = _tail_planes(sdf, params, *end, off, inv, lap_scale)
+        f = sdf(params, *end)
+    gtheta, gx, gy, gz = torch.autograd.grad(tail, [flat] + end, gv[3:8],
+                                             allow_unused=True)
+    gtheta = torch.zeros_like(flat) if gtheta is None else gtheta
+    gx, gy, gz = gx + gv[0], gy + gv[1], gz + gv[2]
+    nfx, nfy, nfz = torch.autograd.grad(f, end, torch.ones_like(f),
+                                        retain_graph=True)
+    denom = vx * nfx + vy * nfy + vz * nfz
+    safe = torch.where(denom.abs() < denom_eps,
+                       torch.where(denom < 0, -denom_eps, denom_eps), denom)
+    hit = d_star.abs() < hit_threshold
+    w = torch.where(hit, -(gx * vx + gy * vy + gz * vz) / safe, 0.0)
+    (gmarch,) = torch.autograd.grad(f, flat, w, allow_unused=True)
+    if gmarch is not None:
+        gtheta = gtheta + gmarch
+    x, y, z = (e.detach() for e in end)
+    t_star = (x - px) * vx + (y - py) * vy + (z - pz) * vz
+    gp = [gx + nfx * w, gy + nfy * w, gz + nfz * w]
+    planes = gp + [t_star * c for c in gp]
+    if argpos is not None:
+        pm = [pick(argpos[i]).requires_grad_(True) for i in range(3)]
+        with torch.enable_grad():
+            fm = sdf(params, *pm)
+        dtheta, *gm = torch.autograd.grad(fm, [flat] + pm, gv[8],
+                                          allow_unused=True)
+        if dtheta is not None:
+            gtheta = gtheta + dtheta
+        xm, ym, zm = (c.detach() for c in pm)
+        t_m = (xm - px) * vx + (ym - py) * vy + (zm - pz) * vz
+        planes = [a + b for a, b in zip(planes, gm + [t_m * c for c in gm])]
+    grays = torch.zeros((7, valid.shape[0]), dtype=rays7.dtype,
+                        device=rays7.device)
+    for i, plane in enumerate(planes):
+        grays[i, valid] = plane
+    return gtheta.detach(), grays.reshape(rays7.shape)
+
+
+def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,
+                            tau, normals_eps, hit_threshold=0.05,
+                            denom_eps=1e-6, track_min=False):
+    """:func:`fused_march_normals` (``track_min``: ``_cov``) with the
+    implicit-function-theorem backward: the forward kernel, then plain
+    PyTorch at the endpoint; with ``track_min`` the ``min_f`` gradient takes
+    the arg-min position (a further kernel output) as fixed."""
+    if torch.is_grad_enabled() and (params_flat.requires_grad
+                                    or rays7.requires_grad):
+        return _FusedMarchIFT.apply(params_flat, rays7, program, steps, tau,
+                                    normals_eps, track_min, hit_threshold,
+                                    denom_eps)
+    return march_forward(program, params_flat, rays7, steps, tau,
+                         normals_eps, track_min=track_min)[0]
+
+
+def _tail_planes(sdf, params, x, y, z, offsets, inverse, lap_scale):
+    """Terminal distance, normals and Laplacian at (x, y, z), unmasked."""
+    d_centre = sdf(params, x, y, z)
+    f = [sdf(params, x + offsets[i][0], y + offsets[i][1], z + offsets[i][2])
+         for i in range(4)]
+    d1, d2, d3 = f[1] - f[0], f[2] - f[0], f[3] - f[0]
+    nx = inverse[0][0] * d1 + inverse[0][1] * d2 + inverse[0][2] * d3
+    ny = inverse[1][0] * d1 + inverse[1][1] * d2 + inverse[1][2] * d3
+    nz = inverse[2][0] * d1 + inverse[2][1] * d2 + inverse[2][2] * d3
+    norm = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    mean4 = (f[0] + f[1] + f[2] + f[3]) * 0.25
+    lap = (d_centre - mean4) * lap_scale
+    return d_centre, nx / norm, ny / norm, nz / norm, lap
+
+
+def _plain_consts(dtype, tau, normals_eps):
+    """Offsets, inverse, 6/eps² and tau as python floats rounded to
+    ``dtype`` (the values :func:`_host_consts` hands the kernel)."""
+    c = _host_consts(dtype, tau, normals_eps)
+    off = [[float(c[3 * i + j]) for j in range(3)] for i in range(4)]
+    inv = [[float(c[12 + 3 * i + j]) for j in range(3)] for i in range(3)]
+    return off, inv, float(c[21]), float(c[22])
+
+
+def _reference_march(program, params_flat, rays7, steps, tau, normals_eps,
+                     track_min=False, log_hist=False, track_argpos=False):
+    """The plain PyTorch version of :func:`march_forward`: plane-wise march
+    + normals with the semantics of ``pallas_render._reference_fn``, and the
+    training outputs as the kernel defines them (strict ``<`` updates of
+    ``min_f``, so the first attaining step wins)."""
     sdf = program.sdf_c
     params = program.rebuild(params_flat)
     x, y, z, dx, dy, dz = (rays7[i] for i in range(6))
     valid = rays7[6] > 0.5
-    offsets, inverse = make_offsets(normals_eps, np_dtype=npd)
-    off = [[float(v) for v in row] for row in offsets]
-    inv = [[float(v) for v in row] for row in inverse]
-    tau_t = float(npd(tau))
-    for _ in range(int(steps)):
+    off, inv, lap_scale, tau_t = _plain_consts(rays7.dtype, tau, normals_eps)
+    big = torch.finfo(rays7.dtype).max
+    minf = torch.full_like(x, big)
+    amin = torch.full(x.shape, -1, dtype=torch.int32, device=x.device)
+    argpos = (x, y, z)
+    nlive = torch.zeros_like(amin)
+    hist = []
+    for s in range(int(steps)):
+        if log_hist:
+            hist.append(torch.stack((x, y, z)))
         d = sdf(params, x, y, z)
+        if track_min:
+            take = (d < minf) & valid
+            minf = torch.where(take, d, minf)
+            amin = torch.where(take, s, amin)
+            if track_argpos:
+                argpos = tuple(torch.where(take, c, a)
+                               for c, a in zip((x, y, z), argpos))
         live = valid if tau_t == 0.0 else (torch.abs(d) >= tau_t) & valid
+        nlive = nlive + live.to(torch.int32)
         x = torch.where(live, x + d * dx, x)
         y = torch.where(live, y + d * dy, y)
         z = torch.where(live, z + d * dz, z)
-    d_centre = torch.where(valid, sdf(params, x, y, z), 0.0)
-    f = [sdf(params, x + off[i][0], y + off[i][1], z + off[i][2])
-         for i in range(4)]
-    d1, d2, d3 = f[1] - f[0], f[2] - f[0], f[3] - f[0]
-    nx = inv[0][0] * d1 + inv[0][1] * d2 + inv[0][2] * d3
-    ny = inv[1][0] * d1 + inv[1][1] * d2 + inv[1][2] * d3
-    nz = inv[2][0] * d1 + inv[2][1] * d2 + inv[2][2] * d3
-    norm = torch.sqrt(nx * nx + ny * ny + nz * nz)
-    mean4 = (f[0] + f[1] + f[2] + f[3]) * 0.25
-    lap = (d_centre - mean4) * float(npd(6.0 / normals_eps**2))
-    planes = [x, y, z, d_centre] + [
-        torch.where(valid, v, 0.0) for v in (nx / norm, ny / norm, nz / norm, lap)
-    ]
-    return torch.stack(planes, dim=0)
+    d_centre, nx, ny, nz, lap = _tail_planes(sdf, params, x, y, z, off, inv,
+                                             lap_scale)
+    planes = [x, y, z] + [torch.where(valid, v, 0.0)
+                          for v in (d_centre, nx, ny, nz, lap)]
+    if track_min:
+        planes.append(minf)
+    extras = {}
+    if track_min and log_hist:
+        extras["amin"] = amin
+    if track_min and track_argpos:
+        extras["argpos"] = torch.stack(argpos)
+    if log_hist:
+        extras["hist"] = torch.stack(hist + [torch.stack((x, y, z))])
+        extras["nlive"] = nlive
+    return torch.stack(planes, dim=0), extras
+
+
+def reference_march_normals(program: SdfProgram, params_flat, rays7, steps,
+                            tau, normals_eps):
+    """The plain PyTorch version of the serving configuration."""
+    return _reference_march(program, params_flat, rays7, steps, tau,
+                            normals_eps)[0]
 
 
 #: Ray-dependent operations per valid ray outside the SDF evaluations:

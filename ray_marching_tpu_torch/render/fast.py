@@ -10,10 +10,13 @@ one:
   plain PyTorch version on the CPU) → componentwise shaders → one reshape
   to ``(N, H, W, 3)``.
 
-Forward only in this slice. Not ported yet (they raise
-``NotImplementedError``): the extra lighting modes (``occlusion``,
-``shaded``), ``render_with_alpha``, ``backward="implicit"`` and
-``cmap_fourier``.
+``render`` and ``render_with_alpha`` are differentiable in the scene
+parameters and the camera pose: the march is a ``torch.autograd.Function``
+whose backward is the backward kernel, posing and shading are plain torch.
+``RenderConfig.backward="implicit"`` swaps the backward kernel for the
+implicit-function-theorem backward (plain torch at the endpoint). Not ported
+yet (they raise ``NotImplementedError``): the extra lighting modes
+(``occlusion``, ``shaded``) and ``cmap_fourier``.
 """
 
 from __future__ import annotations
@@ -26,9 +29,14 @@ import torch
 from ray_marching_tpu_torch import quat
 from ray_marching_tpu_torch.camera import _pixel_center_grid
 from ray_marching_tpu_torch.ops.params import split_params_padded
-from ray_marching_tpu_torch.ops.render_kernel import fused_march_normals
+from ray_marching_tpu_torch.ops.render_kernel import (
+    fused_march_normals,
+    fused_march_normals_cov,
+    fused_march_normals_ift,
+)
 from ray_marching_tpu_torch.render import shaders
 from ray_marching_tpu_torch.render.pipeline import RenderConfig
+from ray_marching_tpu_torch.render.silhouette import soft_coverage
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 from ray_marching_tpu_torch.scene.graph import Node, compile_scene
 from ray_marching_tpu_torch.utils import clamp, rmax, rmin
@@ -53,8 +61,8 @@ def resolve_device(device) -> torch.device:
 
 def _not_ported(what):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes after the first (forward "
-        "serving) slice of the PyTorch port (see ROADMAP.md)"
+        f"{what} is not ported yet: it comes with a later slice of the "
+        "PyTorch port (see ROADMAP.md)"
     )
 
 
@@ -65,7 +73,7 @@ def _to_planes(flat: np.ndarray, rows: int) -> np.ndarray:
 
 
 class FastRenderer:
-    """Fast forward renderer over ``(rows, 128)`` planes.
+    """Fast forward/backward renderer over ``(rows, 128)`` planes.
 
     Multi-camera batches stack each camera's ray grid along the plane rows;
     the kernel runs once over all cameras, and the global min/max shader
@@ -74,8 +82,9 @@ class FastRenderer:
 
     def __init__(self, scene: Node, config: RenderConfig, dtype=torch.float32,
                  grid_dtype=np.float32, device="cuda"):
-        if config.backward != "unroll":
-            raise _not_ported(f"backward={config.backward!r}")
+        if config.backward not in ("unroll", "implicit"):
+            raise ValueError(f"backward must be unroll|implicit, got "
+                             f"{config.backward!r}")
         if config.cmap_fourier:
             raise _not_ported("cmap_fourier")
         self.device = resolve_device(device)
@@ -225,19 +234,33 @@ class FastRenderer:
 
     # -- public API --------------------------------------------------------
 
-    def _march_planes(self, params, origin, dirs, steps):
+    def _march_planes(self, params, origin, dirs, steps, with_closest=False):
         """Fused march (+ reflection bounces, mirror formula of the JAX
-        renderer); returns the 8 hit planes and the final direction planes."""
+        renderer); returns the 8 hit planes and the final direction planes.
+        ``with_closest`` also returns the closest-approach plane ``min_f``
+        (primary visibility only: no reflection bounces)."""
         cfg = self.config
         flat, _ = split_params_padded(params, self.dtype, self.device)
+        march = fused_march_normals_cov if with_closest else fused_march_normals
 
         def run(origin, dirs):
             rays7 = torch.stack(list(origin) + list(dirs) + [self._valid], 0)
-            out = fused_march_normals(self.program, flat, rays7, steps,
-                                      cfg.tau, cfg.normals_eps)
+            if cfg.backward == "implicit":
+                out = fused_march_normals_ift(
+                    self.program, flat, rays7, steps, cfg.tau,
+                    cfg.normals_eps, cfg.ift_hit_threshold,
+                    cfg.ift_denom_eps, track_min=with_closest)
+            else:
+                out = march(self.program, flat, rays7, steps, cfg.tau,
+                            cfg.normals_eps)
             return list(out.unbind(0))
 
         hit = run(origin, dirs)
+        if with_closest:
+            if cfg.reflection_bounces:
+                raise ValueError("the closest-approach plane excludes "
+                                 "reflection bounces")
+            return hit[:8], dirs, hit[8]
         dx, dy, dz = dirs
         eps = float(torch.tensor(cfg.normals_eps, dtype=self.dtype))
         for _ in range(cfg.reflection_bounces):
@@ -264,8 +287,29 @@ class FastRenderer:
                                hit)
         return self._assemble(channels)
 
-    def render_with_alpha(self, *args, **kwargs):
-        raise _not_ported("render_with_alpha")
+    def render_with_alpha(self, params, orientation, translation, *,
+                          mode: int = 0, degree: int = 1,
+                          marching_steps: Optional[int] = None,
+                          beta: Optional[float] = None):
+        """Render one frame plus a soft silhouette coverage mask
+        ``α = σ(shift − min_f/β)`` (render/silhouette.py); ``min_f`` is the
+        kernel's 9th plane and its gradient is routed to the arg-min march
+        step inside the backward kernel.
+
+        Returns ``(image (N, H, W, 3), alpha (N, H, W, 1))``."""
+        cfg = self.config
+        if cfg.reflection_bounces:
+            raise ValueError("render_with_alpha: reflection bounces unsupported")
+        steps = cfg.marching_steps if marching_steps is None else marching_steps
+        beta = cfg.silhouette_beta if beta is None else beta
+        orientation, translation = self._pose(orientation, translation)
+        origin, dirs = self._pose_planes(orientation, translation)
+        hit, final_dirs, minf = self._march_planes(params, origin, dirs, steps,
+                                                   with_closest=True)
+        channels = self._shade(mode, degree, orientation, origin, final_dirs,
+                               hit)
+        return (self._assemble(channels),
+                self._assemble([soft_coverage(minf, beta)]))
 
     def _assemble(self, channels):
         h, w = self.config.px_height, self.config.px_width

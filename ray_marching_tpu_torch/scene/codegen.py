@@ -15,6 +15,18 @@ small SSA op list and emits it twice:
     wrong offset, op order or tie rule in the generated code on a machine
     without ``nvcc``.
 
+The backward kernel needs the SDF's vector-Jacobian product, which Pallas
+gets by tracing ``jax.vjp`` into the kernel body. Here the adjoint is
+emitted from the same op list, in reverse, one rule per op kind
+(:func:`_append_adjoint`), as further SSA ops behind the primal ones. It is
+emitted twice as well: ``scene_sdf_vjp`` in :meth:`SdfProgram.cuda_source`
+and :meth:`SdfProgram.evaluate_vjp`, which the tests hold against
+``torch.autograd.grad`` of :meth:`SdfProgram.evaluate`. A select sends its
+cotangent to the chosen branch only (exact zeros to the other), ``abs`` has
+slope 0 at 0, ``sqrt`` is ``g / (2·sqrt(x))``, and the smooth-union ``max``
+follows ``torch.maximum`` (a tie takes half each). Values that depend on
+parameters alone still carry a per-ray cotangent back to their parameters.
+
 Each op of the list is one IEEE operation in the order of the plain SDF;
 selects keep the select semantics of ``utils.vmin``/``vmax``/``clamp`` (a NaN
 compare takes the false branch), and the smooth-union max propagates NaN like
@@ -24,6 +36,8 @@ Op count convention (:meth:`SdfProgram.op_counts`): one per add, sub, mul,
 div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
 the query point. Parameter loads and arithmetic on parameters alone are not
 counted (they do not depend on the ray and may be hoisted out of the march).
+Every adjoint op depends on the ray's cotangent, so all of them count
+(:attr:`SdfProgram.vjp_ops_per_eval`).
 """
 
 from __future__ import annotations
@@ -65,6 +79,9 @@ _OPS = {
     # sel_lt(a, b, t, f) = a < b ? t : f; sel_gt likewise with >.
     "sel_lt": (4, "({0} < {1}) ? {2} : {3}", "select"),
     "sel_gt": (4, "({0} > {1}) ? {2} : {3}", "select"),
+    # Adjoint code only: the slope of abs, and the tie test of max.
+    "sign": (1, "rm_sign({0})", "select"),
+    "sel_eq": (4, "({0} == {1}) ? {2} : {3}", "select"),
 }
 
 COUNT_CLASSES = ("add", "mul", "div", "sqrt", "exp", "log", "abs_neg", "select")
@@ -78,6 +95,10 @@ class _Builder:
         self.ops: List[Tuple] = [("x",), ("y",), ("z",)]
         self.dep: List[bool] = [True, True, True]
         self._memo: Dict[Tuple, int] = {}
+
+    def leaf(self, name):
+        """A ray-dependent input besides x, y, z (the cotangent ``g``)."""
+        return self._push((name,), True)
 
     def _push(self, op, dep):
         self.ops.append(op)
@@ -210,6 +231,61 @@ def _rotate(b, qw, qx, qy, qz, x, y, z):
                  for c, t, v in ((cx, tx, x), (cy, ty, y), (cz, tz, z)))
 
 
+def _append_adjoint(b, out):
+    """Append the reverse-mode ops of the primal list behind it.
+
+    Returns ``(g, adj)``: the id of the cotangent input and a dict from a
+    primal value id to the id that holds its cotangent (absent: no path
+    from the output). Contributions to one value are summed in reverse op
+    order, the first one without an add."""
+    n_primal = len(b.ops)
+    g = b.leaf("g")
+    adj = {out: g}
+
+    def acc(arg, val):
+        if b.ops[arg][0] != "const":
+            adj[arg] = val if arg not in adj else b.add(adj[arg], val)
+
+    for i in range(n_primal - 1, 2, -1):
+        kind, args = b.ops[i][0], b.ops[i][1:]
+        if i not in adj or kind in ("param", "const"):
+            continue
+        gi = adj[i]
+        if kind == "add":
+            acc(args[0], gi)
+            acc(args[1], gi)
+        elif kind == "sub":
+            acc(args[0], gi)
+            acc(args[1], b.neg(gi))
+        elif kind == "mul":
+            acc(args[0], b.mul(gi, args[1]))
+            acc(args[1], b.mul(gi, args[0]))
+        elif kind == "div":
+            acc(args[0], b.div(gi, args[1]))
+            acc(args[1], b.neg(b.mul(gi, b.div(i, args[1]))))
+        elif kind == "neg":
+            acc(args[0], b.neg(gi))
+        elif kind == "abs":
+            acc(args[0], b.mul(gi, b.sign(args[0])))
+        elif kind == "sqrt":
+            acc(args[0], b.div(gi, b.mul(b.const(2.0), i)))
+        elif kind == "exp":
+            acc(args[0], b.mul(gi, i))
+        elif kind == "log":
+            acc(args[0], b.div(gi, args[0]))
+        elif kind == "max":
+            zero, half = b.const(0.0), b.mul(gi, b.const(0.5))
+            p, q = args
+            acc(p, b.sel_gt(p, q, gi, b.sel_eq(p, q, half, zero)))
+            acc(q, b.sel_gt(q, p, gi, b.sel_eq(p, q, half, zero)))
+        else:  # sel_lt / sel_gt: to the chosen branch only
+            zero = b.const(0.0)
+            sel = getattr(b, kind)
+            acc(args[2], sel(args[0], args[1], gi, zero))
+            acc(args[3], sel(args[0], args[1], zero, gi))
+    return g, adj
+
+
 def _c_literal(value: float) -> str:
     return f"static_cast<T>({float(value).hex()})"
 
@@ -233,6 +309,19 @@ class SdfProgram:
         self.sdf_c = compile_node(node)
         b = _Builder({s.path: s.offset for s in specs})
         self.out = _lower(node, b, "", 0, 1, 2)
+        self.n_primal = len(b.ops)
+        #: Flat-vector offset of every parameter scalar the scene has, in
+        #: layout order: the compact index of the kernels' parameter
+        #: cotangent (the 128-padding of the segments left out).
+        self.scalar_offsets = [s.offset + j for s in specs
+                               for j in range(s.size)]
+        self.g, adj = _append_adjoint(b, self.out)
+        self.adj_xyz = tuple(adj.get(i) for i in range(3))
+        compact = {off: k for k, off in enumerate(self.scalar_offsets)}
+        #: (compact scalar index, id of its per-ray cotangent), one per
+        #: parameter scalar the output depends on.
+        self.adj_params = [(compact[b.ops[i][1]], a) for i, a in adj.items()
+                           if b.ops[i][0] == "param"]
         self.ops = b.ops
         self.ray_dependent = b.dep
 
@@ -253,10 +342,9 @@ class SdfProgram:
 
         return walk(self._template, "")
 
-    def evaluate(self, flat, x, y, z):
-        """Backend (b): run the op list on tensors."""
-        vals = [x, y, z]
-        for op in self.ops[3:]:
+    def _run(self, flat, vals, start, stop):
+        """Run ops[start:stop] on tensors, appending to ``vals``."""
+        for op in self.ops[start:stop]:
             kind, args = op[0], op[1:]
             if kind == "param":
                 v = flat[args[0]]
@@ -284,25 +372,41 @@ class SdfProgram:
                     v = torch.log(a[0])
                 elif kind == "max":
                     v = torch.maximum(a[0], a[1])
+                elif kind == "sign":
+                    v = torch.sign(a[0])
                 elif kind == "sel_lt":
                     v = torch.where(a[0] < a[1], a[2], a[3])
-                else:  # sel_gt
+                elif kind == "sel_gt":
                     v = torch.where(a[0] > a[1], a[2], a[3])
+                else:  # sel_eq
+                    v = torch.where(a[0] == a[1], a[2], a[3])
             vals.append(v)
-        return vals[self.out]
+        return vals
 
-    def cuda_source(self) -> str:
-        """Backend (a): the ``scene_sdf`` device function, C++ for nvcc."""
-        names = ["x", "y", "z"] + [f"v{i}" for i in range(3, len(self.ops))]
-        lines = [
-            "// Generated by ray_marching_tpu_torch/scene/codegen.py from",
-            f"// {self.node!r}",
-            "template <typename T>",
-            "__device__ __forceinline__ T scene_sdf(const T* __restrict__ P,"
-            " T x, T y, T z) {",
-        ]
-        for i, op in enumerate(self.ops[3:], start=3):
-            kind, args = op[0], op[1:]
+    def evaluate(self, flat, x, y, z):
+        """Backend (b): run the primal op list on tensors."""
+        return self._run(flat, [x, y, z], 3, self.n_primal)[self.out]
+
+    def evaluate_vjp(self, flat, x, y, z, g):
+        """Backend (b) of the adjoint: ``(d, gx, gy, gz, gp)`` for the
+        cotangent ``g`` of ``d``. ``gp`` holds the per-ray parameter
+        cotangents, one tensor per entry of :attr:`scalar_offsets` (``None``
+        where the output does not depend on the scalar); their sums over the
+        rays are the gradient of the flat vector."""
+        vals = self._run(flat, [x, y, z], 3, self.n_primal)
+        vals.append(g)
+        self._run(flat, vals, self.n_primal + 1, len(self.ops))
+        gxyz = [torch.zeros_like(g) if a is None else vals[a]
+                for a in self.adj_xyz]
+        gp = [None] * len(self.scalar_offsets)
+        for k, a in self.adj_params:
+            gp[k] = vals[a]
+        return (vals[self.out], *gxyz, gp)
+
+    def _emit(self, names, start, stop):
+        lines = []
+        for i in range(start, stop):
+            kind, args = self.ops[i][0], self.ops[i][1:]
             if kind == "param":
                 expr = f"P[{args[0]}]"
             elif kind == "const":
@@ -310,13 +414,50 @@ class SdfProgram:
             else:
                 expr = _OPS[kind][1].format(*(names[a] for a in args))
             lines.append(f"  const T {names[i]} = {expr};")
+        return lines
+
+    def cuda_source(self) -> str:
+        """Backend (a): the ``scene_sdf`` and ``scene_sdf_vjp`` device
+        functions, C++ for nvcc."""
+        n, n_all = self.n_primal, len(self.ops)
+        names = ["x", "y", "z"] + [f"v{i}" for i in range(3, n)]
+        lines = [
+            "// Generated by ray_marching_tpu_torch/scene/codegen.py from",
+            f"// {self.node!r}",
+            "#pragma once",
+            f"constexpr int SCENE_N_SCALARS = {len(self.scalar_offsets)};",
+            "",
+            "template <typename T>",
+            "__device__ __forceinline__ T scene_sdf(const T* __restrict__ P,"
+            " T x, T y, T z) {",
+            *self._emit(names, 3, n),
+            f"  return {names[self.out]};",
+            "}",
+            "",
+            "// Vector-Jacobian product: returns d, writes the cotangent of",
+            "// (x, y, z) for the cotangent g of d, and adds the parameter",
+            "// cotangents to gP (SCENE_N_SCALARS values, layout order).",
+            "template <typename T>",
+            "__device__ __forceinline__ T scene_sdf_vjp(const T* __restrict__"
+            " P, T x, T y, T z, T g, T& gx, T& gy, T& gz, T* gP) {",
+        ]
+        # Primal values are w*, adjoint temporaries a*.
+        names = (["x", "y", "z"] + [f"w{i}" for i in range(3, n)] + ["g"]
+                 + [f"a{i}" for i in range(n + 1, n_all)])
+        lines += self._emit(names, 3, n) + self._emit(names, n + 1, n_all)
+        for out, a in zip(("gx", "gy", "gz"), self.adj_xyz):
+            lines.append(f"  {out} = "
+                         f"{'static_cast<T>(0)' if a is None else names[a]};")
+        for k, a in self.adj_params:
+            lines.append(f"  gP[{k}] = gP[{k}] + {names[a]};")
         lines += [f"  return {names[self.out]};", "}", ""]
         return "\n".join(lines)
 
     def op_counts(self) -> Dict[str, int]:
         """Ray-dependent ops of one SDF evaluation, by class."""
         counts = dict.fromkeys(COUNT_CLASSES, 0)
-        for op, dep in zip(self.ops[3:], self.ray_dependent[3:]):
+        for op, dep in zip(self.ops[3:self.n_primal],
+                           self.ray_dependent[3:self.n_primal]):
             if dep and op[0] in _OPS:
                 counts[_OPS[op[0]][2]] += 1
         return counts
@@ -324,3 +465,11 @@ class SdfProgram:
     @property
     def ops_per_eval(self) -> int:
         return sum(self.op_counts().values())
+
+    @property
+    def vjp_ops_per_eval(self) -> int:
+        """Ops of one ``scene_sdf_vjp``: the primal evaluation, every
+        adjoint op, and one add per parameter scalar it accumulates."""
+        adjoint = sum(1 for op in self.ops[self.n_primal + 1:]
+                      if op[0] in _OPS)
+        return self.ops_per_eval + adjoint + len(self.adj_params)

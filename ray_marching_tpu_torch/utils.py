@@ -3,9 +3,14 @@
 ``clamp``, ``vmin`` and ``vmax`` are ``where`` selects, never
 ``torch.clamp``/``torch.minimum``: a select passes a NaN operand through
 exactly as the JAX package does (``where(b < a, b, a)`` keeps ``a`` when
-``b`` is NaN), and it is the form whose backward routes the cotangent to the
-winner only. ``rmin``/``rmax`` are forward-only whole-tensor reductions here;
-their select backward comes with the training slice.
+``b`` is NaN), and its backward routes the cotangent to the winner only:
+``torch.where``'s backward is itself a select, so the losing branch gets
+exact zeros even for a NaN cotangent (never ``NaN·0``).
+
+``rmin``/``rmax`` are whole-tensor reductions whose backward is a select
+too: ``where(x == m, g / n_ties, 0)``. Ties split evenly, and a NaN
+cotangent stays on the tied elements instead of spreading over the tensor.
+The cross-shard forms (``prmin``/``prmax``) come with the parallel slice.
 """
 
 from __future__ import annotations
@@ -32,11 +37,28 @@ def vmax(a, b):
     return torch.where(b > a, b, a)
 
 
+class _SelectReduce(torch.autograd.Function):
+    """Whole-tensor extremum with the select backward."""
+
+    @staticmethod
+    def forward(ctx, x, take_max):
+        m = torch.amax(x) if take_max else torch.amin(x)
+        ctx.save_for_backward(x, m)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        mask = x == m
+        return torch.where(mask, g / mask.sum(), torch.zeros_like(x)), None
+
+
 def rmin(x):
-    """Whole-tensor min (forward only)."""
-    return torch.amin(x)
+    """Whole-tensor min; the cotangent goes to the arg-min elements only,
+    split evenly over ties."""
+    return _SelectReduce.apply(x, False)
 
 
 def rmax(x):
-    """Whole-tensor max (forward only)."""
-    return torch.amax(x)
+    """Whole-tensor max (see :func:`rmin`)."""
+    return _SelectReduce.apply(x, True)

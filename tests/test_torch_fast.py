@@ -156,10 +156,27 @@ def test_default_device_needs_cuda():
 @pytest.mark.parametrize("what", ["implicit", "cmap_fourier", "occlusion",
                                   "alpha", "extras"])
 def test_unported_options_raise(what):
+    """What the port does not run yet raises NotImplementedError; what the
+    training slice ported (``backward="implicit"``, ``render_with_alpha``)
+    now runs, and only rejects what the JAX package rejects too."""
     scene = treg.make_scene("test_scene2")
     kw = _cfg_kwargs(16, 8)
     if what == "implicit":
-        kw["backward"] = "implicit"
+        with pytest.raises(ValueError, match="unroll|implicit"):
+            FastRenderer(scene, RenderConfig(backward="adjoint", **kw),
+                         dtype=torch.float64, device="cpu")
+        r = FastRenderer(scene, RenderConfig(backward="implicit", **kw),
+                         dtype=torch.float64, device="cpu")
+        q, t = r.default_pose()
+        assert r.render(r.init_params, q, t).shape == (1, 8, 16, 3)
+        return
+    if what == "alpha":
+        r = FastRenderer(scene, RenderConfig(reflection_bounces=1, **kw),
+                         dtype=torch.float64, device="cpu")
+        q, t = r.default_pose()
+        with pytest.raises(ValueError, match="reflection bounces"):
+            r.render_with_alpha(r.init_params, q, t)
+        return
     if what == "cmap_fourier":
         kw["cmap_fourier"] = True
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -168,8 +185,6 @@ def test_unported_options_raise(what):
         q, t = r.default_pose()
         if what == "occlusion":
             r.render(r.init_params, q, t, mode="occlusion")
-        elif what == "alpha":
-            r.render_with_alpha(r.init_params, q, t)
         elif what == "extras":
             r.render_all_modes(r.init_params, q, t, extras=True)
 

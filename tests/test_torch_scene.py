@@ -150,16 +150,96 @@ def test_codegen_torch_backend_equals_plain_sdf(name, dtype):
     assert torch.equal(program.sdf_c(program.rebuild(flat), *p)[ok], want[ok])
 
 
+@pytest.mark.parametrize("name", SCENES + ("all_nodes",))
+def test_codegen_adjoint_equals_autograd(name):
+    """The adjoint op list (what scene_sdf_vjp is emitted from) against
+    torch.autograd.grad of the primal evaluator, every node kind: position
+    cotangents and the per-scalar parameter cotangents summed over the
+    points. Both apply the same rule per op, so f64 agrees to rounding
+    (1e-12 relative to the largest entry); points include the origin."""
+    node = _scene(tgraph, treg, name)
+    program = SdfProgram(node)
+    flat, _ = t_split(tgraph.init_params(node, torch.float64), torch.float64)
+    flat = flat.clone().requires_grad_(True)
+    pts = _points(8)
+    pts[:, :8] = 1e-3  # near the origin, off the sqrt(0) singularities
+    p = [torch.as_tensor(c).requires_grad_(True) for c in pts]
+    g = torch.as_tensor(np.random.default_rng(9).normal(size=pts.shape[1]))
+    d = program.evaluate(flat, *p)
+    want = torch.autograd.grad(d, [flat] + p, g, allow_unused=True)
+    got_d, gx, gy, gz, gp = program.evaluate_vjp(
+        flat.detach(), *[c.detach() for c in p], g)
+    assert torch.equal(got_d, d.detach())
+    for got, ref in zip((gx, gy, gz), want[1:]):
+        ref = torch.zeros_like(got) if ref is None else ref
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+    gflat = torch.zeros_like(flat)
+    assert len(gp) == len(program.scalar_offsets)
+    for off, t in zip(program.scalar_offsets, gp):
+        if t is not None:
+            gflat[off] = t.sum()
+    ref = torch.zeros_like(gflat) if want[0] is None else want[0]
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(gflat.detach(), ref, rtol=0, atol=1e-12 * scale)
+    # Every scalar of the layout has a slot; pads of the segments have none.
+    assert program.scalar_offsets == [s.offset + j for s in program.specs
+                                      for j in range(s.size)]
+
+
+@pytest.mark.parametrize("kind", ["abs0", "sqrt0", "sel_tie", "max_tie"])
+def test_codegen_adjoint_rules_at_ties(kind):
+    """The rules where the derivative is a convention: abs has slope 0 at 0,
+    sqrt is infinite at 0, a select gives the losing branch exact zeros (a
+    tie keeps the first child), and the smooth-union max splits a tie in
+    half like torch.maximum. Each against autograd of the plain SDF."""
+    if kind == "abs0":
+        node, pt = tgraph.Onion(tgraph.Sphere(radius=0.5), radius=0.1), (0.5, 0.0, 0.0)
+    elif kind == "sqrt0":
+        node, pt = tgraph.Sphere(radius=0.5), (0.0, 0.0, 0.0)
+    elif kind == "sel_tie":
+        node = tgraph.Union(children=(tgraph.Sphere(radius=0.5),
+                                      tgraph.Sphere(radius=0.5)))
+        pt = (0.3, 0.4, 1.0)
+    else:
+        node = tgraph.SmoothUnion(children=(tgraph.Sphere(radius=0.5),
+                                            tgraph.Sphere(radius=0.5)),
+                                  blend_k=8.0)
+        pt = (0.3, 0.4, 1.0)
+    program = SdfProgram(node)
+    params = tgraph.init_params(node, torch.float64)
+    flat, _ = t_split(params, torch.float64)
+    flat = flat.clone().requires_grad_(True)
+    p = [torch.tensor([c], dtype=torch.float64, requires_grad=True) for c in pt]
+    g = torch.tensor([1.5], dtype=torch.float64)
+    d = program.sdf_c(program.rebuild(flat), *p)
+    want = torch.autograd.grad(d, [flat] + p, g)
+    _, gx, gy, gz, gp = program.evaluate_vjp(flat.detach(),
+                                            *[c.detach() for c in p], g)
+    for got, ref in zip((gx, gy, gz), want[1:]):
+        torch.testing.assert_close(got, ref, rtol=1e-14, atol=0,
+                                   equal_nan=True)
+    for off, t in zip(program.scalar_offsets, gp):
+        torch.testing.assert_close(t.sum(), want[0][off], rtol=1e-14, atol=0,
+                                   equal_nan=True)
+
+
 def test_codegen_cuda_source_reads_every_param():
     node = _all_nodes_scene(tgraph)
     program = SdfProgram(node)
     src = program.cuda_source()
     assert "T scene_sdf(const T* __restrict__ P, T x, T y, T z)" in src
-    assert src.count("  const T v") == len(program.ops) - 3
+    assert src.count("  const T v") == program.n_primal - 3
     for spec in program.specs:
         for i in range(spec.size):
             assert f"P[{spec.offset + i}]" in src, spec
     assert "fminf" not in src and "fmaxf" not in src
+    # The adjoint: one statement per op behind the primal ones, and one
+    # accumulator per scalar the output depends on.
+    assert "T scene_sdf_vjp(const T* __restrict__ P, T x, T y, T z, T g," in src
+    assert f"constexpr int SCENE_N_SCALARS = {len(program.scalar_offsets)};" in src
+    assert src.count("  const T w") == program.n_primal - 3
+    assert src.count("  const T a") == len(program.ops) - program.n_primal - 1
+    assert src.count("  gP[") == len(program.adj_params) == 24
 
 
 def test_codegen_op_count_test_scene2():
