@@ -5,15 +5,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--out DIR]
 
-It builds the CUDA kernels (forward and backward, one library per scene it
-uses; nvcc, all builds started together), holds each kernel against its
-plain PyTorch version on the card, drives the main paths through the
-kernels and counts their launches (serving: ``FastRenderer.render``,
-test_scene2, 1920×1080, 32 steps, mode 0, degree 2; training:
-``optim.inverse.optimize`` on the same setup, with and without the
-silhouette loss, and with the implicit backward), checks the outputs (golden images and golden gradients in
-f64), times kernels, plain versions, frame and training step with CUDA
-events and the profiler, and prints:
+It builds the CUDA kernels (forward, backward and march, one library per
+scene it uses; one nvcc process per source, all started together), holds
+each kernel against its plain PyTorch version on the card, drives the main
+paths through the kernels and counts their launches (serving:
+``FastRenderer.render``, test_scene2, 1920×1080, 32 steps, mode 0, degree 2;
+training: ``optim.inverse.optimize`` on the same setup, with and without the
+silhouette loss, with the implicit backward and with the two-level backward;
+the modular pipeline: ``Renderer`` with ``use_pallas=True`` at the same
+setup, a frame, a frame with a reflection bounce, all 8 modes and one
+gradient), checks the outputs (golden images and golden gradients in f64),
+times kernels, plain versions, frames and training step with CUDA events
+and the profiler, and prints:
 
 - the card's name and power limit, the torch/CUDA/nvcc versions and the
   ``-Xptxas -v`` report of each build;
@@ -75,7 +78,18 @@ TOL_BWD = {"f32": 1e-4, "f64": 1e-10}
 #: and atol 1e-9, the rtol loosened to 1e-6 because the card's
 #: log/pow/atan2 may differ from the CPU libm behind the golden by an ulp.
 GOLDEN_GRAD_RTOL, GOLDEN_GRAD_ATOL = 1e-6, 1e-9
-TRAIN_STEPS, SILHOUETTE_STEPS, IMPLICIT_STEPS = 5, 3, 3
+TRAIN_STEPS, SILHOUETTE_STEPS, IMPLICIT_STEPS, TWO_LEVEL_STEPS = 5, 3, 3, 3
+#: The modular frame (plain torch normals and shading around the march
+#: kernel) against the plane-native frame (everything in the fused kernel)
+#: of the same configuration, f32, lambertian in [0, 1], on converged
+#: pixels: the two compute the tetrahedral normals with the same formula but
+#: torch reduces the (..., 4, 3) offsets and the norms in another order, and
+#: the finite difference divides that rounding by eps = 0.05. At most 0.1 %
+#: of the converged pixels may differ by more.
+MODULAR_VS_FAST_ATOL = 1e-3
+#: Where the history stops fitting comfortably: the backward at this step
+#: count is timed with the history and with two levels.
+LONG_STEPS = 128
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +131,20 @@ def main_rays(renderer, q, t):
     flat, _ = split_params_padded(renderer.init_params, renderer.dtype,
                                   renderer.device)
     return flat, rays7
+
+
+def modular_rays(renderer, q, t):
+    """The (7, rows, 128) ray planes and flat params that ``Renderer._march``
+    hands the march kernel: the camera's posed rays in ``kernel_march``'s own
+    layout, padded to whole rows only."""
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops.params import split_params_padded
+
+    _, _, ray_pos, ray_dirs = renderer.camera.pose(renderer._tensor(q),
+                                                   renderer._tensor(t))
+    flat, _ = split_params_padded(renderer.init_params, renderer.dtype,
+                                  renderer.device)
+    return flat, mk.rays_to_planes(ray_pos, ray_dirs).contiguous()
 
 
 def compare(label, program, flat, rays7, tau, f64):
@@ -280,6 +308,129 @@ def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
     return errs, masked
 
 
+def compare_march(label, program, flat, rays7, tau, f64, backward):
+    """March kernel vs plain version (tolerances of planes 0-3 of the fused
+    kernel, expected bitwise) and vs planes 0-3 of the fused kernel (bitwise,
+    required: one march loop, two kernels). With ``backward`` also its
+    backward, the backward kernel's march-only mode, vs the plain version.
+    Returns the largest absolute difference on converged rays, and the
+    backward's (ray cotangents, parameter cotangent) or None."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    got = mk.march_planes(program, flat, rays7, STEPS, tau)
+    want = mk.reference_march(program, flat, rays7, STEPS, tau)
+    full = rk.fused_march_normals(program, flat, rays7, STEPS, tau, 5e-2)
+    torch.cuda.synchronize()
+    valid = rays7[6] > 0.5
+    conv = valid & (want[3].abs() < CONVERGED)
+    n_conv = int(conv.sum())
+    check(n_conv > 0, f"march {label}: no converged rays")
+    check(bool(same_bits(got, full[:4]).all()),
+          f"march {label}: differs from planes 0-3 of the fused kernel")
+    diffs, outside = [], torch.zeros_like(conv)
+    for i in range(4):
+        diff = torch.where(torch.isnan(got[i]) & torch.isnan(want[i]),
+                           torch.zeros_like(got[i]), (got[i] - want[i]).abs())
+        bad = ((torch.isnan(got[i]) != torch.isnan(want[i]))
+               | (diff > (TOL_F64 if f64 else TOL_F32[i])))
+        outside |= bad & conv
+        diffs.append(float(torch.where(conv, diff, 0.0).max()))
+    share = int(outside.sum()) / n_conv
+    exact = float(same_bits(got, want).all(0)[valid].float().mean())
+    print(f"march {label}: equal to planes 0-3 of the fused kernel bit for "
+          f"bit; vs plain: converged rays {n_conv}, share outside tolerance "
+          f"{share:.3e}, bitwise-equal share of valid rays {exact:.6f}, max "
+          "abs diff per plane "
+          + " ".join(f"{n}={d:.3e}" for n, d in zip(PLANES, diffs)))
+    check(share <= (0.0 if f64 else MAX_SHARE_OUT_F32),
+          f"march {label}: {share:.3e} of converged rays outside tolerance")
+    check(not bool(got[3][~valid].any())
+          and bool(same_bits(got[:3], rays7[:3])[:, ~valid].all()),
+          f"march {label}: pad slots")
+    if not backward:
+        return max(diffs), None
+    rng = np.random.default_rng(900 + int(tau * 1e6) + f64)
+    g = torch.as_tensor(rng.standard_normal((4,) + tuple(rays7.shape[1:])),
+                        dtype=rays7.dtype).to(rays7.device)
+    a = bk.march_backward(program, flat, rays7, g, STEPS, tau)
+    b = bk.reference_backward(program, flat, rays7, g, STEPS, tau, None,
+                              march_only=True)
+    torch.cuda.synchronize()
+    tol = TOL_BWD["f64" if f64 else "f32"]
+    e_flat, s_flat = float((a[0] - b[0]).abs().max()), float(b[0].abs().max())
+    e_rays = float((a[1] - b[1])[:, conv].abs().max())
+    s_rays = float(b[1][:, conv].abs().max())
+    print(f"march backward {label} (march-only mode, every valid ray): vs "
+          f"plain: ray cotangents max abs diff {e_rays:.3e} of {s_rays:.3e}, "
+          f"parameter cotangent {e_flat:.3e} of {s_flat:.3e} (tolerance "
+          f"{tol:g} relative)")
+    check(bool(torch.isfinite(a[0]).all()),
+          f"march backward {label}: non-finite parameter cotangent")
+    check(e_rays <= tol * s_rays and e_flat <= tol * s_flat,
+          f"march backward {label}: kernel and plain disagree")
+    check(not bool(a[1][:, ~valid].any()),
+          f"march backward {label}: pad slots got a cotangent")
+    return max(diffs), (e_rays, e_flat)
+
+
+def compare_two_level(label, program, flat, rays7, f64, seed):
+    """The two-level backward on the card: bitwise equal to the history and
+    the full-recompute paths, within TOL_BWD of its plain version (which
+    replays segments from checkpoints too); LAST_PATH says which path ran,
+    and a configuration where two levels must not engage (tau > 0, or a step
+    count that is no multiple of the interval) runs the ordinary path.
+    Returns the largest absolute differences (ray cotangents, parameters)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    rng = np.random.default_rng(seed)
+    g = torch.as_tensor(rng.standard_normal((8,) + tuple(rays7.shape[1:])),
+                        dtype=rays7.dtype).to(rays7.device)
+    out, ex = rk.march_forward(program, flat, rays7, STEPS, 0.0, 5e-2,
+                               log_hist=True)
+    conv = (rays7[6] > 0.5) & (out[3].abs() < CONVERGED)
+    with_hist = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
+                                  hist=ex["hist"], nlive=ex["nlive"])
+    check(bk.LAST_PATH["use_hist"] and not bk.LAST_PATH["two_level"],
+          f"two-level {label}: the history path did not run")
+    recomputed = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2)
+    two_level = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
+                                  two_level=True)
+    check(bk.LAST_PATH["two_level"] and not bk.LAST_PATH["use_hist"],
+          f"two-level {label}: LAST_PATH says {bk.LAST_PATH}")
+    plain = bk.reference_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
+                                  two_level=True)
+    for kw in (dict(tau=1e-3, steps=STEPS), dict(tau=0.0, steps=12)):
+        bk.fused_backward(program, flat, rays7, g, kw["steps"], kw["tau"],
+                          5e-2, two_level=True)
+        check(not bk.LAST_PATH["two_level"],
+              f"two-level {label}: engaged at {kw}")
+    torch.cuda.synchronize()
+    for name, other in (("history", with_hist), ("recompute", recomputed)):
+        check(all(bool(same_bits(a, b).all())
+                  for a, b in zip(two_level, other)),
+              f"two-level {label}: bits differ from the {name} path")
+    tol = TOL_BWD["f64" if f64 else "f32"]
+    e_flat = float((two_level[0] - plain[0]).abs().max())
+    s_flat = float(plain[0].abs().max())
+    e_rays = float((two_level[1] - plain[1])[:, conv].abs().max())
+    s_rays = float(plain[1][:, conv].abs().max())
+    print(f"two-level backward {label}: bitwise equal to the history and the "
+          f"recompute paths; vs plain two-level: ray cotangents max abs diff "
+          f"{e_rays:.3e} of {s_rays:.3e}, parameter cotangent {e_flat:.3e} "
+          f"of {s_flat:.3e} (tolerance {tol:g} relative); not engaged at "
+          "tau=1e-3 and at 12 steps")
+    check(e_rays <= tol * s_rays and e_flat <= tol * s_flat,
+          f"two-level {label}: kernel and plain disagree")
+    return e_rays, e_flat
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -415,13 +566,15 @@ def perturbed(params, path, factor):
     return out
 
 
-def drive_training(main, steps, silhouette=False, bwd_per_step=1):
+def drive_training(main, steps, silhouette=False, bwd_per_step=1,
+                   two_level=False):
     """optimize() at 1080p through the kernels, counted: the CLI's selftest
     (the target is the render with c1/c0/radius 20 % larger).
     ``bwd_per_step`` is 0 for a renderer with the implicit backward, which
-    launches no backward kernel. Returns (losses, forward launches, backward
-    launches, seconds per step after the first by the host clock; every
-    step ends in a synchronising read of the loss)."""
+    launches no backward kernel. ``two_level`` asks for the two-level
+    backward (the forward then logs no history). Returns (losses, forward
+    launches, backward launches, seconds per step after the first by the
+    host clock; every step ends in a synchronising read of the loss)."""
     import torch
 
     from ray_marching_tpu_torch.ops import backward_kernel as bk
@@ -442,10 +595,15 @@ def drive_training(main, steps, silhouette=False, bwd_per_step=1):
     torch.cuda.synchronize()
     rk.LAUNCHES = 0
     bk.LAUNCHES = 0
+    bk.LAST_PATH.clear()
     stamps = [time.perf_counter()]
-    out = optimize(main, target, BENCH_Q, BENCH_T, cfg,
-                   target_alpha=target_alpha,
-                   callback=lambda *_: stamps.append(time.perf_counter()))
+    rk.BWD_TWO_LEVEL = two_level
+    try:
+        out = optimize(main, target, BENCH_Q, BENCH_T, cfg,
+                       target_alpha=target_alpha,
+                       callback=lambda *_: stamps.append(time.perf_counter()))
+    finally:
+        rk.BWD_TWO_LEVEL = False
     torch.cuda.synchronize()
     fwd, bwd = rk.LAUNCHES, bk.LAUNCHES
     first = stamps[1] - stamps[0]
@@ -453,6 +611,14 @@ def drive_training(main, steps, silhouette=False, bwd_per_step=1):
     label = "render_with_alpha" if silhouette else "render"
     if main.config.backward != "unroll":
         label += f", backward={main.config.backward}"
+    if two_level:
+        label += ", two-level backward"
+        check(bk.LAST_PATH.get("two_level") is True
+              and bk.LAST_PATH.get("use_hist") is False,
+              f"{label}: LAST_PATH says {bk.LAST_PATH}")
+    elif bwd_per_step:
+        check(bk.LAST_PATH.get("two_level") is False, f"{label}: two-level "
+                                                      "ran unasked")
     radius = float(out["params"]["c1"]["c0"]["radius"])
     print(f"training path ({label}, {steps} Adam steps, 1080p): losses "
           + " ".join(f"{v:.6e}" for v in out["losses"])
@@ -471,13 +637,191 @@ def drive_training(main, steps, silhouette=False, bwd_per_step=1):
     return out["losses"], fwd, bwd, dt
 
 
+def drive_modular(fast, out_dir: Path):
+    """The modular pipeline at full width through the march kernel, counted:
+    ``Renderer(test_scene2, use_pallas=True)``, 1920×1080, 32 steps, f32,
+    mode 0, degree 2, bench pose: one frame (1 launch), one frame with a
+    reflection bounce (2), all 8 modes (1), and one gradient of a pixel MSE
+    (1 march launch, 1 launch of its backward). The frame is held against
+    ``fast``'s frame of the same configuration on converged pixels, and the
+    gradient of ``c1/c0/radius`` against the one through ``fast``. Returns
+    (renderer, renderer with one bounce, march launches, marches driven,
+    march-backward launches)."""
+    import torch
+
+    from ray_marching_tpu_torch.io.image import write_png
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+    from ray_marching_tpu_torch.scene import registry
+
+    scene = registry.make_scene("test_scene2")
+    cfg = config(1920, 1080, use_pallas=True)
+    r = Renderer(scene, cfg, dtype=torch.float32)
+    bouncer = Renderer(scene, config(1920, 1080, use_pallas=True,
+                                     reflection_bounces=1),
+                       dtype=torch.float32)
+    true = perturbed(fast.init_params, "c1/c0/radius", 1.2)
+    with torch.no_grad():
+        want = fast.render(fast.init_params, BENCH_Q, BENCH_T, mode=0,
+                           degree=2)
+        target = fast.render(true, BENCH_Q, BENCH_T, mode=0, degree=2)
+        q, t = fast._pose(BENCH_Q, BENCH_T)
+        origin, dirs = fast._pose_planes(q, t)
+        hit, _ = fast._march_planes(fast.init_params, origin, dirs, STEPS)
+        conv = fast._assemble(
+            [(hit[3].abs() < CONVERGED).to(torch.float32)]) > 0.5
+    fast_params = leaf_params(fast.init_params)
+    torch.mean((fast.render(fast_params, BENCH_Q, BENCH_T, mode=0, degree=2)
+                - target) ** 2).backward()
+    want_grad = float(fast_params["c1"]["c0"]["radius"].grad)
+
+    torch.cuda.synchronize()
+    mk.LAUNCHES = 0
+    bk.MARCH_LAUNCHES = 0
+    with torch.no_grad():
+        frame = r.render(r.init_params, BENCH_Q, BENCH_T, mode=0, degree=2)
+        n_frame = mk.LAUNCHES
+        bounced = bouncer.render(bouncer.init_params, BENCH_Q, BENCH_T,
+                                 mode=0, degree=2)
+        n_bounce = mk.LAUNCHES - n_frame
+        all_modes = r.render_all_modes(r.init_params, BENCH_Q, BENCH_T,
+                                       degree=2)
+        n_modes = mk.LAUNCHES - n_frame - n_bounce
+    params = leaf_params(r.init_params)
+    loss = torch.mean((r.render(params, BENCH_Q, BENCH_T, mode=0, degree=2)
+                       - target) ** 2)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches, bwd_launches = mk.LAUNCHES, bk.MARCH_LAUNCHES
+    # Marches asked for: one per render call and one more per bounce.
+    n_marches = (3 * (1 + cfg.reflection_bounces)
+                 + 1 + bouncer.config.reflection_bounces)
+    got_grad = float(params["c1"]["c0"]["radius"].grad)
+    del loss
+
+    print(f"modular main path (Renderer, use_pallas=True, 1080p): march "
+          f"launches: frame {n_frame}, frame with one bounce {n_bounce}, "
+          f"render_all_modes {n_modes}, gradient step "
+          f"{launches - n_frame - n_bounce - n_modes}; march-backward "
+          f"launches {bwd_launches}")
+    check((n_frame, n_bounce, n_modes, launches, bwd_launches)
+          == (1, 2, 1, 5, 1), "modular path: unexpected launch counts")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shape = (1, cfg.px_height, cfg.px_width, 3)
+    for name, img in (("modular_mode0", frame), ("modular_bounce", bounced)):
+        check(tuple(img.shape) == shape, f"{name}: shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite")
+        check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+              f"{name}: lambertian outside [0, 1]")
+        write_png(out_dir / f"test_scene2_{name}.png", img)
+    check(len(all_modes) == 8, "render_all_modes: not 8 images")
+    for name, img in all_modes.items():
+        check(tuple(img.shape) == shape, f"modular {name}: shape")
+        if name != "proximity":  # 0/0 when every ray converges, as above
+            check(not bool(torch.isnan(img).any()), f"modular {name}: NaN")
+    mask = conv.expand(shape)
+    diff = (frame - want).abs()[mask]
+    share = float((diff > MODULAR_VS_FAST_ATOL).float().mean())
+    print(f"modular frame vs FastRenderer frame: converged pixels "
+          f"{int(conv.sum())}, max abs diff {float(diff.max()):.3e}, share "
+          f"above {MODULAR_VS_FAST_ATOL:g}: {share:.3e}")
+    check(share <= MAX_SHARE_OUT_F32, "modular and fast frames disagree")
+    # The two renderers reach the same gradient by different sums (autograd
+    # through torch normals and shading there, the fused backward kernel
+    # here) in f32 over 2 M pixels: 1 % of the value.
+    print(f"modular gradient of c1/c0/radius: {got_grad:.6e}, through "
+          f"FastRenderer {want_grad:.6e}")
+    check(np.isfinite(got_grad) and got_grad != 0.0
+          and abs(got_grad - want_grad) <= 1e-2 * abs(want_grad),
+          "modular and fast gradients disagree")
+    for path, leaf in leaf_items(params):
+        check(leaf.grad is not None and bool(torch.isfinite(leaf.grad).all()),
+              f"modular gradient of {path}: missing or non-finite")
+    return r, bouncer, launches, n_marches, bwd_launches
+
+
+def leaf_items(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from leaf_items(v, path)
+        else:
+            yield path, v
+
+
+def golden_bounce(root: Path):
+    """f64 on the card through the march kernel against the reference-made
+    scene2_bounce_512 fixture (one reflection bounce): its images on the
+    stable pixels, and its mode-0 gradients through the march's backward.
+    Tolerances: tests/test_golden_parity.py's, the rtol loosened to 1e-6 for
+    the card's libm as for the other goldens."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.render.pipeline import RenderConfig, Renderer
+    from ray_marching_tpu_torch.scene import registry
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    g = np.load(root / "tests" / "golden" / "scene2_bounce_512.npz")
+    w, h = int(g["meta_width"]), int(g["meta_height"])
+    bounces = int(g["meta_reflection_bounces"])
+    cfg = RenderConfig(px_width=w, px_height=h, focal_length=PX * h,
+                       sensor_width=PX * w, sensor_height=PX * h,
+                       marching_steps=int(g["meta_steps"]),
+                       normals_eps=float(g["meta_normals_eps"]),
+                       reflection_bounces=bounces, use_pallas=True)
+    r = Renderer(registry.make_scene(str(g["meta_scene"])), cfg,
+                 dtype=torch.float64, grid_dtype=np.float64)
+    degree = int(g["meta_degree"])
+    q, t = g["meta_orientation"][None], g["meta_translation"][None]
+    before = mk.LAUNCHES
+    with torch.no_grad():
+        images = r.render_all_modes(r.init_params, q, t, degree=degree)
+    check(mk.LAUNCHES == before + 1 + bounces, "golden bounce: launches")
+    from ray_marching_tpu_torch.render.shaders import MODES
+
+    for m in g["meta_image_modes"].tolist():
+        got = images[MODES[m]].cpu().numpy()
+        want = g[f"image_{m}"]
+        mask = np.broadcast_to(g["stable_mask"], want.shape)
+        np.testing.assert_allclose(
+            got[mask], want[mask], rtol=GOLDEN_GRAD_RTOL, atol=1e-9,
+            equal_nan=True, err_msg=f"golden scene2_bounce_512 mode {m}")
+    params = leaf_params(r.init_params)
+    tq = r._tensor(q).requires_grad_(True)
+    tt = r._tensor(t).requires_grad_(True)
+    before = bk.MARCH_LAUNCHES
+    image = r.render(params, tq, tt, mode=0, degree=degree)
+    (image * torch.as_tensor(g["loss_weights"], device=r.device)).sum() \
+        .backward()
+    check(bk.MARCH_LAUNCHES == before + 1 + bounces,
+          "golden bounce: backward launches")
+    flat = dict(param_paths(params), camera_orientation=tq,
+                camera_translation=tt)
+    for path, leaf in flat.items():
+        want = g[f"grad_0/{path}"]
+        got = torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
+        np.testing.assert_allclose(
+            got.cpu().numpy().reshape(want.shape), want,
+            rtol=GOLDEN_GRAD_RTOL, atol=GOLDEN_GRAD_ATOL, equal_nan=True,
+            err_msg=f"golden scene2_bounce_512 grad_0 {path}")
+    print(f"golden scene2_bounce_512 ({w}x{h}, f64, {bounces} bounce, "
+          "use_pallas=True, on the card): images of modes "
+          f"{g['meta_image_modes'].tolist()} ok, mode-0 gradients through "
+          "the march kernel's backward ok")
+
+
 def run(out_dir: Path):
     import torch
 
     from ray_marching_tpu_torch.io.image import write_png
     from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
     from ray_marching_tpu_torch.ops import render_kernel as rk
     from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.pipeline import Renderer
     from ray_marching_tpu_torch.render.shaders import MODES
     from ray_marching_tpu_torch.scene import registry
     from ray_marching_tpu_torch.scene.codegen import SdfProgram
@@ -504,17 +848,25 @@ def run(out_dir: Path):
         print(rk.BUILD_LOG.get(key, "(built before this run)").strip())
 
     # 2. Kernels vs plain versions on the card: the forward's serving
-    # configuration, its training outputs, and the backward (history on and
-    # off bitwise equal, with and without min_f).
+    # configuration, its training outputs, the backward (history on and
+    # off bitwise equal, with and without min_f), the march kernel (also
+    # against planes 0-3 of the fused kernel) with its backward, and the
+    # two-level backward (bitwise equal to the other two paths). The fused
+    # kernels see FastRenderer's planes, the march kernel and its backward
+    # the planes the modular Renderer gives them.
     cfg = config(1920, 1080)
     main = FastRenderer(registry.make_scene("test_scene2"), cfg,
                         dtype=torch.float32)
-    max_err = bwd_err = None
+    max_err = bwd_err = march_err = march_bwd_err = two_level_err = None
     seed = 100
     for s in scenes:
         r = main if s == "test_scene2" else FastRenderer(
             registry.make_scene(s), cfg, dtype=torch.float32)
         flat, rays7 = main_rays(r, BENCH_Q, BENCH_T)
+        m_flat, m_rays7 = modular_rays(
+            Renderer(registry.make_scene(s), config(1920, 1080,
+                                                    use_pallas=True),
+                     dtype=torch.float32), BENCH_Q, BENCH_T)
         for tau in (0.0, 1e-3):
             label = f"f32 1080p {s} tau={tau:g}"
             err = compare(label, r.program, flat, rays7, tau, f64=False)
@@ -525,14 +877,28 @@ def run(out_dir: Path):
             # The main path's scene is held at the main path's own inputs.
             check(not (masked and s == "test_scene2"),
                   f"{label}: plain backward non-finite on the main path")
+            # The march's backward is held at the main path's scene: on the
+            # open test_scene its f32 parameter cotangent overflows like the
+            # fused backward's (compare_backward above says so when it does).
+            m_err, mb_err = compare_march(label, r.program, m_flat, m_rays7,
+                                          tau, False,
+                                          backward=s == "test_scene2")
             if s == "test_scene2" and tau == 0.0:
                 max_err, bwd_err = err, errs
+                march_err, march_bwd_err = m_err, mb_err
+                two_level_err = compare_two_level(label, r.program, flat,
+                                                  rays7, False, seed + 50)
             del ref
-        del r, flat, rays7
+        del r, flat, rays7, m_flat, m_rays7
     for s in scenes:
         r = FastRenderer(registry.make_scene(s), config(256, 192),
                          dtype=torch.float64, grid_dtype=np.float64)
         flat, rays7 = main_rays(r, BENCH_Q, BENCH_T)
+        m_flat, m_rays7 = modular_rays(
+            Renderer(registry.make_scene(s), config(256, 192,
+                                                    use_pallas=True),
+                     dtype=torch.float64, grid_dtype=np.float64),
+            BENCH_Q, BENCH_T)
         for tau in (0.0, 1e-3):
             label = f"f64 256x192 {s} tau={tau:g}"
             compare(label, r.program, flat, rays7, tau, f64=True)
@@ -540,6 +906,11 @@ def run(out_dir: Path):
             seed += 1
             compare_backward(label, r.program, flat, rays7, tau, True, ref,
                              seed)
+            compare_march(label, r.program, m_flat, m_rays7, tau, True,
+                          backward=True)
+            if s == "test_scene2" and tau == 0.0:
+                compare_two_level(label, r.program, flat, rays7, True,
+                                  seed + 50)
 
     # 3. The main path, counted: 3 poses of mode 0, then all 8 modes.
     poses = [
@@ -577,7 +948,8 @@ def run(out_dir: Path):
 
     # 3b. The training paths, counted: optimize() through render and through
     # render_with_alpha, one forward and one backward launch per step.
-    _, fwd_train, bwd_train, step_s = drive_training(main, TRAIN_STEPS)
+    hist_losses, fwd_train, bwd_train, step_s = drive_training(main,
+                                                               TRAIN_STEPS)
     _, fwd_sil, bwd_sil, sil_step_s = drive_training(main, SILHOUETTE_STEPS,
                                                      silhouette=True)
     # The implicit backward: the same forward kernel, then plain torch at
@@ -588,6 +960,20 @@ def run(out_dir: Path):
     _, fwd_ift, _, ift_step_s = drive_training(implicit, IMPLICIT_STEPS,
                                                bwd_per_step=0)
     del implicit
+    # The two-level backward: one forward launch without a history and one
+    # backward launch per step; its gradients are bitwise the history
+    # path's, so the losses repeat the first ones of the first run (the same
+    # set-up with the history).
+    hist_losses = hist_losses[:TWO_LEVEL_STEPS]
+    losses_2l, fwd_2l, bwd_2l, step_2l_s = drive_training(
+        main, TWO_LEVEL_STEPS, two_level=True)
+    check(np.allclose(losses_2l, hist_losses, rtol=1e-6, atol=0.0),
+          f"two-level losses {losses_2l} differ from the history run's "
+          f"{hist_losses}")
+
+    # 3c. The modular pipeline at full width through the march kernel.
+    (modular, bouncer, march_launches, n_marches,
+     march_bwd_launches) = drive_modular(main, out_dir)
 
     # 4. End to end against the golden reference images (f64, 96×64).
     golden = np.load(Path(__file__).resolve().parent / "tests" / "golden"
@@ -611,6 +997,7 @@ def run(out_dir: Path):
                                    err_msg=f"golden scene2_room mode {name}")
     print("golden scene2_room (96x64, f64, 8 modes, on the card): ok")
     golden_gradients(Path(__file__).resolve().parent)
+    golden_bounce(Path(__file__).resolve().parent)
 
     # 5. Timing at the main path's shapes.
     flat, rays7 = main_rays(main, BENCH_Q, BENCH_T)
@@ -706,7 +1093,125 @@ def run(out_dir: Path):
           f"{bwd_bytes} bytes -> {tb_bytes:.4f} ms; bound with recompute: "
           f"{rec_ops} ops -> {tr_ops:.4f} ms, {rec_bytes} bytes -> "
           f"{tr_bytes:.4f} ms")
-    del out_h, ex_h, g8
+    # 5d. The kernels of this slice: the march kernel and its backward at
+    # the planes the modular Renderer gives them, the two-level backward at
+    # FastRenderer's in turns with the other two paths, and their plain
+    # versions.
+    m_flat, m_rays7 = modular_rays(modular, BENCH_Q, BENCH_T)
+    m_prog = modular.program
+    march_ms = cuda_ms(lambda: mk.march_planes(m_prog, m_flat, m_rays7, STEPS,
+                                               0.0), 50)
+    march_tau_ms = cuda_ms(lambda: mk.march_planes(m_prog, m_flat, m_rays7,
+                                                   STEPS, 1e-3), 50)
+    march_plain_ms = cuda_ms(lambda: mk.reference_march(m_prog, m_flat,
+                                                        m_rays7, STEPS, 0.0),
+                             3)
+    g4 = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (4,) + tuple(m_rays7.shape[1:])), dtype=m_rays7.dtype).to(
+            m_rays7.device)
+    march_bwd_ms = cuda_ms(lambda: bk.march_backward(m_prog, m_flat, m_rays7,
+                                                     g4, STEPS, 0.0), 10)
+    march_bwd_plain_ms = cuda_ms(lambda: bk.reference_backward(
+        m_prog, m_flat, m_rays7, g4, STEPS, 0.0, None, march_only=True), 1)
+    m_valid = int((m_rays7[6] > 0.5).sum())
+    m_plane_bytes = (m_rays7.shape[1] * m_rays7.shape[2]
+                     * m_rays7.element_size())
+    m_partial_bytes = (-(-m_rays7.shape[1] * m_rays7.shape[2] // 128)
+                       * len(m_prog.scalar_offsets) * m_rays7.element_size())
+    print(f"march kernel's planes on the modular path: "
+          f"{tuple(m_rays7.shape)}, {m_valid} valid rays")
+
+    def bwd_two_level():
+        return bk.fused_backward(prog, flat, rays7, g8, STEPS, 0.0, 5e-2,
+                                 two_level=True)
+
+    turns_2l = [(name, cuda_ms(fn, 10)) for name, fn in (
+        ("history", lambda: bwd(True)), ("two-level", bwd_two_level),
+        ("recompute", lambda: bwd(False)), ("recompute", lambda: bwd(False)),
+        ("two-level", bwd_two_level), ("history", lambda: bwd(True)))]
+    two_level_ms = sum(v for n, v in turns_2l if n == "two-level") / 2
+    two_level_plain_ms = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, rays7, g8, STEPS, 0.0, 5e-2, two_level=True), 1)
+    k = bk.CKPT_INTERVAL
+    march_ops = mk.march_ops(m_prog, m_valid, STEPS)
+    march_bytes = 11 * m_plane_bytes
+    tm_ops, tm_bytes = (march_ops / PEAK_F32_FLOPS * 1e3,
+                        march_bytes / PEAK_BYTES * 1e3)
+    # Two levels march every step once for the checkpoints and k - 1 of
+    # every k once more in the replay; the checkpoints are scratch.
+    tl_ops = bk.backward_ops(prog, n_valid, swept,
+                             recomputed_steps=swept + swept * (k - 1) // k)
+    tl_bytes = rec_bytes
+    t2_ops, t2_bytes = (tl_ops / PEAK_F32_FLOPS * 1e3,
+                        tl_bytes / PEAK_BYTES * 1e3)
+    # The march's backward: 7 ray planes, 4 cotangent planes, 6 out.
+    mb_ops = bk.backward_ops(m_prog, m_valid, m_valid * STEPS,
+                             recomputed_steps=m_valid * STEPS,
+                             march_only=True)
+    mb_bytes = 17 * m_plane_bytes + m_partial_bytes
+    tmb_ops, tmb_bytes = (mb_ops / PEAK_F32_FLOPS * 1e3,
+                          mb_bytes / PEAK_BYTES * 1e3)
+    print(f"march kernel on {card}: {march_ms:.4f} ms (tau=1e-3: "
+          f"{march_tau_ms:.4f} ms), plain {march_plain_ms:.3f} ms; bound: "
+          f"{march_ops} ops -> {tm_ops:.4f} ms, {march_bytes} bytes -> "
+          f"{tm_bytes:.4f} ms; its backward (march-only mode) "
+          f"{march_bwd_ms:.4f} ms, plain {march_bwd_plain_ms:.3f} ms; bound: "
+          f"{mb_ops} ops -> {tmb_ops:.4f} ms, {mb_bytes} bytes -> "
+          f"{tmb_bytes:.4f} ms")
+    print(f"two-level backward on {card}: {two_level_ms:.4f} ms; turns "
+          + ", ".join(f"{n} {v:.4f}" for n, v in turns_2l)
+          + f" ms; plain {two_level_plain_ms:.3f} ms; bound: {tl_ops} ops -> "
+          f"{t2_ops:.4f} ms, {tl_bytes} bytes -> {t2_bytes:.4f} ms; scratch "
+          f"{STEPS // k * 3 * plane_bytes} bytes against a history of "
+          f"{hist_bytes}")
+    del out_h, ex_h
+
+    # 5e. Where the history stops being small: 128 steps.
+    long_hist_bytes = (LONG_STEPS + 1) * 3 * plane_bytes
+    long_ckpt_bytes = LONG_STEPS // k * 3 * plane_bytes
+    _, ex_long = rk.march_forward(prog, flat, rays7, LONG_STEPS, 0.0, 5e-2,
+                                  log_hist=True)
+    long_hist_ms = cuda_ms(lambda: bk.fused_backward(
+        prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2, hist=ex_long["hist"],
+        nlive=ex_long["nlive"]), 3)
+    del ex_long
+    long_rec_ms = cuda_ms(lambda: bk.fused_backward(
+        prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2), 3)
+    long_2l_ms = cuda_ms(lambda: bk.fused_backward(
+        prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2, two_level=True), 3)
+    check(bk.LAST_PATH["two_level"], "two levels did not engage at 128 steps")
+    print(f"backward at 1080p x {LONG_STEPS} steps on {card}: history "
+          f"{long_hist_bytes} bytes, two-level scratch {long_ckpt_bytes} "
+          f"bytes; with the history {long_hist_ms:.4f} ms, with the full "
+          f"recompute {long_rec_ms:.4f} ms, with two levels "
+          f"{long_2l_ms:.4f} ms")
+    del g8, g4, m_flat, m_rays7
+
+    # 5f. The modular frame and where its device time goes.
+    def modular_frame():
+        with torch.no_grad():
+            return modular.render(modular.init_params, q, t, mode=0, degree=2)
+
+    def bounce_frame():
+        with torch.no_grad():
+            return bouncer.render(bouncer.init_params, q, t, mode=0, degree=2)
+
+    modular_ms = cuda_ms(modular_frame, 20)
+    bounce_ms = cuda_ms(bounce_frame, 20)
+    del bouncer
+    print(f"modular frame (Renderer.render, use_pallas=True, 1080p) on "
+          f"{card}: {modular_ms:.4f} ms; with one reflection bounce "
+          f"{bounce_ms:.4f} ms")
+    mod_prof = profile_frames(modular_frame, modular_ms) or {}
+    march_dev_ms = next((v for k_, v in mod_prof.items()
+                         if k_.startswith("void march_kernel<float>")), None)
+    if march_dev_ms is not None:
+        busy = sum(mod_prof.values())
+        print(f"modular frame: march kernel {march_dev_ms:.4f} ms of "
+              f"{busy:.4f} ms busy; the plain torch ops around it (posing, "
+              f"6 SDF evaluations, normals, shading) "
+              f"{busy - march_dev_ms:.4f} ms in "
+              f"{len(mod_prof) - 1} kinds of kernel")
 
     # 5c. The whole training step (render + backward + Adam), history on
     # and off, and where its device time goes.
@@ -792,6 +1297,60 @@ def run(out_dir: Path):
         "optimize_silhouette_step_ms": sil_step_s * 1e3,
         "optimize_implicit_step_ms": ift_step_s * 1e3,
         "profiler_kernel_ms": bwd_dev_ms,
+        "card": card,
+    }, {
+        "name": "march",
+        "route": "cuda",
+        "source": "ray_marching_tpu_torch/ops/csrc/march.cu",
+        "replaces": "ray_marching_tpu/ops/pallas_march.py:173",
+        "launches": march_launches,
+        "launches_per_march": march_launches / n_marches,
+        "max_abs_err": march_err,
+        "ms": march_ms,
+        "plain_ms": march_plain_ms,
+        "bound_ms": max(tm_ops, tm_bytes),
+        "bound_by": "operations" if tm_ops >= tm_bytes else "bytes",
+        "library_ms": None,
+        "ms_tau_1e-3": march_tau_ms,
+        "frame_ms": modular_ms,
+        "frame_ms_one_bounce": bounce_ms,
+        "profiler_kernel_ms": march_dev_ms,
+        "card": card,
+    }, {
+        "name": "render_bwd_two_level",
+        "route": "cuda",
+        "source": "ray_marching_tpu_torch/ops/csrc/render_bwd.cu",
+        "replaces": "ray_marching_tpu/ops/pallas_backward.py:377",
+        "launches": bwd_2l,
+        "launches_per_step": bwd_2l / TWO_LEVEL_STEPS,
+        "max_abs_err": two_level_err[0],
+        "max_abs_err_params": two_level_err[1],
+        "ms": two_level_ms,
+        "plain_ms": two_level_plain_ms,
+        "bound_ms": max(t2_ops, t2_bytes),
+        "bound_by": "operations" if t2_ops >= t2_bytes else "bytes",
+        "library_ms": None,
+        "optimize_step_ms": step_2l_s * 1e3,
+        "forward_launches_without_history": fwd_2l,
+        "ms_128_steps": long_2l_ms,
+        "ms_128_steps_history": long_hist_ms,
+        "ms_128_steps_recompute": long_rec_ms,
+        "scratch_bytes_128_steps": long_ckpt_bytes,
+        "history_bytes_128_steps": long_hist_bytes,
+        "card": card,
+    }, {
+        "name": "march_bwd",
+        "route": "cuda",
+        "source": "ray_marching_tpu_torch/ops/csrc/render_bwd.cu",
+        "replaces": "ray_marching_tpu/ops/pallas_march.py:358",
+        "launches": march_bwd_launches,
+        "max_abs_err": march_bwd_err[0],
+        "max_abs_err_params": march_bwd_err[1],
+        "ms": march_bwd_ms,
+        "plain_ms": march_bwd_plain_ms,
+        "bound_ms": max(tmb_ops, tmb_bytes),
+        "bound_by": "operations" if tmb_ops >= tmb_bytes else "bytes",
+        "library_ms": None,
         "card": card,
     }]}
     print(card)

@@ -1,7 +1,12 @@
 """Command-line entry point of the PyTorch port (``render``, ``optimize``).
 
+``render`` builds the modular ``Renderer`` (``--pallas``: with the CUDA march
+kernel) and, with ``--fast``, the plane-native ``FastRenderer``, as the JAX
+package's CLI does; ``optimize`` always runs on the ``FastRenderer``.
+
   python -m ray_marching_tpu_torch.cli render --scene test_scene2 -o out.png
-  python -m ray_marching_tpu_torch.cli render --device cpu --width 96 \
+  python -m ray_marching_tpu_torch.cli render --pallas --bounces 1 -o out.png
+  python -m ray_marching_tpu_torch.cli render --fast --device cpu --width 96 \
       --height 64 --mode normal -o small.png
   python -m ray_marching_tpu_torch.cli optimize --target selftest \
       --trainable c1/c0/radius --opt-steps 50
@@ -18,7 +23,7 @@ from ray_marching_tpu_torch.io.checkpoint import load_pytree, save_pytree
 from ray_marching_tpu_torch.io.image import write_png
 from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
 from ray_marching_tpu_torch.render.fast import FastRenderer
-from ray_marching_tpu_torch.render.pipeline import RenderConfig
+from ray_marching_tpu_torch.render.pipeline import RenderConfig, Renderer
 from ray_marching_tpu_torch.render.shaders import MODES
 from ray_marching_tpu_torch.scene import registry
 
@@ -37,7 +42,7 @@ def _parse_pose(spec):
     return q[None], t[None]
 
 
-def _build_renderer(args):
+def _build_renderer(args, fast):
     px = args.px_size
     cfg = RenderConfig(
         px_width=args.width,
@@ -46,10 +51,15 @@ def _build_renderer(args):
         sensor_width=px * args.width,
         sensor_height=px * args.height,
         marching_steps=args.steps,
+        normals_eps=args.normals_eps,
         tau=args.tau,
+        reflection_bounces=args.bounces,
+        use_pallas=args.pallas,
+        backward=args.backward,
     )
-    return FastRenderer(registry.make_scene(args.scene), cfg,
-                        dtype=getattr(torch, args.dtype), device=args.device)
+    cls = FastRenderer if fast else Renderer
+    return cls(registry.make_scene(args.scene), cfg,
+               dtype=getattr(torch, args.dtype), device=args.device)
 
 
 def _initial_params(args, renderer):
@@ -61,10 +71,12 @@ def _initial_params(args, renderer):
 
 
 def cmd_render(args):
-    renderer = _build_renderer(args)
+    renderer = _build_renderer(args, fast=args.fast)
     q, t = _parse_pose(args.pose)
-    image = renderer.render(_initial_params(args, renderer), q, t,
-                            mode=_parse_mode(args.mode), degree=args.degree)
+    with torch.no_grad():
+        image = renderer.render(_initial_params(args, renderer), q, t,
+                                mode=_parse_mode(args.mode),
+                                degree=args.degree)
     print(f"wrote {write_png(args.out, image)}")
 
 
@@ -84,7 +96,7 @@ def _scale_leaves(params, wanted, factor, prefix=""):
 
 
 def cmd_optimize(args):
-    renderer = _build_renderer(args)
+    renderer = _build_renderer(args, fast=True)
     q, t = _parse_pose(args.pose)
     # nargs='*' can give an empty list, which would mean "perturb every
     # leaf" to the selftest but "train no leaf" to the mask: None (all
@@ -125,8 +137,20 @@ def _add_render_args(p):
     p.add_argument("--height", type=int, default=900)
     p.add_argument("--px-size", type=float, default=3.45e-6)
     p.add_argument("--steps", type=int, default=32)
+    p.add_argument("--normals-eps", type=float, default=5e-2)
     p.add_argument("--tau", type=float, default=0.0,
                    help="early-exit threshold (0 = reference-exact)")
+    p.add_argument("--bounces", type=int, default=0,
+                   help="reflection bounces")
+    p.add_argument("--pallas", action="store_true",
+                   help="march through the hand-written CUDA march kernel "
+                        "(the flag keeps the JAX package's name; modular "
+                        "renderer only)")
+    p.add_argument("--fast", action="store_true",
+                   help="plane-native renderer with the fused march + "
+                        "normals kernel (render; optimize always uses it)")
+    p.add_argument("--backward", default="unroll",
+                   choices=["unroll", "implicit"])
     p.add_argument("--pose", default="0,0,1,0/0,0.2,2.5",
                    help="qw,qx,qy,qz/x,y,z (default looks at the origin)")
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"])

@@ -1,15 +1,18 @@
-"""Backward of the fused march + normals kernel: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Backward of the fused march + normals kernel and of the march kernel:
+the CUDA kernel's wrappers and its plain PyTorch version.
 
 Counterpart of ``ray_marching_tpu/ops/pallas_backward.py::fused_backward``
-(``_bwd_kernel``). The kernel source is ``csrc/render_bwd.cu``; it lives in
-the same per-scene library as the forward kernel
-(:mod:`ray_marching_tpu_torch.ops.render_kernel` builds and binds it) and
-calls the generated ``scene_sdf_vjp`` of
-:mod:`ray_marching_tpu_torch.scene.codegen`.
+(``_bwd_kernel`` and, with ``two_level``, ``_bwd_kernel_2l``). The kernel
+source is ``csrc/render_bwd.cu``; it lives in the same per-scene library as
+the forward kernel (:mod:`ray_marching_tpu_torch.ops.render_kernel` builds
+and binds it) and calls the generated ``scene_sdf_vjp`` of
+:mod:`ray_marching_tpu_torch.scene.codegen`. :func:`march_backward` launches
+its march-only instantiation, the backward of ``csrc/march.cu`` (the JAX
+package differentiates ``pallas_march`` through a checkpointed scan instead,
+``pallas_march.py::_core_bwd``).
 
-:func:`fused_backward` takes the plain version only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises; it never falls back.
+Both wrappers take the plain version only for tensors on the CPU. For CUDA
+tensors they launch the kernel or raise; they never fall back.
 
 The plain version (:func:`reference_backward`) is the kernel's own algorithm
 written with tensors: one VJP of the tail, then the reverse sweep over the
@@ -32,9 +35,19 @@ from ray_marching_tpu_torch.scene.codegen import SdfProgram
 
 LANES = rk.LANES
 
-#: Backward-kernel launches so far (the wrapper adds one per launch, nowhere
-#: else).
+#: Launches of the backward kernel by :func:`fused_backward` so far (the
+#: wrapper adds one per launch, nowhere else), and of its march-only
+#: instantiation by :func:`march_backward`.
 LAUNCHES = 0
+MARCH_LAUNCHES = 0
+#: The two-level backward keeps every ``CKPT_INTERVAL``-th march position and
+#: marches each segment again when the sweep reaches it (defined once, in
+#: ``render_kernel``, which also hands it to the kernel's build).
+CKPT_INTERVAL = rk.CKPT_INTERVAL
+#: Which path the most recent :func:`fused_backward` took: ``use_hist``,
+#: ``two_level``, ``tau``, ``track_min`` (the JAX package keeps the same
+#: record, ``pallas_backward.LAST_PATH``).
+LAST_PATH: dict = {}
 
 # (SdfProgram -> {device: flat offsets of the scene's scalars, on device}).
 _SCALAR_INDEX = weakref.WeakKeyDictionary()
@@ -48,11 +61,24 @@ def _scalar_index(program, device):
     return per_device[device]
 
 
+def two_level_engages(steps, tau=0.0, track_min=False) -> bool:
+    """Whether a two-level backward that was asked for runs: the step count
+    is a multiple of :data:`CKPT_INTERVAL` and at least two segments long,
+    there is no early exit and no ``min_f`` routing (both need every
+    position). The rule of the JAX package's ``two_level_engages``, whose
+    environment switch is the ``two_level`` argument here. The forward's
+    decision to log a history must agree with it, so both ask this one
+    function."""
+    k = CKPT_INTERVAL
+    return (steps % k == 0 and steps >= 2 * k and not track_min
+            and tau == 0.0)
+
+
 def _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
-           nlive):
+           nlive, n_g=None):
     rk._check(program, params_flat, rays7, steps)
     plane = tuple(rays7.shape[1:])
-    n_g = 9 if track_min else 8
+    n_g = n_g or (9 if track_min else 8)
     if tuple(g.shape) != (n_g,) + plane or g.dtype != rays7.dtype:
         raise ValueError(f"g must be {(n_g,) + plane} of {rays7.dtype}, got "
                          f"{tuple(g.shape)} of {g.dtype}")
@@ -76,59 +102,21 @@ def _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
             raise ValueError(f"{name} on {t.device}, rays7 on {rays7.device}")
 
 
-def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
-                   normals_eps, track_min=False, hist=None, minf=None,
-                   amin=None, nlive=None):
-    """Backward of ``fused_march_normals`` (``track_min``: of ``_cov``).
-
-    ``g`` holds the cotangents of the 8 (or 9) output planes. ``hist``
-    (steps + 1, 3, rows, 128) and ``nlive`` (int32) are the forward's march
-    history and live-step counts (:func:`render_kernel.march_forward` with
-    ``log_hist``), and with ``track_min`` ``minf`` and ``amin`` its closest
-    approach and arg-min step; without a history the positions are
-    recomputed (in the kernel, into a scratch history allocated here). The
-    two give bitwise the same result.
-
-    Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``;
-    the validity plane's cotangent is zero."""
-    global LAUNCHES
-    _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
-           nlive)
-    if rays7.device.type == "cpu":
-        return reference_backward(program, params_flat, rays7, g, steps, tau,
-                                  normals_eps, track_min=track_min, hist=hist,
-                                  minf=minf, amin=amin, nlive=nlive)
-    if rays7.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays7.device}")
-    tensors = [params_flat, rays7, g] + [t for t in (hist, minf, amin, nlive)
-                                         if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the backward kernel takes contiguous tensors")
+def _launch(program, params_flat, rays7, call):
+    """Allocate the outputs, run ``call(lib, out, partials, n_blocks,
+    n_scalars, n, stream)`` (one kernel launch, returning its cudaError) and
+    assemble ``(params_flat cotangent, rays7 cotangent)``."""
     lib = rk._load(program)
     dev, dtype = rays7.device, rays7.dtype
-    plane_shape = tuple(rays7.shape[1:])
     n = rays7.shape[1] * LANES
-    recompute = hist is None
-    if recompute:
-        hist = torch.empty((int(steps) + 1, 3) + plane_shape, dtype=dtype,
-                           device=dev)
-    block = lib.rm_render_bwd_block()
-    n_blocks = -(-n // block)
+    n_blocks = -(-n // lib.rm_render_bwd_block())
     n_scalars = len(program.scalar_offsets)
-    out = torch.empty((7,) + plane_shape, dtype=dtype, device=dev)
+    out = torch.empty((7,) + tuple(rays7.shape[1:]), dtype=dtype, device=dev)
     out[6].zero_()
     partials = torch.empty((n_blocks, n_scalars), dtype=dtype, device=dev)
-    consts = rk._host_consts(dtype, tau, normals_eps)
-    fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
-          else lib.rm_render_bwd_f64)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES += 1
-        err = fn(params_flat.data_ptr(), rays7.data_ptr(), g.data_ptr(),
-                 int(track_min), hist.data_ptr(), int(recompute),
-                 rk._ptr(minf), rk._ptr(amin), rk._ptr(nlive),
-                 out.data_ptr(), partials.data_ptr(), n_blocks, n_scalars, n,
-                 int(steps), consts.ctypes.data_as(ctypes.c_void_p), stream)
+        err = call(lib, out, partials, n_blocks, n_scalars, n,
+                   torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_bwd kernel launch failed: cudaError {err}")
     gflat = torch.zeros_like(params_flat)
@@ -137,44 +125,204 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     return gflat, out
 
 
+def _contiguous_cuda(rays7, tensors):
+    if rays7.device.type != "cuda":
+        raise ValueError(f"unsupported device {rays7.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the backward kernel takes contiguous tensors")
+
+
+def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
+                   normals_eps, track_min=False, hist=None, minf=None,
+                   amin=None, nlive=None, two_level=False):
+    """Backward of ``fused_march_normals`` (``track_min``: of ``_cov``).
+
+    ``g`` holds the cotangents of the 8 (or 9) output planes. ``hist``
+    (steps + 1, 3, rows, 128) and ``nlive`` (int32) are the forward's march
+    history and live-step counts (:func:`render_kernel.march_forward` with
+    ``log_hist``), and with ``track_min`` ``minf`` and ``amin`` its closest
+    approach and arg-min step; without a history the positions are
+    recomputed (in the kernel, into a scratch history allocated here).
+    ``two_level`` asks for the recompute that keeps only every
+    :data:`CKPT_INTERVAL`-th position, in a scratch of ``steps /
+    CKPT_INTERVAL`` positions, and marches each segment again during the
+    sweep; it runs where :func:`two_level_engages` allows and ignores a
+    history, otherwise the ordinary path runs. All three give bitwise the
+    same result. :data:`LAST_PATH` records which one ran.
+
+    Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``;
+    the validity plane's cotangent is zero."""
+    _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
+           nlive)
+    two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
+    if two_level:
+        hist = minf = amin = nlive = None
+    LAST_PATH.clear()
+    LAST_PATH.update(use_hist=hist is not None, two_level=two_level, tau=tau,
+                     track_min=track_min)
+    if rays7.device.type == "cpu":
+        return reference_backward(program, params_flat, rays7, g, steps, tau,
+                                  normals_eps, track_min=track_min, hist=hist,
+                                  minf=minf, amin=amin, nlive=nlive,
+                                  two_level=two_level)
+    _contiguous_cuda(rays7, [params_flat, rays7, g]
+                     + [t for t in (hist, minf, amin, nlive) if t is not None])
+    dev, dtype = rays7.device, rays7.dtype
+    plane_shape = tuple(rays7.shape[1:])
+    recompute = hist is None and not two_level
+    ckpt = None
+    if two_level:
+        ckpt = torch.empty((int(steps) // CKPT_INTERVAL, 3) + plane_shape,
+                           dtype=dtype, device=dev)
+    elif recompute:
+        hist = torch.empty((int(steps) + 1, 3) + plane_shape, dtype=dtype,
+                           device=dev)
+    consts = rk._host_consts(dtype, tau, normals_eps)
+
+    def call(lib, out, partials, n_blocks, n_scalars, n, stream):
+        global LAUNCHES
+        fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
+              else lib.rm_render_bwd_f64)
+        LAUNCHES += 1
+        return fn(params_flat.data_ptr(), rays7.data_ptr(), g.data_ptr(),
+                  int(track_min), rk._ptr(hist), int(recompute),
+                  rk._ptr(ckpt), int(two_level), rk._ptr(minf),
+                  rk._ptr(amin), rk._ptr(nlive), out.data_ptr(),
+                  partials.data_ptr(), n_blocks, n_scalars, n, int(steps),
+                  consts.ctypes.data_as(ctypes.c_void_p), stream)
+
+    return _launch(program, params_flat, rays7, call)
+
+
+def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau):
+    """Backward of :func:`march_kernel.march_planes`: ``g`` holds the
+    cotangents of its 4 output planes (x y z d). The kernel marches again
+    into a scratch history allocated here, seeds the terminal position with
+    the position cotangent plus one SDF VJP weighted by the distance's, and
+    runs the reverse sweep: the backward kernel without its normals tail.
+
+    Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``."""
+    _check(program, params_flat, rays7, g, steps, False, None, None, None,
+           None, n_g=4)
+    if rays7.device.type == "cpu":
+        return reference_backward(program, params_flat, rays7, g, steps, tau,
+                                  None, march_only=True)
+    _contiguous_cuda(rays7, [params_flat, rays7, g])
+    dtype = rays7.dtype
+    hist = torch.empty((int(steps) + 1, 3) + tuple(rays7.shape[1:]),
+                       dtype=dtype, device=rays7.device)
+
+    def call(lib, out, partials, n_blocks, n_scalars, n, stream):
+        global MARCH_LAUNCHES
+        fn = (lib.rm_march_bwd_f32 if dtype == torch.float32
+              else lib.rm_march_bwd_f64)
+        MARCH_LAUNCHES += 1
+        return fn(params_flat.data_ptr(), rays7.data_ptr(), g.data_ptr(),
+                  hist.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                  n_blocks, n_scalars, n, int(steps), float(tau), stream)
+
+    return _launch(program, params_flat, rays7, call)
+
+
+def _two_level_positions(sdf, params, start, dirs, steps):
+    """The two-level recompute on tensors (tau = 0): march forward keeping
+    every :data:`CKPT_INTERVAL`-th position, then hand out the positions in
+    the sweep's order ``steps-1 .. 0``, marching each segment again from its
+    checkpoint when the sweep reaches it. Returns ``(terminal position,
+    iterator of (step, position))``; at most ``steps / CKPT_INTERVAL +
+    CKPT_INTERVAL`` positions are alive at a time."""
+    k = CKPT_INTERVAL
+
+    def advance(pos, n):
+        """``n`` march steps: the positions before each, and the one after
+        the last."""
+        before = []
+        for _ in range(n):
+            before.append(pos)
+            d = sdf(params, *pos)
+            pos = [c + d * v for c, v in zip(pos, dirs)]
+        return before, pos
+
+    with torch.no_grad():
+        ckpts, pos = [], start
+        for _ in range(steps // k):
+            ckpts.append(pos)
+            _, pos = advance(pos, k)
+
+    def sweep():
+        for seg in reversed(range(len(ckpts))):
+            with torch.no_grad():
+                before, last = advance(ckpts[seg], k - 1)
+            segment = before + [last]
+            for j in reversed(range(k)):
+                yield seg * k + j, segment[j]
+
+    return pos, sweep()
+
+
 def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                        normals_eps, track_min=False, hist=None, minf=None,
-                       amin=None, nlive=None):
-    """The plain PyTorch version of :func:`fused_backward`.
+                       amin=None, nlive=None, two_level=False,
+                       march_only=False):
+    """The plain PyTorch version of :func:`fused_backward` and, with
+    ``march_only``, of :func:`march_backward` (``g`` then has the 4 planes
+    x y z d and ``normals_eps`` is not read).
 
     Pad slots (``valid <= 0.5``) are left out before anything is evaluated,
     as a kernel thread returns early on them: they get zero cotangents by
-    construction, never by multiplying a possibly non-finite value by 0."""
-    if hist is None:
-        fwd, extras = rk._reference_march(
-            program, params_flat.detach(), rays7.detach(), steps, tau,
-            normals_eps, track_min=track_min, log_hist=True)
-        hist, nlive = extras["hist"], extras["nlive"]
-        if track_min:
-            minf, amin = fwd[8], extras["amin"]
+    construction, never by multiplying a possibly non-finite value by 0.
+    ``two_level`` really runs the kernel's algorithm, checkpoints and
+    segment replay (:func:`_two_level_positions`), where
+    :func:`two_level_engages` allows it."""
     steps = int(steps)
+    two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
     sdf = program.sdf_c
-    off, inv, lap_scale, _ = rk._plain_consts(rays7.dtype, tau, normals_eps)
     valid = (rays7[6] > 0.5).reshape(-1)
     pick = lambda plane: plane.reshape(-1)[valid]  # noqa: E731
     vx, vy, vz = (pick(rays7[i]).detach() for i in (3, 4, 5))
     gv = [pick(g[i]) for i in range(g.shape[0])]
-    nlive_v = pick(nlive)
     flat = params_flat.detach().requires_grad_(True)
     with torch.enable_grad():
         params = program.rebuild(flat)
 
-    def position(s):
-        return [pick(hist[s, c]).detach().requires_grad_(True)
-                for c in range(3)]
+    if two_level:
+        start = [pick(rays7[i]).detach() for i in range(3)]
+        with torch.no_grad():
+            end, positions = _two_level_positions(
+                sdf, program.rebuild(params_flat.detach()), start,
+                (vx, vy, vz), steps)
+        nlive_v = torch.full(vx.shape, steps, dtype=torch.int32,
+                             device=vx.device)
+    else:
+        if hist is None:
+            # march_only: the forward's tail planes are not read, so any
+            # normals_eps does.
+            fwd, extras = rk._reference_march(
+                program, params_flat.detach(), rays7.detach(), steps, tau,
+                5e-2 if march_only else normals_eps, track_min=track_min,
+                log_hist=True)
+            hist, nlive = extras["hist"], extras["nlive"]
+            if track_min:
+                minf, amin = fwd[8], extras["amin"]
+        nlive_v = pick(nlive)
+        end = [pick(hist[steps, c]) for c in range(3)]
+        n_sweep = (steps if track_min or not nlive_v.numel()
+                   else int(nlive_v.max()))
+        positions = ((s, [pick(hist[s, c]) for c in range(3)])
+                     for s in reversed(range(n_sweep)))
+    end = [c.detach().requires_grad_(True) for c in end]
 
     # Tail VJP into the terminal position.
-    end = position(steps)
     with torch.enable_grad():
-        tail = rk._tail_planes(sdf, params, *end, off, inv, lap_scale)
-    gflat, gx, gy, gz = torch.autograd.grad(
-        tail, [flat] + end, [gv[3], gv[4], gv[5], gv[6], gv[7]],
-        allow_unused=True)
+        if march_only:
+            tail, g_tail = [sdf(params, *end)], [gv[3]]
+        else:
+            off, inv, lap_scale, _ = rk._plain_consts(rays7.dtype, tau,
+                                                      normals_eps)
+            tail = rk._tail_planes(sdf, params, *end, off, inv, lap_scale)
+            g_tail = [gv[3], gv[4], gv[5], gv[6], gv[7]]
+    gflat, gx, gy, gz = torch.autograd.grad(tail, [flat] + end, g_tail,
+                                            allow_unused=True)
     gflat = torch.zeros_like(flat) if gflat is None else gflat
     gx, gy, gz = gx + gv[0], gy + gv[1], gz + gv[2]
 
@@ -182,11 +330,10 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     gvx, gvy, gvz = (torch.zeros_like(gx) for _ in range(3))
     if track_min:
         minf_v, amin_v, carry = pick(minf), pick(amin), gv[8]
-    n_sweep = steps if track_min or not nlive_v.numel() else int(nlive_v.max())
-    for s in reversed(range(n_sweep)):
+    for s, before in positions:
         live = nlive_v > s
-        pos = [torch.where(live, p, e.detach()).requires_grad_(True)
-               for p, e in zip(position(s), end)]
+        pos = [torch.where(live, p.detach(), e.detach()).requires_grad_(True)
+               for p, e in zip(before, end)]
         with torch.enable_grad():
             d = sdf(params, *pos)
         gd = torch.where(live, gx * vx + gy * vy + gz * vz, 0.0)
@@ -224,7 +371,8 @@ OPS_BWD_STEP = 14
 
 
 def backward_ops(program: SdfProgram, n_valid: int, swept_steps: int,
-                 recomputed_steps: int = 0, track_min: bool = False) -> int:
+                 recomputed_steps: int = 0, track_min: bool = False,
+                 march_only: bool = False) -> int:
     """Operations the backward needs, by the op-count convention of
     scene/codegen.py: per valid ray 5 SDF VJPs for the tail (a VJP holds
     its own primal evaluation, which also gives the tail its 5 distances;
@@ -233,9 +381,11 @@ def backward_ops(program: SdfProgram, n_valid: int, swept_steps: int,
     (``swept_steps`` is their sum over the rays; with ``track_min`` the tie
     test evaluates the SDF once more). ``recomputed_steps`` (summed over
     the rays) are the forward steps the kernel marches again when it gets
-    no history."""
+    no history; the two-level backward marches every step once for its
+    checkpoints and ``CKPT_INTERVAL - 1`` of every ``CKPT_INTERVAL`` once
+    more in the replay. ``march_only``: the tail is one VJP and 3 adds."""
     ev, vjp = program.ops_per_eval, program.vjp_ops_per_eval
-    tail = n_valid * (5 * vjp + OPS_BWD_TAIL)
+    tail = n_valid * (vjp + 3 if march_only else 5 * vjp + OPS_BWD_TAIL)
     per_step = vjp + OPS_BWD_STEP + (ev + 4 if track_min else 0)
     return (tail + swept_steps * per_step
             + recomputed_steps * (ev + rk.OPS_PER_STEP))

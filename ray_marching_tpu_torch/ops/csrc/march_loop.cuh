@@ -1,0 +1,70 @@
+// The sphere-trace loop x' = x + d(x) * v, written once for every kernel that
+// marches (render_fwd.cu, march.cu, and the position recompute and segment
+// replay of render_bwd.cu), so that their trajectories cannot drift apart:
+// the backward's bitwise equality with the forward's history rests on all of
+// them running this one op sequence.
+//
+// An observer sees every step before the ray moves: (step index, position,
+// distance there). Observers only store; none changes the arithmetic.
+//
+// tau > 0: a ray leaves the loop once |d| < tau, which is the masked march
+// of the JAX kernels (a frozen ray re-evaluates the same position and stays
+// frozen). The test is !(|d| >= tau), so a NaN distance freezes the ray as
+// jnp.abs(d) >= tau does. Returns the number of steps the ray moved.
+#pragma once
+
+#include "sdf_prims.cuh"
+#include "scene_sdf.cuh"
+
+struct NoObserver {
+  template <typename T>
+  __device__ __forceinline__ void operator()(int, T, T, T, T) {}
+};
+
+// Writes the position before each step into a plane-major history
+// (steps + 1, 3, plane) when hist is not null, and with TRACK_MIN keeps the
+// least distance, the first step that attains it (strict "<") and the
+// position there.
+template <typename T, bool TRACK_MIN>
+struct HistoryObserver {
+  T* hist;
+  long long plane;
+  long long i;
+  T minf;
+  int amin;
+  T ax, ay, az;
+
+  __device__ __forceinline__ void operator()(int s, T x, T y, T z, T d) {
+    if (hist) {
+      T* h = hist + s * (3 * plane);
+      h[i] = x;
+      h[plane + i] = y;
+      h[2 * plane + i] = z;
+    }
+    if (TRACK_MIN && d < minf) {
+      minf = d;
+      amin = s;
+      ax = x;
+      ay = y;
+      az = z;
+    }
+  }
+};
+
+template <typename T, typename Observer>
+__device__ __forceinline__ int march_ray(const T* __restrict__ P, T& x, T& y,
+                                         T& z, const T vx, const T vy,
+                                         const T vz, const int steps,
+                                         const T tau, Observer& observe) {
+  const bool freeze = tau != static_cast<T>(0);
+  int s = 0;
+  for (; s < steps; ++s) {
+    const T d = scene_sdf<T>(P, x, y, z);
+    observe(s, x, y, z, d);
+    if (freeze && !(rm_abs(d) >= tau)) break;
+    x = x + d * vx;
+    y = y + d * vy;
+    z = z + d * vz;
+  }
+  return s;
+}

@@ -40,8 +40,9 @@
 // whose parameters are read through a runtime pointer (new parameter values
 // never rebuild). tau > 0: a ray breaks out of its loop once |d| < tau,
 // which gives exactly the masked march of the JAX kernel, where a frozen ray
-// re-evaluates the same position. The TPU kernel's 64-row tiles, EXIT_SEG
-// segments and static unroll are not carried over.
+// re-evaluates the same position. The loop itself is march_ray of
+// march_loop.cuh, shared with march.cu and render_bwd.cu. The TPU kernel's
+// 64-row tiles, EXIT_SEG segments and static unroll are not carried over.
 //
 // Parity traps, kept deliberately:
 //  - min/max/clamp/relu are selects (sdf_prims.cuh), not fminf/fmaxf;
@@ -59,8 +60,7 @@
 
 #include <limits>
 
-#include "sdf_prims.cuh"
-#include "scene_sdf.cuh"
+#include "march_loop.cuh"
 #include "render_consts.cuh"
 
 template <typename T>
@@ -124,14 +124,8 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ rays,
   const T dx = rays[3 * plane + i];
   const T dy = rays[4 * plane + i];
   const T dz = rays[5 * plane + i];
-  const bool freeze = c.tau != zero;
-  for (int s = 0; s < steps; ++s) {
-    const T d = scene_sdf<T>(P, x, y, z);
-    if (freeze && !(rm_abs(d) >= c.tau)) break;
-    x = x + d * dx;
-    y = y + d * dy;
-    z = z + d * dz;
-  }
+  NoObserver none;
+  march_ray<T>(P, x, y, z, dx, dy, dz, steps, c.tau, none);
   store_hit<T>(P, out, plane, i, x, y, z, c);
 }
 
@@ -171,37 +165,14 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ rays,
   const T dx = rays[3 * plane + i];
   const T dy = rays[4 * plane + i];
   const T dz = rays[5 * plane + i];
-  const bool freeze = c.tau != zero;
-  T minf = big;
-  int amin = -1;
-  T ax = x, ay = y, az = z;
-  int s = 0;
-  for (; s < steps; ++s) {
-    if (t.hist) {
-      T* h = t.hist + s * p3;
-      h[i] = x;
-      h[plane + i] = y;
-      h[2 * plane + i] = z;
-    }
-    const T d = scene_sdf<T>(P, x, y, z);
-    if (d < minf) {
-      minf = d;
-      amin = s;
-      ax = x;
-      ay = y;
-      az = z;
-    }
-    if (freeze && !(rm_abs(d) >= c.tau)) break;
-    x = x + d * dx;
-    y = y + d * dy;
-    z = z + d * dz;
-  }
-  if (t.minf) t.minf[i] = minf;
-  if (t.amin) t.amin[i] = amin;
+  HistoryObserver<T, true> seen = {t.hist, plane, i, big, -1, x, y, z};
+  const int s = march_ray<T>(P, x, y, z, dx, dy, dz, steps, c.tau, seen);
+  if (t.minf) t.minf[i] = seen.minf;
+  if (t.amin) t.amin[i] = seen.amin;
   if (t.argpos) {
-    t.argpos[i] = ax;
-    t.argpos[plane + i] = ay;
-    t.argpos[2 * plane + i] = az;
+    t.argpos[i] = seen.ax;
+    t.argpos[plane + i] = seen.ay;
+    t.argpos[2 * plane + i] = seen.az;
   }
   if (t.hist) {
     T* h = t.hist + (long long)steps * p3;

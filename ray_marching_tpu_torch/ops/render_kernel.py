@@ -8,18 +8,21 @@ Counterpart of ``ray_marching_tpu/ops/pallas_render.py`` (``_render_kernel``;
 :mod:`ray_marching_tpu_torch.scene.codegen` and included into it.
 
 Build: ``nvcc`` compiles one shared library with a plain C interface per
-scene, holding the forward and the backward kernel
-(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`), at first use,
+scene, holding the forward kernel, the backward kernel
+(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`) and the march
+kernel (``csrc/march.cu``, bound in :mod:`.march_kernel`), at first use,
 into ``_build/<hash>/`` beside this module (the hash covers the generated
-SDF, the kernel sources and the flags), and ctypes binds it. Launches go on
-the current CUDA stream and allocate nothing inside the kernel; the wrapper
-allocates the outputs.
+SDF, the kernel sources and the flags), and ctypes binds it. Each source is
+compiled by an nvcc process of its own, all started together, and one more
+links the objects. Launches go on the current CUDA stream and allocate
+nothing inside the kernel; the wrapper allocates the outputs.
 
 :func:`fused_march_normals` and :func:`fused_march_normals_cov` are
 differentiable: when an input requires grad the forward launches the
 training configuration of the kernel (with the march history when
-``bwd_hist``) and ``backward()`` launches the backward kernel. Both take the
-plain versions only for tensors on the CPU. For CUDA tensors they launch the
+``bwd_hist``; without one when the two-level backward engages,
+``bwd_two_level``) and ``backward()`` launches the backward kernel. Both take
+the plain versions only for tensors on the CPU. For CUDA tensors they launch the
 kernels or raise; they never fall back.
 """
 
@@ -43,14 +46,21 @@ from ray_marching_tpu_torch.scene.codegen import SdfProgram
 LANES = 128
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_UNITS = ("render_fwd.cu", "render_bwd.cu")
-KERNEL_SOURCES = KERNEL_UNITS + ("sdf_prims.cuh", "render_consts.cuh")
+KERNEL_UNITS = ("render_fwd.cu", "render_bwd.cu", "march.cu")
+KERNEL_SOURCES = KERNEL_UNITS + ("sdf_prims.cuh", "render_consts.cuh",
+                                 "march_loop.cuh")
+#: The two-level backward keeps every ``CKPT_INTERVAL``-th march position and
+#: marches each segment again when the sweep reaches it. The one definition:
+#: the kernel gets it from the compiler's command line (so it is part of the
+#: build hash), ``backward_kernel`` reads it from here.
+CKPT_INTERVAL = 8
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     # Op-for-op parity with the plain version: no FMA contraction, and no
     # --use_fast_math (IEEE sqrt and division).
     "--fmad=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    f"-DRM_CKPT_INTERVAL={CKPT_INTERVAL}",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 #: Forward-kernel launches so far (the wrapper adds one per launch, nowhere
@@ -64,6 +74,14 @@ LAUNCHES = 0
 #: There is no size cap: a history that does not fit fails in its
 #: allocation with the card's out-of-memory error.
 BWD_HIST = True
+#: Whether a differentiated forward asks for the two-level backward
+#: (checkpoints every :data:`CKPT_INTERVAL` steps and segment
+#: replay, for step counts whose history does not fit); the counterpart of
+#: the JAX package's RM_TPU_BWD_TWO_LEVEL, overridden by the ``bwd_two_level``
+#: argument of the two entry points. It runs only where
+#: ``backward_kernel.two_level_engages`` allows it; the forward then logs no
+#: history. Otherwise :data:`BWD_HIST` decides as before.
+BWD_TWO_LEVEL = False
 #: nvcc/ptxas output of each build, keyed by build hash.
 BUILD_LOG: dict = {}
 
@@ -95,33 +113,56 @@ def _lib_path(key: str) -> Path:
 
 
 def build_kernels(programs) -> None:
-    """Build the libraries of ``programs`` that are not built yet, all nvcc
-    processes started together; record their output in :data:`BUILD_LOG`."""
+    """Build the libraries of ``programs`` that are not built yet: one nvcc
+    process per source file and scene, all started together, then one link
+    per scene; record their output in :data:`BUILD_LOG`."""
     pending = {}
     for program in programs:
         key = kernel_key(program)
         if key not in pending and not _lib_path(key).exists():
             pending[key] = program
+    nvcc = _nvcc() if pending else None
     procs = []
+
+    def start(cmd):
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append(proc)
+        return proc
+
+    def finish(key, proc):
+        log, _ = proc.communicate()
+        BUILD_LOG[key] = BUILD_LOG.get(key, "") + log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for kernel {key}:\n{log}")
+
     try:
+        compiles = []
         for key, program in pending.items():
             out_dir = BUILD_DIR / key
             out_dir.mkdir(parents=True, exist_ok=True)
             (out_dir / "scene_sdf.cuh").write_text(program.cuda_source())
-            tmp = out_dir / f"librender.so.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
-                   "-o", str(tmp), *(str(CSRC / u) for u in KERNEL_UNITS)]
-            procs.append((key, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        for key, tmp, proc in procs:
-            log, _ = proc.communicate()
-            BUILD_LOG[key] = log
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for kernel {key}:\n{log}")
+            BUILD_LOG[key] = ""
+            for unit in KERNEL_UNITS:
+                obj = out_dir / f"{unit}.{os.getpid()}.o"
+                compiles.append((key, obj, start(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
+                     "-c", "-o", str(obj), str(CSRC / unit)])))
+        for key, _, proc in compiles:
+            finish(key, proc)
+        links = []
+        for key in pending:
+            tmp = BUILD_DIR / key / f"librender.so.tmp{os.getpid()}"
+            objs = [str(obj) for k, obj, _ in compiles if k == key]
+            links.append((key, tmp, objs, start(
+                [nvcc, "-shared", "-o", str(tmp), *objs])))
+        for key, tmp, objs, proc in links:
+            finish(key, proc)
             os.replace(tmp, _lib_path(key))
+            for obj in objs:
+                os.unlink(obj)
     finally:
-        for _, _, proc in procs:
+        for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -137,6 +178,7 @@ def _load(program: SdfProgram):
         build_kernels([program])
         lib = ctypes.CDLL(str(_lib_path(key)))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f64 = ctypes.c_double
         for name in ("rm_render_fwd_f32", "rm_render_fwd_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
@@ -148,8 +190,17 @@ def _load(program: SdfProgram):
             fn.restype = i32
         for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, ptr, ptr,
-                           ptr, i64, i32, i64, i32, ptr, ptr]
+            fn.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr, ptr,
+                           ptr, ptr, ptr, i64, i32, i64, i32, ptr, ptr]
+            fn.restype = i32
+        for name in ("rm_march_f32", "rm_march_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, i64, i32, f64, ptr]
+            fn.restype = i32
+        for name in ("rm_march_bwd_f32", "rm_march_bwd_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i64, i32,
+                           f64, ptr]
             fn.restype = i32
         lib.rm_render_bwd_block.argtypes = []
         lib.rm_render_bwd_block.restype = i32
@@ -267,11 +318,12 @@ class _FusedMarch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
-                track_min, log_hist):
+                track_min, log_hist, two_level):
         out, extras = march_forward(program, params_flat, rays7, steps, tau,
                                     normals_eps, track_min=track_min,
                                     log_hist=log_hist)
-        ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist)
+        ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist,
+                   two_level)
         saved = [params_flat, rays7]
         if log_hist:
             saved += [extras["hist"], extras["nlive"]]
@@ -285,7 +337,8 @@ class _FusedMarch(torch.autograd.Function):
     def backward(ctx, g):
         from ray_marching_tpu_torch.ops.backward_kernel import fused_backward
 
-        program, steps, tau, normals_eps, track_min, log_hist = ctx.cfg
+        (program, steps, tau, normals_eps, track_min, log_hist,
+         two_level) = ctx.cfg
         params_flat, rays7, *rest = ctx.saved_tensors
         handoff = {}
         if log_hist:
@@ -295,24 +348,31 @@ class _FusedMarch(torch.autograd.Function):
         gflat, grays = fused_backward(program, params_flat, rays7,
                                       g.contiguous(), steps, tau,
                                       normals_eps, track_min=track_min,
-                                      **handoff)
-        return gflat, grays, None, None, None, None, None, None
+                                      two_level=two_level, **handoff)
+        return gflat, grays, None, None, None, None, None, None, None
 
 
 def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
-           bwd_hist):
+           bwd_hist, bwd_two_level):
     if torch.is_grad_enabled() and (params_flat.requires_grad
                                     or rays7.requires_grad):
+        from ray_marching_tpu_torch.ops.backward_kernel import (
+            two_level_engages,
+        )
+
+        two_level = (
+            (BWD_TWO_LEVEL if bwd_two_level is None else bool(bwd_two_level))
+            and two_level_engages(steps, tau, track_min))
+        log_hist = not two_level and (BWD_HIST if bwd_hist is None
+                                      else bool(bwd_hist))
         return _FusedMarch.apply(params_flat, rays7, program, steps, tau,
-                                 normals_eps, track_min,
-                                 BWD_HIST if bwd_hist is None
-                                 else bool(bwd_hist))
+                                 normals_eps, track_min, log_hist, two_level)
     return march_forward(program, params_flat, rays7, steps, tau,
                          normals_eps, track_min=track_min)[0]
 
 
 def fused_march_normals(program: SdfProgram, params_flat, rays7, steps, tau,
-                        normals_eps, bwd_hist=None):
+                        normals_eps, bwd_hist=None, bwd_two_level=None):
     """rays7 (7, rows, 128) → (8, rows, 128): x y z d nx ny nz lap.
 
     ``program`` is the scene (:class:`scene.codegen.SdfProgram`),
@@ -320,20 +380,24 @@ def fused_march_normals(program: SdfProgram, params_flat, rays7, steps, tau,
     (:func:`ops.params.split_params_padded`). CPU tensors take the plain
     version; CUDA tensors launch the kernel. Differentiable in
     ``params_flat`` and ``rays7``; ``bwd_hist`` chooses between the history
-    handoff and the backward kernel's recompute (see :data:`BWD_HIST`)."""
+    handoff and the backward kernel's recompute (see :data:`BWD_HIST`),
+    ``bwd_two_level`` asks for the two-level backward (see
+    :data:`BWD_TWO_LEVEL`)."""
     return _fused(program, params_flat, rays7, steps, tau, normals_eps, False,
-                  bwd_hist)
+                  bwd_hist, bwd_two_level)
 
 
 def fused_march_normals_cov(program: SdfProgram, params_flat, rays7, steps,
-                            tau, normals_eps, bwd_hist=None):
+                            tau, normals_eps, bwd_hist=None,
+                            bwd_two_level=None):
     """Coverage variant: (9, rows, 128), the 8 planes of
     :func:`fused_march_normals` plus the along-ray closest approach
     ``min_f`` (plane 8), the carrier of silhouette gradients
     (render/silhouette.py). Its cotangent is routed to the arg-min march
-    step inside the backward kernel."""
+    step inside the backward kernel, which needs every march position: the
+    two-level backward never engages here."""
     return _fused(program, params_flat, rays7, steps, tau, normals_eps, True,
-                  bwd_hist)
+                  bwd_hist, bwd_two_level)
 
 
 class _FusedMarchIFT(torch.autograd.Function):

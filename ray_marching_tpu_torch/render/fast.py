@@ -35,35 +35,16 @@ from ray_marching_tpu_torch.ops.render_kernel import (
     fused_march_normals_ift,
 )
 from ray_marching_tpu_torch.render import shaders
-from ray_marching_tpu_torch.render.pipeline import RenderConfig
+from ray_marching_tpu_torch.render.pipeline import EXTRA_MODES, RenderConfig
 from ray_marching_tpu_torch.render.silhouette import soft_coverage
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 from ray_marching_tpu_torch.scene.graph import Node, compile_scene
-from ray_marching_tpu_torch.utils import clamp, rmax, rmin
+from ray_marching_tpu_torch.utils import clamp, resolve_device, rmax, rmin
+from ray_marching_tpu_torch.utils import not_ported as _not_ported
 
 LANES = 128
 ROWS_PER_TILE = 256
 _GAMMA = 1.0 / 2.33
-EXTRA_MODES = ("occlusion", "shaded")
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (the port never
-    moves to the CPU by itself)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but no CUDA device is "
-            "available; pass device='cpu' to run the plain PyTorch versions"
-        )
-    return dev
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with a later slice of the "
-        "PyTorch port (see ROADMAP.md)"
-    )
 
 
 def _to_planes(flat: np.ndarray, rows: int) -> np.ndarray:
@@ -92,7 +73,8 @@ class FastRenderer:
         self.dtype = dtype
         self.scene = scene
         self.program = SdfProgram(scene)
-        self.sdf_c, self.init_params = compile_scene(scene, dtype, self.device)
+        _, self.sdf_c, self.init_params = compile_scene(scene, dtype,
+                                                        self.device)
         self.cyclic_cmap = shaders.load_cyclic_cmap(dtype, self.device)
 
         h, w = config.px_height, config.px_width

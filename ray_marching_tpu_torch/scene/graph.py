@@ -3,10 +3,11 @@
 
 The node dataclasses carry the same names and fields as the JAX package's,
 so a scene tree reads the same in both. :func:`compile_scene` returns the
-componentwise tensor SDF ``sdf_c(params, x, y, z)`` and the initial
-parameter dict (nested dicts of tensors, the same layout and key names as
-the JAX pytree). :func:`params_from_jax` carries a JAX parameter pytree,
-given as numpy arrays, across.
+vector-form SDF ``sdf_vec(params, p)``, the componentwise tensor SDF
+``sdf_c(params, x, y, z)`` and the initial parameter dict (nested dicts of
+tensors, the same layout and key names as the JAX pytree).
+:func:`params_from_jax` carries a JAX parameter pytree, given as numpy
+arrays, across.
 
 The union bounding-sphere short-circuit (``compile_node(prune=True)`` in the
 JAX package) is not ported: it is off by default there and was measured as
@@ -204,10 +205,24 @@ def compile_node(node: Node) -> Callable:
     return _unknown(node)
 
 
+def as_vector_sdf(sdf_c: Callable) -> Callable:
+    """Wrap a componentwise SDF into the ``(..., 3) -> (..., 1)`` convention
+    of the marcher, normals and shader stack of the modular pipeline."""
+
+    def sdf_vec(params, p):
+        d = sdf_c(params, p[..., 0], p[..., 1], p[..., 2])
+        return d[..., None]
+
+    return sdf_vec
+
+
 def compile_scene(node: Node, dtype=torch.float32, device="cpu"):
-    """Compile a scene tree → ``(sdf_c, params)``: the componentwise SDF and
-    the initial parameter dict on ``device``."""
-    return compile_node(node), init_params(node, dtype, device)
+    """Compile a scene tree → ``(sdf_vec, sdf_c, params)``, as the JAX
+    package's ``compile_scene`` returns them: ``sdf_vec(params, p)`` maps
+    ``(..., 3) -> (..., 1)``, ``sdf_c(params, x, y, z)`` is the componentwise
+    form, and ``params`` is the initial parameter dict on ``device``."""
+    sdf_c = compile_node(node)
+    return as_vector_sdf(sdf_c), sdf_c, init_params(node, dtype, device)
 
 
 def param_paths(params, prefix=""):

@@ -1,4 +1,6 @@
-"""Select-semantics min/max/clamp (counterpart of ``ray_marching_tpu/utils.py``).
+"""Select-semantics min/max/clamp (counterpart of ``ray_marching_tpu/utils.py``)
+and two helpers every entry point of the port shares: :func:`resolve_device`
+and :func:`not_ported`.
 
 ``clamp``, ``vmin`` and ``vmax`` are ``where`` selects, never
 ``torch.clamp``/``torch.minimum``: a select passes a NaN operand through
@@ -62,3 +64,24 @@ def rmin(x):
 def rmax(x):
     """Whole-tensor max (see :func:`rmin`)."""
     return _SelectReduce.apply(x, True)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (the port never
+    moves to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def not_ported(what):
+    """The error for an option of the JAX package the port does not run
+    yet."""
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with a later slice of the "
+        "PyTorch port (see ROADMAP.md)"
+    )

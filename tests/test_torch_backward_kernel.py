@@ -1,7 +1,8 @@
 """The port's backward of the fused march + normals: its plain PyTorch
 version against the JAX ``fused_backward`` (Pallas kernel in interpret mode)
-and against whole-graph autograd, the history handoff, the wrapper's checks
-and the op count of its bound. The CUDA kernel itself is held against the
+and against whole-graph autograd, the history handoff, the two-level
+recompute, the march-only mode, the wrapper's checks and the op count of its
+bound. The CUDA kernel itself is held against the
 plain version by the ``cuda`` tests, which skip without a card, and by
 chip_smoke.py.
 
@@ -14,18 +15,25 @@ diverged ray's gradient is astronomically large, and its rounding would
 swamp the parameter cotangent of all the others.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ray_marching_tpu.ops import pallas_backward as j_pb
 from ray_marching_tpu.ops.pallas_backward import fused_backward as j_backward
+from ray_marching_tpu.ops.pallas_march import _pallas_march_core
 from ray_marching_tpu.ops.pallas_march import split_params_padded as j_split
+from ray_marching_tpu.render.fast import FastRenderer as JaxFastRenderer
+from ray_marching_tpu.render.pipeline import RenderConfig as JaxRenderConfig
 from ray_marching_tpu.scene import graph as jgraph
 from ray_marching_tpu.scene import registry as jreg
 from ray_marching_tpu_torch.ops import backward_kernel as bk
 from ray_marching_tpu_torch.ops import render_kernel as rk
 from ray_marching_tpu_torch.ops.params import split_params_padded
+from ray_marching_tpu_torch.render.fast import FastRenderer
+from ray_marching_tpu_torch.render.pipeline import RenderConfig
 from ray_marching_tpu_torch.scene import graph as tgraph
 from ray_marching_tpu_torch.scene import registry as treg
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
@@ -64,8 +72,9 @@ def scene(request):
 
 
 def _stable(program, tflat, rays, tau):
-    out = rk.reference_march_normals(program, tflat, torch.as_tensor(rays),
-                                     STEPS, tau, EPS).numpy()
+    out = rk.reference_march_normals(program, tflat.detach(),
+                                     torch.as_tensor(rays), STEPS, tau,
+                                     EPS).numpy()
     return ((np.abs(out[3]) < 1e-2) & (np.sqrt((out[:3] ** 2).sum(0)) < 10)
             & (rays[6] > 0.5))
 
@@ -161,6 +170,174 @@ def test_min_f_ties_split_like_a_minimum_chain(scene):
                                torch.as_tensor(g), STEPS, 0.0, EPS,
                                track_min=True)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("steps", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_two_level_is_bitwise_the_history_path(scene, dtype, steps):
+    """Checkpoints every 8th position, segments marched again in the sweep:
+    the same op sequence per ray and the same sweep order steps-1 .. 0 as
+    with the history or the full recompute, so the same bits."""
+    _, _, program, tflat = scene
+    rays = torch.as_tensor(_rays(33), dtype=dtype)
+    flat = tflat.detach().to(dtype)
+    g = torch.as_tensor(_cotangents(34, 8), dtype=dtype)
+    _, ex = rk.march_forward(program, flat, rays, steps, 0.0, EPS,
+                             log_hist=True)
+    with_hist = bk.fused_backward(program, flat, rays, g, steps, 0.0, EPS,
+                                  hist=ex["hist"], nlive=ex["nlive"])
+    assert bk.LAST_PATH == dict(use_hist=True, two_level=False, tau=0.0,
+                                track_min=False)
+    recomputed = bk.fused_backward(program, flat, rays, g, steps, 0.0, EPS)
+    assert bk.LAST_PATH["use_hist"] is False
+    # Asked for with a history in hand: the history is ignored.
+    two_level = bk.fused_backward(program, flat, rays, g, steps, 0.0, EPS,
+                                  hist=ex["hist"], nlive=ex["nlive"],
+                                  two_level=True)
+    assert bk.LAST_PATH == dict(use_hist=False, two_level=True, tau=0.0,
+                                track_min=False)
+    # NaN included: on the open test_scene the f32 gradients overflow, in
+    # all three paths at the same places.
+    for a, b, c in zip(with_hist, recomputed, two_level):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.isnan(), c.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.nan_to_num(), c.nan_to_num())
+
+
+def test_two_level_replays_segments_from_checkpoints(scene):
+    """The plain two-level version really keeps steps/8 checkpoints and
+    marches each segment again (it is no alias of the history version): the
+    SDF is evaluated steps times for the checkpoints and 7 of every 8 steps
+    once more, and the sweep sees the history's positions in reverse."""
+    _, _, program, tflat = scene
+    rays = torch.as_tensor(_rays(35, rows=1))
+    valid = (rays[6] > 0.5).reshape(-1)
+    tflat = tflat.detach()
+    _, ex = rk.march_forward(program, tflat, rays, 16, 0.0, EPS,
+                             log_hist=True)
+    calls = []
+
+    def counting_sdf(params, x, y, z):
+        calls.append(1)
+        return program.sdf_c(params, x, y, z)
+
+    start = [rays[i].reshape(-1)[valid] for i in range(3)]
+    dirs = [rays[i].reshape(-1)[valid] for i in (3, 4, 5)]
+    end, sweep = bk._two_level_positions(
+        counting_sdf, program.rebuild(tflat), start, dirs, 16)
+    assert len(calls) == 16
+    seen = list(sweep)
+    assert len(calls) == 16 + 2 * 7
+    assert [s for s, _ in seen] == list(reversed(range(16)))
+    for s, pos in seen:
+        for c in range(3):
+            assert torch.equal(pos[c], ex["hist"][s, c].reshape(-1)[valid])
+    for c in range(3):
+        assert torch.equal(end[c], ex["hist"][16, c].reshape(-1)[valid])
+
+
+@pytest.mark.parametrize("steps,tau,track_min", [
+    (16, 0.0, False), (32, 0.0, False), (128, 0.0, False), (8, 0.0, False),
+    (12, 0.0, False), (20, 0.0, False), (0, 0.0, False), (16, 1e-3, False),
+    (16, 0.0, True), (32, 1e-3, True)])
+def test_two_level_engages_like_jax(monkeypatch, steps, tau, track_min):
+    """The JAX rule with its environment switch on; with the switch off (the
+    ``two_level`` argument false) the ordinary path runs whatever the rule
+    says."""
+    monkeypatch.setenv("RM_TPU_BWD_TWO_LEVEL", "1")
+    assert bk.CKPT_INTERVAL == j_pb.CKPT_INTERVAL
+    assert (bk.two_level_engages(steps, tau, track_min)
+            == j_pb.two_level_engages(steps, tau, track_min))
+    if steps:
+        program = SdfProgram(treg.make_scene("test_scene2"))
+        flat, _ = split_params_padded(
+            tgraph.init_params(program.node, torch.float64), torch.float64)
+        rays = torch.as_tensor(_rays(36, rows=1))
+        g = torch.as_tensor(_cotangents(37, 9 if track_min else 8, rows=1))
+        for asked in (True, False):
+            bk.fused_backward(program, flat, rays, g, steps, tau, EPS,
+                              track_min=track_min, two_level=asked)
+            assert bk.LAST_PATH["two_level"] is (
+                asked and bk.two_level_engages(steps, tau, track_min))
+
+
+def test_two_level_matches_jax_two_level(monkeypatch):
+    """Both packages' two-level backward through their FastRenderer (the JAX
+    one with RM_TPU_BWD_TWO_LEVEL=1 and its kernels in interpret mode): f64
+    gradients at rtol 1e-9 (the JAX package's own two-level against its
+    history path holds the same tolerance, tests/test_fast.py). The forward
+    logs no history when the two-level backward engages."""
+    px = 3.45e-6
+    kw = dict(px_width=48, px_height=32, focal_length=px * 32,
+              sensor_width=px * 48, sensor_height=px * 32, marching_steps=16)
+    jr = JaxFastRenderer(jreg.make_scene("test_scene2"), JaxRenderConfig(**kw),
+                         dtype=jnp.float64, grid_dtype=np.float64,
+                         interpret=True)
+    tr = FastRenderer(treg.make_scene("test_scene2"), RenderConfig(**kw),
+                      dtype=torch.float64, grid_dtype=np.float64, device="cpu")
+    q = np.asarray([[0.1, 0.03, 0.99, 0.03]])
+    q = q / np.linalg.norm(q)
+    t = np.asarray([[0.1, 0.2, 2.0]])
+    wgt = np.random.default_rng(5).standard_normal((1, 32, 48, 3))
+    monkeypatch.setenv("RM_TPU_BWD_TWO_LEVEL", "1")
+    jg = jax.grad(lambda p: jnp.sum(jr.render(
+        p, jnp.asarray(q), jnp.asarray(t), mode=0, degree=2) * wgt))(
+            jr.init_params)
+    assert j_pb.LAST_PATH["two_level"] is True
+
+    def port_grads():
+        params = tgraph.params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jr.init_params), torch.float64)
+        leaves = tgraph.param_paths(params)
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        (tr.render(params, q, t, mode=0, degree=2)
+         * torch.as_tensor(wgt)).sum().backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    logged = []
+    forward = rk.march_forward
+    monkeypatch.setattr(rk, "march_forward", lambda *a, **k: (
+        logged.append(k.get("log_hist")), forward(*a, **k))[1])
+    monkeypatch.setattr(rk, "BWD_TWO_LEVEL", True)
+    two_level = port_grads()
+    assert bk.LAST_PATH["two_level"] is True and logged == [False]
+    monkeypatch.setattr(rk, "BWD_TWO_LEVEL", False)
+    history = port_grads()
+    assert bk.LAST_PATH == dict(use_hist=True, two_level=False, tau=0.0,
+                                track_min=False)
+    assert logged == [False, True]
+    want = jgraph.param_paths(jg)
+    for k in want:
+        assert torch.equal(two_level[k], history[k]), k
+        np.testing.assert_allclose(two_level[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-9, atol=1e-11, err_msg=k)
+
+
+@pytest.mark.parametrize("tau", [0.0, 1e-3])
+def test_march_only_backward_matches_jax_march_vjp(scene, tau):
+    """The plain version of the march-only mode against the VJP the JAX
+    package gives its march kernel (a checkpointed scan)."""
+    name, (jsdf, rebuild, jflat, mats), program, tflat = scene
+    rays = _rays(38)
+    stable = _stable(program, tflat, rays, tau)
+    g = _cotangents(39, 4, mask=stable)
+    _, vjp = jax.vjp(
+        lambda f, r: _pallas_march_core(jsdf, rebuild, f, mats, r, STEPS, tau,
+                                        True), jflat, jnp.asarray(rays))
+    jg_flat, jg_rays = vjp(jnp.asarray(g))
+    g_flat, g_rays = bk.march_backward(program, tflat.detach(),
+                                       torch.as_tensor(rays),
+                                       torch.as_tensor(g), STEPS, tau)
+    want = np.asarray(jg_rays)
+    for i in range(7):
+        np.testing.assert_allclose(
+            g_rays.numpy()[i][stable], want[i][stable], rtol=1e-7, atol=1e-10,
+            err_msg=f"{name} tau={tau} ray plane {i}")
+    np.testing.assert_allclose(g_flat.numpy(), np.asarray(jg_flat), rtol=1e-7,
+                               atol=1e-10, err_msg=f"{name} params")
+    assert not g_rays.numpy()[:, rays[6] < 0.5].any()
 
 
 def test_backward_ops_count():
@@ -292,4 +469,37 @@ def test_cuda_backward_matches_plain(cuda, scene, dtype, tau, track_min):
     assert int(conv.sum()) >= 64
     rel = 1e-4 if dtype == torch.float32 else 1e-11
     for got, ref in ((a[0], want[0]), (a[1][:, conv], want[1][:, conv])):
+        assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_two_level_backward_is_bitwise(cuda, scene, dtype):
+    """On the card the two-level backward gives the bits of the history and
+    the full-recompute paths, and agrees with its plain version (which
+    replays segments too) like the ordinary path does."""
+    _, _, program, tflat = scene
+    steps = 16
+    rays = torch.as_tensor(_rays(40, rows=64), dtype=dtype, device=cuda)
+    flat = tflat.detach().to(device=cuda, dtype=dtype)
+    first = rk.reference_march_normals(program, flat, rays, steps, 0.0, EPS)
+    rays[6] = ((first[3].abs() < 1e-3) & (rays[6] > 0.5)).to(dtype)
+    g = torch.as_tensor(_cotangents(41, 8, rows=64), dtype=dtype, device=cuda)
+    _, ex = rk.march_forward(program, flat, rays, steps, 0.0, EPS,
+                             log_hist=True)
+    before = bk.LAUNCHES
+    a = bk.fused_backward(program, flat, rays, g, steps, 0.0, EPS,
+                          hist=ex["hist"], nlive=ex["nlive"])
+    b = bk.fused_backward(program, flat, rays, g, steps, 0.0, EPS)
+    c = bk.fused_backward(program, flat, rays, g, steps, 0.0, EPS,
+                          two_level=True)
+    assert bk.LAUNCHES == before + 3 and bk.LAST_PATH["two_level"] is True
+    want = bk.reference_backward(program, flat, rays, g, steps, 0.0, EPS,
+                                 two_level=True)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    conv = rays[6] > 0.5
+    rel = 1e-4 if dtype == torch.float32 else 1e-11
+    for got, ref in ((c[0], want[0]), (c[1][:, conv], want[1][:, conv])):
         assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())

@@ -125,7 +125,7 @@ def test_scene_sdf_matches_jax(name):
     jnode = _scene(jgraph, jreg, name)
     tnode = _scene(tgraph, treg, name)
     _, jsdf, jparams = jgraph.compile_scene(jnode, jnp.float64)
-    tsdf, tparams = tgraph.compile_scene(tnode, torch.float64)
+    _, tsdf, tparams = tgraph.compile_scene(tnode, torch.float64)
     (jx, jy, jz), (tx, ty, tz) = _both(_points(4))
     _close(jsdf(jparams, jx, jy, jz), tsdf(tparams, tx, ty, tz))
 
@@ -137,7 +137,7 @@ def test_codegen_torch_backend_equals_plain_sdf(name, dtype):
     bit for bit, which pins the generated code's offsets, order and selects."""
     node = _scene(tgraph, treg, name)
     program = SdfProgram(node)
-    sdf, params = tgraph.compile_scene(node, dtype)
+    _, sdf, params = tgraph.compile_scene(node, dtype)
     flat, _ = t_split(params, dtype)
     p = torch.as_tensor(_points(5), dtype=dtype)
     p[:, 8:16] = float("nan")
@@ -311,6 +311,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import ray_marching_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('ops.march_kernel', 'render.march', 'render.implicit',\n"
+        "          'render.pipeline', 'camera', 'quat'):\n"
+        "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ray_marching_tpu' or m.startswith('ray_marching_tpu.')]\n"
