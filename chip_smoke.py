@@ -31,7 +31,9 @@ Without a CUDA device it exits non-zero and prints no result. PNGs go to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +92,31 @@ MODULAR_VS_FAST_ATOL = 1e-3
 #: Where the history stops fitting comfortably: the backward at this step
 #: count is timed with the history and with two levels.
 LONG_STEPS = 128
+#: The neural slice's main configuration: the trained width-256 NeuralSDF
+#: of docs/neural_fit_w256 beside the room, its weights from the file, at
+#: the demo's own resolution, step count and pose (view 0 of
+#: tools/train_neural_demo.py's poses), f32.
+ROOT = Path(__file__).resolve().parent
+NEURAL_WEIGHTS = ROOT / "docs" / "neural_fit_w256" / "weights.npz"
+NEURAL_SCENE_FILE = ROOT / "docs" / "examples" / "neural_demo.json"
+NEURAL_RES, NEURAL_F64_RES, NEURAL_STEPS, NEURAL_FRAMES = 512, 128, 24, 20
+NEURAL_Q, NEURAL_T = [[0.0, 0.0, 1.0, 0.0]], [[0.0, 0.2, 2.2]]
+#: bf16 operands (matmul_dtype='bfloat16') against the plain bf16 version,
+#: f32 128×128. Both round the same operands to bf16, but their f32 sums run
+#: in other orders; where that moves a hidden value across a bf16 rounding
+#: boundary, the operand jumps by one bf16 ulp (2^-8 relative), which moves
+#: d by up to ~1e-4 and the Laplacian (2400× d's error) by ~0.3. Positions
+#: and d within 1e-3, normals 1e-2, Laplacian 1.0; at most 1 % of the
+#: converged rays outside.
+TOL_BF16 = (1e-3, 1e-3, 1e-3, 1e-3, 1e-2, 1e-2, 1e-2, 1.0)
+MAX_SHARE_OUT_BF16 = 1e-2
+#: The neural frame against the analytic target the field was distilled to
+#: (tools/train_neural_demo.py), mode 0 at the demo's pose: thresholds fixed
+#: by tests/test_torch_neural.py's CPU run at 64×64 (0.999 of the pixels
+#: agree on hitting the object there, mean difference 0.0049; with the
+#: hidden matrix transposed 0.900 and 0.102). An object hit: the ray ends
+#: within OBJECT_RADIUS of the origin (the room's walls are 4.9 away).
+TARGET_MIN_AGREE, TARGET_MAX_MEAN_DIFF, OBJECT_RADIUS = 0.99, 0.02, 1.5
 
 
 class SmokeFailure(RuntimeError):
@@ -128,7 +155,7 @@ def main_rays(renderer, q, t):
     q, t = renderer._pose(q, t)
     origin, dirs = renderer._pose_planes(q, t)
     rays7 = torch.stack(list(origin) + list(dirs) + [renderer._valid], 0)
-    flat, _ = split_params_padded(renderer.init_params, renderer.dtype,
+    flat, _, _ = split_params_padded(renderer.init_params, renderer.dtype,
                                   renderer.device)
     return flat, rays7
 
@@ -142,20 +169,25 @@ def modular_rays(renderer, q, t):
 
     _, _, ray_pos, ray_dirs = renderer.camera.pose(renderer._tensor(q),
                                                    renderer._tensor(t))
-    flat, _ = split_params_padded(renderer.init_params, renderer.dtype,
+    flat, _, _ = split_params_padded(renderer.init_params, renderer.dtype,
                                   renderer.device)
     return flat, mk.rays_to_planes(ray_pos, ray_dirs).contiguous()
 
 
-def compare(label, program, flat, rays7, tau, f64):
+def compare(label, program, flat, rays7, tau, f64, steps=STEPS, mats=(),
+            tol=TOL_F32, max_share=MAX_SHARE_OUT_F32):
     """Kernel vs plain version on the same card inputs; returns the max abs
-    difference over converged rays."""
+    difference over converged rays. ``tol`` and ``max_share`` are the f32
+    tolerances per plane and the share of converged rays allowed outside
+    them (f64: TOL_F64 on every plane, no ray outside)."""
     import torch
 
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
-    got = rk.fused_march_normals(program, flat, rays7, STEPS, tau, 5e-2)
-    want = rk.reference_march_normals(program, flat, rays7, STEPS, tau, 5e-2)
+    got = rk.fused_march_normals(program, flat, rays7, steps, tau, 5e-2,
+                                 mats=mats)
+    want = rk.reference_march_normals(program, flat, rays7, steps, tau, 5e-2,
+                                      mats=mats)
     torch.cuda.synchronize()
     conv = (rays7[6] > 0.5) & (want[3].abs() < CONVERGED)
     n_conv = int(conv.sum())
@@ -166,7 +198,7 @@ def compare(label, program, flat, rays7, tau, f64):
         nan_mismatch = torch.isnan(got[i]) != torch.isnan(want[i])
         diff = torch.where(torch.isnan(got[i]) & torch.isnan(want[i]),
                            torch.zeros_like(diff), diff)
-        bad = nan_mismatch | (diff > (TOL_F64 if f64 else TOL_F32[i]))
+        bad = nan_mismatch | (diff > (TOL_F64 if f64 else tol[i]))
         outside |= bad & conv
         diffs.append(float(torch.where(conv, diff, 0.0).max()))
     share = int(outside.sum()) / n_conv
@@ -176,7 +208,7 @@ def compare(label, program, flat, rays7, tau, f64):
           f"tolerance {share:.3e}, bitwise-equal share of valid rays "
           f"{exact:.6f}, max abs diff per plane "
           + " ".join(f"{n}={d:.3e}" for n, d in zip(PLANES, diffs)))
-    check(share <= (0.0 if f64 else MAX_SHARE_OUT_F32),
+    check(share <= (0.0 if f64 else max_share),
           f"{label}: {share:.3e} of converged rays outside tolerance")
     return max(diffs)
 
@@ -308,7 +340,8 @@ def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
     return errs, masked
 
 
-def compare_march(label, program, flat, rays7, tau, f64, backward):
+def compare_march(label, program, flat, rays7, tau, f64, backward,
+                  steps=STEPS, mats=()):
     """March kernel vs plain version (tolerances of planes 0-3 of the fused
     kernel, expected bitwise) and vs planes 0-3 of the fused kernel (bitwise,
     required: one march loop, two kernels). With ``backward`` also its
@@ -321,9 +354,10 @@ def compare_march(label, program, flat, rays7, tau, f64, backward):
     from ray_marching_tpu_torch.ops import march_kernel as mk
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
-    got = mk.march_planes(program, flat, rays7, STEPS, tau)
-    want = mk.reference_march(program, flat, rays7, STEPS, tau)
-    full = rk.fused_march_normals(program, flat, rays7, STEPS, tau, 5e-2)
+    got = mk.march_planes(program, flat, rays7, steps, tau, mats)
+    want = mk.reference_march(program, flat, rays7, steps, tau, mats)
+    full = rk.fused_march_normals(program, flat, rays7, steps, tau, 5e-2,
+                                  mats=mats)
     torch.cuda.synchronize()
     valid = rays7[6] > 0.5
     conv = valid & (want[3].abs() < CONVERGED)
@@ -812,6 +846,376 @@ def golden_bounce(root: Path):
           f"{g['meta_image_modes'].tolist()} ok, mode-0 gradients through "
           "the march kernel's backward ok")
 
+def neural_scene(matmul_dtype="float32"):
+    """``Union(room, NeuralSDF(hidden=(256, 256), ...))`` of
+    tools/train_neural_demo.py:113-117 (--hidden 256 --impl matmul
+    --activation sine_fast)."""
+    from ray_marching_tpu_torch.scene.graph import Box, Onion, Union
+    from ray_marching_tpu_torch.scene.neural import NeuralSDF
+
+    return Union(children=(
+        Onion(child=Box(halfsides=(5.0, 5.0, 5.0)), radius=0.1),
+        NeuralSDF(hidden=(256, 256), seed=11, scale=0.5, w0=8.0,
+                  impl="matmul", activation="sine_fast",
+                  matmul_dtype=matmul_dtype)))
+
+
+def target_scene():
+    """The analytic shape the w256 field was distilled to, in the room
+    (tools/train_neural_demo.py:56-70)."""
+    from ray_marching_tpu_torch.scene.graph import (
+        Affine,
+        SmoothUnion,
+        Sphere,
+        Union,
+    )
+
+    return Union(children=(neural_scene().children[0], SmoothUnion(
+        children=(
+            Affine(child=Sphere(radius=0.45),
+                   orientation=(1.0, 0.0, 0.0, 0.0),
+                   translation=(0.3, 0.1, 0.0)),
+            Affine(child=Sphere(radius=0.35),
+                   orientation=(1.0, 0.0, 0.0, 0.0),
+                   translation=(-0.35, -0.1, 0.1)),
+        ), blend_k=8.0)))
+
+
+def neural_renderer(res, dtype, scene=None, **kw):
+    """``FastRenderer`` on the main neural configuration at ``res``² and its
+    weights from the file (``io.checkpoint.load_pytree`` against the
+    renderer's own template)."""
+    import torch
+
+    from ray_marching_tpu_torch.io.checkpoint import load_pytree
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+
+    cfg = dataclasses.replace(config(res, res), marching_steps=NEURAL_STEPS)
+    r = FastRenderer(scene or neural_scene(), cfg, dtype=dtype,
+                     grid_dtype=np.float64 if dtype == torch.float64
+                     else np.float32, **kw)
+    return r, load_pytree(NEURAL_WEIGHTS, r.init_params)
+
+
+def neural_rays(renderer, params):
+    """The flat parameters, matrices and (7, rows, 128) planes
+    ``FastRenderer`` hands the kernel at the demo's pose."""
+    import torch
+
+    from ray_marching_tpu_torch.ops.params import split_params_padded
+
+    q, t = renderer._pose(NEURAL_Q, NEURAL_T)
+    origin, dirs = renderer._pose_planes(q, t)
+    rays7 = torch.stack(list(origin) + list(dirs) + [renderer._valid], 0)
+    flat, mats, _ = split_params_padded(params, renderer.dtype,
+                                        renderer.device)
+    return flat, mats, rays7
+
+
+class PlainMarchCalls:
+    """Counts the calls of the kernels' plain marches while it is active."""
+
+    def __enter__(self):
+        from ray_marching_tpu_torch.ops import march_kernel as mk
+        from ray_marching_tpu_torch.ops import render_kernel as rk
+        from ray_marching_tpu_torch.render import fast
+
+        self.n = 0
+        self._saved = [(rk, "_reference_march"), (fast, "_reference_march"),
+                       (mk, "reference_march")]
+        self._saved = [(m, a, getattr(m, a)) for m, a in self._saved]
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def counted(*args, **kwargs):
+            self.n += 1
+            return fn(*args, **kwargs)
+
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def ptxas_entry(log, kernel):
+    """(registers, stack frame bytes, spill store bytes) of the f32
+    instantiation of ``kernel`` in a build's ``-Xptxas -v`` report (None
+    each when the library was built before this run)."""
+    if not log:
+        return None, None, None
+    for chunk in log.split("Compiling entry function '")[1:]:
+        if re.match(r"_Z\d+" + kernel + r"IfE", chunk):
+            regs = re.search(r"Used (\d+) registers", chunk)
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores", chunk)
+            return int(regs.group(1)), int(frame.group(1)), int(
+                frame.group(2))
+    raise SmokeFailure(f"no ptxas report for {kernel}")
+
+
+def frame_and_hits(renderer, params):
+    """The mode-0 frame at the demo's pose and where its rays hit the
+    object (ended within OBJECT_RADIUS of the origin), from one march
+    (tests/test_torch_neural.py::frame_and_hits)."""
+    import torch
+
+    r = renderer
+    with torch.no_grad():
+        q, t = r._pose(NEURAL_Q, NEURAL_T)
+        origin, dirs = r._pose_planes(q, t)
+        hit, final_dirs = r._march_planes(params, origin, dirs, NEURAL_STEPS)
+        norm = torch.sqrt(hit[0] ** 2 + hit[1] ** 2 + hit[2] ** 2)
+        hits = r._assemble([(norm < OBJECT_RADIUS).to(r.dtype)]) > 0.5
+        return r._assemble(r._shade(0, 1, q, origin, final_dirs, hit)), hits
+
+
+def neural_slice(card, out_dir: Path):
+    """The neural slice on the card: kernels vs plain versions (f32 at the
+    main configuration's planes, tau 0 and 1e-3; f64 128×128; bf16 operands
+    128×128), the march kernel vs the forward's planes 0-3 bitwise, the
+    main path (FastRenderer.render, 20 frames, counted; no plain march), the
+    weights check against the analytic target, the modular path
+    (Renderer, use_pallas=True, one frame, counted), the CLI on the JAX
+    package's neural scene file, timings and bounds. Returns the two entries
+    of the kernels line."""
+    import torch
+
+    from ray_marching_tpu_torch.cli import main as cli_main
+    from ray_marching_tpu_torch.io.image import write_png
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.ops.params import split_params_padded
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+    from ray_marching_tpu_torch.scene import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"neural slice: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    main, params = neural_renderer(NEURAL_RES, torch.float32)
+    prog = main.program
+    flat, mats, rays7 = neural_rays(main, params)
+    errs = {}
+    for tau in (0.0, 1e-3):
+        label = f"neural f32 {NEURAL_RES}x{NEURAL_RES} w256 tau={tau:g}"
+        errs[tau] = compare(label, prog, flat, rays7, tau, False,
+                            NEURAL_STEPS, mats)
+        m_err, _ = compare_march(label, prog, flat, rays7, tau, False,
+                                 backward=False, steps=NEURAL_STEPS,
+                                 mats=mats)
+        errs[("march", tau)] = m_err
+    r64, p64 = neural_renderer(NEURAL_F64_RES, torch.float64)
+    f_flat, f_mats, f_rays = neural_rays(r64, p64)
+    label = f"neural f64 {NEURAL_F64_RES}x{NEURAL_F64_RES} w256"
+    compare(label, r64.program, f_flat, f_rays, 0.0, True, NEURAL_STEPS,
+            f_mats)
+    compare_march(label, r64.program, f_flat, f_rays, 0.0, True,
+                  backward=False, steps=NEURAL_STEPS, mats=f_mats)
+    rbf, pbf = neural_renderer(NEURAL_F64_RES, torch.float32,
+                               scene=neural_scene("bfloat16"))
+    bf_flat, bf_mats, bf_rays = neural_rays(rbf, pbf)
+    compare(f"neural bf16 operands {NEURAL_F64_RES}x{NEURAL_F64_RES} w256 "
+            f"(tolerance {TOL_BF16}, share {MAX_SHARE_OUT_BF16})",
+            rbf.program, bf_flat, bf_rays, 0.0, False, NEURAL_STEPS, bf_mats,
+            tol=TOL_BF16, max_share=MAX_SHARE_OUT_BF16)
+    del r64, p64, f_flat, f_mats, f_rays, rbf, pbf, bf_flat, bf_mats, bf_rays
+
+    # The main path, counted: FastRenderer.render with march_impl='auto'.
+    check(main.march_impl == "fused", f"auto chose {main.march_impl}")
+    main.render(params, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    rk.LAUNCHES = 0
+    with PlainMarchCalls() as plain:
+        start.record()
+        for _ in range(NEURAL_FRAMES):
+            frame = main.render(params, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+        stop.record()
+        torch.cuda.synchronize()
+    launches = rk.LAUNCHES
+    frame_ms = start.elapsed_time(stop) / NEURAL_FRAMES
+    print(f"neural main path (FastRenderer.render, march_impl='auto', w256, "
+          f"{NEURAL_RES}x{NEURAL_RES}, {NEURAL_STEPS} steps): {NEURAL_FRAMES} "
+          f"frames, forward-kernel launches {launches}, plain-march calls "
+          f"{plain.n}; {frame_ms:.4f} ms per frame (CUDA events)")
+    check(launches == NEURAL_FRAMES and plain.n == 0,
+          "neural main path: launches or plain marches")
+    valid_px = main._assemble([main._valid]) > 0.5
+    check(tuple(frame.shape) == (1, NEURAL_RES, NEURAL_RES, 3)
+          and bool(torch.isfinite(frame[valid_px.expand_as(frame)]).all()),
+          "neural frame: shape or non-finite pixels")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    write_png(out_dir / "neural_w256_mode0.png", frame)
+    target = FastRenderer(target_scene(), main.config, dtype=torch.float32,
+                          grid_dtype=np.float32)
+    got, want = frame_and_hits(main, params), frame_and_hits(
+        target, target.init_params)
+    agree = float((got[1] == want[1]).to(torch.float64).mean())
+    mean_diff = float((got[0] - want[0]).abs().mean())
+    print(f"neural frame vs the analytic target it was distilled to: "
+          f"{agree:.6f} of the pixels agree on hitting the object (at least "
+          f"{TARGET_MIN_AGREE}), mean abs difference {mean_diff:.6f} (at most "
+          f"{TARGET_MAX_MEAN_DIFF})")
+    check(agree >= TARGET_MIN_AGREE and mean_diff <= TARGET_MAX_MEAN_DIFF,
+          "the neural frame does not match the target: weights carried "
+          "wrongly?")
+    del target
+
+    # The modular path, counted: one frame through the march kernel.
+    modular = Renderer(neural_scene(),
+                       dataclasses.replace(main.config, use_pallas=True),
+                       dtype=torch.float32)
+    with torch.no_grad():
+        modular.render(params, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+        torch.cuda.synchronize()
+        mk.LAUNCHES = 0
+        with PlainMarchCalls() as plain:
+            mod_frame = modular.render(params, NEURAL_Q, NEURAL_T, mode=0,
+                                       degree=1)
+            torch.cuda.synchronize()
+        march_launches = mk.LAUNCHES
+        hit, _ = main._march_planes(params, *main._pose_planes(
+            *main._pose(NEURAL_Q, NEURAL_T)), NEURAL_STEPS)
+        conv = main._assemble([(hit[3].abs() < CONVERGED).to(torch.float32)]
+                              ) > 0.5
+    diff = (mod_frame - frame).abs()[conv.expand_as(frame)]
+    share = float((diff > MODULAR_VS_FAST_ATOL).float().mean())
+    print(f"neural modular path (Renderer, use_pallas=True): march launches "
+          f"{march_launches}, plain-march calls {plain.n}; vs the "
+          f"FastRenderer frame on {int(conv.sum())} converged pixels: max abs "
+          f"diff {float(diff.max()):.3e}, share above "
+          f"{MODULAR_VS_FAST_ATOL:g} {share:.3e}")
+    check(march_launches == 1 and plain.n == 0,
+          "neural modular path: launches or plain marches")
+    check(share <= MAX_SHARE_OUT_F32, "neural modular and fast frames differ")
+    write_png(out_dir / "neural_w256_modular_mode0.png", mod_frame)
+
+    # The JAX package's CLI entry for neural scenes, in process.
+    rk.LAUNCHES = 0
+    cli_main(["render", "--scene-file", str(NEURAL_SCENE_FILE), "--fast",
+              "-o", str(out_dir / "neural_demo_cli.png")])
+    torch.cuda.synchronize()
+    check(rk.LAUNCHES == 1, f"cli render: {rk.LAUNCHES} launches")
+    cli_launches = rk.LAUNCHES
+
+    # Timing: the kernels at the main configuration, their plain versions,
+    # the modular frame; both marches for both neural scenes.
+    ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7,
+                                                NEURAL_STEPS, 0.0, 5e-2,
+                                                mats=mats), 5)
+    plain_ms = cuda_ms(lambda: rk.reference_march_normals(
+        prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2, mats=mats), 2)
+    m_flat, m_mats, _ = split_params_padded(params, torch.float32,
+                                            modular.device)
+    _, _, ray_pos, ray_dirs = modular.camera.pose(
+        modular._tensor(NEURAL_Q), modular._tensor(NEURAL_T))
+    m_rays7 = mk.rays_to_planes(ray_pos, ray_dirs).contiguous()
+    march_ms = cuda_ms(lambda: mk.march_planes(prog, m_flat, m_rays7,
+                                               NEURAL_STEPS, 0.0, m_mats), 5)
+    march_plain_ms = cuda_ms(lambda: mk.reference_march(
+        prog, m_flat, m_rays7, NEURAL_STEPS, 0.0, m_mats), 2)
+
+    def modular_frame():
+        with torch.no_grad():
+            return modular.render(params, NEURAL_Q, NEURAL_T, mode=0,
+                                  degree=1)
+
+    modular_ms = cuda_ms(modular_frame, 3)
+    prof = profile_frames(lambda: main.render(params, NEURAL_Q, NEURAL_T,
+                                              mode=0, degree=1), frame_ms,
+                          frames=3) or {}
+    kernel_dev_ms = next((v for k, v in prof.items()
+                          if k.startswith("void render_fwd_kernel<float>")),
+                         None)
+    dispatch = {}
+    demo = registry.make_scene("neural_demo")
+    for name, scene, p in (("neural_demo", demo, None),
+                           ("w256", neural_scene(), params)):
+        for impl in ("fused", "xla"):
+            r = FastRenderer(scene, main.config, dtype=torch.float32,
+                             march_impl=impl)
+            p_ = r.init_params if p is None else p
+            dispatch[f"{name}_{impl}_frame_ms"] = cuda_ms(
+                lambda: r.render(p_, NEURAL_Q, NEURAL_T, mode=0, degree=1),
+                3)
+    print(f"neural timing on {card} ({NEURAL_RES}x{NEURAL_RES}, "
+          f"{NEURAL_STEPS} steps, f32): forward kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; march kernel {march_ms:.4f} ms, plain "
+          f"{march_plain_ms:.3f} ms; frame {frame_ms:.4f} ms (FastRenderer), "
+          f"{modular_ms:.4f} ms (Renderer, use_pallas=True); march_impl "
+          "fused vs xla, frame ms: "
+          + ", ".join(f"{k[:-9]} {v:.4f}" for k, v in dispatch.items()))
+
+    # Bounds: operations from the op counts (the MLP dominates), bytes from
+    # the planes and the matrices, each read or written once.
+    n_valid = int((rays7[6] > 0.5).sum())
+    plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
+    mat_bytes = sum(m.numel() for m in mats) * rays7.element_size()
+    ops = rk.kernel_ops(prog, n_valid, NEURAL_STEPS)
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = (15 * plane_bytes + mat_bytes) / PEAK_BYTES * 1e3
+    m_valid = int((m_rays7[6] > 0.5).sum())
+    m_plane_bytes = (m_rays7.shape[1] * m_rays7.shape[2]
+                     * m_rays7.element_size())
+    m_ops = mk.march_ops(prog, m_valid, NEURAL_STEPS)
+    tm_ops = m_ops / PEAK_F32_FLOPS * 1e3
+    tm_bytes = (11 * m_plane_bytes + mat_bytes) / PEAK_BYTES * 1e3
+    log = rk.BUILD_LOG.get(rk.kernel_key(prog), "")
+    fwd_regs = ptxas_entry(log, "render_fwd_kernel")
+    march_regs = ptxas_entry(log, "march_kernel")
+    print(f"neural bounds: forward {ops} ops ({prog.ops_per_eval} per SDF "
+          f"evaluation) -> {t_ops:.4f} ms, bytes -> {t_bytes:.4f} ms; march "
+          f"{m_ops} ops -> {tm_ops:.4f} ms, bytes -> {tm_bytes:.4f} ms; "
+          f"ptxas (f32): forward {fwd_regs[0]} registers, {fwd_regs[1]} bytes "
+          f"stack, {fwd_regs[2]} bytes spilled; march {march_regs[0]} "
+          f"registers, {march_regs[1]} bytes stack, {march_regs[2]} bytes "
+          "spilled")
+    common = {"route": "cuda", "library_ms": None, "card": card}
+    return [{
+        "name": "render_fwd_neural",
+        "source": "ray_marching_tpu_torch/ops/csrc/render_fwd.cu + "
+                  "ray_marching_tpu_torch/ops/csrc/neural.cuh",
+        "replaces": "ray_marching_tpu/ops/pallas_render.py:227 + "
+                    "ray_marching_tpu/scene/neural.py:232",
+        "launches": launches,
+        "launches_cli": cli_launches,
+        "max_abs_err": errs[0.0],
+        "max_abs_err_tau_1e-3": errs[1e-3],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "frame_ms": frame_ms,
+        "profiler_kernel_ms": kernel_dev_ms,
+        "registers": fwd_regs[0],
+        "stack_bytes": fwd_regs[1],
+        "spill_store_bytes": fwd_regs[2],
+        **dispatch,
+        **common,
+    }, {
+        "name": "march_neural",
+        "source": "ray_marching_tpu_torch/ops/csrc/march.cu + "
+                  "ray_marching_tpu_torch/ops/csrc/neural.cuh",
+        "replaces": "ray_marching_tpu/ops/pallas_march.py:173 + "
+                    "ray_marching_tpu/scene/neural.py:232",
+        "launches": march_launches,
+        "max_abs_err": errs[("march", 0.0)],
+        "max_abs_err_tau_1e-3": errs[("march", 1e-3)],
+        "ms": march_ms,
+        "plain_ms": march_plain_ms,
+        "bound_ms": max(tm_ops, tm_bytes),
+        "bound_by": "operations" if tm_ops >= tm_bytes else "bytes",
+        "frame_ms": modular_ms,
+        "registers": march_regs[0],
+        "stack_bytes": march_regs[1],
+        "spill_store_bytes": march_regs[2],
+        **common,
+    }]
+
 
 def run(out_dir: Path):
     import torch
@@ -835,16 +1239,26 @@ def run(out_dir: Path):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. Build every kernel of the run, all nvcc processes together.
+    # 1. Build every kernel of the run, all nvcc processes together: the
+    # analytic scenes, the neural slice's scenes (forward and march units
+    # only: they have no adjoint) and the analytic target of the weights
+    # check.
     scenes = ("test_scene2", "test_scene")
     programs = {s: SdfProgram(registry.make_scene(s)) for s in scenes}
+    programs.update({
+        "neural w256": SdfProgram(neural_scene()),
+        "neural w256 bf16": SdfProgram(neural_scene("bfloat16")),
+        "neural_demo": SdfProgram(registry.make_scene("neural_demo")),
+        "distillation target": SdfProgram(target_scene()),
+    })
     t0 = time.perf_counter()
     rk.build_kernels(programs.values())
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(programs)} "
           "scene libraries")
     for s, p in programs.items():
         key = rk.kernel_key(p)
-        print(f"ptxas report ({s}, {key}):")
+        print(f"ptxas report ({s}, {key}, units "
+              f"{', '.join(rk.kernel_units(p))}):")
         print(rk.BUILD_LOG.get(key, "(built before this run)").strip())
 
     # 2. Kernels vs plain versions on the card: the forward's serving
@@ -1353,6 +1767,8 @@ def run(out_dir: Path):
         "library_ms": None,
         "card": card,
     }]}
+    # 6. The neural slice: NeuralSDF scenes through both kernels.
+    kernels["kernels"] += neural_slice(card, out_dir)
     print(card)
     print(json.dumps(kernels))
     return {"ok": True, "device": {

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ray_marching_tpu_torch import quat
+from ray_marching_tpu_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -66,11 +67,13 @@ def _pixel_center_grid(cfg: CameraConfig, grid_dtype
 
 
 class Camera:
-    """Holds the ray-grid constants on ``device``; :meth:`pose` is the pure
-    forward map."""
+    """Holds the ray-grid constants on ``device`` (the card unless the
+    caller asks for the CPU; :func:`utils.resolve_device` raises without
+    one); :meth:`pose` is the pure forward map."""
 
     def __init__(self, cfg: CameraConfig, dtype=torch.float32,
-                 grid_dtype=np.float32, device="cpu"):
+                 grid_dtype=np.float32, device="cuda"):
+        device = resolve_device(device)
         self.cfg = cfg
         positions, directions = _pixel_center_grid(cfg, grid_dtype)
         n = cfg.num_cameras

@@ -8,6 +8,8 @@ package's CLI does; ``optimize`` always runs on the ``FastRenderer``.
   python -m ray_marching_tpu_torch.cli render --pallas --bounces 1 -o out.png
   python -m ray_marching_tpu_torch.cli render --fast --device cpu --width 96 \
       --height 64 --mode normal -o small.png
+  python -m ray_marching_tpu_torch.cli render --fast \
+      --scene-file docs/examples/neural_demo.json -o neural.png
   python -m ray_marching_tpu_torch.cli optimize --target selftest \
       --trainable c1/c0/radius --opt-steps 50
 """
@@ -15,6 +17,7 @@ package's CLI does; ``optimize`` always runs on the ``FastRenderer``.
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from ray_marching_tpu_torch.render.fast import FastRenderer
 from ray_marching_tpu_torch.render.pipeline import RenderConfig, Renderer
 from ray_marching_tpu_torch.render.shaders import MODES
 from ray_marching_tpu_torch.scene import registry
+from ray_marching_tpu_torch.scene.serialize import load_scene
 
 
 def _parse_mode(spec):
@@ -57,9 +61,15 @@ def _build_renderer(args, fast):
         use_pallas=args.pallas,
         backward=args.backward,
     )
+    if args.scene_file:
+        if not Path(args.scene_file).exists():
+            raise SystemExit(f"error: scene file not found: {args.scene_file}")
+        scene = load_scene(args.scene_file)
+    else:
+        scene = registry.make_scene(args.scene)
     cls = FastRenderer if fast else Renderer
-    return cls(registry.make_scene(args.scene), cfg,
-               dtype=getattr(torch, args.dtype), device=args.device)
+    return cls(scene, cfg, dtype=getattr(torch, args.dtype),
+               device=args.device)
 
 
 def _initial_params(args, renderer):
@@ -67,6 +77,8 @@ def _initial_params(args, renderer):
     written by ``--save-params`` of either package)."""
     if not args.params:
         return renderer.init_params
+    if not Path(args.params).exists():
+        raise SystemExit(f"error: params checkpoint not found: {args.params}")
     return load_pytree(args.params, renderer.init_params)
 
 
@@ -132,6 +144,9 @@ def cmd_optimize(args):
 
 def _add_render_args(p):
     p.add_argument("--scene", default="test_scene2")
+    p.add_argument("--scene-file", default=None,
+                   help="JSON scene file (overrides --scene; the JAX "
+                        "package's format)")
     p.add_argument("--degree", type=int, default=2)
     p.add_argument("--width", type=int, default=1440)
     p.add_argument("--height", type=int, default=900)

@@ -12,7 +12,9 @@ package differentiates ``pallas_march`` through a checkpointed scan instead,
 ``pallas_march.py::_core_bwd``).
 
 Both wrappers take the plain version only for tensors on the CPU. For CUDA
-tensors they launch the kernel or raise; they never fall back.
+tensors they launch the kernel or raise; they never fall back. A scene with
+``NeuralSDF`` leaves has no backward yet: both raise ``NotImplementedError``
+before any launch (the neural training slice).
 
 The plain version (:func:`reference_backward`) is the kernel's own algorithm
 written with tensors: one VJP of the tail, then the reverse sweep over the
@@ -152,6 +154,7 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
 
     Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``;
     the validity plane's cotangent is zero."""
+    rk.no_matrix_backward(program)
     _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
            nlive)
     two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
@@ -202,6 +205,7 @@ def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau):
     runs the reverse sweep: the backward kernel without its normals tail.
 
     Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``."""
+    rk.no_matrix_backward(program)
     _check(program, params_flat, rays7, g, steps, False, None, None, None,
            None, n_g=4)
     if rays7.device.type == "cpu":

@@ -6,7 +6,9 @@
 // there by _pallas_march_flat for pallas_march and
 // pallas_march_with_distance.
 //
-// Contract: rays (7, plane) = x y z dx dy dz valid; out (4, plane) =
+// Contract: P the flat parameters, M the packed matrices of the scene's
+// neural leaves (null for an analytic scene; neural.cuh evaluates them);
+// rays (7, plane) = x y z dx dy dz valid; out (4, plane) =
 // the marched x y z and the terminal distance. Invalid slots (valid <= 0.5)
 // never evaluate the SDF: their position passes through and their distance
 // is 0.
@@ -30,8 +32,9 @@
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-march_kernel(const T* __restrict__ P, const T* __restrict__ rays,
-             T* __restrict__ out, long long plane, int steps, T tau) {
+march_kernel(const T* __restrict__ P, const T* __restrict__ M,
+             const T* __restrict__ rays, T* __restrict__ out, long long plane,
+             int steps, T tau) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   T x = rays[i];
@@ -40,9 +43,9 @@ march_kernel(const T* __restrict__ P, const T* __restrict__ rays,
   T d = static_cast<T>(0);
   if (rays[6 * plane + i] > static_cast<T>(0.5)) {
     NoObserver none;
-    march_ray<T>(P, x, y, z, rays[3 * plane + i], rays[4 * plane + i],
+    march_ray<T>(P, M, x, y, z, rays[3 * plane + i], rays[4 * plane + i],
                  rays[5 * plane + i], steps, tau, none);
-    d = scene_sdf<T>(P, x, y, z);
+    d = scene_sdf<T>(P, M, x, y, z);
   }
   out[i] = x;
   out[plane + i] = y;
@@ -51,27 +54,28 @@ march_kernel(const T* __restrict__ P, const T* __restrict__ rays,
 }
 
 template <typename T>
-static int launch(const T* P, const T* rays, T* out, long long plane,
-                  int steps, double tau, void* stream) {
+static int launch(const T* P, const T* M, const T* rays, T* out,
+                  long long plane, int steps, double tau, void* stream) {
   const int block = 256;
   const long long grid = (plane + block - 1) / block;
   march_kernel<T><<<(unsigned int)grid, block, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      P, rays, out, plane, steps, static_cast<T>(tau));
+      P, M, rays, out, plane, steps, static_cast<T>(tau));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C interface (bound with ctypes). tau arrives as a double and is
-// rounded to T here, to nearest, as the host rounds it for the other
-// kernels. Returns the cudaError_t of the launch (0 on success).
-extern "C" int rm_march_f32(const float* P, const float* rays, float* out,
-                            long long plane, int steps, double tau,
+// Plain C interface (bound with ctypes). M is the packed matrix buffer, null
+// for a scene without neural leaves. tau arrives as a double and is rounded
+// to T here, to nearest, as the host rounds it for the other kernels.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int rm_march_f32(const float* P, const float* M, const float* rays,
+                            float* out, long long plane, int steps, double tau,
                             void* stream) {
-  return launch<float>(P, rays, out, plane, steps, tau, stream);
+  return launch<float>(P, M, rays, out, plane, steps, tau, stream);
 }
 
-extern "C" int rm_march_f64(const double* P, const double* rays, double* out,
-                            long long plane, int steps, double tau,
-                            void* stream) {
-  return launch<double>(P, rays, out, plane, steps, tau, stream);
+extern "C" int rm_march_f64(const double* P, const double* M,
+                            const double* rays, double* out, long long plane,
+                            int steps, double tau, void* stream) {
+  return launch<double>(P, M, rays, out, plane, steps, tau, stream);
 }

@@ -7,6 +7,9 @@
 // An observer sees every step before the ray moves: (step index, position,
 // distance there). Observers only store; none changes the arithmetic.
 //
+// P is the flat parameter vector, M the packed matrix buffer of the scene's
+// neural leaves (null for an analytic scene).
+//
 // tau > 0: a ray leaves the loop once |d| < tau, which is the masked march
 // of the JAX kernels (a frozen ray re-evaluates the same position and stays
 // frozen). The test is !(|d| >= tau), so a NaN distance freezes the ray as
@@ -52,14 +55,15 @@ struct HistoryObserver {
 };
 
 template <typename T, typename Observer>
-__device__ __forceinline__ int march_ray(const T* __restrict__ P, T& x, T& y,
+__device__ __forceinline__ int march_ray(const T* __restrict__ P,
+                                         const T* __restrict__ M, T& x, T& y,
                                          T& z, const T vx, const T vy,
                                          const T vz, const int steps,
                                          const T tau, Observer& observe) {
   const bool freeze = tau != static_cast<T>(0);
   int s = 0;
   for (; s < steps; ++s) {
-    const T d = scene_sdf<T>(P, x, y, z);
+    const T d = scene_sdf<T>(P, M, x, y, z);
     observe(s, x, y, z, d);
     if (freeze && !(rm_abs(d) >= tau)) break;
     x = x + d * vx;

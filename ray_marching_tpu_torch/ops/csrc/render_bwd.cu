@@ -75,6 +75,8 @@ constexpr int N_ACC = SCENE_N_SCALARS > 0 ? SCENE_N_SCALARS : 1;
 template <typename T>
 struct BwdArgs {
   const T* P;
+  const T* M;  // packed matrices: null, the entry points serve analytic
+               // scenes only (the library holds this unit only then)
   const T* rays;
   const T* g;
   T* hist;           // (steps + 1, 3, plane): the forward's, or scratch
@@ -125,12 +127,13 @@ struct ReplayObserver {
 // the cotangent of the position after the step on entry and before it on
 // return. A frozen step (live == false) moves nothing and only carries gd.
 template <typename T>
-__device__ __forceinline__ void sweep_step(const T* __restrict__ P, T px, T py,
+__device__ __forceinline__ void sweep_step(const T* __restrict__ P,
+                                           const T* __restrict__ M, T px, T py,
                                            T pz, T gd, bool live, T& gx, T& gy,
                                            T& gz, T& gvx, T& gvy, T& gvz,
                                            T* gP) {
   T sx, sy, sz;
-  const T d = scene_sdf_vjp<T>(P, px, py, pz, gd, sx, sy, sz, gP);
+  const T d = scene_sdf_vjp<T>(P, M, px, py, pz, gd, sx, sy, sz, gP);
   if (live) {
     gvx = gvx + gx * d;
     gvy = gvy + gy * d;
@@ -172,14 +175,14 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       CheckpointObserver<T> keep = {a.ckpt, plane, i};
-      nlive = march_ray<T>(a.P, x, y, z, vx, vy, vz, steps, zero, keep);
+      nlive = march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, zero, keep);
     } else if (a.recompute) {
       x = a.rays[i];
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       HistoryObserver<T, TRACK_MIN> seen = {a.hist, plane, i, big, -1,
                                             x,      y,     z};
-      nlive = march_ray<T>(a.P, x, y, z, vx, vy, vz, steps, c.tau, seen);
+      nlive = march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau, seen);
       minf = seen.minf;
       amin = seen.amin;
       hend[i] = x;
@@ -202,7 +205,7 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
     if (MARCH_ONLY) {
       // ---- the terminal distance's cotangent into the position ----
       T sx, sy, sz;
-      scene_sdf_vjp<T>(a.P, x, y, z, a.g[3 * plane + i], sx, sy, sz, gP);
+      scene_sdf_vjp<T>(a.P, a.M, x, y, z, a.g[3 * plane + i], sx, sy, sz, gP);
       gx = gx + sx;
       gy = gy + sy;
       gz = gz + sz;
@@ -215,7 +218,7 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         ox[k] = c.off[k][0];
         oy[k] = c.off[k][1];
         oz[k] = c.off[k][2];
-        f[k] = scene_sdf<T>(a.P, x + ox[k], y + oy[k], z + oz[k]);
+        f[k] = scene_sdf<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k]);
       }
       ox[4] = zero;
       oy[4] = zero;
@@ -251,8 +254,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
 #pragma unroll 1
       for (int k = 0; k < 5; ++k) {
         T sx, sy, sz;
-        scene_sdf_vjp<T>(a.P, x + ox[k], y + oy[k], z + oz[k], gf[k], sx, sy,
-                         sz, gP);
+        scene_sdf_vjp<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k], gf[k], sx,
+                         sy, sz, gP);
         gx = gx + sx;
         gy = gy + sy;
         gz = gz + sz;
@@ -272,7 +275,7 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         // The segment's last step is not marched: the sweep needs the
         // position before it, not after.
         ReplayObserver<T> replay = {rx, ry, rz};
-        march_ray<T>(a.P, px, py, pz, vx, vy, vz, CKPT_INTERVAL - 1, zero,
+        march_ray<T>(a.P, a.M, px, py, pz, vx, vy, vz, CKPT_INTERVAL - 1, zero,
                      replay);
         rx[CKPT_INTERVAL - 1] = px;
         ry[CKPT_INTERVAL - 1] = py;
@@ -280,8 +283,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
 #pragma unroll 1
         for (int j = CKPT_INTERVAL - 1; j >= 0; --j) {
           const T gd = gx * vx + gy * vy + gz * vz;
-          sweep_step<T>(a.P, rx[j], ry[j], rz[j], gd, true, gx, gy, gz, gvx,
-                        gvy, gvz, gP);
+          sweep_step<T>(a.P, a.M, rx[j], ry[j], rz[j], gd, true, gx, gy, gz,
+                        gvx, gvy, gvz, gP);
         }
       }
     } else {
@@ -296,14 +299,14 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         const T pz = h[2 * plane + i];
         T gd = live ? gx * vx + gy * vy + gz * vz : zero;
         if (TRACK_MIN) {
-          const T d = scene_sdf<T>(a.P, px, py, pz);
+          const T d = scene_sdf<T>(a.P, a.M, px, py, pz);
           const bool first = amin == s;
           const bool tie = d == minf && !first;
           gd = gd + (first ? carry : (tie ? half * carry : zero));
           carry = first ? zero : (tie ? half * carry : carry);
         }
-        sweep_step<T>(a.P, px, py, pz, gd, live, gx, gy, gz, gvx, gvy, gvz,
-                      gP);
+        sweep_step<T>(a.P, a.M, px, py, pz, gd, live, gx, gy, gz, gvx, gvy,
+                      gvz, gP);
       }
     }
     a.out[i] = gx;
@@ -391,6 +394,7 @@ extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
                       const T* host_consts, void* stream) {                  \
     BwdArgs<T> a;                                                            \
     a.P = P;                                                                 \
+    a.M = nullptr;                                                           \
     a.rays = rays;                                                           \
     a.g = g;                                                                 \
     a.hist = hist;                                                           \

@@ -8,7 +8,9 @@
 // outputs a differentiated forward hands to the backward kernel
 // (render_bwd.cu). The dual branch is not carried over.
 //
-// Contract: rays (7, plane) = x y z dx dy dz valid; out (8, plane) =
+// Contract: P the flat parameters, M the packed matrices of the scene's
+// neural leaves (null for an analytic scene; neural.cuh evaluates them);
+// rays (7, plane) = x y z dx dy dz valid; out (8, plane) =
 // x y z d nx ny nz lap (pallas_render.py:318-330). Invalid slots
 // (valid <= 0.5) do not move and get d = normals = lap = 0.
 //
@@ -76,14 +78,16 @@ struct TrainOuts {
 // planes 0..7 of out.
 template <typename T>
 __device__ __forceinline__ void store_hit(const T* __restrict__ P,
+                                          const T* __restrict__ M,
                                           T* __restrict__ out, long long plane,
                                           long long i, T x, T y, T z,
                                           const RenderConsts<T>& c) {
-  const T d_centre = scene_sdf<T>(P, x, y, z);
+  const T d_centre = scene_sdf<T>(P, M, x, y, z);
   T f[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    f[k] = scene_sdf<T>(P, x + c.off[k][0], y + c.off[k][1], z + c.off[k][2]);
+    f[k] = scene_sdf<T>(P, M, x + c.off[k][0], y + c.off[k][1],
+                      z + c.off[k][2]);
   }
   const T d1 = f[1] - f[0];
   const T d2 = f[2] - f[0];
@@ -105,7 +109,8 @@ __device__ __forceinline__ void store_hit(const T* __restrict__ P,
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ rays,
+render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ M,
+                  const T* __restrict__ rays,
                   T* __restrict__ out, long long plane, int steps,
                   RenderConsts<T> c) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -125,13 +130,14 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ rays,
   const T dy = rays[4 * plane + i];
   const T dz = rays[5 * plane + i];
   NoObserver none;
-  march_ray<T>(P, x, y, z, dx, dy, dz, steps, c.tau, none);
-  store_hit<T>(P, out, plane, i, x, y, z, c);
+  march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, none);
+  store_hit<T>(P, M, out, plane, i, x, y, z, c);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ rays,
+render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ M,
+                        const T* __restrict__ rays,
                         T* __restrict__ out, long long plane, int steps,
                         RenderConsts<T> c, T big, TrainOuts<T> t) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -166,7 +172,7 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ rays,
   const T dy = rays[4 * plane + i];
   const T dz = rays[5 * plane + i];
   HistoryObserver<T, true> seen = {t.hist, plane, i, big, -1, x, y, z};
-  const int s = march_ray<T>(P, x, y, z, dx, dy, dz, steps, c.tau, seen);
+  const int s = march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, seen);
   if (t.minf) t.minf[i] = seen.minf;
   if (t.amin) t.amin[i] = seen.amin;
   if (t.argpos) {
@@ -181,24 +187,26 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ rays,
     h[2 * plane + i] = z;
   }
   if (t.nlive) t.nlive[i] = s;
-  store_hit<T>(P, out, plane, i, x, y, z, c);
+  store_hit<T>(P, M, out, plane, i, x, y, z, c);
 }
 
 template <typename T>
-static int launch(const T* P, const T* rays, T* out, long long plane,
-                  int steps, const T* host_consts, void* stream) {
+static int launch(const T* P, const T* M, const T* rays, T* out,
+                  long long plane, int steps, const T* host_consts,
+                  void* stream) {
   const RenderConsts<T> c = unpack_consts<T>(host_consts);
   const int block = 256;
   const long long grid = (plane + block - 1) / block;
   render_fwd_kernel<T><<<(unsigned int)grid, block, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      P, rays, out, plane, steps, c);
+      P, M, rays, out, plane, steps, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-static int launch_train(const T* P, const T* rays, T* out, long long plane,
-                        int steps, const T* host_consts, int track_min,
+static int launch_train(const T* P, const T* M, const T* rays, T* out,
+                        long long plane, int steps, const T* host_consts,
+                        int track_min,
                         int* amin, T* argpos, T* hist, int* nlive,
                         void* stream) {
   const RenderConsts<T> c = unpack_consts<T>(host_consts);
@@ -212,41 +220,47 @@ static int launch_train(const T* P, const T* rays, T* out, long long plane,
   const long long grid = (plane + block - 1) / block;
   render_fwd_train_kernel<T><<<(unsigned int)grid, block, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      P, rays, out, plane, steps, c, std::numeric_limits<T>::max(), t);
+      P, M, rays, out, plane, steps, c, std::numeric_limits<T>::max(), t);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C interface (bound with ctypes). host_consts: 23 values of T on the
-// host: offsets (4x3, row-major), inverse (3x3), 6/eps^2, tau. Returns the cudaError_t of the launch (0 on success). The
-// training entry points take out with 9 planes when track_min is set, and a
-// null pointer for each extra output that is not wanted.
-extern "C" int rm_render_fwd_f32(const float* P, const float* rays, float* out,
+// Plain C interface (bound with ctypes). M is the packed matrix buffer, null
+// for a scene without neural leaves. host_consts: 23 values of T on the
+// host: offsets (4x3, row-major), inverse (3x3), 6/eps^2, tau. Returns the
+// cudaError_t of the launch (0 on success). The training entry points take
+// out with 9 planes when track_min is set, and a null pointer for each extra
+// output that is not wanted.
+extern "C" int rm_render_fwd_f32(const float* P, const float* M,
+                                 const float* rays, float* out,
                                  long long plane, int steps,
                                  const float* host_consts, void* stream) {
-  return launch<float>(P, rays, out, plane, steps, host_consts, stream);
+  return launch<float>(P, M, rays, out, plane, steps, host_consts, stream);
 }
 
-extern "C" int rm_render_fwd_f64(const double* P, const double* rays,
-                                 double* out, long long plane, int steps,
+extern "C" int rm_render_fwd_f64(const double* P, const double* M,
+                                 const double* rays, double* out,
+                                 long long plane, int steps,
                                  const double* host_consts, void* stream) {
-  return launch<double>(P, rays, out, plane, steps, host_consts, stream);
+  return launch<double>(P, M, rays, out, plane, steps, host_consts, stream);
 }
 
-extern "C" int rm_render_fwd_train_f32(const float* P, const float* rays,
-                                       float* out, long long plane, int steps,
+extern "C" int rm_render_fwd_train_f32(const float* P, const float* M,
+                                       const float* rays, float* out,
+                                       long long plane, int steps,
                                        const float* host_consts, int track_min,
                                        int* amin, float* argpos, float* hist,
                                        int* nlive, void* stream) {
-  return launch_train<float>(P, rays, out, plane, steps, host_consts,
+  return launch_train<float>(P, M, rays, out, plane, steps, host_consts,
                              track_min, amin, argpos, hist, nlive, stream);
 }
 
-extern "C" int rm_render_fwd_train_f64(const double* P, const double* rays,
-                                       double* out, long long plane, int steps,
+extern "C" int rm_render_fwd_train_f64(const double* P, const double* M,
+                                       const double* rays, double* out,
+                                       long long plane, int steps,
                                        const double* host_consts,
                                        int track_min, int* amin, double* argpos,
                                        double* hist, int* nlive,
                                        void* stream) {
-  return launch_train<double>(P, rays, out, plane, steps, host_consts,
+  return launch_train<double>(P, M, rays, out, plane, steps, host_consts,
                               track_min, amin, argpos, hist, nlive, stream);
 }

@@ -14,7 +14,10 @@ call :func:`march_planes`, which is differentiable in the flat parameters
 and the ray planes: its backward is the march-only instantiation of the
 backward kernel (:func:`backward_kernel.march_backward`). The wrappers take
 the plain versions only for tensors on the CPU. For CUDA tensors they launch
-the kernels or raise; they never fall back.
+the kernels or raise; they never fall back. A scene with ``NeuralSDF``
+leaves passes its matrix parameters as ``mats``; the MLP runs inside the
+kernel, and its backward raises ``NotImplementedError`` (the neural training
+slice).
 """
 
 from __future__ import annotations
@@ -33,18 +36,20 @@ LANES = rk.LANES
 LAUNCHES = 0
 
 
-def march_forward(program: SdfProgram, params_flat, rays7, steps, tau):
+def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
+                  mats=()):
     """One march, not differentiable: rays7 (7, rows, 128) → (4, rows, 128),
     the marched x y z and the terminal distance (0 on pad slots). CPU tensors
     take the plain version; CUDA tensors launch the kernel."""
     global LAUNCHES
-    rk._check(program, params_flat, rays7, steps)
+    rk._check(program, params_flat, rays7, steps, mats)
     if rays7.device.type == "cpu":
-        return reference_march(program, params_flat, rays7, steps, tau)
+        return reference_march(program, params_flat, rays7, steps, tau, mats)
     if rays7.device.type != "cuda":
         raise ValueError(f"unsupported device {rays7.device}")
     if not (rays7.is_contiguous() and params_flat.is_contiguous()):
         raise ValueError("rays7 and params_flat must be contiguous")
+    packed = rk._packed(mats)
     lib = rk._load(program)
     out = torch.empty((4,) + tuple(rays7.shape[1:]), dtype=rays7.dtype,
                       device=rays7.device)
@@ -52,8 +57,9 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau):
     with torch.cuda.device(rays7.device):
         stream = torch.cuda.current_stream(rays7.device).cuda_stream
         LAUNCHES += 1
-        err = fn(params_flat.data_ptr(), rays7.data_ptr(), out.data_ptr(),
-                 rays7.shape[1] * LANES, int(steps), float(tau), stream)
+        err = fn(params_flat.data_ptr(), rk._ptr(packed), rays7.data_ptr(),
+                 out.data_ptr(), rays7.shape[1] * LANES, int(steps),
+                 float(tau), stream)
     if err != 0:
         raise RuntimeError(f"march kernel launch failed: cudaError {err}")
     return out
@@ -65,10 +71,10 @@ class _March(torch.autograd.Function):
     ``_core_bwd`` of the JAX package)."""
 
     @staticmethod
-    def forward(ctx, params_flat, rays7, program, steps, tau):
+    def forward(ctx, params_flat, rays7, program, steps, tau, *mats):
         ctx.cfg = (program, steps, tau)
         ctx.save_for_backward(params_flat, rays7)
-        return march_forward(program, params_flat, rays7, steps, tau)
+        return march_forward(program, params_flat, rays7, steps, tau, mats)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -76,20 +82,21 @@ class _March(torch.autograd.Function):
         from ray_marching_tpu_torch.ops.backward_kernel import march_backward
 
         program, steps, tau = ctx.cfg
+        rk.no_matrix_backward(program)
         params_flat, rays7 = ctx.saved_tensors
         gflat, grays = march_backward(program, params_flat, rays7,
                                       g.contiguous(), steps, tau)
         return gflat, grays, None, None, None
 
 
-def march_planes(program: SdfProgram, params_flat, rays7, steps, tau=0.0):
+def march_planes(program: SdfProgram, params_flat, rays7, steps, tau=0.0,
+                 mats=()):
     """rays7 (7, rows, 128) → (4, rows, 128): x y z d, the first four planes
     of :func:`render_kernel.fused_march_normals` bit for bit. Differentiable
-    in ``params_flat`` and ``rays7``."""
-    if torch.is_grad_enabled() and (params_flat.requires_grad
-                                    or rays7.requires_grad):
-        return _March.apply(params_flat, rays7, program, steps, tau)
-    return march_forward(program, params_flat, rays7, steps, tau)
+    in ``params_flat`` and ``rays7`` (not yet in ``mats``)."""
+    if rk._requires_grad(params_flat, rays7, *mats):
+        return _March.apply(params_flat, rays7, program, steps, tau, *mats)
+    return march_forward(program, params_flat, rays7, steps, tau, mats)
 
 
 def rays_to_planes(ray_positions, ray_directions):
@@ -130,11 +137,11 @@ def kernel_march_with_distance(program: SdfProgram, params, ray_positions,
                          f"{tuple(ray_directions.shape)}")
     shape = ray_positions.shape[:-1]
     total = ray_positions[..., 0].numel()
-    flat, _ = split_params_padded(params, ray_positions.dtype,
-                                  ray_positions.device)
+    flat, mats, _ = split_params_padded(params, ray_positions.dtype,
+                                        ray_positions.device)
     out = march_planes(program, flat,
                        rays_to_planes(ray_positions, ray_directions), steps,
-                       tau)
+                       tau, mats)
     x, y, z, d = (out[i].reshape(-1)[:total] for i in range(4))
     return (torch.stack([x, y, z], dim=-1).reshape(shape + (3,)),
             d.reshape(shape + (1,)))
@@ -147,13 +154,14 @@ def kernel_march(program: SdfProgram, params, ray_positions, ray_directions,
                                       ray_directions, steps, tau)[0]
 
 
-def reference_march(program: SdfProgram, params_flat, rays7, steps, tau):
+def reference_march(program: SdfProgram, params_flat, rays7, steps, tau,
+                    mats=()):
     """The plain PyTorch version of :func:`march_forward`: the kernel's op
     sequence on planes, with the semantics of ``_march_kernel`` (pad slots
     never move and get distance 0; with tau > 0 a ray moves only while
     ``|d| >= tau``)."""
     sdf = program.sdf_c
-    params = program.rebuild(params_flat)
+    params = program.rebuild(params_flat, mats)
     x, y, z, dx, dy, dz = (rays7[i] for i in range(6))
     valid = rays7[6] > 0.5
     tau_t = float(np.asarray(tau, rk._np_dtype(rays7.dtype)))

@@ -7,9 +7,17 @@ Counterpart of ``ray_marching_tpu/ops/pallas_render.py`` (``_render_kernel``;
 ``csrc/render_fwd.cu``; the scene's SDF is generated per scene by
 :mod:`ray_marching_tpu_torch.scene.codegen` and included into it.
 
+Scenes with ``NeuralSDF`` leaves hand their weight matrices to the kernels as
+well: every entry point takes ``mats``, the matrix tuple of
+:func:`ops.params.split_params_padded`, packs it (:func:`ops.params.pack_mats`)
+and passes the buffer as ``M``; the MLP runs inside the kernels
+(``csrc/neural.cuh``). Their backward is the neural training slice's: the
+autograd functions' ``backward`` raises ``NotImplementedError`` for them.
+
 Build: ``nvcc`` compiles one shared library with a plain C interface per
 scene, holding the forward kernel, the backward kernel
-(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`) and the march
+(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`; left out for a
+scene without an adjoint) and the march
 kernel (``csrc/march.cu``, bound in :mod:`.march_kernel`), at first use,
 into ``_build/<hash>/`` beside this module (the hash covers the generated
 SDF, the kernel sources and the flags), and ctypes binds it. Each source is
@@ -40,6 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ray_marching_tpu_torch.ops.params import pack_mats
 from ray_marching_tpu_torch.render.normals import make_offsets
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 
@@ -48,7 +57,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNEL_UNITS = ("render_fwd.cu", "render_bwd.cu", "march.cu")
 KERNEL_SOURCES = KERNEL_UNITS + ("sdf_prims.cuh", "render_consts.cuh",
-                                 "march_loop.cuh")
+                                 "march_loop.cuh", "neural.cuh")
 #: The two-level backward keeps every ``CKPT_INTERVAL``-th march position and
 #: marches each segment again when the sweep reaches it. The one definition:
 #: the kernel gets it from the compiler's command line (so it is part of the
@@ -112,6 +121,13 @@ def _lib_path(key: str) -> Path:
     return BUILD_DIR / key / "librender.so"
 
 
+def kernel_units(program: SdfProgram):
+    """The sources a scene's library is built from: the backward kernel only
+    for a scene whose SDF has an adjoint."""
+    return tuple(u for u in KERNEL_UNITS
+                 if program.has_adjoint or u != "render_bwd.cu")
+
+
 def build_kernels(programs) -> None:
     """Build the libraries of ``programs`` that are not built yet: one nvcc
     process per source file and scene, all started together, then one link
@@ -143,7 +159,7 @@ def build_kernels(programs) -> None:
             out_dir.mkdir(parents=True, exist_ok=True)
             (out_dir / "scene_sdf.cuh").write_text(program.cuda_source())
             BUILD_LOG[key] = ""
-            for unit in KERNEL_UNITS:
+            for unit in kernel_units(program):
                 obj = out_dir / f"{unit}.{os.getpid()}.o"
                 compiles.append((key, obj, start(
                     [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
@@ -181,29 +197,31 @@ def _load(program: SdfProgram):
         f64 = ctypes.c_double
         for name in ("rm_render_fwd_f32", "rm_render_fwd_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr, ptr]
             fn.restype = i32
         for name in ("rm_render_fwd_train_f32", "rm_render_fwd_train_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, i32, ptr, ptr, ptr,
-                           ptr, ptr]
-            fn.restype = i32
-        for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr, ptr,
-                           ptr, ptr, ptr, i64, i32, i64, i32, ptr, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr, i32, ptr, ptr,
+                           ptr, ptr, ptr]
             fn.restype = i32
         for name in ("rm_march_f32", "rm_march_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i64, i32, f64, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f64, ptr]
             fn.restype = i32
-        for name in ("rm_march_bwd_f32", "rm_march_bwd_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i64, i32,
-                           f64, ptr]
-            fn.restype = i32
-        lib.rm_render_bwd_block.argtypes = []
-        lib.rm_render_bwd_block.restype = i32
+        if program.has_adjoint:
+            for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
+                               ptr, ptr, ptr, ptr, i64, i32, i64, i32, ptr,
+                               ptr]
+                fn.restype = i32
+            for name in ("rm_march_bwd_f32", "rm_march_bwd_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i64,
+                               i32, f64, ptr]
+                fn.restype = i32
+            lib.rm_render_bwd_block.argtypes = []
+            lib.rm_render_bwd_block.restype = i32
         _LIBS[key] = lib
     _BOUND[program] = lib
     return lib
@@ -225,7 +243,16 @@ def _host_consts(dtype, tau, normals_eps) -> np.ndarray:
     ]).astype(npd)
 
 
-def _check(program, params_flat, rays7, steps):
+def _check(program, params_flat, rays7, steps, mats=()):
+    if len(mats) != program.n_mats:
+        raise ValueError(f"the scene has {program.n_mats} matrix parameters, "
+                         f"got {len(mats)}")
+    for spec, m in zip(program.mat_specs, mats):
+        if (tuple(m.shape) != spec.shape or m.dtype != rays7.dtype
+                or m.device != rays7.device):
+            raise ValueError(f"matrix {spec.path!r} must be {spec.shape} of "
+                             f"{rays7.dtype} on {rays7.device}, got "
+                             f"{tuple(m.shape)} of {m.dtype} on {m.device}")
     if rays7.dim() != 3 or rays7.shape[0] != 7 or rays7.shape[2] != LANES:
         raise ValueError(f"rays7 must be (7, rows, {LANES}), got "
                          f"{tuple(rays7.shape)}")
@@ -248,10 +275,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _packed(mats):
+    """The matrix buffer a kernel takes (None for an analytic scene): one
+    contiguous allocation, so its 16-byte alignment holds."""
+    packed = pack_mats(mats)
+    if packed is not None and packed.data_ptr() % 16:
+        raise ValueError("the packed matrix buffer is not 16-byte aligned")
+    return packed
+
+
 def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
                   normals_eps, track_min=False, log_hist=False,
-                  track_argpos=False):
-    """One forward march, not differentiable: ``(out, extras)``.
+                  track_argpos=False, mats=()):
+    """One forward march, not differentiable: ``(out, extras)``. ``mats``
+    are the scene's matrix parameters (``split_params_padded``).
 
     ``out`` is (8, rows, 128), or (9, rows, 128) with ``track_min`` (plane 8
     is ``min_f``). ``extras`` holds what was asked for: ``amin`` (int32
@@ -261,15 +298,16 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     configuration of the kernel. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     global LAUNCHES
-    _check(program, params_flat, rays7, steps)
+    _check(program, params_flat, rays7, steps, mats)
     if rays7.device.type == "cpu":
         return _reference_march(program, params_flat, rays7, steps, tau,
                                 normals_eps, track_min, log_hist,
-                                track_argpos)
+                                track_argpos, mats)
     if rays7.device.type != "cuda":
         raise ValueError(f"unsupported device {rays7.device}")
     if not (rays7.is_contiguous() and params_flat.is_contiguous()):
         raise ValueError("rays7 and params_flat must be contiguous")
+    packed = _packed(mats)
     lib = _load(program)
     plane_shape = tuple(rays7.shape[1:])
     dev, dtype = rays7.device, rays7.dtype
@@ -297,31 +335,43 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
         if track_min or extras:
             fn = (lib.rm_render_fwd_train_f32 if f32
                   else lib.rm_render_fwd_train_f64)
-            err = fn(params_flat.data_ptr(), rays7.data_ptr(), out.data_ptr(),
-                     n, int(steps), consts_p, int(track_min),
+            err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
+                     out.data_ptr(), n, int(steps), consts_p, int(track_min),
                      _ptr(extras.get("amin")), _ptr(extras.get("argpos")),
                      _ptr(extras.get("hist")), _ptr(extras.get("nlive")),
                      stream)
         else:
             fn = lib.rm_render_fwd_f32 if f32 else lib.rm_render_fwd_f64
-            err = fn(params_flat.data_ptr(), rays7.data_ptr(), out.data_ptr(),
-                     n, int(steps), consts_p, stream)
+            err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
+                     out.data_ptr(), n, int(steps), consts_p, stream)
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: cudaError {err}")
     return out, extras
 
 
+def no_matrix_backward(program):
+    """The error of a backward through a scene with matrix leaves: its
+    matrix cotangents come with the neural training slice. No plain version
+    runs instead."""
+    if program.n_mats:
+        raise NotImplementedError(
+            "backward through a scene with NeuralSDF (matrix) parameters is "
+            "not ported yet: it comes with the neural training slice of the "
+            "port (ROADMAP.md)")
+
+
 class _FusedMarch(torch.autograd.Function):
     """Forward: the kernel's training configuration; backward: the backward
     kernel (counterpart of the ``custom_vjp`` pairs ``_fwd``/``_bwd`` and
-    ``_fwd_cov``/``_bwd_cov`` of the JAX package)."""
+    ``_fwd_cov``/``_bwd_cov`` of the JAX package). The scene's matrices come
+    last, so that autograd sees them."""
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
-                track_min, log_hist, two_level):
+                track_min, log_hist, two_level, *mats):
         out, extras = march_forward(program, params_flat, rays7, steps, tau,
                                     normals_eps, track_min=track_min,
-                                    log_hist=log_hist)
+                                    log_hist=log_hist, mats=mats)
         ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist,
                    two_level)
         saved = [params_flat, rays7]
@@ -339,6 +389,7 @@ class _FusedMarch(torch.autograd.Function):
 
         (program, steps, tau, normals_eps, track_min, log_hist,
          two_level) = ctx.cfg
+        no_matrix_backward(program)
         params_flat, rays7, *rest = ctx.saved_tensors
         handoff = {}
         if log_hist:
@@ -352,10 +403,13 @@ class _FusedMarch(torch.autograd.Function):
         return gflat, grays, None, None, None, None, None, None, None
 
 
+def _requires_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
-           bwd_hist, bwd_two_level):
-    if torch.is_grad_enabled() and (params_flat.requires_grad
-                                    or rays7.requires_grad):
+           bwd_hist, bwd_two_level, mats):
+    if _requires_grad(params_flat, rays7, *mats):
         from ray_marching_tpu_torch.ops.backward_kernel import (
             two_level_engages,
         )
@@ -363,33 +417,36 @@ def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
         two_level = (
             (BWD_TWO_LEVEL if bwd_two_level is None else bool(bwd_two_level))
             and two_level_engages(steps, tau, track_min))
-        log_hist = not two_level and (BWD_HIST if bwd_hist is None
-                                      else bool(bwd_hist))
+        # A scene without an adjoint has no backward to hand a history to.
+        log_hist = (program.has_adjoint and not two_level
+                    and (BWD_HIST if bwd_hist is None else bool(bwd_hist)))
         return _FusedMarch.apply(params_flat, rays7, program, steps, tau,
-                                 normals_eps, track_min, log_hist, two_level)
+                                 normals_eps, track_min, log_hist, two_level,
+                                 *mats)
     return march_forward(program, params_flat, rays7, steps, tau,
-                         normals_eps, track_min=track_min)[0]
+                         normals_eps, track_min=track_min, mats=mats)[0]
 
 
 def fused_march_normals(program: SdfProgram, params_flat, rays7, steps, tau,
-                        normals_eps, bwd_hist=None, bwd_two_level=None):
+                        normals_eps, bwd_hist=None, bwd_two_level=None,
+                        mats=()):
     """rays7 (7, rows, 128) → (8, rows, 128): x y z d nx ny nz lap.
 
     ``program`` is the scene (:class:`scene.codegen.SdfProgram`),
-    ``params_flat`` its flat parameter vector
-    (:func:`ops.params.split_params_padded`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel. Differentiable in
+    ``params_flat`` its flat parameter vector and ``mats`` its matrix
+    parameters (:func:`ops.params.split_params_padded`). CPU tensors take
+    the plain version; CUDA tensors launch the kernel. Differentiable in
     ``params_flat`` and ``rays7``; ``bwd_hist`` chooses between the history
     handoff and the backward kernel's recompute (see :data:`BWD_HIST`),
     ``bwd_two_level`` asks for the two-level backward (see
     :data:`BWD_TWO_LEVEL`)."""
     return _fused(program, params_flat, rays7, steps, tau, normals_eps, False,
-                  bwd_hist, bwd_two_level)
+                  bwd_hist, bwd_two_level, mats)
 
 
 def fused_march_normals_cov(program: SdfProgram, params_flat, rays7, steps,
                             tau, normals_eps, bwd_hist=None,
-                            bwd_two_level=None):
+                            bwd_two_level=None, mats=()):
     """Coverage variant: (9, rows, 128), the 8 planes of
     :func:`fused_march_normals` plus the along-ray closest approach
     ``min_f`` (plane 8), the carrier of silhouette gradients
@@ -397,7 +454,7 @@ def fused_march_normals_cov(program: SdfProgram, params_flat, rays7, steps,
     step inside the backward kernel, which needs every march position: the
     two-level backward never engages here."""
     return _fused(program, params_flat, rays7, steps, tau, normals_eps, True,
-                  bwd_hist, bwd_two_level)
+                  bwd_hist, bwd_two_level, mats)
 
 
 class _FusedMarchIFT(torch.autograd.Function):
@@ -409,10 +466,10 @@ class _FusedMarchIFT(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
-                track_min, hit_threshold, denom_eps):
+                track_min, hit_threshold, denom_eps, *mats):
         out, extras = march_forward(program, params_flat, rays7, steps, tau,
                                     normals_eps, track_min=track_min,
-                                    track_argpos=track_min)
+                                    track_argpos=track_min, mats=mats)
         ctx.cfg = (program, tau, normals_eps, hit_threshold, denom_eps)
         ctx.save_for_backward(params_flat, rays7, out.clone(),
                               *([extras["argpos"]] if track_min else []))
@@ -421,6 +478,7 @@ class _FusedMarchIFT(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
+        no_matrix_backward(ctx.cfg[0])
         params_flat, rays7, out, *argpos = ctx.saved_tensors
         gflat, grays = _ift_backward(*ctx.cfg, params_flat, rays7, out, g,
                                      argpos[0] if argpos else None)
@@ -486,18 +544,17 @@ def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
 
 def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,
                             tau, normals_eps, hit_threshold=0.05,
-                            denom_eps=1e-6, track_min=False):
+                            denom_eps=1e-6, track_min=False, mats=()):
     """:func:`fused_march_normals` (``track_min``: ``_cov``) with the
     implicit-function-theorem backward: the forward kernel, then plain
     PyTorch at the endpoint; with ``track_min`` the ``min_f`` gradient takes
     the arg-min position (a further kernel output) as fixed."""
-    if torch.is_grad_enabled() and (params_flat.requires_grad
-                                    or rays7.requires_grad):
+    if _requires_grad(params_flat, rays7, *mats):
         return _FusedMarchIFT.apply(params_flat, rays7, program, steps, tau,
                                     normals_eps, track_min, hit_threshold,
-                                    denom_eps)
+                                    denom_eps, *mats)
     return march_forward(program, params_flat, rays7, steps, tau,
-                         normals_eps, track_min=track_min)[0]
+                         normals_eps, track_min=track_min, mats=mats)[0]
 
 
 def _tail_planes(sdf, params, x, y, z, offsets, inverse, lap_scale):
@@ -525,13 +582,14 @@ def _plain_consts(dtype, tau, normals_eps):
 
 
 def _reference_march(program, params_flat, rays7, steps, tau, normals_eps,
-                     track_min=False, log_hist=False, track_argpos=False):
+                     track_min=False, log_hist=False, track_argpos=False,
+                     mats=()):
     """The plain PyTorch version of :func:`march_forward`: plane-wise march
     + normals with the semantics of ``pallas_render._reference_fn``, and the
     training outputs as the kernel defines them (strict ``<`` updates of
     ``min_f``, so the first attaining step wins)."""
     sdf = program.sdf_c
-    params = program.rebuild(params_flat)
+    params = program.rebuild(params_flat, mats)
     x, y, z, dx, dy, dz = (rays7[i] for i in range(6))
     valid = rays7[6] > 0.5
     off, inv, lap_scale, tau_t = _plain_consts(rays7.dtype, tau, normals_eps)
@@ -575,10 +633,10 @@ def _reference_march(program, params_flat, rays7, steps, tau, normals_eps,
 
 
 def reference_march_normals(program: SdfProgram, params_flat, rays7, steps,
-                            tau, normals_eps):
+                            tau, normals_eps, mats=()):
     """The plain PyTorch version of the serving configuration."""
     return _reference_march(program, params_flat, rays7, steps, tau,
-                            normals_eps)[0]
+                            normals_eps, mats=mats)[0]
 
 
 #: Ray-dependent operations per valid ray outside the SDF evaluations:

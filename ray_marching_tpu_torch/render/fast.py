@@ -16,7 +16,14 @@ whose backward is the backward kernel, posing and shading are plain torch.
 ``RenderConfig.backward="implicit"`` swaps the backward kernel for the
 implicit-function-theorem backward (plain torch at the endpoint). Not ported
 yet (they raise ``NotImplementedError``): the extra lighting modes
-(``occlusion``, ``shaded``) and ``cmap_fourier``.
+(``occlusion``, ``shaded``), ``cmap_fourier``, and gradients through a scene
+with ``NeuralSDF`` leaves on the kernel (the neural training slice).
+
+``march_impl`` chooses the march as in the JAX package: ``'fused'`` is the
+kernel, ``'xla'`` the counterpart of ``ops/xla_render.py``, the kernel's plain
+PyTorch version on whatever device the renderer is on, which the caller asks
+for by name (differentiable through autograd, which keeps every step's
+activations: the JAX package rematerializes them instead).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ray_marching_tpu_torch import quat
 from ray_marching_tpu_torch.camera import _pixel_center_grid
 from ray_marching_tpu_torch.ops.params import split_params_padded
 from ray_marching_tpu_torch.ops.render_kernel import (
+    _reference_march,
     fused_march_normals,
     fused_march_normals_cov,
     fused_march_normals_ift,
@@ -39,12 +47,45 @@ from ray_marching_tpu_torch.render.pipeline import EXTRA_MODES, RenderConfig
 from ray_marching_tpu_torch.render.silhouette import soft_coverage
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 from ray_marching_tpu_torch.scene.graph import Node, compile_scene
+from ray_marching_tpu_torch.scene.neural import NeuralSDF, resolve_impl
 from ray_marching_tpu_torch.utils import clamp, resolve_device, rmax, rmin
 from ray_marching_tpu_torch.utils import not_ported as _not_ported
 
 LANES = 128
 ROWS_PER_TILE = 256
 _GAMMA = 1.0 / 2.33
+
+
+def _nodes(node):
+    yield node
+    child = getattr(node, "child", None)
+    if child is not None:
+        yield from _nodes(child)
+    for c in getattr(node, "children", ()):
+        yield from _nodes(c)
+
+
+def _matmul_leaves(node):
+    return [n for n in _nodes(node)
+            if isinstance(n, NeuralSDF) and resolve_impl(n) == "matmul"]
+
+
+def scene_has_exact_sine(node) -> bool:
+    """True when any matmul-resolving NeuralSDF uses ``activation='sine'``."""
+    return any(n.activation == "sine" for n in _matmul_leaves(node))
+
+
+def scene_contains_matmul_neural(node) -> bool:
+    """True when the scene contains a NeuralSDF that resolves to the matmul
+    evaluator (the JAX package's ``march_impl='auto'`` predicate)."""
+    return bool(_matmul_leaves(node))
+
+
+def max_matmul_neural_width(node) -> int:
+    """Widest hidden layer among the scene's matmul-resolving NeuralSDF
+    nodes (0 when there are none)."""
+    return max((max(n.hidden, default=0) for n in _matmul_leaves(node)),
+               default=0)
 
 
 def _to_planes(flat: np.ndarray, rows: int) -> np.ndarray:
@@ -62,12 +103,24 @@ class FastRenderer:
     """
 
     def __init__(self, scene: Node, config: RenderConfig, dtype=torch.float32,
-                 grid_dtype=np.float32, device="cuda"):
+                 grid_dtype=np.float32, device="cuda",
+                 march_impl: str = "auto"):
         if config.backward not in ("unroll", "implicit"):
             raise ValueError(f"backward must be unroll|implicit, got "
                              f"{config.backward!r}")
         if config.cmap_fourier:
             raise _not_ported("cmap_fourier")
+        if march_impl not in ("auto", "fused", "xla"):
+            raise ValueError(f"march_impl must be auto|fused|xla, "
+                             f"got {march_impl!r}")
+        if march_impl == "xla" and config.backward == "implicit":
+            raise _not_ported("march_impl='xla' with backward='implicit'")
+        # 'auto' takes the kernel for every scene. The JAX package sends
+        # narrow matmul scenes to its XLA march by thresholds measured on a
+        # TPU v5e (NEURAL_MARCH_FUSED_MIN_WIDTH*), which do not carry over.
+        # chip_smoke.py times both marches on the H100: the kernel won at
+        # widths 16 and 256 there (PERF.md).
+        self.march_impl = "fused" if march_impl == "auto" else march_impl
         self.device = resolve_device(device)
         self.config = config
         self.dtype = dtype
@@ -222,19 +275,23 @@ class FastRenderer:
         ``with_closest`` also returns the closest-approach plane ``min_f``
         (primary visibility only: no reflection bounces)."""
         cfg = self.config
-        flat, _ = split_params_padded(params, self.dtype, self.device)
+        flat, mats, _ = split_params_padded(params, self.dtype, self.device)
         march = fused_march_normals_cov if with_closest else fused_march_normals
 
         def run(origin, dirs):
             rays7 = torch.stack(list(origin) + list(dirs) + [self._valid], 0)
-            if cfg.backward == "implicit":
+            if self.march_impl == "xla":
+                out = _reference_march(self.program, flat, rays7, steps,
+                                       cfg.tau, cfg.normals_eps,
+                                       track_min=with_closest, mats=mats)[0]
+            elif cfg.backward == "implicit":
                 out = fused_march_normals_ift(
                     self.program, flat, rays7, steps, cfg.tau,
                     cfg.normals_eps, cfg.ift_hit_threshold,
-                    cfg.ift_denom_eps, track_min=with_closest)
+                    cfg.ift_denom_eps, track_min=with_closest, mats=mats)
             else:
                 out = march(self.program, flat, rays7, steps, cfg.tau,
-                            cfg.normals_eps)
+                            cfg.normals_eps, mats=mats)
             return list(out.unbind(0))
 
         hit = run(origin, dirs)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ray_marching_tpu_torch.utils import resolve_device
+
 _TETRA = np.asarray(
     [
         [1.0, 0.0, -np.sqrt(0.5)],
@@ -34,10 +36,13 @@ def make_offsets(normals_eps: float, np_dtype=np.float64):
 
 
 class NormalsEstimator:
-    """Holds the offset constants on ``device``; :meth:`__call__` is pure."""
+    """Holds the offset constants on ``device`` (the card unless the caller
+    asks for the CPU, as for :class:`camera.Camera`); :meth:`__call__` is
+    pure."""
 
     def __init__(self, normals_eps: float = 5e-2, dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
+        device = resolve_device(device)
         self.normals_eps = normals_eps
         offsets, inverse = make_offsets(normals_eps)
         self.offsets = torch.as_tensor(offsets, dtype=dtype, device=device)

@@ -32,17 +32,33 @@ selects keep the select semantics of ``utils.vmin``/``vmax``/``clamp`` (a NaN
 compare takes the false branch), and the smooth-union max propagates NaN like
 ``jnp.max``.
 
+A ``NeuralSDF`` leaf (scene/neural.py) is one structural op, ``("mlp",
+leaf_id, x, y, z)``: the scalar SSA list cannot hold a 65k-op MLP. Its sizes,
+activation, ``w0``, impl and where its biases and radius sit in the flat
+vector and its matrices in the packed matrix buffer
+(:func:`ray_marching_tpu_torch.ops.params.pack_mats`) are recorded in
+:attr:`SdfProgram.mlps`. :meth:`SdfProgram.cuda_source` emits it as a call
+into ``ops/csrc/neural.cuh`` with the sizes as compile-time constants,
+:meth:`SdfProgram.evaluate` runs the port's own neural evaluator on it. It
+has no adjoint rule yet (the neural training slice adds one): a program
+that holds one has no ``scene_sdf_vjp`` (:attr:`SdfProgram.has_adjoint`).
+
 Op count convention (:meth:`SdfProgram.op_counts`): one per add, sub, mul,
 div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
 the query point. Parameter loads and arithmetic on parameters alone are not
 counted (they do not depend on the ray and may be hoisted out of the march).
 Every adjoint op depends on the ray's cotangent, so all of them count
-(:attr:`SdfProgram.vjp_ops_per_eval`).
+(:attr:`SdfProgram.vjp_ops_per_eval`). An MLP counts ``2·nin·nout`` per
+layer (the multiplies, the sums and the bias adds), the scale of the first
+layer's sine variants, its activation's ops per hidden unit (``sin`` and
+``tanh`` count one each in the ``exp`` class, ``log1p`` in ``log``, the
+rounding of ``sin_fast``'s reduction in ``abs_neg``; bf16 operand roundings
+are not counted) and the sphere skip term.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -59,9 +75,15 @@ from ray_marching_tpu_torch.scene.graph import (
     Sphere,
     Torus,
     Union,
+    _custom_entry,
     _unknown,
     compile_node,
     init_params,
+)
+from ray_marching_tpu_torch.scene.neural import (
+    NeuralSDF,
+    neural_sdf,
+    resolve_impl,
 )
 
 # kind -> (arity, C++ expression template, count class)
@@ -87,14 +109,71 @@ _OPS = {
 COUNT_CLASSES = ("add", "mul", "div", "sqrt", "exp", "log", "abs_neg", "select")
 
 
+class MlpLeaf(NamedTuple):
+    """One ``NeuralSDF`` leaf of a program: the node, its parameter path,
+    layer sizes ``(3, *hidden, 1)``, the flat offsets of its biases and
+    radius, and the packed-buffer offsets of its matrices."""
+
+    node: NeuralSDF
+    prefix: str
+    sizes: Tuple[int, ...]
+    bias: Tuple[int, ...]
+    radius: int
+    mats: Tuple[int, ...]
+
+
+#: Activation name -> neural.cuh constant; any other name is tanh, as in
+#: scene/neural.py (and the JAX package).
+_ACT = {"sine": "RM_ACT_SINE", "sine_fast": "RM_ACT_SINE_FAST",
+        "softplus": "RM_ACT_SOFTPLUS"}
+
+
+def _mlp_op_counts(leaf: MlpLeaf) -> Dict[str, int]:
+    """Ray-dependent ops of one evaluation of an MLP leaf (module doc)."""
+    c = dict.fromkeys(COUNT_CLASSES, 0)
+    sizes, act = leaf.sizes, leaf.node.activation
+    for nin, nout in zip(sizes[:-1], sizes[1:]):
+        c["mul"] += nin * nout
+        c["add"] += nin * nout
+    units = sum(sizes[1:-1])
+    if act.startswith("sine") and len(sizes) > 2:
+        c["mul"] += sizes[1]
+    per_unit = {
+        "sine_fast": {"mul": 10, "add": 7, "abs_neg": 1},
+        "softplus": {"select": 2, "add": 2, "abs_neg": 2, "exp": 1, "log": 1},
+    }.get(act, {"exp": 1})  # sine and tanh: one op each
+    for k, v in per_unit.items():
+        c[k] += v * units
+    # Skip term sqrt(x·x + y·y + z·z) - radius, then + mlp.
+    c["mul"] += 3
+    c["add"] += 4
+    c["sqrt"] += 1
+    return c
+
+
 class _Builder:
     """Appends SSA ops; value ids index the op list. Ids 0-2 are x, y, z."""
 
-    def __init__(self, offsets: Dict[str, int]):
+    def __init__(self, offsets: Dict[str, int],
+                 mat_offsets: Dict[str, int] = None):
         self.offsets = offsets
+        self.mat_offsets = mat_offsets or {}
         self.ops: List[Tuple] = [("x",), ("y",), ("z",)]
         self.dep: List[bool] = [True, True, True]
+        self.mlps: List[MlpLeaf] = []
         self._memo: Dict[Tuple, int] = {}
+
+    def mlp(self, node: NeuralSDF, prefix: str, x: int, y: int, z: int):
+        """The structural op of a neural leaf at (x, y, z)."""
+        n_layers = len(node.hidden) + 1
+        self.mlps.append(MlpLeaf(
+            node=node, prefix=prefix, sizes=(3,) + tuple(node.hidden) + (1,),
+            bias=tuple(self.offsets[_path(prefix, f"b{i}")]
+                       for i in range(n_layers)),
+            radius=self.offsets[_path(prefix, "radius")],
+            mats=tuple(self.mat_offsets[_path(prefix, f"w{i}")]
+                       for i in range(n_layers))))
+        return self._push(("mlp", len(self.mlps) - 1, x, y, z), True)
 
     def leaf(self, name):
         """A ray-dependent input besides x, y, z (the cotangent ``g``)."""
@@ -213,6 +292,13 @@ def _lower(node: Node, b: _Builder, prefix: str, x: int, y: int, z: int) -> int:
     if isinstance(node, Onion):
         d = _lower(node.child, b, _path(prefix, "child"), x, y, z)
         return b.sub(b.abs(d), p("radius"))
+    if isinstance(node, NeuralSDF):
+        return b.mlp(node, prefix, x, y, z)
+    if _custom_entry(node) is not None:
+        raise NotImplementedError(
+            f"{type(node).__name__}: the kernels have no lowering for custom "
+            "nodes other than NeuralSDF yet (ROADMAP.md queues one after the "
+            "neural training slice); Renderer without use_pallas runs it")
     return _unknown(node)
 
 
@@ -237,7 +323,9 @@ def _append_adjoint(b, out):
     Returns ``(g, adj)``: the id of the cotangent input and a dict from a
     primal value id to the id that holds its cotangent (absent: no path
     from the output). Contributions to one value are summed in reverse op
-    order, the first one without an add."""
+    order, the first one without an add. Returns ``None`` for a program
+    with an ``mlp`` op, which has no adjoint rule yet; the caller drops the
+    ops appended so far. An op kind without a rule raises."""
     n_primal = len(b.ops)
     g = b.leaf("g")
     adj = {out: g}
@@ -278,11 +366,17 @@ def _append_adjoint(b, out):
             p, q = args
             acc(p, b.sel_gt(p, q, gi, b.sel_eq(p, q, half, zero)))
             acc(q, b.sel_gt(q, p, gi, b.sel_eq(p, q, half, zero)))
-        else:  # sel_lt / sel_gt: to the chosen branch only
+        elif kind in ("sel_lt", "sel_gt"):  # to the chosen branch only
             zero = b.const(0.0)
             sel = getattr(b, kind)
             acc(args[2], sel(args[0], args[1], gi, zero))
             acc(args[3], sel(args[0], args[1], zero, gi))
+        elif kind == "mlp":
+            # The neural training slice (ROADMAP.md) brings the MLP's VJP
+            # and the matrix cotangents of the backward kernel.
+            return None
+        else:
+            raise ValueError(f"no adjoint rule for op kind {kind!r}")
     return g, adj
 
 
@@ -291,43 +385,67 @@ def _c_literal(value: float) -> str:
 
 
 class SdfProgram:
-    """A scene lowered to SSA ops, with its flat-parameter layout.
+    """A scene lowered to SSA ops, with its parameter layout.
 
-    ``specs`` is the layout of
+    ``specs`` is the flat-vector layout of
     :func:`ray_marching_tpu_torch.ops.params.split_params_padded` and
-    ``n_flat`` the flat vector's length; ``sdf_c``/:meth:`rebuild` give the
-    plain SDF over the same vector (the kernel's plain version uses them)."""
+    ``n_flat`` the flat vector's length; ``mat_specs`` the packed matrix
+    layout of :func:`ray_marching_tpu_torch.ops.params.pack_mats`;
+    ``sdf_c``/:meth:`rebuild` give the plain SDF over the same inputs (the
+    kernels' plain versions use them)."""
 
     def __init__(self, node: Node):
-        from ray_marching_tpu_torch.ops.params import split_params_padded
+        from ray_marching_tpu_torch.ops.params import (
+            mat_specs,
+            split_params_padded,
+        )
 
         self._template = init_params(node, torch.float64)
-        flat, specs = split_params_padded(self._template, torch.float64)
+        flat, _, specs = split_params_padded(self._template, torch.float64)
         self.node = node
         self.specs = specs
+        self.mat_specs = mat_specs(self._template)
         self.n_flat = flat.shape[0]
         self.sdf_c = compile_node(node)
-        b = _Builder({s.path: s.offset for s in specs})
+        b = _Builder({s.path: s.offset for s in specs},
+                     {s.path: s.offset for s in self.mat_specs})
         self.out = _lower(node, b, "", 0, 1, 2)
         self.n_primal = len(b.ops)
+        #: The program's neural leaves, indexed by the ``mlp`` ops.
+        self.mlps = tuple(b.mlps)
         #: Flat-vector offset of every parameter scalar the scene has, in
         #: layout order: the compact index of the kernels' parameter
         #: cotangent (the 128-padding of the segments left out).
         self.scalar_offsets = [s.offset + j for s in specs
                                for j in range(s.size)]
-        self.g, adj = _append_adjoint(b, self.out)
-        self.adj_xyz = tuple(adj.get(i) for i in range(3))
-        compact = {off: k for k, off in enumerate(self.scalar_offsets)}
-        #: (compact scalar index, id of its per-ray cotangent), one per
-        #: parameter scalar the output depends on.
-        self.adj_params = [(compact[b.ops[i][1]], a) for i, a in adj.items()
-                           if b.ops[i][0] == "param"]
+        adjoint = _append_adjoint(b, self.out)
+        #: Whether the op list has an adjoint (``scene_sdf_vjp``, the
+        #: backward kernel); a neural leaf has none yet.
+        self.has_adjoint = adjoint is not None
+        if adjoint is None:
+            del b.ops[self.n_primal:], b.dep[self.n_primal:]
+            self.g, self.adj_xyz, self.adj_params = None, None, []
+        else:
+            self.g, adj = adjoint
+            self.adj_xyz = tuple(adj.get(i) for i in range(3))
+            compact = {off: k for k, off in enumerate(self.scalar_offsets)}
+            #: (compact scalar index, id of its per-ray cotangent), one per
+            #: parameter scalar the output depends on.
+            self.adj_params = [(compact[b.ops[i][1]], a)
+                               for i, a in adj.items()
+                               if b.ops[i][0] == "param"]
         self.ops = b.ops
         self.ray_dependent = b.dep
 
-    def rebuild(self, flat):
-        """Flat parameter vector → nested params dict (views into ``flat``)."""
+    @property
+    def n_mats(self) -> int:
+        return len(self.mat_specs)
+
+    def rebuild(self, flat, mats=()):
+        """Flat parameter vector and matrix tuple → nested params dict
+        (views into ``flat``, the matrices as given)."""
         specs = {s.path: s for s in self.specs}
+        mat_index = {s.path: k for k, s in enumerate(self.mat_specs)}
 
         def walk(tree, prefix):
             out = {}
@@ -335,6 +453,8 @@ class SdfProgram:
                 path = _path(prefix, key)
                 if isinstance(val, dict):
                     out[key] = walk(val, path)
+                elif path in mat_index:
+                    out[key] = mats[mat_index[path]]
                 else:
                     s = specs[path]
                     out[key] = flat[s.offset:s.offset + s.size].reshape(s.shape)
@@ -342,7 +462,13 @@ class SdfProgram:
 
         return walk(self._template, "")
 
-    def _run(self, flat, vals, start, stop):
+    def _mlp_eval(self, flat, mats, leaf, x, y, z):
+        params = self.rebuild(flat, mats)
+        for key in filter(None, leaf.prefix.split("/")):
+            params = params[key]
+        return neural_sdf(leaf.node)(params, x, y, z)
+
+    def _run(self, flat, vals, start, stop, mats=()):
         """Run ops[start:stop] on tensors, appending to ``vals``."""
         for op in self.ops[start:stop]:
             kind, args = op[0], op[1:]
@@ -350,6 +476,9 @@ class SdfProgram:
                 v = flat[args[0]]
             elif kind == "const":
                 v = torch.tensor(args[0], dtype=flat.dtype, device=flat.device)
+            elif kind == "mlp":
+                v = self._mlp_eval(flat, mats, self.mlps[args[0]],
+                                   *(vals[i] for i in args[1:]))
             else:
                 a = [vals[i] for i in args]
                 if kind == "add":
@@ -383,9 +512,16 @@ class SdfProgram:
             vals.append(v)
         return vals
 
-    def evaluate(self, flat, x, y, z):
+    def evaluate(self, flat, x, y, z, mats=()):
         """Backend (b): run the primal op list on tensors."""
-        return self._run(flat, [x, y, z], 3, self.n_primal)[self.out]
+        return self._run(flat, [x, y, z], 3, self.n_primal, mats)[self.out]
+
+    def require_adjoint(self):
+        """Raise for a program without an adjoint (a neural leaf)."""
+        if not self.has_adjoint:
+            raise NotImplementedError(
+                "gradients through a NeuralSDF leaf in the kernels come with "
+                "the neural training slice of the port (ROADMAP.md)")
 
     def evaluate_vjp(self, flat, x, y, z, g):
         """Backend (b) of the adjoint: ``(d, gx, gy, gz, gp)`` for the
@@ -393,6 +529,7 @@ class SdfProgram:
         cotangents, one tensor per entry of :attr:`scalar_offsets` (``None``
         where the output does not depend on the scalar); their sums over the
         rays are the gradient of the flat vector."""
+        self.require_adjoint()
         vals = self._run(flat, [x, y, z], 3, self.n_primal)
         vals.append(g)
         self._run(flat, vals, self.n_primal + 1, len(self.ops))
@@ -411,14 +548,76 @@ class SdfProgram:
                 expr = f"P[{args[0]}]"
             elif kind == "const":
                 expr = _c_literal(args[0])
+            elif kind == "mlp":
+                expr = (f"neural_leaf_{args[0]}<T>(P, M, "
+                        + ", ".join(names[a] for a in args[1:]) + ")")
             else:
                 expr = _OPS[kind][1].format(*(names[a] for a in args))
             lines.append(f"  const T {names[i]} = {expr};")
         return lines
 
+    def _mlp_source(self, k: int, leaf: MlpLeaf) -> List[str]:
+        """The device function of neural leaf ``k``: calls into neural.cuh
+        with the layer sizes as compile-time constants."""
+        node, sizes = leaf.node, leaf.sizes
+        matmul = resolve_impl(node) == "matmul"
+        flags = (f"{_ACT.get(node.activation, 'RM_ACT_TANH')}, "
+                 f"{str(matmul).lower()}, "
+                 f"{str(matmul and node.matmul_dtype == 'bfloat16').lower()}")
+        sine = node.activation.startswith("sine")
+        b = [f"P + {o}" for o in leaf.bias]
+        m = [f"M + {o}" for o in leaf.mats]
+        lines = [
+            f"// {leaf.prefix or 'scene'}: NeuralSDF "
+            f"{'-'.join(map(str, sizes))}, {node.activation}, "
+            f"{'matmul' if matmul else 'componentwise'}, {node.matmul_dtype}",
+            "template <typename T>",
+            f"__device__ __noinline__ T neural_leaf_{k}(const T* __restrict__"
+            " P, const T* __restrict__ M, T x, T y, T z) {",
+            f"  const T w0 = {_c_literal(node.w0)};",
+            "  const RmXyz<T> in = {{x, y, z}};",
+        ]
+        n_hidden = len(sizes) - 2
+        if n_hidden == 0:
+            lines += [
+                "  T out[1];",
+                f"  rm_dense_chunk<T, 3, 1, 1, {flags.split(', ', 1)[1]}>("
+                f"{b[0]}, {m[0]}, in, 0, out);",
+                "  const T h = out[0];",
+            ]
+        else:
+            hmax = max(sizes[1:-1])
+            if n_hidden > 1:
+                lines.append(f"  T ha[{hmax}];")
+            if n_hidden > 2:
+                lines.append(f"  T hb[{hmax}];")
+            src, bufs = "in", ["ha", "hb"]
+            for layer in range(n_hidden - 1):
+                dst = bufs[layer % 2]
+                scale = str(sine and layer == 0).lower()
+                lines.append(
+                    f"  rm_mlp_layer<T, {sizes[layer]}, {sizes[layer + 1]}, "
+                    f"{flags}, {scale}>({b[layer]}, {m[layer]}, w0, {src}, "
+                    f"{dst});")
+                src = dst
+            last = n_hidden - 1
+            scale = str(sine and last == 0).lower()
+            lines.append(
+                f"  const T h = rm_mlp_last<T, {sizes[last]}, "
+                f"{sizes[last + 1]}, {flags}, {scale}>({b[last]}, {m[last]}, "
+                f"w0, {src}, {b[last + 1]}, {m[last + 1]});")
+        lines += [
+            "  return (rm_sqrt(x * x + y * y + z * z) - "
+            f"P[{leaf.radius}]) + h;",
+            "}",
+            "",
+        ]
+        return lines
+
     def cuda_source(self) -> str:
-        """Backend (a): the ``scene_sdf`` and ``scene_sdf_vjp`` device
-        functions, C++ for nvcc."""
+        """Backend (a): the ``scene_sdf`` device function and, where the op
+        list has an adjoint, ``scene_sdf_vjp``; C++ for nvcc. ``M`` is the
+        packed matrix buffer (unused by analytic scenes)."""
         n, n_all = self.n_primal, len(self.ops)
         names = ["x", "y", "z"] + [f"v{i}" for i in range(3, n)]
         lines = [
@@ -427,19 +626,31 @@ class SdfProgram:
             "#pragma once",
             f"constexpr int SCENE_N_SCALARS = {len(self.scalar_offsets)};",
             "",
+        ]
+        if self.mlps:
+            lines.append('#include "neural.cuh"')
+            lines.append("")
+            for k, leaf in enumerate(self.mlps):
+                lines += self._mlp_source(k, leaf)
+        lines += [
             "template <typename T>",
             "__device__ __forceinline__ T scene_sdf(const T* __restrict__ P,"
-            " T x, T y, T z) {",
+            " const T* __restrict__ M, T x, T y, T z) {",
             *self._emit(names, 3, n),
             f"  return {names[self.out]};",
             "}",
             "",
+        ]
+        if not self.has_adjoint:
+            return "\n".join(lines)
+        lines += [
             "// Vector-Jacobian product: returns d, writes the cotangent of",
             "// (x, y, z) for the cotangent g of d, and adds the parameter",
             "// cotangents to gP (SCENE_N_SCALARS values, layout order).",
             "template <typename T>",
             "__device__ __forceinline__ T scene_sdf_vjp(const T* __restrict__"
-            " P, T x, T y, T z, T g, T& gx, T& gy, T& gz, T* gP) {",
+            " P, const T* __restrict__ M, T x, T y, T z, T g, T& gx, T& gy,"
+            " T& gz, T* gP) {",
         ]
         # Primal values are w*, adjoint temporaries a*.
         names = (["x", "y", "z"] + [f"w{i}" for i in range(3, n)] + ["g"]
@@ -458,7 +669,10 @@ class SdfProgram:
         counts = dict.fromkeys(COUNT_CLASSES, 0)
         for op, dep in zip(self.ops[3:self.n_primal],
                            self.ray_dependent[3:self.n_primal]):
-            if dep and op[0] in _OPS:
+            if op[0] == "mlp":
+                for k, v in _mlp_op_counts(self.mlps[op[1]]).items():
+                    counts[k] += v
+            elif dep and op[0] in _OPS:
                 counts[_OPS[op[0]][2]] += 1
         return counts
 
@@ -470,6 +684,7 @@ class SdfProgram:
     def vjp_ops_per_eval(self) -> int:
         """Ops of one ``scene_sdf_vjp``: the primal evaluation, every
         adjoint op, and one add per parameter scalar it accumulates."""
+        self.require_adjoint()
         adjoint = sum(1 for op in self.ops[self.n_primal + 1:]
                       if op[0] in _OPS)
         return self.ops_per_eval + adjoint + len(self.adj_params)

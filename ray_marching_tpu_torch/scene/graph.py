@@ -9,10 +9,13 @@ tensors, the same layout and key names as the JAX pytree).
 :func:`params_from_jax` carries a JAX parameter pytree, given as numpy
 arrays, across.
 
+Custom leaves enter through :func:`register_custom_node`, the JAX package's
+door: ``NeuralSDF`` (scene/neural.py) registers itself when its module is
+imported. ``Mandelbulb`` is not ported (:data:`CUSTOM_NODE_SLICE`).
+
 The union bounding-sphere short-circuit (``compile_node(prune=True)`` in the
 JAX package) is not ported: it is off by default there and was measured as
-a loss. Custom nodes (``NeuralSDF``, ``Mandelbulb``) come with the neural
-slice of the port.
+a loss.
 """
 
 from __future__ import annotations
@@ -105,14 +108,58 @@ _PRIMITIVE_FNS = {
 }
 
 CUSTOM_NODE_SLICE = (
-    "custom scene nodes (NeuralSDF, Mandelbulb) are not ported yet: they "
-    "come with the neural slice of the PyTorch port (see ROADMAP.md)"
+    "the Mandelbulb fractal (scene/fractals.py) is not ported yet: ROADMAP.md "
+    "queues it, with a kernel lowering for custom nodes, after the neural "
+    "training slice"
 )
+
+#: User-extensible SDF leaves: node type -> (compile_fn, init_fn).
+_CUSTOM_NODES: dict = {}
+
+_BUILTIN_NODES = (Sphere, Box, Plane, Line, Disk, Torus, Affine, Union,
+                  SmoothUnion, Rounding, Onion)
+
+
+def register_custom_node(node_type, compile_fn, init_fn) -> None:
+    """Register a user-defined SDF leaf type (the JAX package's door).
+
+    ``node_type`` is a frozen-dataclass subclass of :class:`Node` holding the
+    static configuration; ``compile_fn(node) -> f(params, x, y, z) -> d``
+    builds the componentwise tensor SDF; ``init_fn(node, dtype, device)``
+    the initial parameter dict. Scene JSON addresses nodes by bare class
+    name, so a name that shadows a built-in or another registered type is
+    refused here, as in the JAX package."""
+    if not (isinstance(node_type, type) and issubclass(node_type, Node)):
+        raise TypeError(f"node_type must subclass Node, got {node_type!r}")
+    name = node_type.__name__
+    builtin_names = {cls.__name__ for cls in _BUILTIN_NODES}
+    clash = next((c for c in _CUSTOM_NODES
+                  if c.__name__ == name and c is not node_type), None)
+    if name in builtin_names or clash is not None:
+        other = "a built-in node" if name in builtin_names else f"{clash!r}"
+        raise ValueError(
+            f"custom node name {name!r} collides with {other}; scene "
+            f"serialization is keyed by class name — rename the class"
+        )
+    _CUSTOM_NODES[node_type] = (compile_fn, init_fn)
+
+
+def custom_node_types():
+    """Registered custom node types, keyed by class name (serialization)."""
+    return {cls.__name__: cls for cls in _CUSTOM_NODES}
+
+
+def _custom_entry(node):
+    """Registry entry for a node with isinstance semantics: the most-derived
+    registered base wins."""
+    for base in type(node).__mro__:
+        entry = _CUSTOM_NODES.get(base)
+        if entry is not None:
+            return entry
+    return None
 
 
 def _unknown(node):
-    if isinstance(node, Node):
-        raise NotImplementedError(f"{type(node).__name__}: {CUSTOM_NODE_SLICE}")
     raise TypeError(f"unknown scene node: {node!r}")
 
 
@@ -155,6 +202,9 @@ def init_params(node: Node, dtype=torch.float32, device="cpu"):
     if isinstance(node, Onion):
         return {"radius": arr(node.radius),
                 "child": init_params(node.child, dtype, device)}
+    entry = _custom_entry(node)
+    if entry is not None:
+        return entry[1](node, dtype, device)
     return _unknown(node)
 
 
@@ -202,6 +252,9 @@ def compile_node(node: Node) -> Callable:
             return ops.onion(params["radius"], child(params["child"], x, y, z))
 
         return onion_fn
+    entry = _custom_entry(node)
+    if entry is not None:
+        return entry[0](node)
     return _unknown(node)
 
 

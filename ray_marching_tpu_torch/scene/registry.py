@@ -96,8 +96,24 @@ def make_single_sphere() -> Node:
 
 @register("neural_demo")
 def make_neural_demo() -> Node:
-    """A neural SDF blob beside analytic shapes (not ported yet)."""
-    raise NotImplementedError(f"scene 'neural_demo': {CUSTOM_NODE_SLICE}")
+    """A neural SDF blob beside analytic shapes inside the room shell."""
+    from ray_marching_tpu_torch.scene.neural import NeuralSDF
+
+    return Union(
+        children=(
+            Onion(child=Box(halfsides=(5.0, 5.0, 5.0)), radius=0.1),
+            Affine(
+                child=NeuralSDF(hidden=(16, 16), seed=7, scale=0.6, w0=6.0),
+                orientation=(1.0, 0.0, 0.0, 0.0),
+                translation=(-0.8, 0.0, 0.0),
+            ),
+            Affine(
+                child=Torus(radius1=0.7, radius2=0.2),
+                orientation=(math.sqrt(0.5), math.sqrt(0.5), 0.0, 0.0),
+                translation=(0.9, 0.0, 0.3),
+            ),
+        )
+    )
 
 
 @register("mandelbulb")

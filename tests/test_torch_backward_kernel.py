@@ -66,7 +66,7 @@ def scene(request):
     _, jsdf, _ = jgraph.compile_scene(jreg.make_scene(name), jnp.float64)
     jflat, mats, rebuild = j_split(jparams, jnp.float64)
     program = SdfProgram(treg.make_scene(name))
-    tflat, _ = split_params_padded(
+    tflat, _, _ = split_params_padded(
         tgraph.init_params(program.node, torch.float64), torch.float64)
     return name, (jsdf, rebuild, jflat, mats), program, tflat
 
@@ -251,7 +251,7 @@ def test_two_level_engages_like_jax(monkeypatch, steps, tau, track_min):
             == j_pb.two_level_engages(steps, tau, track_min))
     if steps:
         program = SdfProgram(treg.make_scene("test_scene2"))
-        flat, _ = split_params_padded(
+        flat, _, _ = split_params_padded(
             tgraph.init_params(program.node, torch.float64), torch.float64)
         rays = torch.as_tensor(_rays(36, rows=1))
         g = torch.as_tensor(_cotangents(37, 9 if track_min else 8, rows=1))

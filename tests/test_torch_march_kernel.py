@@ -166,7 +166,7 @@ def test_pad_slots_do_not_poison_parameter_gradients():
 
 def _plane_inputs(dtype, rows=4, scene="test_scene2", seed=5):
     program = SdfProgram(treg.make_scene(scene))
-    flat, _ = split_params_padded(tgraph.init_params(program.node, dtype),
+    flat, _, _ = split_params_padded(tgraph.init_params(program.node, dtype),
                                   dtype)
     rng = np.random.default_rng(seed)
     n = rows * 128

@@ -312,6 +312,22 @@ def test_renderer_is_exported_and_defaults_to_the_card():
                  RenderConfig(**_cfg_kwargs(16, 8)))
 
 
+@pytest.mark.parametrize("which", ["camera", "normals"])
+def test_camera_and_normals_default_to_the_card(which):
+    """``Camera`` and ``NormalsEstimator`` default to ``"cuda"`` like every
+    other entry point: without a card they raise and do not fall back."""
+    def build():
+        if which == "camera":
+            return Camera(CameraConfig(px_width=4, px_height=2)).ray_positions
+        return NormalsEstimator(5e-2).offsets
+
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+
+
 @pytest.mark.parametrize("what", ["cmap_fourier", "occlusion", "extras",
                                   "axis_names", "backward"])
 def test_unported_options_raise(what):
@@ -415,7 +431,7 @@ def test_camera_pose_matches_jax(grid_dtype):
     jc = JaxCamera(JaxCameraConfig(**kw), dtype=jnp.float64,
                    grid_dtype=grid_dtype)
     tc = Camera(CameraConfig(**kw), dtype=torch.float64,
-                grid_dtype=grid_dtype)
+                grid_dtype=grid_dtype, device="cpu")
     want = jc.pose(jnp.asarray(Q2), jnp.asarray(T2))
     got = tc.pose(torch.as_tensor(Q2), torch.as_tensor(T2))
     assert got[0] is got[2]
@@ -441,7 +457,7 @@ def test_normals_estimator_matches_jax():
     (jvec, jparams), (tvec, tparams), p0, _ = _scene_and_rays(41)
     jn, jl = JaxNormals(5e-2, dtype=jnp.float64)(jvec, jparams,
                                                  jnp.asarray(p0))
-    tn, tl = NormalsEstimator(5e-2, dtype=torch.float64)(
+    tn, tl = NormalsEstimator(5e-2, dtype=torch.float64, device="cpu")(
         tvec, tparams, torch.as_tensor(p0))
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-10,
                                atol=1e-12)

@@ -50,7 +50,7 @@ def scene(request):
     _, jsdf, _ = jgraph.compile_scene(jreg.make_scene(name), jnp.float64)
     jflat, mats, rebuild = j_split(jparams, jnp.float64)
     program = SdfProgram(treg.make_scene(name))
-    tflat, _ = split_params_padded(
+    tflat, _, _ = split_params_padded(
         tgraph.init_params(program.node, torch.float64), torch.float64)
     return name, (jsdf, rebuild, jflat, mats), program, tflat
 

@@ -138,7 +138,7 @@ def test_codegen_torch_backend_equals_plain_sdf(name, dtype):
     node = _scene(tgraph, treg, name)
     program = SdfProgram(node)
     _, sdf, params = tgraph.compile_scene(node, dtype)
-    flat, _ = t_split(params, dtype)
+    flat, _, _ = t_split(params, dtype)
     p = torch.as_tensor(_points(5), dtype=dtype)
     p[:, 8:16] = float("nan")
     want = sdf(params, *p)
@@ -159,7 +159,8 @@ def test_codegen_adjoint_equals_autograd(name):
     (1e-12 relative to the largest entry); points include the origin."""
     node = _scene(tgraph, treg, name)
     program = SdfProgram(node)
-    flat, _ = t_split(tgraph.init_params(node, torch.float64), torch.float64)
+    flat, _, _ = t_split(tgraph.init_params(node, torch.float64),
+                         torch.float64)
     flat = flat.clone().requires_grad_(True)
     pts = _points(8)
     pts[:, :8] = 1e-3  # near the origin, off the sqrt(0) singularities
@@ -207,7 +208,7 @@ def test_codegen_adjoint_rules_at_ties(kind):
         pt = (0.3, 0.4, 1.0)
     program = SdfProgram(node)
     params = tgraph.init_params(node, torch.float64)
-    flat, _ = t_split(params, torch.float64)
+    flat, _, _ = t_split(params, torch.float64)
     flat = flat.clone().requires_grad_(True)
     p = [torch.tensor([c], dtype=torch.float64, requires_grad=True) for c in pt]
     g = torch.tensor([1.5], dtype=torch.float64)
@@ -227,7 +228,8 @@ def test_codegen_cuda_source_reads_every_param():
     node = _all_nodes_scene(tgraph)
     program = SdfProgram(node)
     src = program.cuda_source()
-    assert "T scene_sdf(const T* __restrict__ P, T x, T y, T z)" in src
+    assert ("T scene_sdf(const T* __restrict__ P, const T* __restrict__ M, "
+            "T x, T y, T z)") in src
     assert src.count("  const T v") == program.n_primal - 3
     for spec in program.specs:
         for i in range(spec.size):
@@ -235,7 +237,8 @@ def test_codegen_cuda_source_reads_every_param():
     assert "fminf" not in src and "fmaxf" not in src
     # The adjoint: one statement per op behind the primal ones, and one
     # accumulator per scalar the output depends on.
-    assert "T scene_sdf_vjp(const T* __restrict__ P, T x, T y, T z, T g," in src
+    assert ("T scene_sdf_vjp(const T* __restrict__ P, const T* __restrict__ "
+            "M, T x, T y, T z, T g,") in src
     assert f"constexpr int SCENE_N_SCALARS = {len(program.scalar_offsets)};" in src
     assert src.count("  const T w") == program.n_primal - 3
     assert src.count("  const T a") == len(program.ops) - program.n_primal - 1
@@ -266,8 +269,8 @@ def test_params_and_flat_layout_match_jax(name, dtype):
     for k in jp:
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
     jflat, mats, _ = j_split(jparams, getattr(jnp, dtype))
-    tflat, specs = t_split(tparams, getattr(torch, dtype))
-    assert mats == ()
+    tflat, tmats, specs = t_split(tparams, getattr(torch, dtype))
+    assert mats == () and tmats == ()
     np.testing.assert_array_equal(tflat.numpy(), np.asarray(jflat))
     assert SdfProgram(_scene(tgraph, treg, name)).n_flat == tflat.shape[0]
     assert [s.path for s in specs] == list(tp)
@@ -293,8 +296,13 @@ def test_params_from_jax_round_trip():
 
 @pytest.mark.parametrize("name", ["neural_demo", "mandelbulb"])
 def test_custom_node_scenes_not_ported(name):
+    """Of the two custom-node scenes only the Mandelbulb is still to port;
+    neural_demo builds the JAX package's tree."""
     assert name in treg.available_scenes()
-    with pytest.raises(NotImplementedError, match="neural slice"):
+    if name == "neural_demo":
+        assert repr(treg.make_scene(name)) == repr(jreg.make_scene(name))
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         treg.make_scene(name)
 
 
