@@ -14,7 +14,9 @@ training: ``optim.inverse.optimize`` on the same setup, with and without the
 silhouette loss, with the implicit backward and with the two-level backward;
 the modular pipeline: ``Renderer`` with ``use_pallas=True`` at the same
 setup, a frame, a frame with a reflection bounce, all 8 modes and one
-gradient), checks the outputs (golden images and golden gradients in f64),
+gradient; the neural slices: the trained width-256 NeuralSDF served, and
+trained by ``optimize`` through the backward kernel with the MLP's VJP),
+checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
 
@@ -117,6 +119,36 @@ MAX_SHARE_OUT_BF16 = 1e-2
 #: hidden matrix transposed 0.900 and 0.102). An object hit: the ray ends
 #: within OBJECT_RADIUS of the origin (the room's walls are 4.9 away).
 TARGET_MIN_AGREE, TARGET_MAX_MEAN_DIFF, OBJECT_RADIUS = 0.99, 0.02, 1.5
+#: The neural training path: optimize() on the seven leaves of the w256
+#: NeuralSDF (c1/w0..w2, c1/b0..b2, c1/radius), Adam, at the main neural
+#: configuration, against the analytic target's frame.
+NEURAL_TRAIN_STEPS, NEURAL_TRAINABLE = 3, ["c1/"]
+#: Neural backward kernel vs plain version (same history), relative to the
+#: largest reference entry of each output: the ray cotangents on converged
+#: rays, the flat parameter cotangent and every matrix cotangent. The kernel
+#: sums W·δ and a ⊗ δ in its own order (per block, then over 2048 blocks)
+#: where torch.matmul sums 262,144 rays at once, and the MLP's forward
+#: rounding (up to 6.4e-6 on normals, PERF.md) enters every step's
+#: cotangent. On the card the largest is 5.8e-5 (rays, f32; PERF.md).
+TOL_NEURAL_BWD = {"f32": 1e-3, "f64": 1e-9}
+#: tau = 1e-3 and min_f routing at 128² f32: an exit step or a min_f tie can
+#: flip between kernel and plain version on an ulp of the MLP, which moves
+#: that ray's cotangent and its share of every parameter's.
+TOL_NEURAL_BWD_LOOSE = 1e-2
+#: bf16 operands at 128² f32, against the plain version with the kernel's
+#: rounding rule (the cotangent of a product's input rounded to bf16, a
+#: matrix's cotangent summed in f32; the plain version as it stands also
+#: rounds each evaluation's matrix cotangent, summed over all its rays, to
+#: bf16, which a per-block sum cannot do). Both round each ray's input
+#: cotangents after sums in other orders, so one near a rounding boundary
+#: lands one bf16 ulp (2^-8) apart and the sweep carries it on: the largest
+#: ray difference says little (1.2e-2 of the largest entry on the card).
+#: The limits (share of converged rays within BF16_RAY_RTOL of their own
+#: size, flat, matrices) sit between the kernel's readings on the card
+#: (0.972, 3.3e-5, 4.8e-4) and a control's without any cotangent rounding,
+#: which must fail them (0.759, 0.50, 0.37; PERF.md).
+BF16_RAY_RTOL = 1e-4
+TOL_NEURAL_BWD_BF16 = (0.9, 1e-3, 1e-2)
 
 
 class SmokeFailure(RuntimeError):
@@ -298,13 +330,14 @@ def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
             handoff = dict(hist=ex["hist"], nlive=ex["nlive"])
             if track_min:
                 handoff.update(minf=out[8].contiguous(), amin=ex["amin"])
-            runs[track_min] = (
+            # (flat, rays) cotangents: an analytic scene has no matrices.
+            runs[track_min] = tuple(r[::2] for r in (
                 bk.fused_backward(program, flat, rays7, g, STEPS, tau, 5e-2,
                                   track_min=track_min, **handoff),
                 bk.fused_backward(program, flat, rays7, g, STEPS, tau, 5e-2,
                                   track_min=track_min),
                 bk.reference_backward(program, flat, rays7, g, STEPS, tau,
-                                      5e-2, track_min=track_min, **handoff))
+                                      5e-2, track_min=track_min, **handoff)))
         torch.cuda.synchronize()
         if masked or all(bool(torch.isfinite(plain[0]).all())
                          for _, _, plain in runs.values()):
@@ -390,9 +423,9 @@ def compare_march(label, program, flat, rays7, tau, f64, backward,
     rng = np.random.default_rng(900 + int(tau * 1e6) + f64)
     g = torch.as_tensor(rng.standard_normal((4,) + tuple(rays7.shape[1:])),
                         dtype=rays7.dtype).to(rays7.device)
-    a = bk.march_backward(program, flat, rays7, g, STEPS, tau)
+    a = bk.march_backward(program, flat, rays7, g, STEPS, tau)[::2]
     b = bk.reference_backward(program, flat, rays7, g, STEPS, tau, None,
-                              march_only=True)
+                              march_only=True)[::2]
     torch.cuda.synchronize()
     tol = TOL_BWD["f64" if f64 else "f32"]
     e_flat, s_flat = float((a[0] - b[0]).abs().max()), float(b[0].abs().max())
@@ -430,16 +463,17 @@ def compare_two_level(label, program, flat, rays7, f64, seed):
                                log_hist=True)
     conv = (rays7[6] > 0.5) & (out[3].abs() < CONVERGED)
     with_hist = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
-                                  hist=ex["hist"], nlive=ex["nlive"])
+                                  hist=ex["hist"], nlive=ex["nlive"])[::2]
     check(bk.LAST_PATH["use_hist"] and not bk.LAST_PATH["two_level"],
           f"two-level {label}: the history path did not run")
-    recomputed = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2)
+    recomputed = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0,
+                                   5e-2)[::2]
     two_level = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
-                                  two_level=True)
+                                  two_level=True)[::2]
     check(bk.LAST_PATH["two_level"] and not bk.LAST_PATH["use_hist"],
           f"two-level {label}: LAST_PATH says {bk.LAST_PATH}")
     plain = bk.reference_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
-                                  two_level=True)
+                                  two_level=True)[::2]
     for kw in (dict(tau=1e-3, steps=STEPS), dict(tau=0.0, steps=12)):
         bk.fused_backward(program, flat, rays7, g, kw["steps"], kw["tau"],
                           5e-2, two_level=True)
@@ -940,14 +974,15 @@ class PlainMarchCalls:
             setattr(mod, attr, fn)
 
 
-def ptxas_entry(log, kernel):
+def ptxas_entry(log, kernel, args="IfE"):
     """(registers, stack frame bytes, spill store bytes) of the f32
-    instantiation of ``kernel`` in a build's ``-Xptxas -v`` report (None
-    each when the library was built before this run)."""
+    instantiation of ``kernel`` (its mangled template arguments ``args``) in
+    a build's ``-Xptxas -v`` report (None each when the library was built
+    before this run)."""
     if not log:
         return None, None, None
     for chunk in log.split("Compiling entry function '")[1:]:
-        if re.match(r"_Z\d+" + kernel + r"IfE", chunk):
+        if re.match(r"_Z\d+" + kernel + args, chunk):
             regs = re.search(r"Used (\d+) registers", chunk)
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores", chunk)
@@ -1217,8 +1252,577 @@ def neural_slice(card, out_dir: Path):
     }]
 
 
+class PlainBackwardCalls:
+    """Counts the calls of the backward kernel's plain version while it is
+    active."""
+
+    def __enter__(self):
+        from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+        self.n, self._fn = 0, bk.reference_backward
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._fn(*args, **kwargs)
+
+        bk.reference_backward = counted
+        return self
+
+    def __exit__(self, *exc):
+        from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+        bk.reference_backward = self._fn
+
+
+def rel_err(got, want):
+    """Largest absolute difference over the largest reference entry."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def neural_backward_vs_plain(label, prog, flat, mats, rays7, tau, tol,
+                             track_min=False, modes=("history",), seed=0,
+                             mat_tol=None):
+    """The neural backward kernel against its plain version (same history),
+    with ``modes`` among history, recompute and two-level bitwise equal to
+    each other; ``mat_tol`` (default ``tol``) for the matrices. Returns the
+    largest relative errors (rays, flat, matrices) and the largest absolute
+    error of the ray cotangents."""
+    mat_tol = tol if mat_tol is None else mat_tol
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    out, ex = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, tau, 5e-2,
+                               track_min=track_min, log_hist=True, mats=mats)
+    conv = (rays7[6] > 0.5) & (out[3].abs() < CONVERGED)
+    g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (9 if track_min else 8,) + tuple(rays7.shape[1:])),
+        dtype=rays7.dtype).to(rays7.device)
+    handoff = dict(hist=ex["hist"], nlive=ex["nlive"])
+    if track_min:
+        handoff.update(minf=out[8].contiguous(), amin=ex["amin"])
+    kw = {"history": handoff, "recompute": {},
+          "two-level": dict(two_level=True)}
+    runs = {m: bk.fused_backward(prog, flat, rays7, g, NEURAL_STEPS, tau,
+                                 5e-2, track_min=track_min, mats=mats,
+                                 **kw[m]) for m in modes}
+    plain = bk.reference_backward(prog, flat, rays7, g, NEURAL_STEPS, tau,
+                                  5e-2, track_min=track_min, mats=mats,
+                                  **handoff)
+    torch.cuda.synchronize()
+    first = runs[modes[0]]
+    for m in modes[1:]:
+        check(all(bool(same_bits(a, b).all()) for a, b in zip(
+            [first[0], *first[1], first[2]],
+            [runs[m][0], *runs[m][1], runs[m][2]])),
+              f"{label}: {modes[0]} and {m} give different bits")
+    e_rays = rel_err(first[2][:, conv], plain[2][:, conv])
+    e_flat = rel_err(first[0], plain[0])
+    e_mats = [rel_err(a, b) for a, b in zip(first[1], plain[1])]
+    finite = (bool(torch.isfinite(first[0]).all())
+              and all(bool(torch.isfinite(m).all()) for m in first[1])
+              and bool(torch.isfinite(first[2][:, conv]).all()))
+    print(f"neural backward {label}: {' == '.join(modes)} bitwise; vs plain "
+          f"(relative to the largest entry; tolerance {tol:g}, matrices "
+          f"{mat_tol:g}): ray "
+          f"cotangents {e_rays:.3e} on {int(conv.sum())} converged rays, "
+          f"flat {e_flat:.3e}, matrices "
+          + " ".join(f"{e:.3e}" for e in e_mats)
+          + f"; finite {finite}")
+    check(finite, f"{label}: non-finite cotangents")
+    check(max(e_rays, e_flat) <= tol and max(e_mats) <= mat_tol,
+          f"{label}: kernel and plain disagree")
+    check(not bool(first[2][:, rays7[6] < 0.5].any()),
+          f"{label}: pad slots got a cotangent")
+    abs_rays = float((first[2] - plain[2])[:, conv].abs().max())
+    return e_rays, e_flat, max(e_mats), abs_rays
+
+
+def _straight_bf16(t):
+    """Rounded to bf16 on the way forward, its cotangent passed back as it
+    is (r - t is exact, so t + (r - t) is r)."""
+    import torch
+
+    return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
+
+
+class PlainBf16Rule:
+    """The plain version's matrix product with the cotangents of its bf16
+    operand casts rounded to bf16 (as autograd differentiates a cast) or
+    passed back unrounded: ``weights`` for the matrix, ``inputs`` for the
+    layer's input, while active."""
+
+    def __init__(self, weights, inputs):
+        self.weights, self.inputs = weights, inputs
+
+    def __enter__(self):
+        import torch
+
+        from ray_marching_tpu_torch.scene import neural
+
+        self._fn = neural._matmul_layer
+        cast_w = neural._bf16 if self.weights else _straight_bf16
+        cast_h = neural._bf16 if self.inputs else _straight_bf16
+
+        def layer(node, params, h, index):
+            lhs, rhs = params[f"w{index}"].T, h
+            if node.matmul_dtype == "bfloat16" and h.dtype == torch.float32:
+                lhs, rhs = cast_w(lhs), cast_h(rhs)
+            return (torch.matmul(lhs, rhs)
+                    + params[f"b{index}"].reshape(-1, 1))
+
+        neural._matmul_layer = layer
+        return self
+
+    def __exit__(self, *exc):
+        from ray_marching_tpu_torch.scene import neural
+
+        neural._matmul_layer = self._fn
+
+
+def neural_bf16_backward(prog, flat, mats, rays7, seed):
+    """bf16 operands: the kernel (history, recompute and two-level bitwise
+    equal) against the plain version under the kernel's rounding rule
+    (TOL_NEURAL_BWD_BF16), against a control without any cotangent rounding,
+    which must fail the same limits, and, for the record, against the plain
+    version as it stands. Returns {reference: (share of converged rays
+    within BF16_RAY_RTOL, flat, matrices)}."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    label = f"f32 {NEURAL_F64_RES}x{NEURAL_F64_RES} w256 bf16 operands"
+    out, ex = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                               log_hist=True, mats=mats)
+    conv = (rays7[6] > 0.5) & (out[3].abs() < CONVERGED)
+    g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=rays7.dtype).to(rays7.device)
+    handoff = dict(hist=ex["hist"], nlive=ex["nlive"])
+    runs = [bk.fused_backward(prog, flat, rays7, g, NEURAL_STEPS, 0.0, 5e-2,
+                              mats=mats, **kw)
+            for kw in (handoff, {}, dict(two_level=True))]
+    got = runs[0]
+    check(all(bool(same_bits(a, b).all()) for r in runs[1:] for a, b in zip(
+        [got[0], *got[1], got[2]], [r[0], *r[1], r[2]])),
+          f"{label}: history, recompute and two-level give different bits")
+    check(bool(torch.isfinite(got[0]).all())
+          and all(bool(torch.isfinite(m).all()) for m in got[1])
+          and bool(torch.isfinite(got[2][:, conv]).all()),
+          f"{label}: non-finite cotangents")
+    readings = {}
+    for name, weights, inputs in (("sound", False, True),
+                                  ("control", False, False),
+                                  ("plain", True, True)):
+        with PlainBf16Rule(weights, inputs):
+            ref = bk.reference_backward(prog, flat, rays7, g, NEURAL_STEPS,
+                                        0.0, 5e-2, mats=mats, **handoff)
+        torch.cuda.synchronize()
+        a, b = got[2][:, conv], ref[2][:, conv]
+        per_ray = ((a - b).abs().amax(0)
+                   / b.abs().amax(0).clamp_min(torch.finfo(b.dtype).tiny))
+        q = torch.quantile(per_ray.double(), torch.tensor(
+            [0.5, 0.9, 0.99], dtype=torch.float64, device=per_ray.device))
+        readings[name] = (float((per_ray <= BF16_RAY_RTOL).double().mean()),
+                          rel_err(got[0], ref[0]),
+                          max(rel_err(x, y) for x, y in zip(got[1], ref[1])),
+                          rel_err(a, b))
+        share, e_flat, e_mats, e_rays = readings[name]
+        print(f"neural backward {label} vs plain ({name}: cotangents of the "
+              f"matrices {'rounded' if weights else 'f32'}, of the inputs "
+              f"{'rounded' if inputs else 'f32'}): share of "
+              f"{int(conv.sum())} converged rays within {BF16_RAY_RTOL:g} "
+              f"{share:.4f} (per-ray relative difference quantiles 0.5 / 0.9 "
+              f"/ 0.99: " + " / ".join(f"{float(v):.3e}" for v in q)
+              + f"; largest over the largest entry {e_rays:.3e}), flat "
+              f"{e_flat:.3e}, matrices {e_mats:.3e}")
+        del ref
+    min_share, flat_tol, mat_tol = TOL_NEURAL_BWD_BF16
+
+    def within(r):
+        return r[0] >= min_share and r[1] <= flat_tol and r[2] <= mat_tol
+
+    print(f"neural backward {label}: limits share >= {min_share:g}, flat <= "
+          f"{flat_tol:g}, matrices <= {mat_tol:g}; sound within "
+          f"{within(readings['sound'])}, control within "
+          f"{within(readings['control'])}")
+    check(within(readings["sound"]), f"{label}: kernel and plain disagree")
+    check(not within(readings["control"]),
+          f"{label}: the limits do not tell the control from the kernel")
+    check(not bool(got[2][:, rays7[6] < 0.5].any()),
+          f"{label}: pad slots got a cotangent")
+    return readings
+
+
+def neural_training(card, out_dir: Path):
+    """The neural training slice on the card: the backward kernel with the
+    MLP's VJP against its plain version (512² f32 with the history; 128² f64
+    with the three ways bitwise equal; tau = 1e-3, min_f, bf16 operands and
+    the march-only mode), then the main path (3 counted
+    optimize() steps on the w256 leaf: one forward and one backward launch
+    each, no plain march or backward), render_with_alpha, the implicit
+    backward (no backward launch), one Renderer(use_pallas=True) gradient,
+    the CLI, timings, profile and bounds. Returns its rows of the kernels
+    line."""
+    import torch
+
+    from ray_marching_tpu_torch.cli import main as cli_main
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    main, params = neural_renderer(NEURAL_RES, torch.float32)
+    prog = main.program
+    flat, mats, rays7 = neural_rays(main, params)
+    errs = neural_backward_vs_plain(
+        f"f32 {NEURAL_RES}x{NEURAL_RES} w256", prog, flat, mats, rays7, 0.0,
+        TOL_NEURAL_BWD["f32"], modes=("history", "recompute", "two-level"),
+        seed=31)
+    small = NEURAL_F64_RES
+    r64, p64 = neural_renderer(small, torch.float64)
+    f_flat, f_mats, f_rays = neural_rays(r64, p64)
+    neural_backward_vs_plain(
+        f"f64 {small}x{small} w256", prog, f_flat, f_mats, f_rays, 0.0,
+        TOL_NEURAL_BWD["f64"], modes=("history", "recompute", "two-level"),
+        seed=32)
+    r32, p32 = neural_renderer(small, torch.float32)
+    s_flat, s_mats, s_rays = neural_rays(r32, p32)
+    neural_backward_vs_plain(
+        f"f32 {small}x{small} w256", prog, s_flat, s_mats, s_rays, 0.0,
+        TOL_NEURAL_BWD["f32"], modes=("history", "recompute", "two-level"),
+        seed=33)
+    loose = {}
+    loose["tau"] = neural_backward_vs_plain(
+        f"f32 {small}x{small} w256 tau=1e-3", prog, s_flat, s_mats, s_rays,
+        1e-3, TOL_NEURAL_BWD_LOOSE, modes=("history", "recompute"), seed=34)
+    loose["min_f"] = neural_backward_vs_plain(
+        f"f32 {small}x{small} w256 min_f", prog, s_flat, s_mats, s_rays, 0.0,
+        TOL_NEURAL_BWD_LOOSE, track_min=True, modes=("history", "recompute"),
+        seed=35)
+    # The march-only mode, at the planes the modular Renderer gives it.
+    modular = Renderer(neural_scene(),
+                       dataclasses.replace(main.config, use_pallas=True),
+                       dtype=torch.float32)
+    _, _, ray_pos, ray_dirs = modular.camera.pose(modular._tensor(NEURAL_Q),
+                                                  modular._tensor(NEURAL_T))
+    m_rays7 = mk.rays_to_planes(ray_pos, ray_dirs).contiguous()
+    m_flat, m_mats = flat, mats
+    g4 = torch.as_tensor(np.random.default_rng(36).standard_normal(
+        (4,) + tuple(m_rays7.shape[1:])), dtype=torch.float32).to(
+            m_rays7.device)
+    m_ref = mk.reference_march(prog, m_flat, m_rays7, NEURAL_STEPS, 0.0,
+                               m_mats)
+    m_conv = (m_rays7[6] > 0.5) & (m_ref[3].abs() < CONVERGED)
+    got = bk.march_backward(prog, m_flat, m_rays7, g4, NEURAL_STEPS, 0.0,
+                            m_mats)
+    want = bk.reference_backward(prog, m_flat, m_rays7, g4, NEURAL_STEPS,
+                                 0.0, None, march_only=True, mats=m_mats)
+    torch.cuda.synchronize()
+    mb_errs = (rel_err(got[2][:, m_conv], want[2][:, m_conv]),
+               rel_err(got[0], want[0]),
+               max(rel_err(a, b) for a, b in zip(got[1], want[1])),
+               float((got[2] - want[2])[:, m_conv].abs().max()))
+    print(f"neural march backward (march-only mode, f32 {NEURAL_RES}x"
+          f"{NEURAL_RES}) vs plain: rays {mb_errs[0]:.3e}, flat "
+          f"{mb_errs[1]:.3e}, matrices {mb_errs[2]:.3e} (tolerance "
+          f"{TOL_NEURAL_BWD['f32']:g})")
+    check(max(mb_errs[:3]) <= TOL_NEURAL_BWD["f32"]
+          and all(bool(torch.isfinite(m).all()) for m in got[1]),
+          "neural march backward: kernel and plain disagree")
+    del got, want, m_ref
+    rbf, pbf = neural_renderer(small, torch.float32,
+                               scene=neural_scene("bfloat16"))
+    bf_flat, bf_mats, bf_rays = neural_rays(rbf, pbf)
+    loose["bf16"] = neural_bf16_backward(rbf.program, bf_flat, bf_mats,
+                                         bf_rays, seed=38)
+    del r64, p64, r32, p32, rbf, pbf, f_flat, f_mats, f_rays, s_flat, s_mats
+    del s_rays, bf_flat, bf_mats, bf_rays
+
+    # The main path, counted: optimize() on the seven c1 leaves.
+    target_r = FastRenderer(target_scene(), main.config, dtype=torch.float32,
+                            grid_dtype=np.float32)
+    with torch.no_grad():
+        target = target_r.render(target_r.init_params, NEURAL_Q, NEURAL_T,
+                                 mode=0, degree=1)
+    del target_r
+    # The field is trained already: Adam moves every weight by about the
+    # rate, and 1e-3 is 5 % of a hidden weight (the loss then rises).
+    cfg = InverseConfig(learning_rate=1e-5, steps=NEURAL_TRAIN_STEPS, mode=0,
+                        degree=1, trainable=NEURAL_TRAINABLE)
+    grads_finite, stamps = [], []
+
+    def seen(step, loss, state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        grads_finite.append(all(
+            leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+            for path, leaf in param_paths(state["params"]).items()
+            if path.startswith("c1/")))
+
+    torch.cuda.synchronize()
+    rk.LAUNCHES = bk.LAUNCHES = bk.MARCH_LAUNCHES = mk.LAUNCHES = 0
+    stamps.append(time.perf_counter())
+    with PlainMarchCalls() as plain, PlainBackwardCalls() as plain_bwd:
+        out = optimize(main, target, NEURAL_Q, NEURAL_T, cfg,
+                       init_params=params, callback=seen)
+        torch.cuda.synchronize()
+    fwd, bwd = rk.LAUNCHES, bk.LAUNCHES
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    moved = {p: float((out["params"]["c1"][p.split("/")[1]]
+                       - params["c1"][p.split("/")[1]]).abs().max())
+             for p in ("c1/w0", "c1/w1", "c1/w2", "c1/b0", "c1/b1", "c1/b2",
+                       "c1/radius")}
+    print(f"neural training main path (optimize, {NEURAL_TRAIN_STEPS} Adam "
+          f"steps on {NEURAL_TRAINABLE}, w256, {NEURAL_RES}x{NEURAL_RES}, "
+          f"{NEURAL_STEPS} steps): losses "
+          + " ".join(f"{v:.6e}" for v in out["losses"])
+          + f"; forward launches {fwd}, backward launches {bwd}, plain "
+          f"marches {plain.n}, plain backwards {plain_bwd.n}; step ms (host "
+          f"clock) " + " ".join(f"{v:.1f}" for v in step_ms)
+          + "; largest change per leaf "
+          + " ".join(f"{k}={v:.3e}" for k, v in moved.items()))
+    check(out["steps_run"] == NEURAL_TRAIN_STEPS
+          and all(np.isfinite(out["losses"])), "neural training: losses")
+    check(fwd == NEURAL_TRAIN_STEPS and bwd == NEURAL_TRAIN_STEPS
+          and plain.n == 0 and plain_bwd.n == 0,
+          "neural training: launches or plain calls")
+    check(all(grads_finite) and len(grads_finite) == NEURAL_TRAIN_STEPS,
+          "neural training: non-finite or missing gradients")
+    check(all(v > 0 for v in moved.values()),
+          "neural training: a c1 leaf did not move")
+    train_launches = bwd
+    # The same path with the two-level backward asked for: one step, one
+    # forward launch without a history and one two-level backward launch.
+    torch.cuda.synchronize()
+    rk.LAUNCHES = bk.LAUNCHES = 0
+    bk.LAST_PATH.clear()
+    rk.BWD_TWO_LEVEL = True
+    try:
+        with PlainMarchCalls() as plain, PlainBackwardCalls() as plain_bwd:
+            out_2l = optimize(main, target, NEURAL_Q, NEURAL_T,
+                              dataclasses.replace(cfg, steps=1),
+                              init_params=params)
+            torch.cuda.synchronize()
+    finally:
+        rk.BWD_TWO_LEVEL = False
+    two_level_launches = bk.LAUNCHES
+    print(f"neural training, two-level backward (1 step): loss "
+          f"{out_2l['losses'][0]:.6e} (history run's first "
+          f"{out['losses'][0]:.6e}); forward launches {rk.LAUNCHES}, "
+          f"backward launches {bk.LAUNCHES}, LAST_PATH {bk.LAST_PATH}, plain "
+          f"calls {plain.n + plain_bwd.n}")
+    check(rk.LAUNCHES == 1 and bk.LAUNCHES == 1
+          and bk.LAST_PATH.get("two_level") is True
+          and plain.n + plain_bwd.n == 0
+          and out_2l["losses"][0] == out["losses"][0],
+          "neural training, two-level backward")
+
+    def grad_once(renderer, alpha=False):
+        """One counted gradient of every leaf of a mode-0 MSE: (forward,
+        backward, march, march-backward launches, all finite)."""
+        leaves = leaf_params(params)
+        torch.cuda.synchronize()
+        rk.LAUNCHES = bk.LAUNCHES = bk.MARCH_LAUNCHES = mk.LAUNCHES = 0
+        with PlainMarchCalls() as pm, PlainBackwardCalls() as pb:
+            if alpha:
+                img, a = renderer.render_with_alpha(leaves, NEURAL_Q,
+                                                    NEURAL_T, mode=0,
+                                                    degree=1)
+                loss = torch.mean((img - target) ** 2) + torch.mean(a ** 2)
+            else:
+                loss = torch.mean((renderer.render(
+                    leaves, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+                    - target) ** 2)
+            loss.backward()
+            torch.cuda.synchronize()
+        finite = all(v.grad is not None and bool(torch.isfinite(v.grad).all())
+                     for _, v in leaf_items(leaves))
+        return (rk.LAUNCHES, bk.LAUNCHES, mk.LAUNCHES, bk.MARCH_LAUNCHES,
+                pm.n, pb.n, finite)
+
+    alpha_counts = grad_once(main, alpha=True)
+    implicit = FastRenderer(neural_scene(), dataclasses.replace(
+        main.config, backward="implicit"), dtype=torch.float32)
+    ift_counts = grad_once(implicit)
+    mod_counts = grad_once(modular)
+    print(f"neural gradients (launches: forward, backward, march, march "
+          f"backward; plain marches, plain backwards; all finite): "
+          f"render_with_alpha {alpha_counts}, backward='implicit' "
+          f"{ift_counts}, Renderer(use_pallas=True) {mod_counts}")
+    check(alpha_counts == (1, 1, 0, 0, 0, 0, True),
+          "neural render_with_alpha gradient")
+    check(ift_counts == (1, 0, 0, 0, 0, 0, True), "neural implicit gradient")
+    check(mod_counts == (0, 0, 1, 1, 0, 0, True), "neural modular gradient")
+    del implicit
+
+    # The CLI's optimize on the JAX package's neural scene file.
+    bk.LAUNCHES = 0
+    cli_main(["optimize", "--scene-file", str(NEURAL_SCENE_FILE), "--width",
+              "128", "--height", "96", "--steps", "16", "--opt-steps", "2",
+              "--trainable", "c1"])
+    torch.cuda.synchronize()
+    check(bk.LAUNCHES == 2, f"cli optimize: {bk.LAUNCHES} backward launches")
+
+    # Timing at the main configuration: the backward in each mode (in
+    # turns), its plain version, the march-only mode, a training step.
+    out_h, ex_h = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                                   log_hist=True, mats=mats)
+    g8 = torch.as_tensor(np.random.default_rng(37).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=torch.float32).to(rays7.device)
+    mode_kw = {"history": dict(hist=ex_h["hist"], nlive=ex_h["nlive"]),
+               "recompute": {}, "two-level": dict(two_level=True)}
+
+    def bwd(mode):
+        return bk.fused_backward(prog, flat, rays7, g8, NEURAL_STEPS, 0.0,
+                                 5e-2, mats=mats, **mode_kw[mode])
+
+    turns = [(m, cuda_ms(lambda m=m: bwd(m), 2))
+             for m in ("history", "recompute", "two-level", "two-level",
+                       "recompute", "history")]
+    bwd_ms = {m: sum(v for n, v in turns if n == m) / 2 for m in mode_kw}
+    plain_ms = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, rays7, g8, NEURAL_STEPS, 0.0, 5e-2, mats=mats,
+        **mode_kw["history"]), 1)
+    plain_2l_ms = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, rays7, g8, NEURAL_STEPS, 0.0, 5e-2, mats=mats,
+        two_level=True), 1)
+    march_bwd_ms = cuda_ms(lambda: bk.march_backward(
+        prog, m_flat, m_rays7, g4, NEURAL_STEPS, 0.0, m_mats), 2)
+    march_bwd_plain_ms = cuda_ms(lambda: bk.reference_backward(
+        prog, m_flat, m_rays7, g4, NEURAL_STEPS, 0.0, None, march_only=True,
+        mats=m_mats), 1)
+    fwd_hist_ms = cuda_ms(lambda: rk.march_forward(
+        prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2, log_hist=True,
+        mats=mats), 2)
+    leaves = leaf_params(params)
+    opt = torch.optim.Adam([v for p, v in leaf_items(leaves)
+                            if p.startswith("c1/")], lr=1e-3)
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        torch.mean((main.render(leaves, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+                    - target) ** 2).backward()
+        opt.step()
+
+    step_ev_ms = cuda_ms(train_step, 2)
+    prof = profile_frames(train_step, step_ev_ms, frames=2) or {}
+    bwd_dev_ms = next((v for k, v in prof.items()
+                       if k.startswith("void render_bwd_kernel<float")), None)
+    busy_ms = sum(prof.values()) if prof else None
+    print(f"neural training timing on {card} ({NEURAL_RES}x{NEURAL_RES}, "
+          f"{NEURAL_STEPS} steps, f32): backward "
+          + ", ".join(f"{m} {v:.3f} ms" for m, v in bwd_ms.items())
+          + " (turns " + ", ".join(f"{n} {v:.3f}" for n, v in turns)
+          + f"); plain {plain_ms:.3f} ms, plain two-level {plain_2l_ms:.3f} "
+          f"ms; march-only {march_bwd_ms:.3f} ms, plain "
+          f"{march_bwd_plain_ms:.3f} ms; forward with history "
+          f"{fwd_hist_ms:.3f} ms; training step {step_ev_ms:.3f} ms (CUDA "
+          f"events), device busy {busy_ms} ms, backward kernel {bwd_dev_ms} "
+          "ms (profiler)")
+
+    # Bounds: operations from the op counts (the MLP's VJP dominates),
+    # bytes from the planes, the history, the matrices and the partial rows.
+    n_valid = int((rays7[6] > 0.5).sum())
+    swept = n_valid * NEURAL_STEPS
+    plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
+    mat_bytes = sum(m.numel() for m in mats) * rays7.element_size()
+    n_blocks = -(-rays7.shape[1] * rays7.shape[2] // 128)
+    partial_bytes = n_blocks * bk.partial_cols(prog) * rays7.element_size()
+    hist_bytes = (NEURAL_STEPS + 1) * 3 * plane_bytes
+    k = bk.CKPT_INTERVAL
+    bounds = {}
+    for mode, ops, nbytes in (
+            ("history", bk.backward_ops(prog, n_valid, swept),
+             19 * plane_bytes + hist_bytes + partial_bytes + mat_bytes),
+            ("recompute", bk.backward_ops(prog, n_valid, swept,
+                                          recomputed_steps=swept),
+             21 * plane_bytes + partial_bytes + mat_bytes),
+            ("two-level", bk.backward_ops(
+                prog, n_valid, swept,
+                recomputed_steps=swept + swept * (k - 1) // k),
+             21 * plane_bytes + partial_bytes + mat_bytes)):
+        bounds[mode] = (ops, ops / PEAK_F32_FLOPS * 1e3,
+                        nbytes / PEAK_BYTES * 1e3)
+    m_valid = int((m_rays7[6] > 0.5).sum())
+    m_plane_bytes = (m_rays7.shape[1] * m_rays7.shape[2]
+                     * m_rays7.element_size())
+    mb_ops = bk.backward_ops(prog, m_valid, m_valid * NEURAL_STEPS,
+                             recomputed_steps=m_valid * NEURAL_STEPS,
+                             march_only=True)
+    mb_bytes = (17 * m_plane_bytes + mat_bytes
+                + -(-m_rays7.shape[1] * m_rays7.shape[2] // 128)
+                * bk.partial_cols(prog) * m_rays7.element_size())
+    bounds["march-only"] = (mb_ops, mb_ops / PEAK_F32_FLOPS * 1e3,
+                            mb_bytes / PEAK_BYTES * 1e3)
+    log = rk.BUILD_LOG.get(rk.kernel_key(prog), "")
+    # The f32 history instantiation (no min_f, not two-level, not
+    # march-only).
+    regs = ptxas_entry(log, "render_bwd_kernel", "IfLb0ELb0ELb0EE")
+    print(f"neural backward bounds ({prog.vjp_ops_per_eval} ops per SDF VJP, "
+          f"{prog.ops_per_eval} per evaluation; partial rows "
+          f"{partial_bytes} bytes per launch): "
+          + "; ".join(f"{m} {o} ops -> {to:.4f} ms, bytes -> {tb:.4f} ms"
+                      for m, (o, to, tb) in bounds.items())
+          + f"; ptxas (f32, history): {regs[0]} registers, "
+          f"{regs[1]} bytes stack, {regs[2]} bytes spilled")
+    del out_h, ex_h, g8, g4
+
+    def bound(mode):
+        _, to, tb = bounds[mode]
+        return max(to, tb), "operations" if to >= tb else "bytes"
+
+    common = {"route": "cuda", "library_ms": None, "card": card,
+              "source": "ray_marching_tpu_torch/ops/csrc/render_bwd.cu + "
+                        "ray_marching_tpu_torch/ops/csrc/neural.cuh"}
+    rows = []
+    for name, mode, replaces, launches, err, ms, p_ms in (
+            ("render_bwd_neural", "history",
+             "ray_marching_tpu/ops/pallas_backward.py:119 + "
+             "ray_marching_tpu/scene/neural.py:232", train_launches,
+             errs, bwd_ms["history"], plain_ms),
+            ("render_bwd_two_level_neural", "two-level",
+             "ray_marching_tpu/ops/pallas_backward.py:377 + "
+             "ray_marching_tpu/scene/neural.py:232", two_level_launches,
+             errs, bwd_ms["two-level"], plain_2l_ms),
+            ("march_bwd_neural", "march-only",
+             "ray_marching_tpu/ops/pallas_march.py:358 + "
+             "ray_marching_tpu/scene/neural.py:232", mod_counts[3], mb_errs,
+             march_bwd_ms, march_bwd_plain_ms)):
+        b_ms, b_by = bound(mode)
+        rows.append({
+            "name": name, "replaces": replaces, "launches": launches,
+            "max_abs_err": err[3], "max_rel_err_rays": err[0],
+            "max_rel_err_flat": err[1], "max_rel_err_mats": err[2],
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            **common})
+    rows[0].update(ms_recompute=bwd_ms["recompute"],
+                   bound_ms_recompute=bound("recompute")[0],
+                   launches_render_with_alpha=alpha_counts[1],
+                   launches_implicit=ift_counts[1],
+                   optimize_step_ms=step_ms, step_ms=step_ev_ms,
+                   step_busy_ms=busy_ms, profiler_kernel_ms=bwd_dev_ms,
+                   forward_with_history_ms=fwd_hist_ms,
+                   partial_bytes=partial_bytes,
+                   max_rel_err_tau_1e_3=max(loose["tau"][:3]),
+                   max_rel_err_min_f=max(loose["min_f"][:3]),
+                   bf16_share_rays_within=loose["bf16"]["sound"][0],
+                   bf16_share_rays_within_control=loose["bf16"]["control"][0],
+                   max_rel_err_bf16_mats=loose["bf16"]["sound"][2],
+                   registers=regs[0], stack_bytes=regs[1],
+                   spill_store_bytes=regs[2])
+    return rows
+
+
 def run(out_dir: Path):
     import torch
+
+    t_start = time.perf_counter()
 
     from ray_marching_tpu_torch.io.image import write_png
     from ray_marching_tpu_torch.ops import backward_kernel as bk
@@ -1240,9 +1844,8 @@ def run(out_dir: Path):
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. Build every kernel of the run, all nvcc processes together: the
-    # analytic scenes, the neural slice's scenes (forward and march units
-    # only: they have no adjoint) and the analytic target of the weights
-    # check.
+    # analytic scenes, the neural slices' scenes and the analytic target of
+    # the weights check.
     scenes = ("test_scene2", "test_scene")
     programs = {s: SdfProgram(registry.make_scene(s)) for s in scenes}
     programs.update({
@@ -1258,7 +1861,7 @@ def run(out_dir: Path):
     for s, p in programs.items():
         key = rk.kernel_key(p)
         print(f"ptxas report ({s}, {key}, units "
-              f"{', '.join(rk.kernel_units(p))}):")
+              f"{', '.join(rk.KERNEL_UNITS)}):")
         print(rk.BUILD_LOG.get(key, "(built before this run)").strip())
 
     # 2. Kernels vs plain versions on the card: the forward's serving
@@ -1769,6 +2372,10 @@ def run(out_dir: Path):
     }]}
     # 6. The neural slice: NeuralSDF scenes through both kernels.
     kernels["kernels"] += neural_slice(card, out_dir)
+    # 7. Neural training: the MLP's VJP in the backward kernel.
+    kernels["kernels"] += neural_training(card, out_dir)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          "builds included")
     print(card)
     print(json.dumps(kernels))
     return {"ok": True, "device": {

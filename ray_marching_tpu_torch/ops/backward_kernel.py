@@ -13,8 +13,11 @@ package differentiates ``pallas_march`` through a checkpointed scan instead,
 
 Both wrappers take the plain version only for tensors on the CPU. For CUDA
 tensors they launch the kernel or raise; they never fall back. A scene with
-``NeuralSDF`` leaves has no backward yet: both raise ``NotImplementedError``
-before any launch (the neural training slice).
+``NeuralSDF`` leaves hands its matrices in as ``mats`` and gets their
+cotangents back: the kernel's block-synchronous variant sums ``a ⊗ δ`` per
+block into rows of partials (one row per block, the scalars then the packed
+matrices, allocated per launch), which the wrapper sums over the blocks in
+their order.
 
 The plain version (:func:`reference_backward`) is the kernel's own algorithm
 written with tensors: one VJP of the tail, then the reverse sweep over the
@@ -77,8 +80,8 @@ def two_level_engages(steps, tau=0.0, track_min=False) -> bool:
 
 
 def _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
-           nlive, n_g=None):
-    rk._check(program, params_flat, rays7, steps)
+           nlive, n_g=None, mats=()):
+    rk._check(program, params_flat, rays7, steps, mats)
     plane = tuple(rays7.shape[1:])
     n_g = n_g or (9 if track_min else 8)
     if tuple(g.shape) != (n_g,) + plane or g.dtype != rays7.dtype:
@@ -104,27 +107,39 @@ def _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
             raise ValueError(f"{name} on {t.device}, rays7 on {rays7.device}")
 
 
-def _launch(program, params_flat, rays7, call):
-    """Allocate the outputs, run ``call(lib, out, partials, n_blocks,
-    n_scalars, n, stream)`` (one kernel launch, returning its cudaError) and
-    assemble ``(params_flat cotangent, rays7 cotangent)``."""
+def partial_cols(program: SdfProgram) -> int:
+    """Columns of the kernel's partials: the scene's scalars, then its
+    packed matrices (none for an analytic scene)."""
+    return len(program.scalar_offsets) + program.mat_size
+
+
+def _launch(program, params_flat, rays7, call, mats):
+    """Allocate the outputs, run ``call(lib, packed, out, partials,
+    n_blocks, n_cols, n, stream)`` (one kernel launch, returning its
+    cudaError) and assemble ``(params_flat cotangent, matrix cotangents,
+    rays7 cotangent)``: the rows of partials summed over the blocks in
+    their order."""
     lib = rk._load(program)
+    packed = rk._packed(mats)
     dev, dtype = rays7.device, rays7.dtype
     n = rays7.shape[1] * LANES
     n_blocks = -(-n // lib.rm_render_bwd_block())
-    n_scalars = len(program.scalar_offsets)
+    n_scalars, n_cols = len(program.scalar_offsets), partial_cols(program)
     out = torch.empty((7,) + tuple(rays7.shape[1:]), dtype=dtype, device=dev)
     out[6].zero_()
-    partials = torch.empty((n_blocks, n_scalars), dtype=dtype, device=dev)
+    partials = torch.empty((n_blocks, n_cols), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = call(lib, out, partials, n_blocks, n_scalars, n,
+        err = call(lib, rk._ptr(packed), out, partials, n_blocks, n_cols, n,
                    torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_bwd kernel launch failed: cudaError {err}")
+    total = partials.sum(0)
     gflat = torch.zeros_like(params_flat)
     if n_scalars:
-        gflat[_scalar_index(program, dev)] = partials.sum(0)
-    return gflat, out
+        gflat[_scalar_index(program, dev)] = total[:n_scalars]
+    gmats = tuple(total[n_scalars + s.offset:n_scalars + s.offset + s.size]
+                  .reshape(s.shape) for s in program.mat_specs)
+    return gflat, gmats, out
 
 
 def _contiguous_cuda(rays7, tensors):
@@ -136,7 +151,7 @@ def _contiguous_cuda(rays7, tensors):
 
 def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                    normals_eps, track_min=False, hist=None, minf=None,
-                   amin=None, nlive=None, two_level=False):
+                   amin=None, nlive=None, two_level=False, mats=()):
     """Backward of ``fused_march_normals`` (``track_min``: of ``_cov``).
 
     ``g`` holds the cotangents of the 8 (or 9) output planes. ``hist``
@@ -150,13 +165,14 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     CKPT_INTERVAL`` positions, and marches each segment again during the
     sweep; it runs where :func:`two_level_engages` allows and ignores a
     history, otherwise the ordinary path runs. All three give bitwise the
-    same result. :data:`LAST_PATH` records which one ran.
+    same result. :data:`LAST_PATH` records which one ran. ``mats`` are the
+    scene's matrix parameters (``split_params_padded``).
 
-    Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``;
-    the validity plane's cotangent is zero."""
-    rk.no_matrix_backward(program)
+    Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
+    rays7 cotangent (7, rows, 128))``; the validity plane's cotangent is
+    zero."""
     _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
-           nlive)
+           nlive, mats=mats)
     two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
     if two_level:
         hist = minf = amin = nlive = None
@@ -167,7 +183,7 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
         return reference_backward(program, params_flat, rays7, g, steps, tau,
                                   normals_eps, track_min=track_min, hist=hist,
                                   minf=minf, amin=amin, nlive=nlive,
-                                  two_level=two_level)
+                                  two_level=two_level, mats=mats)
     _contiguous_cuda(rays7, [params_flat, rays7, g]
                      + [t for t in (hist, minf, amin, nlive) if t is not None])
     dev, dtype = rays7.device, rays7.dtype
@@ -182,50 +198,52 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                            device=dev)
     consts = rk._host_consts(dtype, tau, normals_eps)
 
-    def call(lib, out, partials, n_blocks, n_scalars, n, stream):
+    def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
         global LAUNCHES
         fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
               else lib.rm_render_bwd_f64)
         LAUNCHES += 1
-        return fn(params_flat.data_ptr(), rays7.data_ptr(), g.data_ptr(),
-                  int(track_min), rk._ptr(hist), int(recompute),
-                  rk._ptr(ckpt), int(two_level), rk._ptr(minf),
-                  rk._ptr(amin), rk._ptr(nlive), out.data_ptr(),
-                  partials.data_ptr(), n_blocks, n_scalars, n, int(steps),
-                  consts.ctypes.data_as(ctypes.c_void_p), stream)
+        return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
+                  g.data_ptr(), int(track_min), rk._ptr(hist),
+                  int(recompute), rk._ptr(ckpt), int(two_level),
+                  rk._ptr(minf), rk._ptr(amin), rk._ptr(nlive),
+                  out.data_ptr(), partials.data_ptr(), n_blocks, n_cols, n,
+                  int(steps), consts.ctypes.data_as(ctypes.c_void_p), stream)
 
-    return _launch(program, params_flat, rays7, call)
+    return _launch(program, params_flat, rays7, call, mats)
 
 
-def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau):
+def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
+                   mats=()):
     """Backward of :func:`march_kernel.march_planes`: ``g`` holds the
     cotangents of its 4 output planes (x y z d). The kernel marches again
     into a scratch history allocated here, seeds the terminal position with
     the position cotangent plus one SDF VJP weighted by the distance's, and
     runs the reverse sweep: the backward kernel without its normals tail.
 
-    Returns ``(params_flat cotangent (P,), rays7 cotangent (7, rows, 128))``."""
-    rk.no_matrix_backward(program)
+    Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
+    rays7 cotangent (7, rows, 128))``."""
     _check(program, params_flat, rays7, g, steps, False, None, None, None,
-           None, n_g=4)
+           None, n_g=4, mats=mats)
     if rays7.device.type == "cpu":
         return reference_backward(program, params_flat, rays7, g, steps, tau,
-                                  None, march_only=True)
+                                  None, march_only=True, mats=mats)
     _contiguous_cuda(rays7, [params_flat, rays7, g])
     dtype = rays7.dtype
     hist = torch.empty((int(steps) + 1, 3) + tuple(rays7.shape[1:]),
                        dtype=dtype, device=rays7.device)
 
-    def call(lib, out, partials, n_blocks, n_scalars, n, stream):
+    def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
         global MARCH_LAUNCHES
         fn = (lib.rm_march_bwd_f32 if dtype == torch.float32
               else lib.rm_march_bwd_f64)
         MARCH_LAUNCHES += 1
-        return fn(params_flat.data_ptr(), rays7.data_ptr(), g.data_ptr(),
-                  hist.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                  n_blocks, n_scalars, n, int(steps), float(tau), stream)
+        return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
+                  g.data_ptr(), hist.data_ptr(), out.data_ptr(),
+                  partials.data_ptr(), n_blocks, n_cols, n, int(steps),
+                  float(tau), stream)
 
-    return _launch(program, params_flat, rays7, call)
+    return _launch(program, params_flat, rays7, call, mats)
 
 
 def _two_level_positions(sdf, params, start, dirs, steps):
@@ -267,7 +285,7 @@ def _two_level_positions(sdf, params, start, dirs, steps):
 def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                        normals_eps, track_min=False, hist=None, minf=None,
                        amin=None, nlive=None, two_level=False,
-                       march_only=False):
+                       march_only=False, mats=()):
     """The plain PyTorch version of :func:`fused_backward` and, with
     ``march_only``, of :func:`march_backward` (``g`` then has the 4 planes
     x y z d and ``normals_eps`` is not read).
@@ -277,7 +295,8 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     construction, never by multiplying a possibly non-finite value by 0.
     ``two_level`` really runs the kernel's algorithm, checkpoints and
     segment replay (:func:`_two_level_positions`), where
-    :func:`two_level_engages` allows it."""
+    :func:`two_level_engages` allows it. The matrix cotangents are
+    ``torch.autograd.grad`` into ``mats`` through the plain SDF."""
     steps = int(steps)
     two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
     sdf = program.sdf_c
@@ -286,14 +305,24 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     vx, vy, vz = (pick(rays7[i]).detach() for i in (3, 4, 5))
     gv = [pick(g[i]) for i in range(g.shape[0])]
     flat = params_flat.detach().requires_grad_(True)
+    leaves = [flat] + [m.detach().requires_grad_(True) for m in mats]
     with torch.enable_grad():
-        params = program.rebuild(flat)
+        params = program.rebuild(flat, leaves[1:])
+
+    def grad(outputs, inputs, cotangents):
+        """Cotangents of the parameter leaves (zeros where unused), then of
+        ``inputs``."""
+        got = torch.autograd.grad(outputs, leaves + inputs, cotangents,
+                                  allow_unused=True)
+        return ([torch.zeros_like(p) if d is None else d
+                 for p, d in zip(leaves, got)], got[len(leaves):])
 
     if two_level:
         start = [pick(rays7[i]).detach() for i in range(3)]
         with torch.no_grad():
             end, positions = _two_level_positions(
-                sdf, program.rebuild(params_flat.detach()), start,
+                sdf, program.rebuild(params_flat.detach(),
+                                     [m.detach() for m in mats]), start,
                 (vx, vy, vz), steps)
         nlive_v = torch.full(vx.shape, steps, dtype=torch.int32,
                              device=vx.device)
@@ -304,7 +333,7 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
             fwd, extras = rk._reference_march(
                 program, params_flat.detach(), rays7.detach(), steps, tau,
                 5e-2 if march_only else normals_eps, track_min=track_min,
-                log_hist=True)
+                log_hist=True, mats=[m.detach() for m in mats])
             hist, nlive = extras["hist"], extras["nlive"]
             if track_min:
                 minf, amin = fwd[8], extras["amin"]
@@ -325,9 +354,7 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                                                       normals_eps)
             tail = rk._tail_planes(sdf, params, *end, off, inv, lap_scale)
             g_tail = [gv[3], gv[4], gv[5], gv[6], gv[7]]
-    gflat, gx, gy, gz = torch.autograd.grad(tail, [flat] + end, g_tail,
-                                            allow_unused=True)
-    gflat = torch.zeros_like(flat) if gflat is None else gflat
+    gparams, (gx, gy, gz) = grad(tail, end, g_tail)
     gx, gy, gz = gx + gv[0], gy + gv[1], gz + gv[2]
 
     # Reverse sweep; frozen steps sit at the terminal position.
@@ -347,10 +374,8 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
             share = torch.where(tie, 0.5 * carry, 0.0)
             gd = gd + torch.where(first, carry, share)
             carry = torch.where(first, 0.0, torch.where(tie, share, carry))
-        dflat, sx, sy, sz = torch.autograd.grad(d, [flat] + pos, gd,
-                                                allow_unused=True)
-        if dflat is not None:
-            gflat = gflat + dflat
+        dparams, (sx, sy, sz) = grad(d, pos, gd)
+        gparams = [a + b for a, b in zip(gparams, dparams)]
         dd = d.detach()
         gvx = gvx + torch.where(live, gx * dd, 0.0)
         gvy = gvy + torch.where(live, gy * dd, 0.0)
@@ -361,7 +386,8 @@ def reference_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                       device=rays7.device)
     for i, plane in enumerate((gx, gy, gz, gvx, gvy, gvz)):
         out[i, valid] = plane
-    return gflat.detach(), out.reshape(rays7.shape)
+    return (gparams[0].detach(), tuple(m.detach() for m in gparams[1:]),
+            out.reshape(rays7.shape))
 
 
 #: Ray-dependent operations per valid ray outside the SDF VJPs. Tail: 27

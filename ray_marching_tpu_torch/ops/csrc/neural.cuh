@@ -73,6 +73,8 @@ __device__ __forceinline__ float rm_rint(float a) { return rintf(a); }
 __device__ __forceinline__ double rm_rint(double a) { return rint(a); }
 __device__ __forceinline__ float rm_sin(float a) { return sinf(a); }
 __device__ __forceinline__ double rm_sin(double a) { return sin(a); }
+__device__ __forceinline__ float rm_cos(float a) { return cosf(a); }
+__device__ __forceinline__ double rm_cos(double a) { return cos(a); }
 __device__ __forceinline__ float rm_tanh(float a) { return tanhf(a); }
 __device__ __forceinline__ double rm_tanh(double a) { return tanh(a); }
 __device__ __forceinline__ float rm_log1p(float a) { return log1pf(a); }
@@ -247,4 +249,285 @@ __device__ __forceinline__ T rm_mlp_last(const T* __restrict__ b,
     }
   }
   return MATMUL ? o + __ldg(bo) : o;
+}
+
+// ---------------------------------------------------------------------------
+// The MLP's vector-Jacobian product, for the backward kernel (render_bwd.cu).
+//
+// Replaces: the jax.vjp through neural_sdf_matmul (and _componentwise) that
+// pallas_backward.py::_bwd_kernel and ::_bwd_kernel_2l trace into their
+// bodies, with the per-tile matrix cotangents of their loop carry.
+//
+// Per thread, as the forward, in two calls: the SDF VJP's primal evaluation
+// runs the forward once, keeping every hidden layer's output and its
+// activation's slope in local memory (rm_mlp_layer_keep, rm_mlp_out, the
+// same operations in the same order as rm_mlp_layer and rm_mlp_last, so the
+// distance is the forward kernel's to the bit); once the cotangent g of the
+// MLP's output is known, the VJP walks the kept layers back without
+// recomputing any: δ_L = (g·Wo) ⊙ act' for the last hidden layer, then
+// δ_l = (W_l·δ_{l+1}) ⊙ act', times w0 for the first layer of the sine
+// variants. It returns the cotangent of the query point through the MLP
+// (W0·δ1); the skip term's is generated code.
+//
+// Per block: the cotangent of a matrix is Σ over rays and evaluations of
+// a ⊗ δ (a the layer's input), of a bias Σ δ. A thread cannot hold 66k
+// entries, so every (a, δ) pair is handed to the block's sink: each thread
+// stages its tile of a and δ in shared memory, and every entry of the tile
+// is owned by one thread, which sums the block's rays in their order and
+// adds the sum to the block's row of partials in device memory (the caller
+// sums the rows over the blocks in their order). No atomics: the bits repeat
+// from run to run. The sink synchronises the block, so every thread of the
+// block must make the same calls in the same order: a thread with nothing to
+// add (a pad slot, a step its ray never took) is inactive and stages exact
+// zeros, and skips the arithmetic.
+//
+// Parity with the plain version (scene/neural.py mlp_vjp and autograd): the
+// activation slopes are those of the autograd backwards (sin_fast's exact
+// polynomial derivative in its Horner order, cos, 1 - y*y, the two branches
+// of softplus with the tie of max split in half), each multiplied by the
+// incoming cotangent, then by w0. Sums run in other orders than torch's,
+// so kernel and plain version differ by rounding. bf16 operands (f32): the
+// plain version's operand roundings are differentiated as casts, so the
+// cotangent of a layer's input is W_bf16·δ rounded to bf16, and a ⊗ δ takes
+// the bf16-rounded a; the plain version also rounds each evaluation's matrix
+// cotangent summed over all its rays to bf16, which a per-block sum cannot
+// do: there the kernel keeps the f32 sum (a relative 2^-9 apart).
+
+template <typename T>
+struct RmVec3 {
+  T v[3];
+};
+
+// Threads per block of the backward kernel, which the sink's tiles assume.
+constexpr int RM_SINK_THREADS = 128;
+
+// Tile rows and columns staged per thread: the largest chunk of rm_chunk.
+template <typename T>
+__host__ __device__ constexpr int rm_sink_width() {
+  return sizeof(T) == 4 ? 32 : 16;
+}
+
+// A block's matrix sink: its row of partials (the scene's scalars, then the
+// packed matrices), the shared staging (RM_SINK_THREADS x (width + 1) each,
+// padded against bank conflicts) and whether this thread's current
+// evaluation adds anything.
+template <typename T>
+struct RmSink {
+  T* row;
+  T* sa;
+  T* sd;
+  bool active;
+};
+
+// Adds Σ_r A_r[i0 + ii] · D_r[jj] to w[(i0 + ii) * ld + j0 + jj] for ii < ni
+// and jj < NJ, r over the block's threads in order, and when b is given and
+// i0 == 0, Σ_r D_r[jj] to b[j0 + jj]. ni <= rm_sink_width<T>(). BF16: A is
+// a matrix product's operand, rounded to bf16 (f32 only).
+template <typename T, int NJ, bool BF16, typename A, typename D>
+__device__ __forceinline__ void rm_sink_tile(const RmSink<T>& s, const A& a,
+                                             int i0, int ni, const D& d,
+                                             T* w, int ld, int j0, T* b) {
+  constexpr int SW = rm_sink_width<T>();
+  constexpr int G = RM_SINK_THREADS / NJ;
+  constexpr int K = (SW + G - 1) / G;
+  static_assert(NJ <= SW && RM_SINK_THREADS % NJ == 0, "tile width");
+  const int t = threadIdx.x;
+  const T zero = static_cast<T>(0);
+  __syncthreads();
+  T* sa = s.sa + t * (SW + 1);
+  T* sd = s.sd + t * (SW + 1);
+#pragma unroll
+  for (int ii = 0; ii < SW; ++ii) {
+    if (ii < ni) sa[ii] = s.active ? rm_operand<T, BF16>(a[i0 + ii]) : zero;
+  }
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) sd[jj] = s.active ? d[jj] : zero;
+  __syncthreads();
+  const int jj = t % NJ;
+  const int grp = t / NJ;
+  T acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = zero;
+#pragma unroll 4
+  for (int r = 0; r < RM_SINK_THREADS; ++r) {
+    const T dv = s.sd[r * (SW + 1) + jj];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int ii = grp + k * G;
+      if (ii < ni) acc[k] = acc[k] + s.sa[r * (SW + 1) + ii] * dv;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int ii = grp + k * G;
+    if (ii < ni) {
+      T* e = w + (long long)(i0 + ii) * ld + j0 + jj;
+      *e = *e + acc[k];
+    }
+  }
+  if (b != nullptr && i0 == 0 && grp == 0) {
+    T sum = zero;
+    for (int r = 0; r < RM_SINK_THREADS; ++r) {
+      sum = sum + s.sd[r * (SW + 1) + jj];
+    }
+    b[j0 + jj] = b[j0 + jj] + sum;
+  }
+}
+
+// Every tile of the rows 0 .. NIN of A against one column chunk D.
+template <typename T, int NIN, int NJ, bool BF16, typename A, typename D>
+__device__ __forceinline__ void rm_sink_rows(const RmSink<T>& s, const A& a,
+                                             const D& d, T* w, int ld,
+                                             int j0, T* b) {
+  constexpr int SW = rm_sink_width<T>();
+#pragma unroll 1
+  for (int i0 = 0; i0 < NIN; i0 += SW) {
+    rm_sink_tile<T, NJ, BF16>(s, a, i0, NIN - i0 < SW ? NIN - i0 : SW, d, w,
+                              ld, j0, b);
+  }
+}
+
+// The activation's slope at v, as its autograd backward forms it.
+template <typename T, int ACT>
+__device__ __forceinline__ T rm_act_slope(T v) {
+  if constexpr (ACT == RM_ACT_SINE) {
+    return rm_cos(v);
+  } else if constexpr (ACT == RM_ACT_SINE_FAST) {
+    const T k = rm_rint(v * static_cast<T>(RM_INV_TWO_PI));
+    const T r = (v - k * static_cast<T>(RM_TWO_PI_HI)) -
+                k * static_cast<T>(RM_TWO_PI_LO);
+    const T r2 = r * r;
+    T p = r2 * static_cast<T>(RM_SIN_C5) + static_cast<T>(RM_SIN_C4);
+    p = p * r2 + static_cast<T>(RM_SIN_C3);
+    p = p * r2 + static_cast<T>(RM_SIN_C2);
+    p = p * r2 + static_cast<T>(RM_SIN_C1);
+    p = p * r2 + static_cast<T>(RM_SIN_C0);
+    T dp = r2 * static_cast<T>(5.0 * RM_SIN_C5) +
+           static_cast<T>(4.0 * RM_SIN_C4);
+    dp = dp * r2 + static_cast<T>(3.0 * RM_SIN_C3);
+    dp = dp * r2 + static_cast<T>(2.0 * RM_SIN_C2);
+    dp = dp * r2 + static_cast<T>(RM_SIN_C1);
+    return p + static_cast<T>(2) * r2 * dp;
+  } else if constexpr (ACT == RM_ACT_SOFTPLUS) {
+    const T zero = static_cast<T>(0);
+    const T e = rm_exp(-rm_abs(v));
+    const T hinge = v > zero ? static_cast<T>(1)
+                             : (v == zero ? static_cast<T>(0.5) : zero);
+    return hinge + (-(e / (e + static_cast<T>(1)))) * rm_sign(v);
+  } else {
+    const T y = rm_tanh(v);
+    return static_cast<T>(1) - y * y;
+  }
+}
+
+// A hidden layer NIN -> NOUT of the VJP's forward, as rm_mlp_layer: its
+// output into out and its activation's slope into slope (both NOUT long).
+template <typename T, int NIN, int NOUT, int ACT, bool MATMUL, bool BF16,
+          bool SCALE, typename In>
+__device__ __forceinline__ void rm_mlp_layer_keep(const T* __restrict__ b,
+                                                  const T* __restrict__ W,
+                                                  T w0, const In& h, T* out,
+                                                  T* slope) {
+  constexpr int C = rm_chunk<T>(NOUT);
+#pragma unroll 1
+  for (int j0 = 0; j0 < NOUT; j0 += C) {
+    T acc[C];
+    rm_dense_chunk<T, NIN, NOUT, C, MATMUL, BF16>(b, W, h, j0, acc);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const T v = SCALE ? acc[c] * w0 : acc[c];
+      out[j0 + c] = rm_act<T, ACT>(v);
+      slope[j0 + c] = rm_act_slope<T, ACT>(v);
+    }
+  }
+}
+
+// The output layer NH -> 1 of the VJP's forward on the kept last hidden
+// layer a: rm_mlp_last's dot product, in its order.
+template <typename T, int NH, bool MATMUL, bool BF16>
+__device__ __forceinline__ T rm_mlp_out(const T* __restrict__ bo,
+                                        const T* __restrict__ Wo, const T* a) {
+  T o = MATMUL ? static_cast<T>(0) : __ldg(bo);
+#pragma unroll 4
+  for (int j = 0; j < NH; ++j) {
+    o = o + rm_operand<T, BF16>(a[j]) * rm_operand<T, BF16>(__ldg(Wo + j));
+  }
+  return MATMUL ? o + __ldg(bo) : o;
+}
+
+// gh[i] += Σ_c W[i, j0 + c] · dl[c] over a chunk of C columns (BF16: W
+// rounded to bf16).
+template <typename T, int NIN, int NOUT, int C, bool BF16, typename G>
+__device__ __forceinline__ void rm_back_chunk(const T* __restrict__ W,
+                                              const T (&dl)[C], int j0,
+                                              G& gh) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr bool VEC = NOUT % V == 0 && C % V == 0;
+#pragma unroll 2
+  for (int i = 0; i < NIN; ++i) {
+    T w[C];
+    rm_load_row<T, C, VEC>(W + i * NOUT + j0, w);
+    T sum = gh[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      sum = sum + rm_operand<T, BF16>(w[c]) * dl[c];
+    }
+    gh[i] = sum;
+  }
+}
+
+// The cotangent of a matrix product's input, complete: rounded to bf16
+// (BF16, f32 only), as the plain version's operand cast differentiates.
+template <typename T, int N, bool BF16, typename G>
+__device__ __forceinline__ void rm_round_cotangent(G& gh) {
+  if constexpr (BF16 && std::is_same<T, float>::value) {
+#pragma unroll 4
+    for (int i = 0; i < N; ++i) gh[i] = rm_operand<T, true>(gh[i]);
+  }
+}
+
+// δ of the last hidden layer from the output's cotangent g, into slope (NH
+// long): the cotangent of the output product's operand, Wo·g (rounded to
+// bf16 with BF16, as the plain version's operand cast differentiates),
+// times the slope, times w0 with SCALE.
+template <typename T, int NH, bool BF16, bool SCALE>
+__device__ __forceinline__ void rm_mlp_delta_out(const T* __restrict__ Wo,
+                                                 T g, T* slope, T w0) {
+#pragma unroll 4
+  for (int j = 0; j < NH; ++j) {
+    const T ga = rm_operand<T, BF16>(rm_operand<T, BF16>(__ldg(Wo + j)) * g);
+    const T dz = ga * slope[j];
+    slope[j] = SCALE ? dz * w0 : dz;
+  }
+}
+
+// A kept layer NIN -> NOUT backwards: delta (NOUT) is δ of its output, h
+// (NIN) its input; gh (NIN, zeroed by the caller) receives W·δ.
+template <typename T, int NIN, int NOUT, bool BF16, typename In, typename G>
+__device__ __forceinline__ void rm_mlp_vjp_dense(const T* __restrict__ W,
+                                                 const In& h, const T* delta,
+                                                 G& gh, const RmSink<T>& s,
+                                                 T* dW, T* db) {
+  constexpr int C = rm_chunk<T>(NOUT);
+#pragma unroll 1
+  for (int j0 = 0; j0 < NOUT; j0 += C) {
+    T dl[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dl[c] = s.active ? delta[j0 + c] : static_cast<T>(0);
+    }
+    if (s.active) rm_back_chunk<T, NIN, NOUT, C, BF16>(W, dl, j0, gh);
+    rm_sink_rows<T, NIN, C, BF16>(s, h, dl, dW, NOUT, j0, db);
+  }
+  if (s.active) rm_round_cotangent<T, NIN, BF16>(gh);
+}
+
+// δ = (g ⊙ slope) · w0 (SCALE) into slope, N long.
+template <typename T, int N, bool SCALE>
+__device__ __forceinline__ void rm_mlp_delta(const T* g, T* slope, T w0) {
+#pragma unroll 4
+  for (int j = 0; j < N; ++j) {
+    const T dz = g[j] * slope[j];
+    slope[j] = SCALE ? dz * w0 : dz;
+  }
 }

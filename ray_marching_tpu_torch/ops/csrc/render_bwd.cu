@@ -11,9 +11,10 @@
 // Contract: rays (7, plane) as the forward took them; g (8 or 9, plane) the
 // cotangents of x y z d nx ny nz lap and, with TRACK_MIN, of min_f (MARCH_ONLY:
 // 4 planes, x y z d); out (6, plane) = the cotangents of x0 y0 z0 dx dy dz;
-// partials (blocks, SCENE_N_SCALARS) = each block's share of the parameter
-// cotangent, summed over the blocks by the caller. Invalid slots
-// (valid <= 0.5) get zero cotangents and add nothing.
+// partials (blocks, SCENE_N_SCALARS + SCENE_MAT_SIZE) = each block's share of
+// the parameter cotangent (the flat scalars in compact order, then the packed
+// matrices of the neural leaves), summed over the blocks by the caller.
+// Invalid slots (valid <= 0.5) get zero cotangents and add nothing.
 //
 // What it computes, per ray:
 //  1. the march positions, in one of three ways: read from the history the
@@ -58,10 +59,25 @@
 // run to run and whichever way the positions were obtained (no atomics).
 // The TPU kernels' tiles, VMEM history, VMEM checkpoint and replay scratch
 // and unrolled sweep are not carried over.
+//
+// Scenes with neural leaves (SCENE_N_MLP > 0, chosen at compile time) run
+// the block-synchronous variant: a matrix cotangent cannot live in a thread,
+// so every SDF VJP hands its (a, δ) pairs to the block's sink (neural.cuh),
+// which adds Σ_rays a ⊗ δ to the block's row in a fixed order between two
+// barriers; the biases of the leaves go there too. Every thread of the
+// block therefore walks the same sequence of VJPs: the tail's, then the
+// steps from the block's longest sweep down to 0 (the forward march and the
+// segment replays stay per thread: they have no barrier). A thread with
+// nothing to add at a VJP (a pad slot, a step after its ray froze) is
+// inactive there: it stages zeros, skips the MLP and adds nothing. The
+// sequence is the same whichever way the positions are obtained, so the
+// three ways stay bitwise equal. Bound on an H100: operations, the MLP's
+// VJP (scene/codegen.py counts it: one forward, the slopes, W·δ, a ⊗ δ).
 #include <cuda_runtime.h>
 
 #include <limits>
 
+#include "neural.cuh"
 #include "march_loop.cuh"
 #include "render_consts.cuh"
 
@@ -70,13 +86,17 @@ constexpr int BWD_BLOCK = 128;
 #error "build with -DRM_CKPT_INTERVAL=<steps between checkpoints>"
 #endif
 constexpr int CKPT_INTERVAL = RM_CKPT_INTERVAL;
-constexpr int N_ACC = SCENE_N_SCALARS > 0 ? SCENE_N_SCALARS : 1;
+constexpr int N_ACC = SCENE_N_ACC > 0 ? SCENE_N_ACC : 1;
+// The block-synchronous variant, for scenes with neural leaves.
+constexpr bool SYNC = SCENE_N_MLP > 0;
+// A row of partials: the scalars, then the packed matrices.
+constexpr long long ROW = SCENE_N_SCALARS + SCENE_MAT_SIZE;
+static_assert(!SYNC || BWD_BLOCK == RM_SINK_THREADS, "sink tiles");
 
 template <typename T>
 struct BwdArgs {
   const T* P;
-  const T* M;  // packed matrices: null, the entry points serve analytic
-               // scenes only (the library holds this unit only then)
+  const T* M;  // packed matrices of the neural leaves (null: none)
   const T* rays;
   const T* g;
   T* hist;           // (steps + 1, 3, plane): the forward's, or scratch
@@ -85,7 +105,7 @@ struct BwdArgs {
   const int* amin;   // the forward's arg-min step (history given, TRACK_MIN)
   const int* nlive;  // the forward's live-step count (history given)
   T* out;            // (6, plane)
-  T* partials;       // (blocks, SCENE_N_SCALARS)
+  T* partials;       // (blocks, ROW)
   long long plane;
   int steps;
   int recompute;  // 1: fill hist here instead of reading the forward's
@@ -122,18 +142,55 @@ struct ReplayObserver {
   }
 };
 
+// The SDF VJP of a scene with neural leaves, out of line: its call sites
+// then share one frame for the hidden layers the MLP keeps (scene_sdf.cuh).
+template <typename T>
+__device__ __noinline__ T sdf_vjp_sync(const T* __restrict__ P,
+                                       const T* __restrict__ M, T x, T y, T z,
+                                       T g, T& gx, T& gy, T& gz, T* gP,
+                                       const RmSink<T>& sink) {
+  return scene_sdf_vjp<T>(P, M, x, y, z, g, gx, gy, gz, gP, sink);
+}
+
+// The scene's SDF VJP; with neural leaves it also feeds the block's sink.
+template <typename T>
+__device__ __forceinline__ T sdf_vjp(const T* __restrict__ P,
+                                     const T* __restrict__ M, T x, T y, T z,
+                                     T g, T& gx, T& gy, T& gz, T* gP,
+                                     const RmSink<T>& sink) {
+  if constexpr (SYNC) {
+    return sdf_vjp_sync<T>(P, M, x, y, z, g, gx, gy, gz, gP, sink);
+  } else {
+    return scene_sdf_vjp<T>(P, M, x, y, z, g, gx, gy, gz, gP);
+  }
+}
+
+// The largest v of the block (every thread calls it).
+__device__ __forceinline__ int block_max(int v) {
+  __shared__ int m;
+  if (threadIdx.x == 0) m = 0;
+  __syncthreads();
+  atomicMax(&m, v);
+  __syncthreads();
+  return m;
+}
+
 // One step of the reverse sweep at the position (px, py, pz) the ray had
 // before the step: gd is the cotangent of the distance there, (gx, gy, gz)
 // the cotangent of the position after the step on entry and before it on
 // return. A frozen step (live == false) moves nothing and only carries gd.
+// An inactive thread (sink) changes nothing.
 template <typename T>
 __device__ __forceinline__ void sweep_step(const T* __restrict__ P,
                                            const T* __restrict__ M, T px, T py,
                                            T pz, T gd, bool live, T& gx, T& gy,
                                            T& gz, T& gvx, T& gvy, T& gvz,
-                                           T* gP) {
+                                           T* gP, const RmSink<T>& sink) {
   T sx, sy, sz;
-  const T d = scene_sdf_vjp<T>(P, M, px, py, pz, gd, sx, sy, sz, gP);
+  const T d = sdf_vjp<T>(P, M, px, py, pz, gd, sx, sy, sz, gP, sink);
+  if constexpr (SYNC) {
+    if (!sink.active) return;
+  }
   if (live) {
     gvx = gvx + gx * d;
     gvy = gvy + gy * d;
@@ -158,7 +215,24 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
   if (i < plane && !valid) {
     for (int k = 0; k < 6; ++k) a.out[k * plane + i] = zero;
   }
-  if (valid) {
+  // The block's matrix sink (SYNC only; otherwise every thread that runs a
+  // VJP is active and nothing reads the rest).
+  RmSink<T> sink = {nullptr, nullptr, nullptr, true};
+  if constexpr (SYNC) {
+    constexpr int SW = rm_sink_width<T>() + 1;
+    __shared__ T sa[RM_SINK_THREADS * SW];
+    __shared__ T sd[RM_SINK_THREADS * SW];
+    sink.row = a.partials + (long long)blockIdx.x * ROW;
+    sink.sa = sa;
+    sink.sd = sd;
+    // Ordered before the first addition by the sink's first barrier.
+    for (long long k = threadIdx.x; k < ROW; k += BWD_BLOCK) {
+      sink.row[k] = zero;
+    }
+  }
+  // In SYNC every thread walks the body; skip marks an invalid one there.
+  const bool skip = SYNC && !valid;
+  if (valid || SYNC) {
     const long long p3 = 3 * plane;
     const int steps = a.steps;
     const T vx = a.rays[3 * plane + i];
@@ -175,14 +249,18 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       CheckpointObserver<T> keep = {a.ckpt, plane, i};
-      nlive = march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, zero, keep);
+      nlive = skip ? 0
+                   : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, zero,
+                                  keep);
     } else if (a.recompute) {
       x = a.rays[i];
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       HistoryObserver<T, TRACK_MIN> seen = {a.hist, plane, i, big, -1,
                                             x,      y,     z};
-      nlive = march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau, seen);
+      nlive = skip ? 0
+                   : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau,
+                                  seen);
       minf = seen.minf;
       amin = seen.amin;
       hend[i] = x;
@@ -192,7 +270,7 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       x = hend[i];
       y = hend[plane + i];
       z = hend[2 * plane + i];
-      nlive = a.nlive[i];
+      nlive = skip ? 0 : a.nlive[i];
       if (TRACK_MIN) {
         minf = a.minf[i];
         amin = a.amin[i];
@@ -202,10 +280,12 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
     T gx = a.g[i];
     T gy = a.g[plane + i];
     T gz = a.g[2 * plane + i];
+    sink.active = !skip;
     if (MARCH_ONLY) {
       // ---- the terminal distance's cotangent into the position ----
       T sx, sy, sz;
-      scene_sdf_vjp<T>(a.P, a.M, x, y, z, a.g[3 * plane + i], sx, sy, sz, gP);
+      sdf_vjp<T>(a.P, a.M, x, y, z, a.g[3 * plane + i], sx, sy, sz, gP,
+                 sink);
       gx = gx + sx;
       gy = gy + sy;
       gz = gz + sz;
@@ -218,7 +298,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         ox[k] = c.off[k][0];
         oy[k] = c.off[k][1];
         oz[k] = c.off[k][2];
-        f[k] = scene_sdf<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k]);
+        f[k] = skip ? zero
+                    : scene_sdf<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k]);
       }
       ox[4] = zero;
       oy[4] = zero;
@@ -254,8 +335,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
 #pragma unroll 1
       for (int k = 0; k < 5; ++k) {
         T sx, sy, sz;
-        scene_sdf_vjp<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k], gf[k], sx,
-                         sy, sz, gP);
+        sdf_vjp<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k], gf[k], sx, sy,
+                   sz, gP, sink);
         gx = gx + sx;
         gy = gy + sy;
         gz = gz + sz;
@@ -269,29 +350,35 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       for (int seg = steps / CKPT_INTERVAL - 1; seg >= 0; --seg) {
         const T* ck = a.ckpt + seg * p3;
         T rx[CKPT_INTERVAL], ry[CKPT_INTERVAL], rz[CKPT_INTERVAL];
-        T px = ck[i];
-        T py = ck[plane + i];
-        T pz = ck[2 * plane + i];
+        T px = skip ? zero : ck[i];
+        T py = skip ? zero : ck[plane + i];
+        T pz = skip ? zero : ck[2 * plane + i];
         // The segment's last step is not marched: the sweep needs the
         // position before it, not after.
         ReplayObserver<T> replay = {rx, ry, rz};
-        march_ray<T>(a.P, a.M, px, py, pz, vx, vy, vz, CKPT_INTERVAL - 1, zero,
-                     replay);
+        if (!skip) {
+          march_ray<T>(a.P, a.M, px, py, pz, vx, vy, vz, CKPT_INTERVAL - 1,
+                       zero, replay);
+        }
         rx[CKPT_INTERVAL - 1] = px;
         ry[CKPT_INTERVAL - 1] = py;
         rz[CKPT_INTERVAL - 1] = pz;
 #pragma unroll 1
         for (int j = CKPT_INTERVAL - 1; j >= 0; --j) {
           const T gd = gx * vx + gy * vy + gz * vz;
-          sweep_step<T>(a.P, a.M, rx[j], ry[j], rz[j], gd, true, gx, gy, gz,
-                        gvx, gvy, gvz, gP);
+          sweep_step<T>(a.P, a.M, skip ? zero : rx[j], skip ? zero : ry[j],
+                        skip ? zero : rz[j], gd, true, gx, gy, gz, gvx, gvy,
+                        gvz, gP, sink);
         }
       }
     } else {
       T carry = TRACK_MIN ? a.g[8 * plane + i] : zero;
-      const int n = TRACK_MIN ? steps : nlive;
+      const int n = TRACK_MIN ? (skip ? 0 : steps) : nlive;
+      int n_sweep = n;
+      if constexpr (SYNC) n_sweep = block_max(n);
 #pragma unroll 1
-      for (int s = n - 1; s >= 0; --s) {
+      for (int s = n_sweep - 1; s >= 0; --s) {
+        sink.active = !skip && s < n;
         const bool live = s < nlive;
         const T* h = live ? a.hist + s * p3 : hend;
         const T px = h[i];
@@ -299,22 +386,26 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         const T pz = h[2 * plane + i];
         T gd = live ? gx * vx + gy * vy + gz * vz : zero;
         if (TRACK_MIN) {
-          const T d = scene_sdf<T>(a.P, a.M, px, py, pz);
+          const T d = (!SYNC || sink.active)
+                          ? scene_sdf<T>(a.P, a.M, px, py, pz)
+                          : zero;
           const bool first = amin == s;
           const bool tie = d == minf && !first;
           gd = gd + (first ? carry : (tie ? half * carry : zero));
           carry = first ? zero : (tie ? half * carry : carry);
         }
         sweep_step<T>(a.P, a.M, px, py, pz, gd, live, gx, gy, gz, gvx, gvy,
-                      gvz, gP);
+                      gvz, gP, sink);
       }
     }
-    a.out[i] = gx;
-    a.out[plane + i] = gy;
-    a.out[2 * plane + i] = gz;
-    a.out[3 * plane + i] = gvx;
-    a.out[4 * plane + i] = gvy;
-    a.out[5 * plane + i] = gvz;
+    if (!skip) {
+      a.out[i] = gx;
+      a.out[plane + i] = gy;
+      a.out[2 * plane + i] = gz;
+      a.out[3 * plane + i] = gvx;
+      a.out[4 * plane + i] = gvy;
+      a.out[5 * plane + i] = gvz;
+    }
   }
 
   // ---- the block's share of the parameter cotangent, in a fixed order ----
@@ -330,10 +421,14 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
     if (lane == 0) red[warp][k] = v;
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < SCENE_N_SCALARS; k += BWD_BLOCK) {
+  for (int k = threadIdx.x; k < SCENE_N_ACC; k += BWD_BLOCK) {
     T s = red[0][k];
     for (int w = 1; w < BWD_BLOCK / 32; ++w) s = s + red[w][k];
-    a.partials[(long long)blockIdx.x * SCENE_N_SCALARS + k] = s;
+    if constexpr (SYNC) {
+      a.partials[(long long)blockIdx.x * ROW + SCENE_ACC_SCALAR[k]] = s;
+    } else {
+      a.partials[(long long)blockIdx.x * SCENE_N_SCALARS + k] = s;
+    }
   }
 }
 
@@ -341,9 +436,10 @@ enum BwdMode { BWD_FULL = 0, BWD_TWO_LEVEL = 1, BWD_MARCH_ONLY = 2 };
 
 template <typename T>
 static int launch(BwdArgs<T> a, int mode, int track_min, long long n_blocks,
-                  int n_scalars, const RenderConsts<T>& c, void* stream) {
+                  long long n_cols, const RenderConsts<T>& c, void* stream) {
   const long long grid = (a.plane + BWD_BLOCK - 1) / BWD_BLOCK;
-  if (n_scalars != SCENE_N_SCALARS || n_blocks != grid) {
+  if (n_cols != ROW || n_blocks != grid ||
+      (a.M == nullptr) != (SCENE_N_MLP == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (mode != BWD_FULL && track_min) {
@@ -372,10 +468,12 @@ static int launch(BwdArgs<T> a, int mode, int track_min, long long n_blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C interface (bound with ctypes). partials is (n_blocks, n_scalars)
-// with n_blocks = ceil(plane / rm_render_bwd_block()) and n_scalars the
-// scene's scalar count; a mismatch returns cudaErrorInvalidValue. Every
-// entry returns the cudaError_t of the launch (0 on success).
+// Plain C interface (bound with ctypes). partials is (n_blocks, n_cols)
+// with n_blocks = ceil(plane / rm_render_bwd_block()) and n_cols the
+// scene's scalar count plus its packed matrix size; M is the packed matrix
+// buffer, null exactly when the scene has no neural leaf; a mismatch
+// returns cudaErrorInvalidValue. Every entry returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
 
 // Backward of render_fwd.cu. g has 9 planes when track_min is set, else 8.
@@ -386,15 +484,15 @@ extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
 // scratch (steps / RM_CKPT_INTERVAL, 3, plane). host_consts as
 // in render_fwd.cu.
 #define RM_BWD_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const T* P, const T* rays, const T* g, int track_min,  \
-                      T* hist, int recompute, T* ckpt, int two_level,        \
-                      const T* minf, const int* amin, const int* nlive,      \
-                      T* out, T* partials, long long n_blocks,               \
-                      int n_scalars, long long plane, int steps,             \
-                      const T* host_consts, void* stream) {                  \
+  extern "C" int NAME(const T* P, const T* M, const T* rays, const T* g,     \
+                      int track_min, T* hist, int recompute, T* ckpt,        \
+                      int two_level, const T* minf, const int* amin,         \
+                      const int* nlive, T* out, T* partials,                 \
+                      long long n_blocks, long long n_cols, long long plane, \
+                      int steps, const T* host_consts, void* stream) {       \
     BwdArgs<T> a;                                                            \
     a.P = P;                                                                 \
-    a.M = nullptr;                                                           \
+    a.M = M;                                                                 \
     a.rays = rays;                                                           \
     a.g = g;                                                                 \
     a.hist = hist;                                                           \
@@ -408,7 +506,7 @@ extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
     a.steps = steps;                                                         \
     a.recompute = recompute;                                                 \
     return launch<T>(a, two_level ? BWD_TWO_LEVEL : BWD_FULL, track_min,     \
-                     n_blocks, n_scalars, unpack_consts<T>(host_consts),     \
+                     n_blocks, n_cols, unpack_consts<T>(host_consts),        \
                      stream);                                                \
   }
 
@@ -420,12 +518,13 @@ RM_BWD_ENTRY(rm_render_bwd_f64, double)
 // the march. tau arrives as a double and is rounded to T here, as march.cu
 // rounds it.
 #define RM_MARCH_BWD_ENTRY(NAME, T)                                          \
-  extern "C" int NAME(const T* P, const T* rays, const T* g, T* hist,        \
-                      T* out, T* partials, long long n_blocks,               \
-                      int n_scalars, long long plane, int steps, double tau, \
-                      void* stream) {                                        \
+  extern "C" int NAME(const T* P, const T* M, const T* rays, const T* g,     \
+                      T* hist, T* out, T* partials, long long n_blocks,      \
+                      long long n_cols, long long plane, int steps,          \
+                      double tau, void* stream) {                            \
     BwdArgs<T> a = {};                                                       \
     a.P = P;                                                                 \
+    a.M = M;                                                                 \
     a.rays = rays;                                                           \
     a.g = g;                                                                 \
     a.hist = hist;                                                           \
@@ -436,7 +535,7 @@ RM_BWD_ENTRY(rm_render_bwd_f64, double)
     a.recompute = 1;                                                         \
     RenderConsts<T> c = {};                                                  \
     c.tau = static_cast<T>(tau);                                             \
-    return launch<T>(a, BWD_MARCH_ONLY, 0, n_blocks, n_scalars, c, stream);  \
+    return launch<T>(a, BWD_MARCH_ONLY, 0, n_blocks, n_cols, c, stream);     \
   }
 
 RM_MARCH_BWD_ENTRY(rm_march_bwd_f32, float)

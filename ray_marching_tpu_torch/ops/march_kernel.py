@@ -16,8 +16,8 @@ backward kernel (:func:`backward_kernel.march_backward`). The wrappers take
 the plain versions only for tensors on the CPU. For CUDA tensors they launch
 the kernels or raise; they never fall back. A scene with ``NeuralSDF``
 leaves passes its matrix parameters as ``mats``; the MLP runs inside the
-kernel, and its backward raises ``NotImplementedError`` (the neural training
-slice).
+kernel and its VJP inside the backward kernel, which returns the matrices'
+cotangents too.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ class _March(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, *mats):
         ctx.cfg = (program, steps, tau)
-        ctx.save_for_backward(params_flat, rays7)
+        ctx.save_for_backward(params_flat, rays7, *mats)
         return march_forward(program, params_flat, rays7, steps, tau, mats)
 
     @staticmethod
@@ -82,18 +82,17 @@ class _March(torch.autograd.Function):
         from ray_marching_tpu_torch.ops.backward_kernel import march_backward
 
         program, steps, tau = ctx.cfg
-        rk.no_matrix_backward(program)
-        params_flat, rays7 = ctx.saved_tensors
-        gflat, grays = march_backward(program, params_flat, rays7,
-                                      g.contiguous(), steps, tau)
-        return gflat, grays, None, None, None
+        params_flat, rays7, *mats = ctx.saved_tensors
+        gflat, gmats, grays = march_backward(program, params_flat, rays7,
+                                             g.contiguous(), steps, tau, mats)
+        return (gflat, grays, None, None, None, *gmats)
 
 
 def march_planes(program: SdfProgram, params_flat, rays7, steps, tau=0.0,
                  mats=()):
     """rays7 (7, rows, 128) → (4, rows, 128): x y z d, the first four planes
     of :func:`render_kernel.fused_march_normals` bit for bit. Differentiable
-    in ``params_flat`` and ``rays7`` (not yet in ``mats``)."""
+    in ``params_flat``, ``rays7`` and ``mats``."""
     if rk._requires_grad(params_flat, rays7, *mats):
         return _March.apply(params_flat, rays7, program, steps, tau, *mats)
     return march_forward(program, params_flat, rays7, steps, tau, mats)

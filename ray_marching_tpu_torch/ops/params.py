@@ -73,6 +73,12 @@ def mat_specs(params):
     return tuple(specs)
 
 
+def packed_size(specs) -> int:
+    """Length of :func:`pack_mats`'s buffer for the :func:`mat_specs`
+    ``specs``."""
+    return sum(_segment(s.size) for s in specs)
+
+
 def pack_mats(mats):
     """The matrices as the kernels take them: one 1-D buffer, each matrix
     row-major in its own 128-aligned segment (differentiable). ``None`` when

@@ -11,13 +11,12 @@ Scenes with ``NeuralSDF`` leaves hand their weight matrices to the kernels as
 well: every entry point takes ``mats``, the matrix tuple of
 :func:`ops.params.split_params_padded`, packs it (:func:`ops.params.pack_mats`)
 and passes the buffer as ``M``; the MLP runs inside the kernels
-(``csrc/neural.cuh``). Their backward is the neural training slice's: the
-autograd functions' ``backward`` raises ``NotImplementedError`` for them.
+(``csrc/neural.cuh``), its VJP inside the backward kernel, and the autograd
+functions' ``backward`` returns one cotangent per matrix.
 
 Build: ``nvcc`` compiles one shared library with a plain C interface per
 scene, holding the forward kernel, the backward kernel
-(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`; left out for a
-scene without an adjoint) and the march
+(``csrc/render_bwd.cu``, bound in :mod:`.backward_kernel`) and the march
 kernel (``csrc/march.cu``, bound in :mod:`.march_kernel`), at first use,
 into ``_build/<hash>/`` beside this module (the hash covers the generated
 SDF, the kernel sources and the flags), and ctypes binds it. Each source is
@@ -121,13 +120,6 @@ def _lib_path(key: str) -> Path:
     return BUILD_DIR / key / "librender.so"
 
 
-def kernel_units(program: SdfProgram):
-    """The sources a scene's library is built from: the backward kernel only
-    for a scene whose SDF has an adjoint."""
-    return tuple(u for u in KERNEL_UNITS
-                 if program.has_adjoint or u != "render_bwd.cu")
-
-
 def build_kernels(programs) -> None:
     """Build the libraries of ``programs`` that are not built yet: one nvcc
     process per source file and scene, all started together, then one link
@@ -159,7 +151,7 @@ def build_kernels(programs) -> None:
             out_dir.mkdir(parents=True, exist_ok=True)
             (out_dir / "scene_sdf.cuh").write_text(program.cuda_source())
             BUILD_LOG[key] = ""
-            for unit in kernel_units(program):
+            for unit in KERNEL_UNITS:
                 obj = out_dir / f"{unit}.{os.getpid()}.o"
                 compiles.append((key, obj, start(
                     [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
@@ -208,20 +200,18 @@ def _load(program: SdfProgram):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f64, ptr]
             fn.restype = i32
-        if program.has_adjoint:
-            for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
-                               ptr, ptr, ptr, ptr, i64, i32, i64, i32, ptr,
-                               ptr]
-                fn.restype = i32
-            for name in ("rm_march_bwd_f32", "rm_march_bwd_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i64,
-                               i32, f64, ptr]
-                fn.restype = i32
-            lib.rm_render_bwd_block.argtypes = []
-            lib.rm_render_bwd_block.restype = i32
+        for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
+                           ptr, ptr, ptr, ptr, i64, i64, i64, i32, ptr, ptr]
+            fn.restype = i32
+        for name in ("rm_march_bwd_f32", "rm_march_bwd_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                           i32, f64, ptr]
+            fn.restype = i32
+        lib.rm_render_bwd_block.argtypes = []
+        lib.rm_render_bwd_block.restype = i32
         _LIBS[key] = lib
     _BOUND[program] = lib
     return lib
@@ -349,17 +339,6 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     return out, extras
 
 
-def no_matrix_backward(program):
-    """The error of a backward through a scene with matrix leaves: its
-    matrix cotangents come with the neural training slice. No plain version
-    runs instead."""
-    if program.n_mats:
-        raise NotImplementedError(
-            "backward through a scene with NeuralSDF (matrix) parameters is "
-            "not ported yet: it comes with the neural training slice of the "
-            "port (ROADMAP.md)")
-
-
 class _FusedMarch(torch.autograd.Function):
     """Forward: the kernel's training configuration; backward: the backward
     kernel (counterpart of the ``custom_vjp`` pairs ``_fwd``/``_bwd`` and
@@ -374,7 +353,7 @@ class _FusedMarch(torch.autograd.Function):
                                     log_hist=log_hist, mats=mats)
         ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist,
                    two_level)
-        saved = [params_flat, rays7]
+        saved = [params_flat, rays7, *mats]
         if log_hist:
             saved += [extras["hist"], extras["nlive"]]
             if track_min:
@@ -389,18 +368,19 @@ class _FusedMarch(torch.autograd.Function):
 
         (program, steps, tau, normals_eps, track_min, log_hist,
          two_level) = ctx.cfg
-        no_matrix_backward(program)
         params_flat, rays7, *rest = ctx.saved_tensors
+        mats, rest = rest[:program.n_mats], rest[program.n_mats:]
         handoff = {}
         if log_hist:
             handoff = dict(hist=rest[0], nlive=rest[1])
             if track_min:
                 handoff.update(minf=rest[2], amin=rest[3])
-        gflat, grays = fused_backward(program, params_flat, rays7,
-                                      g.contiguous(), steps, tau,
-                                      normals_eps, track_min=track_min,
-                                      two_level=two_level, **handoff)
-        return gflat, grays, None, None, None, None, None, None, None
+        gflat, gmats, grays = fused_backward(
+            program, params_flat, rays7, g.contiguous(), steps, tau,
+            normals_eps, track_min=track_min, two_level=two_level, mats=mats,
+            **handoff)
+        return (gflat, grays, None, None, None, None, None, None, None,
+                *gmats)
 
 
 def _requires_grad(*tensors):
@@ -417,9 +397,8 @@ def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
         two_level = (
             (BWD_TWO_LEVEL if bwd_two_level is None else bool(bwd_two_level))
             and two_level_engages(steps, tau, track_min))
-        # A scene without an adjoint has no backward to hand a history to.
-        log_hist = (program.has_adjoint and not two_level
-                    and (BWD_HIST if bwd_hist is None else bool(bwd_hist)))
+        log_hist = not two_level and (BWD_HIST if bwd_hist is None
+                                      else bool(bwd_hist))
         return _FusedMarch.apply(params_flat, rays7, program, steps, tau,
                                  normals_eps, track_min, log_hist, two_level,
                                  *mats)
@@ -471,28 +450,32 @@ class _FusedMarchIFT(torch.autograd.Function):
                                     normals_eps, track_min=track_min,
                                     track_argpos=track_min, mats=mats)
         ctx.cfg = (program, tau, normals_eps, hit_threshold, denom_eps)
-        ctx.save_for_backward(params_flat, rays7, out.clone(),
+        ctx.save_for_backward(params_flat, rays7, out.clone(), *mats,
                               *([extras["argpos"]] if track_min else []))
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        no_matrix_backward(ctx.cfg[0])
-        params_flat, rays7, out, *argpos = ctx.saved_tensors
-        gflat, grays = _ift_backward(*ctx.cfg, params_flat, rays7, out, g,
-                                     argpos[0] if argpos else None)
-        return gflat, grays, None, None, None, None, None, None, None
+        params_flat, rays7, out, *rest = ctx.saved_tensors
+        n_mats = ctx.cfg[0].n_mats
+        mats, argpos = rest[:n_mats], rest[n_mats:]
+        gflat, gmats, grays = _ift_backward(
+            *ctx.cfg, params_flat, rays7, out, g,
+            argpos[0] if argpos else None, mats)
+        return (gflat, grays, None, None, None, None, None, None, None,
+                *gmats)
 
 
 def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
-                  params_flat, rays7, out, g, argpos):
+                  params_flat, rays7, out, g, argpos, mats=()):
     """IFT routing at the fixed point (``_ift_bwd`` / ``_cov_ift_bwd`` of
     the JAX package): the tail's VJP into the endpoint, then
     ``w = −(g·v)/(∇f·v)`` on hit rays carries the endpoint cotangent to the
     parameters through one VJP of f; with ``argpos`` the ``min_f`` cotangent
     goes through f at the arg-min position, held fixed. Pad slots are left
-    out before anything is evaluated."""
+    out before anything is evaluated. Returns ``(params_flat cotangent,
+    matrix cotangents, rays7 cotangent)``."""
     sdf = program.sdf_c
     off, inv, lap_scale, _ = _plain_consts(rays7.dtype, tau, normals_eps)
     valid = (rays7[6] > 0.5).reshape(-1)
@@ -500,15 +483,23 @@ def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
     px, py, pz, vx, vy, vz = (pick(rays7[i]) for i in range(6))
     gv = [pick(g[i]) for i in range(g.shape[0])]
     d_star = pick(out[3])
-    flat = params_flat.detach().requires_grad_(True)
+    leaves = [params_flat.detach().requires_grad_(True)] + [
+        m.detach().requires_grad_(True) for m in mats]
     end = [pick(out[i]).requires_grad_(True) for i in range(3)]
     with torch.enable_grad():
-        params = program.rebuild(flat)
+        params = program.rebuild(leaves[0], leaves[1:])
         tail = _tail_planes(sdf, params, *end, off, inv, lap_scale)
         f = sdf(params, *end)
-    gtheta, gx, gy, gz = torch.autograd.grad(tail, [flat] + end, gv[3:8],
-                                             allow_unused=True)
-    gtheta = torch.zeros_like(flat) if gtheta is None else gtheta
+
+    def add_grad(total, outputs, cotangents, inputs=()):
+        """``total`` plus the leaves' cotangents; and those of ``inputs``."""
+        got = torch.autograd.grad(outputs, leaves + list(inputs), cotangents,
+                                  allow_unused=True)
+        return ([t if d is None else t + d
+                 for t, d in zip(total, got)], got[len(leaves):])
+
+    gtheta, (gx, gy, gz) = add_grad([torch.zeros_like(p) for p in leaves],
+                                    tail, gv[3:8], end)
     gx, gy, gz = gx + gv[0], gy + gv[1], gz + gv[2]
     nfx, nfy, nfz = torch.autograd.grad(f, end, torch.ones_like(f),
                                         retain_graph=True)
@@ -517,9 +508,7 @@ def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
                        torch.where(denom < 0, -denom_eps, denom_eps), denom)
     hit = d_star.abs() < hit_threshold
     w = torch.where(hit, -(gx * vx + gy * vy + gz * vz) / safe, 0.0)
-    (gmarch,) = torch.autograd.grad(f, flat, w, allow_unused=True)
-    if gmarch is not None:
-        gtheta = gtheta + gmarch
+    gtheta, _ = add_grad(gtheta, f, w)
     x, y, z = (e.detach() for e in end)
     t_star = (x - px) * vx + (y - py) * vy + (z - pz) * vz
     gp = [gx + nfx * w, gy + nfy * w, gz + nfz * w]
@@ -528,10 +517,8 @@ def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
         pm = [pick(argpos[i]).requires_grad_(True) for i in range(3)]
         with torch.enable_grad():
             fm = sdf(params, *pm)
-        dtheta, *gm = torch.autograd.grad(fm, [flat] + pm, gv[8],
-                                          allow_unused=True)
-        if dtheta is not None:
-            gtheta = gtheta + dtheta
+        gtheta, gm = add_grad(gtheta, fm, gv[8], pm)
+        gm = list(gm)
         xm, ym, zm = (c.detach() for c in pm)
         t_m = (xm - px) * vx + (ym - py) * vy + (zm - pz) * vz
         planes = [a + b for a, b in zip(planes, gm + [t_m * c for c in gm])]
@@ -539,7 +526,8 @@ def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
                         device=rays7.device)
     for i, plane in enumerate(planes):
         grays[i, valid] = plane
-    return gtheta.detach(), grays.reshape(rays7.shape)
+    return (gtheta[0].detach(), tuple(t.detach() for t in gtheta[1:]),
+            grays.reshape(rays7.shape))
 
 
 def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,

@@ -14,10 +14,10 @@ one:
 parameters and the camera pose: the march is a ``torch.autograd.Function``
 whose backward is the backward kernel, posing and shading are plain torch.
 ``RenderConfig.backward="implicit"`` swaps the backward kernel for the
-implicit-function-theorem backward (plain torch at the endpoint). Not ported
-yet (they raise ``NotImplementedError``): the extra lighting modes
-(``occlusion``, ``shaded``), ``cmap_fourier``, and gradients through a scene
-with ``NeuralSDF`` leaves on the kernel (the neural training slice).
+implicit-function-theorem backward (plain torch at the endpoint). Both reach
+the matrices of ``NeuralSDF`` leaves. Not ported yet (they raise
+``NotImplementedError``): the extra lighting modes (``occlusion``,
+``shaded``), ``cmap_fourier``.
 
 ``march_impl`` chooses the march as in the JAX package: ``'fused'`` is the
 kernel, ``'xla'`` the counterpart of ``ops/xla_render.py``, the kernel's plain

@@ -32,16 +32,23 @@ selects keep the select semantics of ``utils.vmin``/``vmax``/``clamp`` (a NaN
 compare takes the false branch), and the smooth-union max propagates NaN like
 ``jnp.max``.
 
-A ``NeuralSDF`` leaf (scene/neural.py) is one structural op, ``("mlp",
-leaf_id, x, y, z)``: the scalar SSA list cannot hold a 65k-op MLP. Its sizes,
-activation, ``w0``, impl and where its biases and radius sit in the flat
-vector and its matrices in the packed matrix buffer
+A ``NeuralSDF`` leaf (scene/neural.py) is its skip term ``sqrt(x·x + y·y +
+z·z) - radius`` in ordinary ops plus one structural op, ``("mlp", leaf_id,
+x, y, z)``: the scalar SSA list cannot hold a 65k-op MLP. Its sizes,
+activation, ``w0``, impl and where its biases sit in the flat vector and its
+matrices in the packed matrix buffer
 (:func:`ray_marching_tpu_torch.ops.params.pack_mats`) are recorded in
 :attr:`SdfProgram.mlps`. :meth:`SdfProgram.cuda_source` emits it as a call
 into ``ops/csrc/neural.cuh`` with the sizes as compile-time constants,
-:meth:`SdfProgram.evaluate` runs the port's own neural evaluator on it. It
-has no adjoint rule yet (the neural training slice adds one): a program
-that holds one has no ``scene_sdf_vjp`` (:attr:`SdfProgram.has_adjoint`).
+:meth:`SdfProgram.evaluate` runs the port's own MLP evaluator on it. Its
+adjoint is one more structural op, ``("mlp_vjp", leaf_id, x, y, z, g)``,
+whose value is the point's cotangent (three ``pick`` ops read it): in CUDA
+a call into neural.cuh's VJP, which walks back the hidden layers that the
+``mlp`` op of ``scene_sdf_vjp`` kept (one forward per VJP) and hands the
+matrix and bias cotangents to the backward kernel's per-block sink; on tensors
+:func:`ray_marching_tpu_torch.scene.neural.mlp_vjp`, which
+:meth:`SdfProgram.evaluate_vjp` returns them from. The radius goes through
+the scalar rules.
 
 Op count convention (:meth:`SdfProgram.op_counts`): one per add, sub, mul,
 div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
@@ -50,10 +57,12 @@ counted (they do not depend on the ray and may be hoisted out of the march).
 Every adjoint op depends on the ray's cotangent, so all of them count
 (:attr:`SdfProgram.vjp_ops_per_eval`). An MLP counts ``2·nin·nout`` per
 layer (the multiplies, the sums and the bias adds), the scale of the first
-layer's sine variants, its activation's ops per hidden unit (``sin`` and
+layer's sine variants and its activation's ops per hidden unit (``sin`` and
 ``tanh`` count one each in the ``exp`` class, ``log1p`` in ``log``, the
 rounding of ``sin_fast``'s reduction in ``abs_neg``; bf16 operand roundings
-are not counted) and the sphere skip term.
+are not counted). Its VJP counts, beyond the one forward that the SDF VJP's
+primal evaluation holds, each hidden unit's activation slope and δ,
+``W·δ``, ``a ⊗ δ`` and the bias sums (:func:`_mlp_vjp_op_count`).
 """
 
 from __future__ import annotations
@@ -82,7 +91,8 @@ from ray_marching_tpu_torch.scene.graph import (
 )
 from ray_marching_tpu_torch.scene.neural import (
     NeuralSDF,
-    neural_sdf,
+    mlp,
+    mlp_vjp,
     resolve_impl,
 )
 
@@ -144,11 +154,29 @@ def _mlp_op_counts(leaf: MlpLeaf) -> Dict[str, int]:
     }.get(act, {"exp": 1})  # sine and tanh: one op each
     for k, v in per_unit.items():
         c[k] += v * units
-    # Skip term sqrt(x·x + y·y + z·z) - radius, then + mlp.
-    c["mul"] += 3
-    c["add"] += 4
-    c["sqrt"] += 1
     return c
+
+
+#: Ops per hidden unit of an activation's slope beyond what the activation
+#: already computed (sin_fast's reduction and polynomial, tanh's y, softplus'
+#: exp), plus the multiply by the incoming cotangent.
+_SLOPE_OPS = {"sine": 2, "sine_fast": 12, "softplus": 10}
+
+
+def _mlp_vjp_op_count(leaf: MlpLeaf) -> int:
+    """Ray-dependent ops of one MLP VJP beyond its forward, which the SDF
+    VJP's primal evaluation counts (module doc): the activation slopes and
+    δ, ``W·δ`` (a multiply and an add per weight; the output layer's
+    multiplies only), ``a ⊗ δ`` (a multiply and an add per weight) and one
+    add per bias."""
+    sizes, act = leaf.sizes, leaf.node.activation
+    units = sum(sizes[1:-1])
+    slopes = _SLOPE_OPS.get(act, 3) * units
+    if act.startswith("sine") and len(sizes) > 2:
+        slopes += sizes[1]
+    weights = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    back = 2 * weights - sizes[-2]
+    return slopes + back + 2 * weights + sum(sizes[1:])
 
 
 class _Builder:
@@ -174,6 +202,15 @@ class _Builder:
             mats=tuple(self.mat_offsets[_path(prefix, f"w{i}")]
                        for i in range(n_layers))))
         return self._push(("mlp", len(self.mlps) - 1, x, y, z), True)
+
+    def mlp_vjp(self, leaf_id, x, y, z, g):
+        """The MLP's VJP at (x, y, z) for the cotangent ``g`` of its output:
+        one value holding the point's cotangent (three ``pick`` ops read
+        it); the matrix and bias cotangents go to the kernel's sink."""
+        return self._push(("mlp_vjp", leaf_id, x, y, z, g), True)
+
+    def pick(self, vec, c):
+        return self._push(("pick", vec, c), True)
 
     def leaf(self, name):
         """A ray-dependent input besides x, y, z (the cotangent ``g``)."""
@@ -293,7 +330,11 @@ def _lower(node: Node, b: _Builder, prefix: str, x: int, y: int, z: int) -> int:
         d = _lower(node.child, b, _path(prefix, "child"), x, y, z)
         return b.sub(b.abs(d), p("radius"))
     if isinstance(node, NeuralSDF):
-        return b.mlp(node, prefix, x, y, z)
+        # (sqrt(x·x + y·y + z·z) - radius) + mlp: the skip term as
+        # ordinary ops (its adjoint, radius included, is the scalar rules').
+        s = b.add(b.add(b.mul(x, x), b.mul(y, y)), b.mul(z, z))
+        return b.add(b.sub(b.sqrt(s), p("radius")),
+                     b.mlp(node, prefix, x, y, z))
     if _custom_entry(node) is not None:
         raise NotImplementedError(
             f"{type(node).__name__}: the kernels have no lowering for custom "
@@ -323,9 +364,8 @@ def _append_adjoint(b, out):
     Returns ``(g, adj)``: the id of the cotangent input and a dict from a
     primal value id to the id that holds its cotangent (absent: no path
     from the output). Contributions to one value are summed in reverse op
-    order, the first one without an add. Returns ``None`` for a program
-    with an ``mlp`` op, which has no adjoint rule yet; the caller drops the
-    ops appended so far. An op kind without a rule raises."""
+    order, the first one without an add. An op kind without a rule
+    raises."""
     n_primal = len(b.ops)
     g = b.leaf("g")
     adj = {out: g}
@@ -372,9 +412,9 @@ def _append_adjoint(b, out):
             acc(args[2], sel(args[0], args[1], gi, zero))
             acc(args[3], sel(args[0], args[1], zero, gi))
         elif kind == "mlp":
-            # The neural training slice (ROADMAP.md) brings the MLP's VJP
-            # and the matrix cotangents of the backward kernel.
-            return None
+            vjp = b.mlp_vjp(args[0], args[1], args[2], args[3], gi)
+            for c in range(3):
+                acc(args[1 + c], b.pick(vjp, c))
         else:
             raise ValueError(f"no adjoint rule for op kind {kind!r}")
     return g, adj
@@ -418,28 +458,33 @@ class SdfProgram:
         #: cotangent (the 128-padding of the segments left out).
         self.scalar_offsets = [s.offset + j for s in specs
                                for j in range(s.size)]
-        adjoint = _append_adjoint(b, self.out)
-        #: Whether the op list has an adjoint (``scene_sdf_vjp``, the
-        #: backward kernel); a neural leaf has none yet.
-        self.has_adjoint = adjoint is not None
-        if adjoint is None:
-            del b.ops[self.n_primal:], b.dep[self.n_primal:]
-            self.g, self.adj_xyz, self.adj_params = None, None, []
-        else:
-            self.g, adj = adjoint
-            self.adj_xyz = tuple(adj.get(i) for i in range(3))
-            compact = {off: k for k, off in enumerate(self.scalar_offsets)}
-            #: (compact scalar index, id of its per-ray cotangent), one per
-            #: parameter scalar the output depends on.
-            self.adj_params = [(compact[b.ops[i][1]], a)
-                               for i, a in adj.items()
-                               if b.ops[i][0] == "param"]
+        self.g, adj = _append_adjoint(b, self.out)
+        self.adj_xyz = tuple(adj.get(i) for i in range(3))
+        self._compact = {off: k for k, off in enumerate(self.scalar_offsets)}
+        #: (compact scalar index, id of its per-ray cotangent), one per
+        #: parameter scalar the output depends on through the scalar ops (a
+        #: neural leaf's biases go through its VJP instead).
+        self.adj_params = [(self._compact[b.ops[i][1]], a)
+                           for i, a in adj.items() if b.ops[i][0] == "param"]
+        #: The compact indices the kernel accumulates per thread, in order:
+        #: every scalar for an analytic scene, the ``adj_params`` scalars
+        #: for a scene with neural leaves.
+        self.acc_scalars = (sorted({k for k, _ in self.adj_params})
+                            if self.mlps else
+                            list(range(len(self.scalar_offsets))))
         self.ops = b.ops
         self.ray_dependent = b.dep
 
     @property
     def n_mats(self) -> int:
         return len(self.mat_specs)
+
+    @property
+    def mat_size(self) -> int:
+        """Length of the packed matrix buffer (ops/params.py pack_mats)."""
+        from ray_marching_tpu_torch.ops.params import packed_size
+
+        return packed_size(self.mat_specs)
 
     def rebuild(self, flat, mats=()):
         """Flat parameter vector and matrix tuple → nested params dict
@@ -462,14 +507,15 @@ class SdfProgram:
 
         return walk(self._template, "")
 
-    def _mlp_eval(self, flat, mats, leaf, x, y, z):
+    def _leaf_params(self, flat, mats, leaf):
         params = self.rebuild(flat, mats)
         for key in filter(None, leaf.prefix.split("/")):
             params = params[key]
-        return neural_sdf(leaf.node)(params, x, y, z)
+        return params
 
-    def _run(self, flat, vals, start, stop, mats=()):
-        """Run ops[start:stop] on tensors, appending to ``vals``."""
+    def _run(self, flat, vals, start, stop, mats=(), sink=None):
+        """Run ops[start:stop] on tensors, appending to ``vals``; an MLP's
+        VJP appends ``(leaf index, its parameter cotangents)`` to ``sink``."""
         for op in self.ops[start:stop]:
             kind, args = op[0], op[1:]
             if kind == "param":
@@ -477,8 +523,17 @@ class SdfProgram:
             elif kind == "const":
                 v = torch.tensor(args[0], dtype=flat.dtype, device=flat.device)
             elif kind == "mlp":
-                v = self._mlp_eval(flat, mats, self.mlps[args[0]],
+                leaf = self.mlps[args[0]]
+                v = mlp(leaf.node)(self._leaf_params(flat, mats, leaf),
                                    *(vals[i] for i in args[1:]))
+            elif kind == "mlp_vjp":
+                leaf = self.mlps[args[0]]
+                *v, grads = mlp_vjp(leaf.node,
+                                    self._leaf_params(flat, mats, leaf),
+                                    *(vals[i] for i in args[1:]))
+                sink.append((args[0], grads))
+            elif kind == "pick":
+                v = vals[args[0]][args[1]]
             else:
                 a = [vals[i] for i in args]
                 if kind == "add":
@@ -516,61 +571,92 @@ class SdfProgram:
         """Backend (b): run the primal op list on tensors."""
         return self._run(flat, [x, y, z], 3, self.n_primal, mats)[self.out]
 
-    def require_adjoint(self):
-        """Raise for a program without an adjoint (a neural leaf)."""
-        if not self.has_adjoint:
-            raise NotImplementedError(
-                "gradients through a NeuralSDF leaf in the kernels come with "
-                "the neural training slice of the port (ROADMAP.md)")
-
-    def evaluate_vjp(self, flat, x, y, z, g):
+    def evaluate_vjp(self, flat, x, y, z, g, mats=()):
         """Backend (b) of the adjoint: ``(d, gx, gy, gz, gp)`` for the
         cotangent ``g`` of ``d``. ``gp`` holds the per-ray parameter
         cotangents, one tensor per entry of :attr:`scalar_offsets` (``None``
-        where the output does not depend on the scalar); their sums over the
-        rays are the gradient of the flat vector."""
-        self.require_adjoint()
-        vals = self._run(flat, [x, y, z], 3, self.n_primal)
+        where the output does not depend on the scalar; a neural leaf's
+        biases included); their sums over the rays are the gradient of the
+        flat vector. Then, for a scene with neural leaves, one cotangent per
+        matrix (:attr:`mat_specs` order), already summed over the rays."""
+        vals = self._run(flat, [x, y, z], 3, self.n_primal, mats)
         vals.append(g)
-        self._run(flat, vals, self.n_primal + 1, len(self.ops))
+        sink = []
+        self._run(flat, vals, self.n_primal + 1, len(self.ops), mats, sink)
+        d = vals[self.out]
         gxyz = [torch.zeros_like(g) if a is None else vals[a]
                 for a in self.adj_xyz]
-        gp = [None] * len(self.scalar_offsets)
+        gp = [None] * (len(self.scalar_offsets) + self.n_mats)
         for k, a in self.adj_params:
             gp[k] = vals[a]
-        return (vals[self.out], *gxyz, gp)
+        mat_index = {s.offset: k for k, s in enumerate(self.mat_specs)}
+        for leaf_id, grads in sink:
+            leaf = self.mlps[leaf_id]
+            for layer, (b, m) in enumerate(zip(leaf.bias, leaf.mats)):
+                base = self._compact[b]
+                for j, db in enumerate(grads[f"b{layer}"]):
+                    gp[base + j] = db.reshape(d.shape)
+                gp[len(self.scalar_offsets) + mat_index[m]] = \
+                    grads[f"w{layer}"]
+        return (d, *gxyz, gp)
 
-    def _emit(self, names, start, stop):
+    def _emit(self, names, start, stop, vjp=False):
+        """C++ of ops[start:stop]; ``vjp``: inside ``scene_sdf_vjp``, where
+        an MLP's forward keeps its hidden layers for its VJP (``keep<k>``)
+        and an inactive thread skips it."""
         lines = []
         for i in range(start, stop):
             kind, args = self.ops[i][0], self.ops[i][1:]
+            ctype = "T"
+            xyz = ", ".join(names[a] for a in args[1:4])
             if kind == "param":
                 expr = f"P[{args[0]}]"
             elif kind == "const":
                 expr = _c_literal(args[0])
+            elif kind == "mlp" and vjp and self._keeps(args[0]):
+                expr = (f"sink.active ? neural_leaf_keep_{args[0]}<T>(P, M, "
+                        f"{xyz}, keep{args[0]}) : static_cast<T>(0)")
             elif kind == "mlp":
-                expr = (f"neural_leaf_{args[0]}<T>(P, M, "
-                        + ", ".join(names[a] for a in args[1:]) + ")")
+                expr = f"neural_leaf_{args[0]}<T>(P, M, {xyz})"
+                if vjp:
+                    expr = f"sink.active ? {expr} : static_cast<T>(0)"
+            elif kind == "mlp_vjp":
+                ctype = "RmVec3<T>"
+                keep = (f"keep{args[0]}" if self._keeps(args[0])
+                        else "static_cast<T*>(nullptr)")
+                expr = (f"neural_leaf_vjp_{args[0]}<T>(P, M, {xyz}, "
+                        f"{names[args[4]]}, {keep}, sink)")
+            elif kind == "pick":
+                expr = f"{names[args[0]]}.v[{args[1]}]"
             else:
                 expr = _OPS[kind][1].format(*(names[a] for a in args))
-            lines.append(f"  const T {names[i]} = {expr};")
+            lines.append(f"  const {ctype} {names[i]} = {expr};")
         return lines
 
-    def _mlp_source(self, k: int, leaf: MlpLeaf) -> List[str]:
-        """The device function of neural leaf ``k``: calls into neural.cuh
-        with the layer sizes as compile-time constants."""
-        node, sizes = leaf.node, leaf.sizes
+    def _keeps(self, k: int) -> bool:
+        """Whether neural leaf ``k`` has hidden layers for its VJP to keep."""
+        return len(self.mlps[k].sizes) > 2
+
+    def _leaf_flags(self, leaf: MlpLeaf):
+        node = leaf.node
         matmul = resolve_impl(node) == "matmul"
-        flags = (f"{_ACT.get(node.activation, 'RM_ACT_TANH')}, "
-                 f"{str(matmul).lower()}, "
-                 f"{str(matmul and node.matmul_dtype == 'bfloat16').lower()}")
+        return (f"{_ACT.get(node.activation, 'RM_ACT_TANH')}, "
+                f"{str(matmul).lower()}, "
+                f"{str(matmul and node.matmul_dtype == 'bfloat16').lower()}")
+
+    def _mlp_source(self, k: int, leaf: MlpLeaf) -> List[str]:
+        """The device function of neural leaf ``k``'s MLP (the skip term is
+        generated code around it): calls into neural.cuh with the layer
+        sizes as compile-time constants."""
+        node, sizes = leaf.node, leaf.sizes
+        flags = self._leaf_flags(leaf)
         sine = node.activation.startswith("sine")
         b = [f"P + {o}" for o in leaf.bias]
         m = [f"M + {o}" for o in leaf.mats]
         lines = [
             f"// {leaf.prefix or 'scene'}: NeuralSDF "
             f"{'-'.join(map(str, sizes))}, {node.activation}, "
-            f"{'matmul' if matmul else 'componentwise'}, {node.matmul_dtype}",
+            f"{resolve_impl(node)}, {node.matmul_dtype}",
             "template <typename T>",
             f"__device__ __noinline__ T neural_leaf_{k}(const T* __restrict__"
             " P, const T* __restrict__ M, T x, T y, T z) {",
@@ -583,7 +669,7 @@ class SdfProgram:
                 "  T out[1];",
                 f"  rm_dense_chunk<T, 3, 1, 1, {flags.split(', ', 1)[1]}>("
                 f"{b[0]}, {m[0]}, in, 0, out);",
-                "  const T h = out[0];",
+                "  return out[0];",
             ]
         else:
             hmax = max(sizes[1:-1])
@@ -603,35 +689,148 @@ class SdfProgram:
             last = n_hidden - 1
             scale = str(sine and last == 0).lower()
             lines.append(
-                f"  const T h = rm_mlp_last<T, {sizes[last]}, "
-                f"{sizes[last + 1]}, {flags}, {scale}>({b[last]}, {m[last]}, "
-                f"w0, {src}, {b[last + 1]}, {m[last + 1]});")
-        lines += [
-            "  return (rm_sqrt(x * x + y * y + z * z) - "
-            f"P[{leaf.radius}]) + h;",
-            "}",
-            "",
+                f"  return rm_mlp_last<T, {sizes[last]}, "
+                f"{sizes[last + 1]}, {flags}, {scale}>({b[last]}, "
+                f"{m[last]}, w0, {src}, {b[last + 1]}, {m[last + 1]});")
+        return lines + ["}", ""]
+
+    @staticmethod
+    def _keep_offsets(leaf: MlpLeaf) -> List[int]:
+        """Offsets of hidden layer l's output (``off[l - 1]``) and slope
+        (``off[l - 1]`` + width) in the leaf's keep array, then its size."""
+        off = [0]
+        for n in leaf.sizes[1:-1]:
+            off.append(off[-1] + 2 * n)
+        return off
+
+    def _mlp_keep_source(self, k: int, leaf: MlpLeaf) -> List[str]:
+        """The SDF VJP's forward of neural leaf ``k``'s MLP: as
+        :meth:`_mlp_source`, to the bit, but every hidden layer's output and
+        slope go to the keep array for the VJP (neural.cuh)."""
+        node, sizes = leaf.node, leaf.sizes
+        flags = self._leaf_flags(leaf)
+        sine = node.activation.startswith("sine")
+        off = self._keep_offsets(leaf)
+        lines = [
+            "template <typename T>",
+            f"__device__ __noinline__ T neural_leaf_keep_{k}(const T* "
+            "__restrict__ P, const T* __restrict__ M, T x, T y, T z, "
+            "T* keep) {",
+            f"  const T w0 = {_c_literal(node.w0)};",
+            "  const RmXyz<T> in = {{x, y, z}};",
         ]
-        return lines
+        src = "in"
+        for layer in range(len(sizes) - 2):
+            n = sizes[layer + 1]
+            scale = str(sine and layer == 0).lower()
+            lines.append(
+                f"  rm_mlp_layer_keep<T, {sizes[layer]}, {n}, {flags}, "
+                f"{scale}>(P + {leaf.bias[layer]}, M + {leaf.mats[layer]}, "
+                f"w0, {src}, keep + {off[layer]}, keep + {off[layer] + n});")
+            src = f"keep + {off[layer]}"
+        lines.append(
+            f"  return rm_mlp_out<T, {sizes[-2]}, "
+            f"{flags.split(', ', 1)[1]}>(P + {leaf.bias[-1]}, "
+            f"M + {leaf.mats[-1]}, {src});")
+        return lines + ["}", ""]
+
+    def _mlp_vjp_source(self, k: int, leaf: MlpLeaf) -> List[str]:
+        """The VJP of neural leaf ``k``'s MLP: the point's cotangent through
+        the MLP for the cotangent ``g`` of its output, the matrix and bias
+        cotangents into the block's sink (neural.cuh). It walks back the
+        hidden layers that :meth:`_mlp_keep_source` kept, recomputing
+        none."""
+        node, sizes = leaf.node, leaf.sizes
+        flags = self._leaf_flags(leaf)
+        sine = node.activation.startswith("sine")
+        L = len(sizes) - 2
+        off = self._keep_offsets(leaf)
+        m = [f"M + {o}" for o in leaf.mats]
+        dw = [f"mats + {o}" for o in leaf.mats]
+        db = [f"row + {self._compact[o]}" for o in leaf.bias]
+        bf16 = flags.rsplit(", ", 1)[1]
+        # a[l], s[l]: output and slope of hidden layer l (1 .. L).
+        a = ["in"] + [f"keep + {off[layer - 1]}" for layer in range(1, L + 1)]
+        s = [None] + [f"keep + {off[layer - 1] + sizes[layer]}"
+                      for layer in range(1, L + 1)]
+        lines = [
+            "template <typename T>",
+            f"__device__ __noinline__ RmVec3<T> neural_leaf_vjp_{k}(const T* "
+            "__restrict__ P, const T* __restrict__ M, T x, T y, T z, T g, "
+            "T* keep, const RmSink<T>& sink) {",
+            f"  const T w0 = {_c_literal(node.w0)};",
+            "  const RmXyz<T> in = {{x, y, z}};",
+            "  RmVec3<T> gin = {{static_cast<T>(0), static_cast<T>(0), "
+            "static_cast<T>(0)}};",
+            "  T* const row = sink.row;",
+            "  T* const mats = sink.row + SCENE_N_SCALARS;",
+            "  const T gout[1] = {g};",
+            f"  rm_sink_rows<T, {sizes[L]}, 1, {bf16}>(sink, {a[L]}, gout, "
+            f"{dw[L]}, 1, 0, {db[L]});",
+        ]
+        if L == 0:
+            return lines + [
+                "  if (sink.active) {",
+                "    for (int i = 0; i < 3; ++i) gin.v[i] = rm_operand<T, "
+                f"{bf16}>(rm_operand<T, {bf16}>(__ldg({m[0]} + i)) * g);",
+                "  }",
+                "  return gin;", "}", ""]
+        if L > 1:
+            gw = max(sizes[1:L])
+            lines.append(f"  T ga[{gw}];" + (f" T gb[{gw}];" if L > 2 else ""))
+        gcur = None
+        for layer in range(L, 0, -1):
+            gnext = "gin.v" if layer == 1 else ("gb" if gcur == "ga" else "ga")
+            scale = str(sine and layer == 1).lower()
+            lines.append("  if (sink.active) {")
+            if layer == L:
+                lines.append(f"    rm_mlp_delta_out<T, {sizes[layer]}, {bf16}, "
+                             f"{scale}>({m[L]}, g, {s[layer]}, w0);")
+            else:
+                lines.append(f"    rm_mlp_delta<T, {sizes[layer]}, {scale}>("
+                             f"{gcur}, {s[layer]}, w0);")
+            if layer > 1:
+                lines.append(f"    for (int i = 0; i < {sizes[layer - 1]}; "
+                             f"++i) {gnext}[i] = static_cast<T>(0);")
+            lines.append("  }")
+            lines.append(
+                f"  rm_mlp_vjp_dense<T, {sizes[layer - 1]}, {sizes[layer]}, "
+                f"{bf16}>({m[layer - 1]}, {a[layer - 1]}, {s[layer]}, "
+                f"{gnext}, sink, {dw[layer - 1]}, {db[layer - 1]});")
+            gcur = gnext
+        return lines + ["  return gin;", "}", ""]
 
     def cuda_source(self) -> str:
-        """Backend (a): the ``scene_sdf`` device function and, where the op
-        list has an adjoint, ``scene_sdf_vjp``; C++ for nvcc. ``M`` is the
-        packed matrix buffer (unused by analytic scenes)."""
+        """Backend (a): the ``scene_sdf`` device function and its VJP
+        ``scene_sdf_vjp``; C++ for nvcc. ``M`` is the packed matrix buffer
+        (unused by analytic scenes). With neural leaves the VJP also takes
+        the block's matrix sink (neural.cuh), accumulates only the
+        :attr:`acc_scalars` in ``gP`` and adds nothing where the sink says
+        the thread is inactive."""
         n, n_all = self.n_primal, len(self.ops)
         names = ["x", "y", "z"] + [f"v{i}" for i in range(3, n)]
+        acc = {k: slot for slot, k in enumerate(self.acc_scalars)}
         lines = [
             "// Generated by ray_marching_tpu_torch/scene/codegen.py from",
             f"// {self.node!r}",
             "#pragma once",
             f"constexpr int SCENE_N_SCALARS = {len(self.scalar_offsets)};",
+            f"constexpr int SCENE_N_MLP = {len(self.mlps)};",
+            f"constexpr int SCENE_N_ACC = {len(self.acc_scalars)};",
+            f"constexpr int SCENE_MAT_SIZE = {self.mat_size};",
+            "// Compact scalar index of each per-thread accumulator.",
+            "static __device__ const int SCENE_ACC_SCALAR["
+            f"{max(1, len(self.acc_scalars))}] = {{"
+            + ", ".join(map(str, self.acc_scalars or [0])) + "};",
             "",
         ]
         if self.mlps:
-            lines.append('#include "neural.cuh"')
-            lines.append("")
+            lines += ['#include "neural.cuh"', ""]
             for k, leaf in enumerate(self.mlps):
                 lines += self._mlp_source(k, leaf)
+                if self._keeps(k):
+                    lines += self._mlp_keep_source(k, leaf)
+                lines += self._mlp_vjp_source(k, leaf)
         lines += [
             "template <typename T>",
             "__device__ __forceinline__ T scene_sdf(const T* __restrict__ P,"
@@ -640,27 +839,30 @@ class SdfProgram:
             f"  return {names[self.out]};",
             "}",
             "",
-        ]
-        if not self.has_adjoint:
-            return "\n".join(lines)
-        lines += [
             "// Vector-Jacobian product: returns d, writes the cotangent of",
             "// (x, y, z) for the cotangent g of d, and adds the parameter",
-            "// cotangents to gP (SCENE_N_SCALARS values, layout order).",
+            "// cotangents to gP (SCENE_N_ACC values, layout order).",
             "template <typename T>",
             "__device__ __forceinline__ T scene_sdf_vjp(const T* __restrict__"
             " P, const T* __restrict__ M, T x, T y, T z, T g, T& gx, T& gy,"
-            " T& gz, T* gP) {",
+            " T& gz, T* gP" + (", const RmSink<T>& sink" if self.mlps else "")
+            + ") {",
         ]
         # Primal values are w*, adjoint temporaries a*.
         names = (["x", "y", "z"] + [f"w{i}" for i in range(3, n)] + ["g"]
                  + [f"a{i}" for i in range(n + 1, n_all)])
-        lines += self._emit(names, 3, n) + self._emit(names, n + 1, n_all)
+        vjp = bool(self.mlps)
+        for k, leaf in enumerate(self.mlps):
+            if self._keeps(k):
+                lines.append(f"  T keep{k}[{self._keep_offsets(leaf)[-1]}];")
+        lines += (self._emit(names, 3, n, vjp)
+                  + self._emit(names, n + 1, n_all, vjp))
         for out, a in zip(("gx", "gy", "gz"), self.adj_xyz):
             lines.append(f"  {out} = "
                          f"{'static_cast<T>(0)' if a is None else names[a]};")
+        guard = "if (sink.active) " if self.mlps else ""
         for k, a in self.adj_params:
-            lines.append(f"  gP[{k}] = gP[{k}] + {names[a]};")
+            lines.append(f"  {guard}gP[{acc[k]}] = gP[{acc[k]}] + {names[a]};")
         lines += [f"  return {names[self.out]};", "}", ""]
         return "\n".join(lines)
 
@@ -683,8 +885,11 @@ class SdfProgram:
     @property
     def vjp_ops_per_eval(self) -> int:
         """Ops of one ``scene_sdf_vjp``: the primal evaluation, every
-        adjoint op, and one add per parameter scalar it accumulates."""
-        self.require_adjoint()
+        adjoint op (an MLP's VJP by :func:`_mlp_vjp_op_count`), and one add
+        per parameter scalar it accumulates."""
         adjoint = sum(1 for op in self.ops[self.n_primal + 1:]
                       if op[0] in _OPS)
+        adjoint += sum(_mlp_vjp_op_count(self.mlps[op[1]])
+                       for op in self.ops[self.n_primal + 1:]
+                       if op[0] == "mlp_vjp")
         return self.ops_per_eval + adjoint + len(self.adj_params)

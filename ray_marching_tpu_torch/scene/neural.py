@@ -17,11 +17,12 @@ Two evaluators with the JAX package's association order:
   product in f32 (operands cast back to f32 before ``torch.matmul``, which
   would return bf16 otherwise), for f32 only, as in JAX.
 
-On the card the MLP runs inside the forward and march kernels
-(``ops/csrc/neural.cuh``, reached through the ``mlp`` op of
-:mod:`ray_marching_tpu_torch.scene.codegen`); these tensor evaluators are the
-plain SDF of :func:`graph.compile_node` and therefore the kernels' plain
-versions. A plain matrix product outside any kernel may go to
+On the card the MLP runs inside the forward and march kernels and its VJP
+inside the backward kernel (``ops/csrc/neural.cuh``, reached through the
+``mlp`` and ``mlp_vjp`` ops of :mod:`ray_marching_tpu_torch.scene.codegen`);
+these tensor evaluators are the plain SDF of :func:`graph.compile_node` and
+therefore the kernels' plain versions, and :func:`mlp_vjp` is the VJP
+written out, the plain twin of the kernel's. A plain matrix product outside any kernel may go to
 ``torch.matmul``, as the JAX package leaves it to XLA.
 
 Activations: ``sine`` (SIREN), ``sine_fast`` (:func:`sin_fast`), ``softplus``
@@ -164,27 +165,32 @@ def _base_term(params, x, y, z):
     return torch.sqrt(x * x + y * y + z * z) - params["radius"]
 
 
-def neural_sdf_componentwise(node: NeuralSDF):
-    """Componentwise evaluator ``f(params, x, y, z) -> d``."""
+def _componentwise_layer(params, planes, layer, last, act, scale):
+    """One layer of the componentwise evaluator on a list of planes."""
+    w, b = params[f"w{layer}"], params[f"b{layer}"]
+    nin, nout = w.shape
+    out = []
+    for j in range(nout):
+        acc = b[j]
+        for i in range(nin):
+            acc = acc + planes[i] * w[i, j]
+        out.append(acc if last else act(acc * scale))
+    return out
+
+
+def mlp_componentwise(node: NeuralSDF):
+    """The MLP alone, ``f(params, x, y, z) -> h``, componentwise: hidden
+    unit j starts from its bias and adds ``h_i · W[i, j]`` in ``i`` order."""
     n_layers = len(node.hidden) + 1
     act = _activation(node)
 
     def evaluate(params, x, y, z):
         planes = [x, y, z]
         for layer in range(n_layers):
-            w, b = params[f"w{layer}"], params[f"b{layer}"]
-            nin, nout = w.shape
-            scale = _scale(node, layer)
-            out = []
-            for j in range(nout):
-                acc = b[j]
-                for i in range(nin):
-                    acc = acc + planes[i] * w[i, j]
-                if layer < n_layers - 1:
-                    acc = act(acc * scale)
-                out.append(acc)
-            planes = out
-        return _base_term(params, x, y, z) + planes[0]
+            planes = _componentwise_layer(params, planes, layer,
+                                          layer == n_layers - 1, act,
+                                          _scale(node, layer))
+        return planes[0]
 
     return evaluate
 
@@ -193,27 +199,36 @@ def _bf16(t):
     return t.to(torch.bfloat16).to(t.dtype)
 
 
-def neural_sdf_matmul(node: NeuralSDF):
-    """Matmul evaluator ``f(params, x, y, z) -> d``: ``(3, N)`` block, one
+def _block(x, y, z):
+    """``(3, N)`` block of the broadcast coordinates, and their shape."""
+    shape = torch.broadcast_shapes(x.shape, y.shape, z.shape)
+    dtype = torch.promote_types(x.dtype, torch.promote_types(y.dtype,
+                                                             z.dtype))
+    return torch.stack([v.to(dtype).expand(shape).reshape(-1)
+                        for v in (x, y, z)], 0), shape
+
+
+def _matmul_layer(node, params, h, layer):
+    """``Wᵀ @ H + b`` of one layer (bf16 operands where asked, f32 only)."""
+    lhs, rhs = params[f"w{layer}"].T, h
+    if node.matmul_dtype == "bfloat16" and h.dtype == torch.float32:
+        lhs, rhs = _bf16(lhs), _bf16(rhs)
+    return torch.matmul(lhs, rhs) + params[f"b{layer}"].reshape(-1, 1)
+
+
+def mlp_matmul(node: NeuralSDF):
+    """The MLP alone, ``f(params, x, y, z) -> h``: ``(3, N)`` block, one
     ``torch.matmul`` per layer."""
     n_layers = len(node.hidden) + 1
     act = _activation(node)
-    bf16 = node.matmul_dtype == "bfloat16"
 
     def evaluate(params, x, y, z):
-        shape = torch.broadcast_shapes(x.shape, y.shape, z.shape)
-        dtype = torch.promote_types(x.dtype, torch.promote_types(y.dtype,
-                                                            z.dtype))
-        h = torch.stack([v.to(dtype).expand(shape).reshape(-1)
-                         for v in (x, y, z)], 0)
+        h, shape = _block(x, y, z)
         for layer in range(n_layers):
-            lhs, rhs = params[f"w{layer}"].T, h
-            if bf16 and dtype == torch.float32:
-                lhs, rhs = _bf16(lhs), _bf16(rhs)
-            h = torch.matmul(lhs, rhs) + params[f"b{layer}"].reshape(-1, 1)
+            h = _matmul_layer(node, params, h, layer)
             if layer < n_layers - 1:
                 h = act(h * _scale(node, layer))
-        return _base_term(params, x, y, z) + h.reshape(shape)
+        return h.reshape(shape)
 
     return evaluate
 
@@ -225,14 +240,93 @@ def resolve_impl(node: NeuralSDF) -> str:
     return "matmul" if width >= MATMUL_MIN_WIDTH else "componentwise"
 
 
-def neural_sdf(node: NeuralSDF):
-    """The evaluator ``f(params, x, y, z) -> d`` of ``node``'s impl."""
+def mlp(node: NeuralSDF):
+    """The MLP of ``node``'s impl alone, ``f(params, x, y, z) -> h``: the
+    leaf's distance is ``(|p| - radius) + h``."""
     impl = resolve_impl(node)
     if impl == "matmul":
-        return neural_sdf_matmul(node)
+        return mlp_matmul(node)
     if impl == "componentwise":
-        return neural_sdf_componentwise(node)
+        return mlp_componentwise(node)
     raise ValueError(f"unknown NeuralSDF impl: {node.impl!r}")
+
+
+def neural_sdf(node: NeuralSDF):
+    """The evaluator ``f(params, x, y, z) -> d`` of ``node``'s impl: the
+    skip term, then the MLP."""
+    field = mlp(node)
+
+    def evaluate(params, x, y, z):
+        return _base_term(params, x, y, z) + field(params, x, y, z)
+
+    return evaluate
+
+
+def _act_slope(node: NeuralSDF, v):
+    """The activation's derivative at ``v``, as its autograd backward forms
+    it before the multiplication by the incoming cotangent: ``cos`` for
+    sine, the polynomial's exact derivative for sine_fast, ``1 - y²`` for
+    tanh, and for softplus the two branches of :func:`_softplus` (the
+    ``maximum`` with its tie split in half, and ``log1p(exp(-|v|))``)."""
+    if node.activation == "sine":
+        return torch.cos(v)
+    if node.activation == "sine_fast":
+        _, r2, p = _reduce_poly(v)
+        n = len(_SIN_COEFFS)
+        dp = r2 * ((n - 1) * _SIN_COEFFS[-1]) + (n - 2) * _SIN_COEFFS[-2]
+        for k in range(n - 3, 0, -1):
+            dp = dp * r2 + k * _SIN_COEFFS[k]
+        return p + 2.0 * r2 * dp
+    if node.activation == "softplus":
+        e = torch.exp(-torch.abs(v))
+        hinge = torch.where(v > 0, 1.0, torch.where(v == 0, 0.5, 0.0))
+        return hinge + (-(e / (e + 1.0))) * torch.sign(v)
+    y = torch.tanh(v)
+    return 1.0 - y * y
+
+
+def mlp_vjp(node: NeuralSDF, params, x, y, z, g):
+    """The MLP's vector-jacobian product written out, the plain twin of
+    ``ops/csrc/neural.cuh``'s ``rm_mlp_vjp``: recompute the forward keeping
+    every hidden layer's output and activation slope, then walk back with
+    ``δ_l = (W_l · δ_{l+1}) ⊙ act'`` (times ``w0`` for the first layer of
+    the sine variants). ``g`` is the cotangent of :func:`mlp`'s output.
+
+    bf16 operands (matmul impl, f32): the operand casts are differentiated
+    as autograd does, so the cotangents of a layer's input and of its matrix
+    (summed over the points) are rounded to bf16, and both products take
+    the rounded operands.
+
+    Returns ``(gx, gy, gz, grads)``: the coordinates' cotangents and, per
+    parameter name, ``w<l>``'s cotangent summed over the points and
+    ``b<l>``'s per point, ``(nout, N)``."""
+    n_layers = len(node.hidden) + 1
+    act = _activation(node)
+    h, shape = _block(x, y, z)
+    componentwise = resolve_impl(node) == "componentwise"
+    op = (_bf16 if not componentwise and node.matmul_dtype == "bfloat16"
+          and h.dtype == torch.float32 else (lambda t: t))
+    acts, slopes = [h], []
+    for layer in range(n_layers - 1):
+        if componentwise:
+            zl = torch.stack(_componentwise_layer(
+                params, list(acts[-1]), layer, True, act, 1.0))
+        else:
+            zl = _matmul_layer(node, params, acts[-1], layer)
+        v = zl * _scale(node, layer)
+        acts.append(act(v))
+        slopes.append(_act_slope(node, v))
+    gout = g.expand(shape).reshape(1, -1).to(h.dtype)
+    last = n_layers - 1
+    grads = {f"w{last}": op(op(acts[-1]) @ gout.T), f"b{last}": gout}
+    ga = op(op(params[f"w{last}"]) @ gout)
+    for layer in range(last - 1, -1, -1):
+        delta = (ga * slopes[layer]) * _scale(node, layer)
+        grads[f"w{layer}"] = op(op(acts[layer]) @ delta.T)
+        grads[f"b{layer}"] = delta
+        ga = op(op(params[f"w{layer}"]) @ delta)
+    gx, gy, gz = (c.reshape(shape) for c in ga)
+    return gx, gy, gz, grads
 
 
 register_custom_node(NeuralSDF, neural_sdf, init_neural_params)

@@ -90,7 +90,7 @@ def test_plain_backward_matches_jax_kernel(scene, tau, track_min):
     jg_flat, _, jg_rays = j_backward(
         jsdf, rebuild, jflat, mats, jnp.asarray(rays), jnp.asarray(g), STEPS,
         EPS, True, track_min=track_min, tau=tau)
-    g_flat, g_rays = bk.fused_backward(
+    g_flat, _, g_rays = bk.fused_backward(
         program, tflat, torch.as_tensor(rays), torch.as_tensor(g), STEPS, tau,
         EPS, track_min=track_min)
     want = np.asarray(jg_rays)
@@ -119,8 +119,8 @@ def test_plain_backward_matches_whole_graph_autograd(scene, tau, track_min):
     out, _ = rk._reference_march(program, flat, rays, STEPS, tau, EPS,
                                  track_min=track_min)
     want_flat, want_rays = torch.autograd.grad((out * g).sum(), [flat, rays])
-    g_flat, g_rays = bk.reference_backward(program, flat, rays, g, STEPS, tau,
-                                           EPS, track_min=track_min)
+    g_flat, _, g_rays = bk.reference_backward(program, flat, rays, g, STEPS,
+                                              tau, EPS, track_min=track_min)
     torch.testing.assert_close(g_rays[:6][:, stable], want_rays[:6][:, stable],
                                rtol=1e-9, atol=1e-10)
     torch.testing.assert_close(g_flat, want_flat, rtol=1e-9, atol=1e-10)
@@ -166,9 +166,9 @@ def test_min_f_ties_split_like_a_minimum_chain(scene):
     (want,) = torch.autograd.grad(minf[valid].sum(), flat)
     g = np.zeros((9, ROWS, 128))
     g[8] = 1.0
-    got, _ = bk.fused_backward(program, tflat, torch.as_tensor(still),
-                               torch.as_tensor(g), STEPS, 0.0, EPS,
-                               track_min=True)
+    got, _, _ = bk.fused_backward(program, tflat, torch.as_tensor(still),
+                                  torch.as_tensor(g), STEPS, 0.0, EPS,
+                                  track_min=True)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
 
 
@@ -198,7 +198,7 @@ def test_two_level_is_bitwise_the_history_path(scene, dtype, steps):
                                 track_min=False)
     # NaN included: on the open test_scene the f32 gradients overflow, in
     # all three paths at the same places.
-    for a, b, c in zip(with_hist, recomputed, two_level):
+    for a, b, c in zip(with_hist[::2], recomputed[::2], two_level[::2]):
         assert torch.equal(a.isnan(), b.isnan())
         assert torch.equal(a.isnan(), c.isnan())
         assert torch.equal(a.nan_to_num(), b.nan_to_num())
@@ -327,7 +327,7 @@ def test_march_only_backward_matches_jax_march_vjp(scene, tau):
         lambda f, r: _pallas_march_core(jsdf, rebuild, f, mats, r, STEPS, tau,
                                         True), jflat, jnp.asarray(rays))
     jg_flat, jg_rays = vjp(jnp.asarray(g))
-    g_flat, g_rays = bk.march_backward(program, tflat.detach(),
+    g_flat, _, g_rays = bk.march_backward(program, tflat.detach(),
                                        torch.as_tensor(rays),
                                        torch.as_tensor(g), STEPS, tau)
     want = np.asarray(jg_rays)
@@ -464,11 +464,11 @@ def test_cuda_backward_matches_plain(cuda, scene, dtype, tau, track_min):
     want = bk.reference_backward(program, flat, rays, g, STEPS, tau, EPS,
                                  track_min=track_min, **handoff)
     torch.cuda.synchronize()
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
     conv = rays[6] > 0.5
     assert int(conv.sum()) >= 64
     rel = 1e-4 if dtype == torch.float32 else 1e-11
-    for got, ref in ((a[0], want[0]), (a[1][:, conv], want[1][:, conv])):
+    for got, ref in ((a[0], want[0]), (a[2][:, conv], want[2][:, conv])):
         assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())
 
 
@@ -497,9 +497,9 @@ def test_cuda_two_level_backward_is_bitwise(cuda, scene, dtype):
     want = bk.reference_backward(program, flat, rays, g, steps, 0.0, EPS,
                                  two_level=True)
     torch.cuda.synchronize()
-    for x, y, z in zip(a, b, c):
+    for x, y, z in zip(a[::2], b[::2], c[::2]):
         assert torch.equal(x, y) and torch.equal(x, z)
     conv = rays[6] > 0.5
     rel = 1e-4 if dtype == torch.float32 else 1e-11
-    for got, ref in ((c[0], want[0]), (c[1][:, conv], want[1][:, conv])):
+    for got, ref in ((c[0], want[0]), (c[2][:, conv], want[2][:, conv])):
         assert float((got - ref).abs().max()) <= rel * float(ref.abs().max())

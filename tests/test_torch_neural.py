@@ -31,7 +31,6 @@ from ray_marching_tpu.scene import registry as jreg
 from ray_marching_tpu.scene import serialize as jser
 from ray_marching_tpu_torch.cli import main as cli_main
 from ray_marching_tpu_torch.io.checkpoint import load_pytree
-from ray_marching_tpu_torch.ops import backward_kernel as bk
 from ray_marching_tpu_torch.ops import render_kernel as rk
 from ray_marching_tpu_torch.ops.params import (
     mat_specs,
@@ -292,28 +291,53 @@ def test_codegen_evaluate_equals_compile_node(name, dtype):
 
 
 def test_codegen_neural_source_and_no_adjoint():
+    """The neural leaves' forward and VJP sources, and an op kind without an
+    adjoint rule raising."""
     program = SdfProgram(_layered_scene())
     src = program.cuda_source()
     assert '#include "neural.cuh"' in src
-    assert src.count("__device__ __noinline__ T neural_leaf_") == 2
+    assert src.count("__device__ __noinline__ T neural_leaf_keep_") == 2
+    assert src.count("__device__ __noinline__ T neural_leaf_") == 4
+    assert src.count("__device__ __noinline__ RmVec3<T> neural_leaf_vjp_") == 2
     for k in (0, 1):
         assert f"neural_leaf_{k}<T>(P, M, " in src
+        assert f"neural_leaf_keep_{k}<T>(P, M, " in src
+        assert f"neural_leaf_vjp_{k}<T>(P, M, " in src
     assert "rm_mlp_layer<T, 3, 6, RM_ACT_SOFTPLUS, false, false, false>" in src
     assert "rm_mlp_layer<T, 6, 5, RM_ACT_SOFTPLUS, false, false, false>" in src
     assert "rm_mlp_last<T, 5, 4, RM_ACT_SOFTPLUS, false, false, false>" in src
     assert "rm_mlp_last<T, 3, 4, RM_ACT_TANH, true, true, false>" in src
-    assert "scene_sdf_vjp" not in src
-    assert not program.has_adjoint and program.n_mats == 6
-    assert "render_bwd.cu" not in rk.kernel_units(program)
+    # The VJP's forward keeps every hidden layer (2 × (6 + 5 + 4) and
+    # 2 × 4 values) and the VJP walks them back without recomputing.
+    assert "T keep0[30];" in src and "T keep1[8];" in src
+    for nin, nout in ((3, 6), (6, 5), (5, 4)):
+        assert (f"rm_mlp_layer_keep<T, {nin}, {nout}, RM_ACT_SOFTPLUS, "
+                "false, false, false>") in src
+        assert f"rm_mlp_vjp_dense<T, {nin}, {nout}, false>" in src
+    assert "rm_mlp_layer_keep<T, 3, 4, RM_ACT_TANH, true, true, false>" in src
+    assert "rm_mlp_out<T, 4, false, false>" in src
+    assert "rm_mlp_out<T, 4, true, true>" in src
+    assert "rm_mlp_delta_out<T, 4, false, false>" in src
+    assert "rm_mlp_delta_out<T, 4, true, false>" in src
+    assert "rm_mlp_vjp_dense<T, 3, 4, true>" in src
+    vjp_body = src[src.index("T scene_sdf_vjp("):]
+    assert "neural_leaf_0<T>" not in vjp_body
+    for k in (0, 1):
+        start = src.index(f"RmVec3<T> neural_leaf_vjp_{k}(")
+        body = src[start:src.index("\n}\n", start)]
+        assert "rm_mlp_layer" not in body and "rm_mlp_last" not in body
+    assert "const RmSink<T>& sink) {" in src
+    assert program.n_mats == 6
+    # The leaves' biases go to the sink, the radii through the scalar path.
+    radii = {program._compact[leaf.radius] for leaf in program.mlps}
+    biases = {program._compact[b] + j for leaf in program.mlps
+              for b, n in zip(leaf.bias, leaf.sizes[1:]) for j in range(n)}
+    assert radii <= set(program.acc_scalars)
+    assert not biases & set(program.acc_scalars)
     analytic = SdfProgram(treg.make_scene("test_scene2"))
-    assert analytic.has_adjoint
-    assert rk.kernel_units(analytic) == rk.KERNEL_UNITS
+    assert analytic.acc_scalars == list(range(len(analytic.scalar_offsets)))
+    assert "RmSink" not in analytic.cuda_source()
     assert "neural.cuh" in rk.KERNEL_SOURCES
-    with pytest.raises(NotImplementedError, match="neural training slice"):
-        program.evaluate_vjp(*(torch.zeros(1, dtype=torch.float64)
-                               for _ in range(5)))
-    with pytest.raises(NotImplementedError, match="neural training slice"):
-        program.vjp_ops_per_eval  # noqa: B018
     # An op kind without an adjoint rule raises instead of falling through
     # to the select rule.
     b = codegen._Builder({})
@@ -495,37 +519,6 @@ def test_neural_frame_agrees_with_analytic_target():
            "c1": dict(params["c1"], w1=params["c1"]["w1"].T.contiguous())}
     agree_bad, diff_bad = agreement(frame_and_hits(r, bad, 24), want)
     assert agree_bad < TARGET_MIN_AGREE or diff_bad > TARGET_MAX_MEAN_DIFF
-
-
-def test_backward_through_a_neural_scene_raises():
-    """No backward for matrix leaves yet, and no plain version instead: the
-    autograd functions raise, and so do the backward wrappers before any
-    launch."""
-    cfg = RenderConfig(**_cfg(8, 6, marching_steps=4))
-    node = treg.make_scene("neural_demo")
-    for r in (tfast.FastRenderer(node, cfg, device="cpu"),
-              tfast.FastRenderer(node, RenderConfig(**_cfg(
-                  8, 6, marching_steps=4, backward="implicit")), device="cpu"),
-              Renderer(node, RenderConfig(**_cfg(8, 6, marching_steps=4,
-                                                 use_pallas=True)),
-                       device="cpu")):
-        params = jax.tree_util.tree_map(
-            lambda v: v.clone().requires_grad_(True), r.init_params)
-        img = r.render(params, *r.default_pose(), mode=0)
-        with pytest.raises(NotImplementedError, match="neural training"):
-            img.sum().backward()
-    program = SdfProgram(node)
-    flat, mats, _ = split_params_padded(tgraph.init_params(node,
-                                                           torch.float64),
-                                        torch.float64)
-    rays7 = torch.zeros((7, 1, 128), dtype=torch.float64)
-    for call in (lambda: bk.fused_backward(program, flat, rays7,
-                                           torch.zeros((8, 1, 128)), 4, 0.0,
-                                           5e-2),
-                 lambda: bk.march_backward(program, flat, rays7,
-                                           torch.zeros((4, 1, 128)), 4, 0.0)):
-        with pytest.raises(NotImplementedError, match="neural training"):
-            call()
 
 
 def test_checkpoint_restores_the_w256_weights():
