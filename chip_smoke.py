@@ -15,7 +15,10 @@ silhouette loss, with the implicit backward and with the two-level backward;
 the modular pipeline: ``Renderer`` with ``use_pallas=True`` at the same
 setup, a frame, a frame with a reflection bounce, all 8 modes and one
 gradient; the neural slices: the trained width-256 NeuralSDF served, and
-trained by ``optimize`` through the backward kernel with the MLP's VJP),
+trained by ``optimize`` through the backward kernel with the MLP's VJP; the
+Mandelbulb slice: the ``mandelbulb`` scene, a custom node lowered through
+``codegen.register_lowering``, served by the README's command at 1440×900
+and trained on its scale by ``optimize``),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -135,11 +138,10 @@ TOL_NEURAL_BWD = {"f32": 1e-3, "f64": 1e-9}
 #: flip between kernel and plain version on an ulp of the MLP, which moves
 #: that ray's cotangent and its share of every parameter's.
 TOL_NEURAL_BWD_LOOSE = 1e-2
-#: bf16 operands at 128² f32, against the plain version with the kernel's
-#: rounding rule (the cotangent of a product's input rounded to bf16, a
-#: matrix's cotangent summed in f32; the plain version as it stands also
-#: rounds each evaluation's matrix cotangent, summed over all its rays, to
-#: bf16, which a per-block sum cannot do). Both round each ray's input
+#: bf16 operands at 128² f32, against the plain version, which follows the
+#: kernel's rounding rule (the cotangent of a product's input rounded to
+#: bf16, a matrix's cotangent summed in f32; scene/neural.py). Both round
+#: each ray's input
 #: cotangents after sums in other orders, so one near a rounding boundary
 #: lands one bf16 ulp (2^-8) apart and the sweep carries it on: the largest
 #: ray difference says little (1.2e-2 of the largest entry on the card).
@@ -149,6 +151,63 @@ TOL_NEURAL_BWD_LOOSE = 1e-2
 #: which must fail them (0.759, 0.50, 0.37; PERF.md).
 BF16_RAY_RTOL = 1e-4
 TOL_NEURAL_BWD_BF16 = (0.9, 1e-3, 1e-2)
+
+
+#: A profile may read a kernel at most this far below its CUDA-event time
+#: (profile_frames).
+PROFILE_MAX_UNDER = 0.05
+#: The Mandelbulb slice: the registry's ``mandelbulb`` scene (the room and
+#: Affine(Mandelbulb(power=8, iterations=10, scale=1.0)) about 45° about y),
+#: f32, the CLI's default pose and 1440×900, served by the README's command
+#: (64 steps, tau = 1e-4, mode normal); trained on its scale leaf from 0.85
+#: against the frame at 1.0, mode 0, degree 2, Adam at 1e-2 (the JAX
+#: package's test_mandelbulb_scale_trains_by_inverse_rendering at full
+#: size). f64 checks at 256×160.
+BULB_CLI = ["render", "--scene", "mandelbulb", "--fast", "--steps", "64",
+            "--tau", "1e-4", "--mode", "normal"]
+BULB_W, BULB_H, BULB_STEPS, BULB_TAU, BULB_MODE = 1440, 900, 64, 1e-4, 4
+BULB_F64_W, BULB_F64_H = 256, 160
+BULB_FRAMES, BULB_TRAIN_STEPS, BULB_SCALE0 = 20, 3, 0.85
+#: Training marches 24 steps at tau = 0, the JAX test's own step count, so
+#: the two-level backward engages. At 64 the gradient is unusable in f32:
+#: the march's derivative grows with every step a ray takes near the
+#: fractal's surface, where the estimate's slope along the ray exceeds 1,
+#: so at tau = 0 it overflows (in the kernel and the plain version alike,
+#: bulb_slice prints both), and at tau = 1e-4 a few grazing rays still
+#: dominate it.
+BULB_TRAIN_MARCH = 24
+#: Kernel vs plain version over the whole frame: at least this share of the
+#: valid rays must agree on every plane within TOL_F32 (the grazing rays of
+#: a chaotic boundary may diverge between two evaluation orders; CLAUDE.md),
+#: and the same kernel with the scale moved by BULB_CONTROL_SCALE must not.
+BULB_MIN_AGREE, BULB_CONTROL_SCALE = 0.999, 1.0 + 1e-3
+#: The bulb's backward against its plain version, ray by ray and leaf by
+#: leaf (bulb_backward_vs_plain). A few grazing rays' cotangents grow with
+#: every step they take near the fractal's surface (to ~1e24 at 64 steps in
+#: f32), so a limit relative to the largest entry of the frame holds only
+#: those rays. Instead, each converged ray's 6 cotangents are held against
+#: the ray's own largest: at least BULB_RAY_SHARE of the converged rays
+#: within BULB_RAY_RTOL (on the card 0.99990 in f32, 0.99988 in f64 at 64
+#: steps and tau = 0, all of them elsewhere). The parameter cotangent is
+#: summed again over the tame rays only (a cotangent at most BULB_WILD
+#: times the median ray's; the others are marked invalid for that run and
+#: counted), and each scalar leaf is held against its own size
+#: (BULB_LEAF_RTOL). An f32 leaf sums ~1.26 M terms that cancel to a few
+#: per cent of their magnitudes, so its rounding depends on the order: the
+#: plain version's own history and two-level sums differ by 5.5e-4 on the
+#: bulb's scale at 24 steps (the kernel, bitwise the same in both modes, is
+#: 5.6e-4 from the first and 5.6e-6 from the second); f64 reads at most
+#: 1.2e-10.
+#: Two controls against the same plain version must fail the limits: the
+#: kernel at scale·BULB_CONTROL_SCALE, and the kernel given each input
+#: cotangent times 1 + u·BULB_CONTROL_G, u uniform in [-1, 1] (a kernel
+#: wrong by up to 1e-3 on every ray: 0.04–0.06 of the rays within in f32,
+#: leaves 4.7e-3 and more apart).
+BULB_RAY_RTOL = {"f32": 1e-4, "f64": 1e-10}
+BULB_RAY_SHARE = 0.999
+BULB_LEAF_RTOL = {"f32": 2e-3, "f64": 1e-9}
+BULB_WILD = 1e3
+BULB_CONTROL_G = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -253,7 +312,7 @@ def same_bits(a, b):
     return a == b
 
 
-def compare_training_outputs(label, program, flat, rays7, tau):
+def compare_training_outputs(label, program, flat, rays7, tau, steps=STEPS):
     """The forward kernel's training configuration on the card: its 8
     planes bitwise equal to the serving configuration's, its extra outputs
     against the plain version. Returns the plain version's 9 planes."""
@@ -261,11 +320,11 @@ def compare_training_outputs(label, program, flat, rays7, tau):
 
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
-    serve, _ = rk.march_forward(program, flat, rays7, STEPS, tau, 5e-2)
-    out, ex = rk.march_forward(program, flat, rays7, STEPS, tau, 5e-2,
+    serve, _ = rk.march_forward(program, flat, rays7, steps, tau, 5e-2)
+    out, ex = rk.march_forward(program, flat, rays7, steps, tau, 5e-2,
                                track_min=True, log_hist=True,
                                track_argpos=True)
-    ref, rex = rk._reference_march(program, flat, rays7, STEPS, tau, 5e-2,
+    ref, rex = rk._reference_march(program, flat, rays7, steps, tau, 5e-2,
                                    track_min=True, log_hist=True,
                                    track_argpos=True)
     torch.cuda.synchronize()
@@ -274,8 +333,8 @@ def compare_training_outputs(label, program, flat, rays7, tau):
     valid = rays7[6] > 0.5
     n_valid = int(valid.sum())
     # History entries a ray did not run stay unwritten in the kernel.
-    steps_idx = torch.arange(STEPS + 1, device=rays7.device)[:, None, None]
-    ran = (steps_idx <= ex["nlive"][None]) | (steps_idx == STEPS)
+    steps_idx = torch.arange(steps + 1, device=rays7.device)[:, None, None]
+    ran = (steps_idx <= ex["nlive"][None]) | (steps_idx == steps)
     diffs = {
         "min_f": ~same_bits(out[8], ref[8]),
         "amin": ~same_bits(ex["amin"], rex["amin"]),
@@ -298,7 +357,8 @@ def compare_training_outputs(label, program, flat, rays7, tau):
     return ref
 
 
-def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
+def compare_backward(label, program, flat, rays7, tau, f64, ref, seed,
+                     steps=STEPS):
     """Backward kernel vs plain version (same history), and history on vs
     off bitwise, with and without the min_f plane, at the valid plane the
     main path gives the kernel. The ray cotangents are compared on the rays
@@ -322,7 +382,7 @@ def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
         if masked:
             rays7 = rays7.clone()
             rays7[6] = conv.to(rays7.dtype)
-        out, ex = rk.march_forward(program, flat, rays7, STEPS, tau, 5e-2,
+        out, ex = rk.march_forward(program, flat, rays7, steps, tau, 5e-2,
                                    track_min=True, log_hist=True)
         runs = {}
         for track_min in (False, True):
@@ -332,11 +392,11 @@ def compare_backward(label, program, flat, rays7, tau, f64, ref, seed):
                 handoff.update(minf=out[8].contiguous(), amin=ex["amin"])
             # (flat, rays) cotangents: an analytic scene has no matrices.
             runs[track_min] = tuple(r[::2] for r in (
-                bk.fused_backward(program, flat, rays7, g, STEPS, tau, 5e-2,
+                bk.fused_backward(program, flat, rays7, g, steps, tau, 5e-2,
                                   track_min=track_min, **handoff),
-                bk.fused_backward(program, flat, rays7, g, STEPS, tau, 5e-2,
+                bk.fused_backward(program, flat, rays7, g, steps, tau, 5e-2,
                                   track_min=track_min),
-                bk.reference_backward(program, flat, rays7, g, STEPS, tau,
+                bk.reference_backward(program, flat, rays7, g, steps, tau,
                                       5e-2, track_min=track_min, **handoff)))
         torch.cuda.synchronize()
         if masked or all(bool(torch.isfinite(plain[0]).all())
@@ -423,8 +483,8 @@ def compare_march(label, program, flat, rays7, tau, f64, backward,
     rng = np.random.default_rng(900 + int(tau * 1e6) + f64)
     g = torch.as_tensor(rng.standard_normal((4,) + tuple(rays7.shape[1:])),
                         dtype=rays7.dtype).to(rays7.device)
-    a = bk.march_backward(program, flat, rays7, g, STEPS, tau)[::2]
-    b = bk.reference_backward(program, flat, rays7, g, STEPS, tau, None,
+    a = bk.march_backward(program, flat, rays7, g, steps, tau)[::2]
+    b = bk.reference_backward(program, flat, rays7, g, steps, tau, None,
                               march_only=True)[::2]
     torch.cuda.synchronize()
     tol = TOL_BWD["f64" if f64 else "f32"]
@@ -444,7 +504,7 @@ def compare_march(label, program, flat, rays7, tau, f64, backward,
     return max(diffs), (e_rays, e_flat)
 
 
-def compare_two_level(label, program, flat, rays7, f64, seed):
+def compare_two_level(label, program, flat, rays7, f64, seed, steps=STEPS):
     """The two-level backward on the card: bitwise equal to the history and
     the full-recompute paths, within TOL_BWD of its plain version (which
     replays segments from checkpoints too); LAST_PATH says which path ran,
@@ -459,22 +519,22 @@ def compare_two_level(label, program, flat, rays7, f64, seed):
     rng = np.random.default_rng(seed)
     g = torch.as_tensor(rng.standard_normal((8,) + tuple(rays7.shape[1:])),
                         dtype=rays7.dtype).to(rays7.device)
-    out, ex = rk.march_forward(program, flat, rays7, STEPS, 0.0, 5e-2,
+    out, ex = rk.march_forward(program, flat, rays7, steps, 0.0, 5e-2,
                                log_hist=True)
     conv = (rays7[6] > 0.5) & (out[3].abs() < CONVERGED)
-    with_hist = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
+    with_hist = bk.fused_backward(program, flat, rays7, g, steps, 0.0, 5e-2,
                                   hist=ex["hist"], nlive=ex["nlive"])[::2]
     check(bk.LAST_PATH["use_hist"] and not bk.LAST_PATH["two_level"],
           f"two-level {label}: the history path did not run")
-    recomputed = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0,
+    recomputed = bk.fused_backward(program, flat, rays7, g, steps, 0.0,
                                    5e-2)[::2]
-    two_level = bk.fused_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
+    two_level = bk.fused_backward(program, flat, rays7, g, steps, 0.0, 5e-2,
                                   two_level=True)[::2]
     check(bk.LAST_PATH["two_level"] and not bk.LAST_PATH["use_hist"],
           f"two-level {label}: LAST_PATH says {bk.LAST_PATH}")
-    plain = bk.reference_backward(program, flat, rays7, g, STEPS, 0.0, 5e-2,
+    plain = bk.reference_backward(program, flat, rays7, g, steps, 0.0, 5e-2,
                                   two_level=True)[::2]
-    for kw in (dict(tau=1e-3, steps=STEPS), dict(tau=0.0, steps=12)):
+    for kw in (dict(tau=1e-3, steps=steps), dict(tau=0.0, steps=12)):
         bk.fused_backward(program, flat, rays7, g, kw["steps"], kw["tau"],
                           5e-2, two_level=True)
         check(not bk.LAST_PATH["two_level"],
@@ -499,6 +559,28 @@ def compare_two_level(label, program, flat, rays7, f64, seed):
     return e_rays, e_flat
 
 
+def live_steps(program, flat, rays7, steps, tau, mats=()):
+    """(steps the valid rays moved, summed; rays that froze before the last
+    step) of a march at ``tau``, from the forward kernel's live-step
+    count: the work a march with an early exit needs."""
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    _, ex = rk.march_forward(program, flat, rays7, steps, tau, 5e-2,
+                             log_hist=True, mats=mats)
+    nlive = ex["nlive"][rays7[6] > 0.5].long()
+    return int(nlive.sum()), int((nlive < steps).sum())
+
+
+def forward_ops_live(program, n_valid, live_sum, n_frozen):
+    """Operations of the forward kernel with an early exit: a ray evaluates
+    the SDF once per live step, once more when it freezes before the last
+    step, and 5 times in the tail."""
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    return ((live_sum + n_frozen + 5 * n_valid) * program.ops_per_eval
+            + live_sum * rk.OPS_PER_STEP + n_valid * rk.OPS_TAIL)
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -514,37 +596,62 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def profile_frames(fn, frame_ms, frames=5):
-    """torch.profiler over ``frames`` calls: device time of each kernel, and
-    the device busy share of ``frame_ms`` (a frame timed without the
-    profiler)."""
+def profile_frames(fn, frame_ms, frames=5, expect=None):
+    """torch.profiler over ``frames`` calls, one call per profiler cycle:
+    device time of each kernel per call, and the device busy share of
+    ``frame_ms`` (a call timed without the profiler).
+
+    One call per cycle because a cycle over several calls once lost a whole
+    launch of a 127 ms kernel (the neural frame read 85.58 ms busy per frame
+    against 126.81 ms by CUDA events: two records of three); each cycle here
+    ends in a synchronise, and every record is counted. ``expect`` maps a
+    kernel-name prefix to (its CUDA-event ms per launch at the same inputs,
+    launches per call): the profile fails if it holds fewer records of that
+    kernel than the wrapper launched, or reads it more than
+    PROFILE_MAX_UNDER below its CUDA-event time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
+    totals = {}  # kernel -> [records, device µs]
+    for _ in range(frames):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    # Device-side entries only; "Optimizer.step#..." is an annotation that
-    # spans the optimizer's kernels, not a kernel.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not e.key.startswith("Optimizer.")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
-    if busy_ms == 0.0:
-        print("profile: no device time recorded (busy share not measured)")
-        return None
-    print(f"profile ({frames} frames): kernels busy {busy_ms:.4f} ms per "
-          f"frame, {busy_ms / frame_ms:.3f} of the {frame_ms:.4f} ms frame")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
-              f"{e.count // frames:4d}x/frame  {e.key[:100]}")
-    return {e.key: e.self_device_time_total / 1e3 / frames for e in kernels}
+            torch.cuda.synchronize()
+        # Device-side entries only; "Optimizer.step#..." is an annotation
+        # that spans the optimizer's kernels, not a kernel.
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and not e.key.startswith("Optimizer.")):
+                t = totals.setdefault(e.key, [0, 0.0])
+                t[0] += e.count
+                t[1] += e.self_device_time_total
+    busy_ms = sum(t[1] for t in totals.values()) / 1e3 / frames
+    check(busy_ms > 0.0, "profile: no device time recorded")
+    print(f"profile ({frames} calls, one per cycle): kernels busy "
+          f"{busy_ms:.4f} ms per call, {busy_ms / frame_ms:.3f} of the "
+          f"{frame_ms:.4f} ms call")
+    for key, (n, us) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {us / 1e3 / frames:9.4f} ms/call {n // frames:4d}x/call  "
+              f"{key[:100]}")
+    for prefix, (event_ms, per_call) in (expect or {}).items():
+        n, us = next((t for k, t in totals.items() if k.startswith(prefix)),
+                     (0, 0.0))
+        prof_ms = us / 1e3 / max(n, 1)
+        print(f"  profile vs CUDA events, {prefix}: {n} records of "
+              f"{per_call * frames} launches, {prof_ms:.4f} ms against "
+              f"{event_ms:.4f} ms per launch")
+        check(n == per_call * frames, f"profile: {n} records of {prefix} for "
+                                      f"{per_call * frames} launches")
+        check(prof_ms >= (1.0 - PROFILE_MAX_UNDER) * event_ms,
+              f"profile: {prefix} reads {prof_ms:.4f} ms, more than "
+              f"{PROFILE_MAX_UNDER:.0%} below its {event_ms:.4f} ms by CUDA "
+              "events")
+    return {k: us / 1e3 / frames for k, (_, us) in totals.items()}
 
 
 def leaf_params(tree):
@@ -1162,7 +1269,8 @@ def neural_slice(card, out_dir: Path):
     modular_ms = cuda_ms(modular_frame, 3)
     prof = profile_frames(lambda: main.render(params, NEURAL_Q, NEURAL_T,
                                               mode=0, degree=1), frame_ms,
-                          frames=3) or {}
+                          frames=3,
+                          expect={"void render_fwd_kernel<float>": (ms, 1)})
     kernel_dev_ms = next((v for k, v in prof.items()
                           if k.startswith("void render_fwd_kernel<float>")),
                          None)
@@ -1280,6 +1388,278 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / (scale if scale > 0 else 1.0)
 
 
+def trainable_leaves(tree, trainable):
+    """The leaves of ``tree`` that ``optimize`` trains for ``trainable``
+    (a leaf is trained when one entry is a substring of its path)."""
+    return {p: v for p, v in leaf_items(tree)
+            if any(t in p for t in trainable)}
+
+
+def counted_optimize(label, renderer, target, q, t, cfg, init_params,
+                     two_level=False):
+    """optimize() through the kernels, counted: one forward and one backward
+    launch per step, no plain march or backward, the backward path asked
+    for (the history, or two levels without one), finite losses and a
+    finite gradient of every trainable leaf at every step. Returns (result,
+    the trainable leaves' gradients at each step, each step's ms by the host
+    clock; every step ends in a synchronise)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.optim.inverse import optimize
+
+    grads, stamps = [], []
+
+    def seen(step, loss, state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        grads.append({p: None if v.grad is None else v.grad.clone()
+                      for p, v in trainable_leaves(state["params"],
+                                                   cfg.trainable).items()})
+
+    torch.cuda.synchronize()
+    rk.LAUNCHES = bk.LAUNCHES = 0
+    bk.LAST_PATH.clear()
+    rk.BWD_TWO_LEVEL = two_level
+    stamps.append(time.perf_counter())
+    try:
+        with PlainMarchCalls() as pm, PlainBackwardCalls() as pb:
+            out = optimize(renderer, target, q, t, cfg,
+                           init_params=init_params, callback=seen)
+            torch.cuda.synchronize()
+    finally:
+        rk.BWD_TWO_LEVEL = False
+    fwd, bwd, n_plain, path = rk.LAUNCHES, bk.LAUNCHES, pm.n + pb.n, dict(
+        bk.LAST_PATH)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+    def shown(v):  # a scalar leaf's value, else its largest entry
+        return "None" if v is None else (
+            f"{float(v):.9e}" if v.numel() == 1
+            else f"max|.| {float(v.abs().max()):.3e}")
+
+    print(f"{label} (optimize, {cfg.steps} Adam steps on {cfg.trainable}"
+          f"{', two-level backward' if two_level else ''}): losses "
+          + " ".join(f"{v:.6e}" for v in out["losses"])
+          + "; gradients per step " + " | ".join(
+              " ".join(f"{p}={shown(v)}" for p, v in step.items())
+              for step in grads)
+          + f"; forward launches {fwd}, backward launches {bwd}, plain "
+          f"calls {n_plain}, path {path}; step ms (host clock) "
+          + " ".join(f"{v:.1f}" for v in step_ms))
+    check(out["steps_run"] == cfg.steps and all(np.isfinite(out["losses"])),
+          f"{label}: steps or losses")
+    check((fwd, bwd, n_plain) == (cfg.steps, cfg.steps, 0),
+          f"{label}: launches or plain calls")
+    check(path.get("two_level") is two_level
+          and path.get("use_hist") is not two_level, f"{label}: path {path}")
+    check(len(grads) == cfg.steps and all(
+        v is not None and bool(torch.isfinite(v).all())
+        for step in grads for v in step.values()),
+        f"{label}: missing or non-finite gradients")
+    return out, grads, step_ms
+
+
+def drive_optimize(label, renderer, target, q, t, cfg, init_params):
+    """counted_optimize with the history, then its first step again with two
+    levels: the same loss and the same gradients bit for bit. Returns
+    (result, gradients per step, step ms, backward launches of the history
+    run, of the two-level step)."""
+    import torch
+
+    out, grads, step_ms = counted_optimize(label, renderer, target, q, t,
+                                           cfg, init_params)
+    out_2l, grads_2l, _ = counted_optimize(
+        label, renderer, target, q, t, dataclasses.replace(cfg, steps=1),
+        init_params, two_level=True)
+    check(out_2l["losses"][0] == out["losses"][0]
+          and all(torch.equal(v, grads[0][p])
+                  for p, v in grads_2l[0].items()),
+          f"{label}: the two-level step differs from the history's first")
+    print(f"{label}: the two-level step's loss and gradients equal the "
+          "history run's first bit for bit")
+    return out, grads, step_ms, cfg.steps, 1
+
+
+def counted_gradient(renderer, params, q, t, target, degree, alpha=False):
+    """One counted gradient of every leaf of a mode-0 MSE (``alpha``:
+    through render_with_alpha, plus the mean square alpha). Returns
+    ((forward, backward, march, march-backward launches, plain marches,
+    plain backwards, all finite), the leaves with their gradients)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    leaves = leaf_params(params)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = bk.LAUNCHES = bk.MARCH_LAUNCHES = mk.LAUNCHES = 0
+    with PlainMarchCalls() as pm, PlainBackwardCalls() as pb:
+        if alpha:
+            img, a = renderer.render_with_alpha(leaves, q, t, mode=0,
+                                                degree=degree)
+            loss = torch.mean((img - target) ** 2) + torch.mean(a ** 2)
+        else:
+            loss = torch.mean((renderer.render(leaves, q, t, mode=0,
+                                               degree=degree) - target) ** 2)
+        loss.backward()
+        torch.cuda.synchronize()
+    finite = all(v.grad is not None and bool(torch.isfinite(v.grad).all())
+                 for _, v in leaf_items(leaves))
+    return (rk.LAUNCHES, bk.LAUNCHES, mk.LAUNCHES, bk.MARCH_LAUNCHES, pm.n,
+            pb.n, finite), leaves
+
+
+def cli_optimize(args, backward_launches):
+    """The CLI's optimize, counted: ``backward_launches`` backward kernel
+    launches."""
+    import torch
+
+    from ray_marching_tpu_torch.cli import main as cli_main
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+    bk.LAUNCHES = 0
+    cli_main(["optimize", *args])
+    torch.cuda.synchronize()
+    check(bk.LAUNCHES == backward_launches,
+          f"cli optimize {args}: {bk.LAUNCHES} backward launches")
+
+
+def backward_timings(prog, flat, rays7, steps, m_rays7, reps, mats=()):
+    """The training kernels at tau = 0 by CUDA events: the backward in its
+    three modes in turns (history, two-level, recompute, then backwards),
+    its plain versions, the march-only mode at the march kernel's planes
+    ``m_rays7`` and its plain version, and the forward with history.
+    Returns {name: ms} and the turns."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    rng = np.random.default_rng(37)
+    g8 = torch.as_tensor(rng.standard_normal((8,) + tuple(rays7.shape[1:])),
+                         dtype=rays7.dtype).to(rays7.device)
+    g4 = torch.as_tensor(rng.standard_normal((4,) + tuple(m_rays7.shape[1:])),
+                         dtype=m_rays7.dtype).to(m_rays7.device)
+    _, ex = rk.march_forward(prog, flat, rays7, steps, 0.0, 5e-2,
+                             log_hist=True, mats=mats)
+    mode_kw = {"history": dict(hist=ex["hist"], nlive=ex["nlive"]),
+               "recompute": {}, "two-level": dict(two_level=True)}
+
+    def bwd(mode):
+        return bk.fused_backward(prog, flat, rays7, g8, steps, 0.0, 5e-2,
+                                 mats=mats, **mode_kw[mode])
+
+    turns = [(m, cuda_ms(lambda m=m: bwd(m), reps))
+             for m in ("history", "two-level", "recompute", "recompute",
+                       "two-level", "history")]
+    ms = {m: sum(v for n, v in turns if n == m) / 2 for m in mode_kw}
+    ms["plain"] = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, rays7, g8, steps, 0.0, 5e-2, mats=mats,
+        **mode_kw["history"]), 1)
+    ms["plain two-level"] = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, rays7, g8, steps, 0.0, 5e-2, mats=mats, two_level=True),
+        1)
+    ms["march-only"] = cuda_ms(lambda: bk.march_backward(
+        prog, flat, m_rays7, g4, steps, 0.0, mats), reps)
+    ms["plain march-only"] = cuda_ms(lambda: bk.reference_backward(
+        prog, flat, m_rays7, g4, steps, 0.0, None, march_only=True,
+        mats=mats), 1)
+    ms["forward with history"] = cuda_ms(lambda: rk.march_forward(
+        prog, flat, rays7, steps, 0.0, 5e-2, log_hist=True, mats=mats), reps)
+    return ms, turns
+
+
+def train_step_profile(renderer, params, trainable, q, t, target, degree,
+                       lr, reps, frames, times):
+    """One training step (render, mode-0 MSE, backward, Adam on the
+    ``trainable`` leaves) by CUDA events over ``reps`` steps, then profiled
+    (profile_frames, held against ``times`` of backward_timings). Returns
+    (step ms, the profile's ms per kernel)."""
+    import torch
+
+    leaves = leaf_params(params)
+    opt = torch.optim.Adam(list(trainable_leaves(leaves, trainable).values()),
+                           lr=lr)
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        torch.mean((renderer.render(leaves, q, t, mode=0, degree=degree)
+                    - target) ** 2).backward()
+        opt.step()
+
+    step_ms = cuda_ms(train_step, reps)
+    prof = profile_frames(train_step, step_ms, frames=frames, expect={
+        "void render_bwd_kernel<float": (times["history"], 1),
+        "void render_fwd_train_kernel<float>": (
+            times["forward with history"], 1)})
+    return step_ms, prof
+
+
+def backward_work(prog, rays7, steps, m_rays7, mats=()):
+    """Operations and bytes of each backward mode at tau = 0, every ray
+    sweeping every step: bytes of the planes, the history, the matrices and
+    the partial rows, each read or written once. With the history: 4 ray
+    planes (direction and valid), 8 cotangent planes, 6 output planes, the
+    live-step plane; the recompute reads all 7 ray planes and its scratch
+    is neither input nor output; the march-only mode reads 7 ray planes and
+    4 cotangent planes at the march kernel's planes ``m_rays7``. Returns
+    {mode: (ops, bytes)} and the partial rows' bytes per launch."""
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+    size = rays7.element_size()
+    mat_bytes = sum(m.numel() for m in mats) * size
+
+    def planes(r):
+        n = r.shape[1] * r.shape[2]
+        return n * size, -(-n // 128) * bk.partial_cols(prog) * size
+
+    plane, partial = planes(rays7)
+    m_plane, m_partial = planes(m_rays7)
+    n_valid = int((rays7[6] > 0.5).sum())
+    m_valid = int((m_rays7[6] > 0.5).sum())
+    swept, k = n_valid * steps, bk.CKPT_INTERVAL
+    work = {
+        "history": (bk.backward_ops(prog, n_valid, swept),
+                    19 * plane + (steps + 1) * 3 * plane + partial
+                    + mat_bytes),
+        "recompute": (bk.backward_ops(prog, n_valid, swept,
+                                      recomputed_steps=swept),
+                      21 * plane + partial + mat_bytes),
+        # Two levels march every step once for the checkpoints and k - 1
+        # of every k once more in the replay; the checkpoints are scratch.
+        "two-level": (bk.backward_ops(
+            prog, n_valid, swept,
+            recomputed_steps=swept + swept * (k - 1) // k),
+            21 * plane + partial + mat_bytes),
+        "march-only": (bk.backward_ops(prog, m_valid, m_valid * steps,
+                                       recomputed_steps=m_valid * steps,
+                                       march_only=True),
+                       17 * m_plane + m_partial + mat_bytes),
+    }
+    return work, partial
+
+
+def bounds_of(work):
+    """{name: (bound ms, what bounds it)} of {name: (ops, bytes)}."""
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        to, tb = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(to, tb), "operations" if to >= tb else "bytes")
+    return out
+
+
+def kernel_row(name, source, replaces, launches, ms, plain_ms, bound, card,
+               **extra):
+    """One entry of the kernels line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None, "card": card, **extra}
+
+
 def neural_backward_vs_plain(label, prog, flat, mats, rays7, tau, tol,
                              track_min=False, modes=("history",), seed=0,
                              mat_tol=None):
@@ -1340,55 +1720,34 @@ def neural_backward_vs_plain(label, prog, flat, mats, rays7, tau, tol,
     return e_rays, e_flat, max(e_mats), abs_rays
 
 
-def _straight_bf16(t):
-    """Rounded to bf16 on the way forward, its cotangent passed back as it
-    is (r - t is exact, so t + (r - t) is r)."""
-    import torch
-
-    return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
-
-
-class PlainBf16Rule:
-    """The plain version's matrix product with the cotangents of its bf16
-    operand casts rounded to bf16 (as autograd differentiates a cast) or
-    passed back unrounded: ``weights`` for the matrix, ``inputs`` for the
-    layer's input, while active."""
-
-    def __init__(self, weights, inputs):
-        self.weights, self.inputs = weights, inputs
+class UnroundedInputCotangents:
+    """The control of the bf16 check: while active, the plain version's cast
+    of a layer's input passes its cotangent back unrounded as well (the
+    package rounds it, scene/neural.py), so no cotangent is rounded."""
 
     def __enter__(self):
         import torch
 
         from ray_marching_tpu_torch.scene import neural
 
-        self._fn = neural._matmul_layer
-        cast_w = neural._bf16 if self.weights else _straight_bf16
-        cast_h = neural._bf16 if self.inputs else _straight_bf16
+        def straight(t):  # r - t is exact, so t + (r - t) is r
+            return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
 
-        def layer(node, params, h, index):
-            lhs, rhs = params[f"w{index}"].T, h
-            if node.matmul_dtype == "bfloat16" and h.dtype == torch.float32:
-                lhs, rhs = cast_w(lhs), cast_h(rhs)
-            return (torch.matmul(lhs, rhs)
-                    + params[f"b{index}"].reshape(-1, 1))
-
-        neural._matmul_layer = layer
+        self._fn, neural._bf16 = neural._bf16, straight
         return self
 
     def __exit__(self, *exc):
         from ray_marching_tpu_torch.scene import neural
 
-        neural._matmul_layer = self._fn
+        neural._bf16 = self._fn
 
 
 def neural_bf16_backward(prog, flat, mats, rays7, seed):
     """bf16 operands: the kernel (history, recompute and two-level bitwise
-    equal) against the plain version under the kernel's rounding rule
-    (TOL_NEURAL_BWD_BF16), against a control without any cotangent rounding,
-    which must fail the same limits, and, for the record, against the plain
-    version as it stands. Returns {reference: (share of converged rays
-    within BF16_RAY_RTOL, flat, matrices)}."""
+    equal) against the package's plain version, which follows the same bf16
+    rule (TOL_NEURAL_BWD_BF16), and against a control without any cotangent
+    rounding, which must fail the same limits. Returns {reference: (share
+    of converged rays within BF16_RAY_RTOL, flat, matrices)}."""
     import torch
 
     from ray_marching_tpu_torch.ops import backward_kernel as bk
@@ -1413,12 +1772,15 @@ def neural_bf16_backward(prog, flat, mats, rays7, seed):
           and bool(torch.isfinite(got[2][:, conv]).all()),
           f"{label}: non-finite cotangents")
     readings = {}
-    for name, weights, inputs in (("sound", False, True),
-                                  ("control", False, False),
-                                  ("plain", True, True)):
-        with PlainBf16Rule(weights, inputs):
+    for name in ("sound", "control"):
+        if name == "sound":
             ref = bk.reference_backward(prog, flat, rays7, g, NEURAL_STEPS,
                                         0.0, 5e-2, mats=mats, **handoff)
+        else:
+            with UnroundedInputCotangents():
+                ref = bk.reference_backward(prog, flat, rays7, g,
+                                            NEURAL_STEPS, 0.0, 5e-2,
+                                            mats=mats, **handoff)
         torch.cuda.synchronize()
         a, b = got[2][:, conv], ref[2][:, conv]
         per_ray = ((a - b).abs().amax(0)
@@ -1431,8 +1793,8 @@ def neural_bf16_backward(prog, flat, mats, rays7, seed):
                           rel_err(a, b))
         share, e_flat, e_mats, e_rays = readings[name]
         print(f"neural backward {label} vs plain ({name}: cotangents of the "
-              f"matrices {'rounded' if weights else 'f32'}, of the inputs "
-              f"{'rounded' if inputs else 'f32'}): share of "
+              f"matrices f32, of the inputs "
+              f"{'rounded' if name == 'sound' else 'f32'}): share of "
               f"{int(conv.sum())} converged rays within {BF16_RAY_RTOL:g} "
               f"{share:.4f} (per-ray relative difference quantiles 0.5 / 0.9 "
               f"/ 0.99: " + " / ".join(f"{float(v):.3e}" for v in q)
@@ -1468,14 +1830,12 @@ def neural_training(card, out_dir: Path):
     line."""
     import torch
 
-    from ray_marching_tpu_torch.cli import main as cli_main
     from ray_marching_tpu_torch.ops import backward_kernel as bk
     from ray_marching_tpu_torch.ops import march_kernel as mk
     from ray_marching_tpu_torch.ops import render_kernel as rk
-    from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
+    from ray_marching_tpu_torch.optim.inverse import InverseConfig
     from ray_marching_tpu_torch.render.fast import FastRenderer
     from ray_marching_tpu_torch.render.pipeline import Renderer
-    from ray_marching_tpu_torch.scene.graph import param_paths
 
     main, params = neural_renderer(NEURAL_RES, torch.float32)
     prog = main.program
@@ -1512,17 +1872,16 @@ def neural_training(card, out_dir: Path):
     _, _, ray_pos, ray_dirs = modular.camera.pose(modular._tensor(NEURAL_Q),
                                                   modular._tensor(NEURAL_T))
     m_rays7 = mk.rays_to_planes(ray_pos, ray_dirs).contiguous()
-    m_flat, m_mats = flat, mats
     g4 = torch.as_tensor(np.random.default_rng(36).standard_normal(
         (4,) + tuple(m_rays7.shape[1:])), dtype=torch.float32).to(
             m_rays7.device)
-    m_ref = mk.reference_march(prog, m_flat, m_rays7, NEURAL_STEPS, 0.0,
-                               m_mats)
+    m_ref = mk.reference_march(prog, flat, m_rays7, NEURAL_STEPS, 0.0,
+                               mats)
     m_conv = (m_rays7[6] > 0.5) & (m_ref[3].abs() < CONVERGED)
-    got = bk.march_backward(prog, m_flat, m_rays7, g4, NEURAL_STEPS, 0.0,
-                            m_mats)
-    want = bk.reference_backward(prog, m_flat, m_rays7, g4, NEURAL_STEPS,
-                                 0.0, None, march_only=True, mats=m_mats)
+    got = bk.march_backward(prog, flat, m_rays7, g4, NEURAL_STEPS, 0.0,
+                            mats)
+    want = bk.reference_backward(prog, flat, m_rays7, g4, NEURAL_STEPS,
+                                 0.0, None, march_only=True, mats=mats)
     torch.cuda.synchronize()
     mb_errs = (rel_err(got[2][:, m_conv], want[2][:, m_conv]),
                rel_err(got[0], want[0]),
@@ -1535,7 +1894,7 @@ def neural_training(card, out_dir: Path):
     check(max(mb_errs[:3]) <= TOL_NEURAL_BWD["f32"]
           and all(bool(torch.isfinite(m).all()) for m in got[1]),
           "neural march backward: kernel and plain disagree")
-    del got, want, m_ref
+    del got, want, m_ref, g4
     rbf, pbf = neural_renderer(small, torch.float32,
                                scene=neural_scene("bfloat16"))
     bf_flat, bf_mats, bf_rays = neural_rays(rbf, pbf)
@@ -1544,7 +1903,8 @@ def neural_training(card, out_dir: Path):
     del r64, p64, r32, p32, rbf, pbf, f_flat, f_mats, f_rays, s_flat, s_mats
     del s_rays, bf_flat, bf_mats, bf_rays
 
-    # The main path, counted: optimize() on the seven c1 leaves.
+    # The main path, counted: optimize() on the seven c1 leaves, then its
+    # first step again with two levels.
     target_r = FastRenderer(target_scene(), main.config, dtype=torch.float32,
                             grid_dtype=np.float32)
     with torch.no_grad():
@@ -1555,102 +1915,27 @@ def neural_training(card, out_dir: Path):
     # rate, and 1e-3 is 5 % of a hidden weight (the loss then rises).
     cfg = InverseConfig(learning_rate=1e-5, steps=NEURAL_TRAIN_STEPS, mode=0,
                         degree=1, trainable=NEURAL_TRAINABLE)
-    grads_finite, stamps = [], []
-
-    def seen(step, loss, state):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        grads_finite.append(all(
-            leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
-            for path, leaf in param_paths(state["params"]).items()
-            if path.startswith("c1/")))
-
-    torch.cuda.synchronize()
-    rk.LAUNCHES = bk.LAUNCHES = bk.MARCH_LAUNCHES = mk.LAUNCHES = 0
-    stamps.append(time.perf_counter())
-    with PlainMarchCalls() as plain, PlainBackwardCalls() as plain_bwd:
-        out = optimize(main, target, NEURAL_Q, NEURAL_T, cfg,
-                       init_params=params, callback=seen)
-        torch.cuda.synchronize()
-    fwd, bwd = rk.LAUNCHES, bk.LAUNCHES
-    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    moved = {p: float((out["params"]["c1"][p.split("/")[1]]
-                       - params["c1"][p.split("/")[1]]).abs().max())
-             for p in ("c1/w0", "c1/w1", "c1/w2", "c1/b0", "c1/b1", "c1/b2",
-                       "c1/radius")}
-    print(f"neural training main path (optimize, {NEURAL_TRAIN_STEPS} Adam "
-          f"steps on {NEURAL_TRAINABLE}, w256, {NEURAL_RES}x{NEURAL_RES}, "
-          f"{NEURAL_STEPS} steps): losses "
-          + " ".join(f"{v:.6e}" for v in out["losses"])
-          + f"; forward launches {fwd}, backward launches {bwd}, plain "
-          f"marches {plain.n}, plain backwards {plain_bwd.n}; step ms (host "
-          f"clock) " + " ".join(f"{v:.1f}" for v in step_ms)
-          + "; largest change per leaf "
+    out, _, step_ms, train_launches, two_level_launches = drive_optimize(
+        f"neural training main path (w256, {NEURAL_RES}x{NEURAL_RES}, "
+        f"{NEURAL_STEPS} steps)", main, target, NEURAL_Q, NEURAL_T, cfg,
+        params)
+    moved = {p: float((v - trainable_leaves(params, NEURAL_TRAINABLE)[p])
+                      .abs().max())
+             for p, v in trainable_leaves(out["params"],
+                                          NEURAL_TRAINABLE).items()}
+    print("neural training: largest change per leaf "
           + " ".join(f"{k}={v:.3e}" for k, v in moved.items()))
-    check(out["steps_run"] == NEURAL_TRAIN_STEPS
-          and all(np.isfinite(out["losses"])), "neural training: losses")
-    check(fwd == NEURAL_TRAIN_STEPS and bwd == NEURAL_TRAIN_STEPS
-          and plain.n == 0 and plain_bwd.n == 0,
-          "neural training: launches or plain calls")
-    check(all(grads_finite) and len(grads_finite) == NEURAL_TRAIN_STEPS,
-          "neural training: non-finite or missing gradients")
-    check(all(v > 0 for v in moved.values()),
+    check(len(moved) == 7 and all(v > 0 for v in moved.values()),
           "neural training: a c1 leaf did not move")
-    train_launches = bwd
-    # The same path with the two-level backward asked for: one step, one
-    # forward launch without a history and one two-level backward launch.
-    torch.cuda.synchronize()
-    rk.LAUNCHES = bk.LAUNCHES = 0
-    bk.LAST_PATH.clear()
-    rk.BWD_TWO_LEVEL = True
-    try:
-        with PlainMarchCalls() as plain, PlainBackwardCalls() as plain_bwd:
-            out_2l = optimize(main, target, NEURAL_Q, NEURAL_T,
-                              dataclasses.replace(cfg, steps=1),
-                              init_params=params)
-            torch.cuda.synchronize()
-    finally:
-        rk.BWD_TWO_LEVEL = False
-    two_level_launches = bk.LAUNCHES
-    print(f"neural training, two-level backward (1 step): loss "
-          f"{out_2l['losses'][0]:.6e} (history run's first "
-          f"{out['losses'][0]:.6e}); forward launches {rk.LAUNCHES}, "
-          f"backward launches {bk.LAUNCHES}, LAST_PATH {bk.LAST_PATH}, plain "
-          f"calls {plain.n + plain_bwd.n}")
-    check(rk.LAUNCHES == 1 and bk.LAUNCHES == 1
-          and bk.LAST_PATH.get("two_level") is True
-          and plain.n + plain_bwd.n == 0
-          and out_2l["losses"][0] == out["losses"][0],
-          "neural training, two-level backward")
 
-    def grad_once(renderer, alpha=False):
-        """One counted gradient of every leaf of a mode-0 MSE: (forward,
-        backward, march, march-backward launches, all finite)."""
-        leaves = leaf_params(params)
-        torch.cuda.synchronize()
-        rk.LAUNCHES = bk.LAUNCHES = bk.MARCH_LAUNCHES = mk.LAUNCHES = 0
-        with PlainMarchCalls() as pm, PlainBackwardCalls() as pb:
-            if alpha:
-                img, a = renderer.render_with_alpha(leaves, NEURAL_Q,
-                                                    NEURAL_T, mode=0,
-                                                    degree=1)
-                loss = torch.mean((img - target) ** 2) + torch.mean(a ** 2)
-            else:
-                loss = torch.mean((renderer.render(
-                    leaves, NEURAL_Q, NEURAL_T, mode=0, degree=1)
-                    - target) ** 2)
-            loss.backward()
-            torch.cuda.synchronize()
-        finite = all(v.grad is not None and bool(torch.isfinite(v.grad).all())
-                     for _, v in leaf_items(leaves))
-        return (rk.LAUNCHES, bk.LAUNCHES, mk.LAUNCHES, bk.MARCH_LAUNCHES,
-                pm.n, pb.n, finite)
-
-    alpha_counts = grad_once(main, alpha=True)
+    alpha_counts, _ = counted_gradient(main, params, NEURAL_Q, NEURAL_T,
+                                       target, 1, alpha=True)
     implicit = FastRenderer(neural_scene(), dataclasses.replace(
         main.config, backward="implicit"), dtype=torch.float32)
-    ift_counts = grad_once(implicit)
-    mod_counts = grad_once(modular)
+    ift_counts, _ = counted_gradient(implicit, params, NEURAL_Q, NEURAL_T,
+                                     target, 1)
+    mod_counts, _ = counted_gradient(modular, params, NEURAL_Q, NEURAL_T,
+                                     target, 1)
     print(f"neural gradients (launches: forward, backward, march, march "
           f"backward; plain marches, plain backwards; all finite): "
           f"render_with_alpha {alpha_counts}, backward='implicit' "
@@ -1662,104 +1947,31 @@ def neural_training(card, out_dir: Path):
     del implicit
 
     # The CLI's optimize on the JAX package's neural scene file.
-    bk.LAUNCHES = 0
-    cli_main(["optimize", "--scene-file", str(NEURAL_SCENE_FILE), "--width",
-              "128", "--height", "96", "--steps", "16", "--opt-steps", "2",
-              "--trainable", "c1"])
-    torch.cuda.synchronize()
-    check(bk.LAUNCHES == 2, f"cli optimize: {bk.LAUNCHES} backward launches")
+    cli_optimize(["--scene-file", str(NEURAL_SCENE_FILE), "--width", "128",
+                  "--height", "96", "--steps", "16", "--opt-steps", "2",
+                  "--trainable", "c1"], 2)
 
-    # Timing at the main configuration: the backward in each mode (in
-    # turns), its plain version, the march-only mode, a training step.
-    out_h, ex_h = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
-                                   log_hist=True, mats=mats)
-    g8 = torch.as_tensor(np.random.default_rng(37).standard_normal(
-        (8,) + tuple(rays7.shape[1:])), dtype=torch.float32).to(rays7.device)
-    mode_kw = {"history": dict(hist=ex_h["hist"], nlive=ex_h["nlive"]),
-               "recompute": {}, "two-level": dict(two_level=True)}
-
-    def bwd(mode):
-        return bk.fused_backward(prog, flat, rays7, g8, NEURAL_STEPS, 0.0,
-                                 5e-2, mats=mats, **mode_kw[mode])
-
-    turns = [(m, cuda_ms(lambda m=m: bwd(m), 2))
-             for m in ("history", "recompute", "two-level", "two-level",
-                       "recompute", "history")]
-    bwd_ms = {m: sum(v for n, v in turns if n == m) / 2 for m in mode_kw}
-    plain_ms = cuda_ms(lambda: bk.reference_backward(
-        prog, flat, rays7, g8, NEURAL_STEPS, 0.0, 5e-2, mats=mats,
-        **mode_kw["history"]), 1)
-    plain_2l_ms = cuda_ms(lambda: bk.reference_backward(
-        prog, flat, rays7, g8, NEURAL_STEPS, 0.0, 5e-2, mats=mats,
-        two_level=True), 1)
-    march_bwd_ms = cuda_ms(lambda: bk.march_backward(
-        prog, m_flat, m_rays7, g4, NEURAL_STEPS, 0.0, m_mats), 2)
-    march_bwd_plain_ms = cuda_ms(lambda: bk.reference_backward(
-        prog, m_flat, m_rays7, g4, NEURAL_STEPS, 0.0, None, march_only=True,
-        mats=m_mats), 1)
-    fwd_hist_ms = cuda_ms(lambda: rk.march_forward(
-        prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2, log_hist=True,
-        mats=mats), 2)
-    leaves = leaf_params(params)
-    opt = torch.optim.Adam([v for p, v in leaf_items(leaves)
-                            if p.startswith("c1/")], lr=1e-3)
-
-    def train_step():
-        opt.zero_grad(set_to_none=True)
-        torch.mean((main.render(leaves, NEURAL_Q, NEURAL_T, mode=0, degree=1)
-                    - target) ** 2).backward()
-        opt.step()
-
-    step_ev_ms = cuda_ms(train_step, 2)
-    prof = profile_frames(train_step, step_ev_ms, frames=2) or {}
+    # Timing at the main configuration, a training step and its profile.
+    times, turns = backward_timings(prog, flat, rays7, NEURAL_STEPS, m_rays7,
+                                    2, mats=mats)
+    step_ev_ms, prof = train_step_profile(
+        main, params, NEURAL_TRAINABLE, NEURAL_Q, NEURAL_T, target, 1, 1e-3,
+        2, 2, times)
     bwd_dev_ms = next((v for k, v in prof.items()
                        if k.startswith("void render_bwd_kernel<float")), None)
-    busy_ms = sum(prof.values()) if prof else None
+    busy_ms = sum(prof.values())
     print(f"neural training timing on {card} ({NEURAL_RES}x{NEURAL_RES}, "
-          f"{NEURAL_STEPS} steps, f32): backward "
-          + ", ".join(f"{m} {v:.3f} ms" for m, v in bwd_ms.items())
+          f"{NEURAL_STEPS} steps, f32): "
+          + ", ".join(f"{m} {v:.3f} ms" for m, v in times.items())
           + " (turns " + ", ".join(f"{n} {v:.3f}" for n, v in turns)
-          + f"); plain {plain_ms:.3f} ms, plain two-level {plain_2l_ms:.3f} "
-          f"ms; march-only {march_bwd_ms:.3f} ms, plain "
-          f"{march_bwd_plain_ms:.3f} ms; forward with history "
-          f"{fwd_hist_ms:.3f} ms; training step {step_ev_ms:.3f} ms (CUDA "
-          f"events), device busy {busy_ms} ms, backward kernel {bwd_dev_ms} "
-          "ms (profiler)")
+          + f"); training step {step_ev_ms:.3f} ms (CUDA events), device "
+          f"busy {busy_ms} ms, backward kernel {bwd_dev_ms} ms (profiler)")
 
     # Bounds: operations from the op counts (the MLP's VJP dominates),
     # bytes from the planes, the history, the matrices and the partial rows.
-    n_valid = int((rays7[6] > 0.5).sum())
-    swept = n_valid * NEURAL_STEPS
-    plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
-    mat_bytes = sum(m.numel() for m in mats) * rays7.element_size()
-    n_blocks = -(-rays7.shape[1] * rays7.shape[2] // 128)
-    partial_bytes = n_blocks * bk.partial_cols(prog) * rays7.element_size()
-    hist_bytes = (NEURAL_STEPS + 1) * 3 * plane_bytes
-    k = bk.CKPT_INTERVAL
-    bounds = {}
-    for mode, ops, nbytes in (
-            ("history", bk.backward_ops(prog, n_valid, swept),
-             19 * plane_bytes + hist_bytes + partial_bytes + mat_bytes),
-            ("recompute", bk.backward_ops(prog, n_valid, swept,
-                                          recomputed_steps=swept),
-             21 * plane_bytes + partial_bytes + mat_bytes),
-            ("two-level", bk.backward_ops(
-                prog, n_valid, swept,
-                recomputed_steps=swept + swept * (k - 1) // k),
-             21 * plane_bytes + partial_bytes + mat_bytes)):
-        bounds[mode] = (ops, ops / PEAK_F32_FLOPS * 1e3,
-                        nbytes / PEAK_BYTES * 1e3)
-    m_valid = int((m_rays7[6] > 0.5).sum())
-    m_plane_bytes = (m_rays7.shape[1] * m_rays7.shape[2]
-                     * m_rays7.element_size())
-    mb_ops = bk.backward_ops(prog, m_valid, m_valid * NEURAL_STEPS,
-                             recomputed_steps=m_valid * NEURAL_STEPS,
-                             march_only=True)
-    mb_bytes = (17 * m_plane_bytes + mat_bytes
-                + -(-m_rays7.shape[1] * m_rays7.shape[2] // 128)
-                * bk.partial_cols(prog) * m_rays7.element_size())
-    bounds["march-only"] = (mb_ops, mb_ops / PEAK_F32_FLOPS * 1e3,
-                            mb_bytes / PEAK_BYTES * 1e3)
+    work, partial_bytes = backward_work(prog, rays7, NEURAL_STEPS, m_rays7,
+                                        mats)
+    bounds = bounds_of(work)
     log = rk.BUILD_LOG.get(rk.kernel_key(prog), "")
     # The f32 history instantiation (no min_f, not two-level, not
     # march-only).
@@ -1767,47 +1979,36 @@ def neural_training(card, out_dir: Path):
     print(f"neural backward bounds ({prog.vjp_ops_per_eval} ops per SDF VJP, "
           f"{prog.ops_per_eval} per evaluation; partial rows "
           f"{partial_bytes} bytes per launch): "
-          + "; ".join(f"{m} {o} ops -> {to:.4f} ms, bytes -> {tb:.4f} ms"
-                      for m, (o, to, tb) in bounds.items())
+          + "; ".join(f"{m} {o} ops, {nb} bytes -> {bounds[m][0]:.4f} ms "
+                      f"({bounds[m][1]})" for m, (o, nb) in work.items())
           + f"; ptxas (f32, history): {regs[0]} registers, "
           f"{regs[1]} bytes stack, {regs[2]} bytes spilled")
-    del out_h, ex_h, g8, g4
 
-    def bound(mode):
-        _, to, tb = bounds[mode]
-        return max(to, tb), "operations" if to >= tb else "bytes"
-
-    common = {"route": "cuda", "library_ms": None, "card": card,
-              "source": "ray_marching_tpu_torch/ops/csrc/render_bwd.cu + "
-                        "ray_marching_tpu_torch/ops/csrc/neural.cuh"}
-    rows = []
-    for name, mode, replaces, launches, err, ms, p_ms in (
+    source = ("ray_marching_tpu_torch/ops/csrc/render_bwd.cu + "
+              "ray_marching_tpu_torch/ops/csrc/neural.cuh")
+    rows = [kernel_row(
+        name, source, replaces + " + ray_marching_tpu/scene/neural.py:232",
+        launches, times[mode], times[f"plain {mode}"
+                                     if mode != "history" else "plain"],
+        bounds[mode], card, max_abs_err=err[3], max_rel_err_rays=err[0],
+        max_rel_err_flat=err[1], max_rel_err_mats=err[2])
+        for name, mode, replaces, launches, err in (
             ("render_bwd_neural", "history",
-             "ray_marching_tpu/ops/pallas_backward.py:119 + "
-             "ray_marching_tpu/scene/neural.py:232", train_launches,
-             errs, bwd_ms["history"], plain_ms),
+             "ray_marching_tpu/ops/pallas_backward.py:119", train_launches,
+             errs),
             ("render_bwd_two_level_neural", "two-level",
-             "ray_marching_tpu/ops/pallas_backward.py:377 + "
-             "ray_marching_tpu/scene/neural.py:232", two_level_launches,
-             errs, bwd_ms["two-level"], plain_2l_ms),
+             "ray_marching_tpu/ops/pallas_backward.py:377",
+             two_level_launches, errs),
             ("march_bwd_neural", "march-only",
-             "ray_marching_tpu/ops/pallas_march.py:358 + "
-             "ray_marching_tpu/scene/neural.py:232", mod_counts[3], mb_errs,
-             march_bwd_ms, march_bwd_plain_ms)):
-        b_ms, b_by = bound(mode)
-        rows.append({
-            "name": name, "replaces": replaces, "launches": launches,
-            "max_abs_err": err[3], "max_rel_err_rays": err[0],
-            "max_rel_err_flat": err[1], "max_rel_err_mats": err[2],
-            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            **common})
-    rows[0].update(ms_recompute=bwd_ms["recompute"],
-                   bound_ms_recompute=bound("recompute")[0],
+             "ray_marching_tpu/ops/pallas_march.py:358", mod_counts[3],
+             mb_errs))]
+    rows[0].update(ms_recompute=times["recompute"],
+                   bound_ms_recompute=bounds["recompute"][0],
                    launches_render_with_alpha=alpha_counts[1],
                    launches_implicit=ift_counts[1],
                    optimize_step_ms=step_ms, step_ms=step_ev_ms,
                    step_busy_ms=busy_ms, profiler_kernel_ms=bwd_dev_ms,
-                   forward_with_history_ms=fwd_hist_ms,
+                   forward_with_history_ms=times["forward with history"],
                    partial_bytes=partial_bytes,
                    max_rel_err_tau_1e_3=max(loose["tau"][:3]),
                    max_rel_err_min_f=max(loose["min_f"][:3]),
@@ -1816,6 +2017,550 @@ def neural_training(card, out_dir: Path):
                    max_rel_err_bf16_mats=loose["bf16"]["sound"][2],
                    registers=regs[0], stack_bytes=regs[1],
                    spill_store_bytes=regs[2])
+    return rows
+
+
+def bulb_renderer(cls, width, height, dtype, steps=BULB_STEPS, tau=BULB_TAU,
+                  **kw):
+    """``cls`` (FastRenderer or Renderer) on the mandelbulb scene."""
+    import torch
+
+    from ray_marching_tpu_torch.scene import registry
+
+    cfg = dataclasses.replace(config(width, height, **kw),
+                              marching_steps=steps, tau=tau)
+    return cls(registry.make_scene("mandelbulb"), cfg, dtype=dtype,
+               grid_dtype=np.float64 if dtype == torch.float64
+               else np.float32)
+
+
+def with_scale(params, scale):
+    """``params`` with the bulb's scale leaf (c1/child/scale) set."""
+    import torch
+
+    child = dict(params["c1"]["child"])
+    child["scale"] = torch.full_like(child["scale"], scale)
+    return dict(params, c1=dict(params["c1"], child=child))
+
+
+def bulb_agreement(label, prog, flat, rays7, tau, control_flat):
+    """Kernel vs plain version over every valid ray of the frame: the share
+    whose 8 planes agree within TOL_F32 (at least BULB_MIN_AGREE), and the
+    same share for the kernel at the control's parameters, which must fall
+    below it. Returns (share, rays that disagree, control share)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    want = rk.reference_march_normals(prog, flat, rays7, BULB_STEPS, tau,
+                                      5e-2)
+    valid = rays7[6] > 0.5
+    tol = torch.as_tensor(TOL_F32, dtype=want.dtype,
+                          device=want.device)[:, None, None]
+
+    def share(params):
+        got = rk.fused_march_normals(prog, params, rays7, BULB_STEPS, tau,
+                                     5e-2)
+        ok = (((got - want).abs() <= tol)
+              | (torch.isnan(got) & torch.isnan(want))).all(0)[valid]
+        return float(ok.double().mean()), int((~ok).sum())
+
+    agree, n_bad = share(flat)
+    control, _ = share(control_flat)
+    torch.cuda.synchronize()
+    print(f"bulb agreement {label}: {agree:.6f} of {int(valid.sum())} valid "
+          f"rays agree with the plain version on every plane ({n_bad} do "
+          f"not; at least {BULB_MIN_AGREE}); the control (scale "
+          f"{BULB_CONTROL_SCALE:g}) {control:.6f}")
+    check(agree >= BULB_MIN_AGREE, f"bulb {label}: kernel and plain disagree")
+    check(control < BULB_MIN_AGREE,
+          f"bulb {label}: the limit does not tell the control apart")
+    return agree, n_bad, control
+
+
+def bulb_backward_vs_plain(label, prog, flat, rays7, tau, steps, f64, mode,
+                           control_flat, seed):
+    """One backward mode on the bulb against its plain version, ray by ray
+    and leaf by leaf (BULB_RAY_RTOL, BULB_RAY_SHARE, BULB_LEAF_RTOL, with
+    BULB_WILD), and two controls, which must fail the same limits: the
+    kernel at ``control_flat`` (the scale moved by BULB_CONTROL_SCALE), and
+    the kernel given every cotangent moved by up to BULB_CONTROL_G of
+    itself. ``mode`` is ``history`` (the forward's history handed over),
+    ``two-level`` or ``march-only`` (``rays7`` then the march kernel's
+    planes). Returns the readings: share of converged rays within the limit,
+    the largest per-ray and per-leaf relative differences, the largest
+    absolute difference of the ray cotangents, the rays left out of the
+    leaf sums, and each control's share and leaf difference."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    prec = "f64" if f64 else "f32"
+    march_only = mode == "march-only"
+    rng = np.random.default_rng(seed)
+    shape = (4 if march_only else 8,) + tuple(rays7.shape[1:])
+    g = torch.as_tensor(rng.standard_normal(shape),
+                        dtype=rays7.dtype).to(rays7.device)
+    g_moved = g * torch.as_tensor(
+        1.0 + BULB_CONTROL_G * rng.uniform(-1.0, 1.0, shape),
+        dtype=rays7.dtype).to(rays7.device)
+
+    def kernel(params, rays, cot):
+        if march_only:
+            return bk.march_backward(prog, params, rays, cot, steps, tau)
+        if mode == "two-level":
+            got = bk.fused_backward(prog, params, rays, cot, steps, tau, 5e-2,
+                                    two_level=True)
+            check(bk.LAST_PATH["two_level"], f"{label}: two levels did not "
+                                             "engage")
+            return got
+        _, ex = rk.march_forward(prog, params, rays, steps, tau, 5e-2,
+                                 log_hist=True)
+        return bk.fused_backward(prog, params, rays, cot, steps, tau, 5e-2,
+                                 hist=ex["hist"], nlive=ex["nlive"])
+
+    def plain(rays):
+        return bk.reference_backward(
+            prog, flat, rays, g, steps, tau, None if march_only else 5e-2,
+            two_level=mode == "two-level", march_only=march_only)
+
+    d = rk.fused_march_normals(prog, flat, rays7, steps, tau, 5e-2)[3]
+    valid = rays7[6] > 0.5
+    conv = valid & (d.abs() < CONVERGED)
+    want = plain(rays7)
+    size = want[2][:6].abs().amax(0)
+    tiny = torch.finfo(rays7.dtype).tiny
+    check(bool(torch.isfinite(want[2][:, conv]).all()),
+          f"{label}: non-finite plain ray cotangents")
+    median = float(size[conv].median())
+    tame = valid & (size <= BULB_WILD * median)
+    tame_rays = rays7.clone()
+    tame_rays[6] = tame.to(rays7.dtype)
+    want_tame = plain(tame_rays)[0][prog.scalar_offsets]
+
+    def readings(params, cot):
+        got = kernel(params, rays7, cot)
+        diff = (got[2][:6] - want[2][:6]).abs().amax(0)
+        per_ray = (diff / size.clamp_min(tiny))[conv]
+        leaves = kernel(params, tame_rays, cot)[0][prog.scalar_offsets]
+        per_leaf = ((leaves - want_tame).abs()
+                    / want_tame.abs().clamp_min(tiny))
+        finite = (bool(torch.isfinite(got[2][:, conv]).all())
+                  and bool(torch.isfinite(leaves).all()))
+        return (float((per_ray <= BULB_RAY_RTOL[prec]).double().mean()),
+                float(per_ray.max()), float(per_leaf.max()),
+                float(diff[conv].max()), finite,
+                torch.quantile(per_ray.double(), torch.tensor(
+                    [0.5, 0.99, 0.999], dtype=torch.float64,
+                    device=per_ray.device)).tolist(), per_leaf.tolist())
+
+    runs = {"kernel": readings(flat, g),
+            "control scale": readings(control_flat, g),
+            "control cotangents": readings(flat, g_moved)}
+    torch.cuda.synchronize()
+
+    def within(r):
+        return r[0] >= BULB_RAY_SHARE and r[2] <= BULB_LEAF_RTOL[prec]
+
+    n_wild = int((valid & ~tame).sum())
+    for name, r in runs.items():
+        print(f"bulb backward {label} {mode} vs plain, {name}: share of "
+              f"{int(conv.sum())} converged rays within "
+              f"{BULB_RAY_RTOL[prec]:g} of their own largest cotangent "
+              f"{r[0]:.6f} (quantiles 0.5 / 0.99 / 0.999 "
+              + " / ".join(f"{v:.3e}" for v in r[5])
+              + f", largest {r[1]:.3e}; largest absolute {r[3]:.3e}); "
+              f"largest leaf difference over its own size {r[2]:.3e} on the "
+              f"rays within {BULB_WILD:g}x the median ray's {median:.3e} "
+              f"({n_wild} of {int(valid.sum())} left out; each leaf "
+              + " ".join(f"{v:.1e}" for v in r[6])
+              + f"); finite {r[4]}; within the limits {within(r)}")
+    sound = runs["kernel"]
+    check(sound[4] and within(sound), f"{label} {mode}: kernel and plain "
+                                      "disagree")
+    for name in ("control scale", "control cotangents"):
+        check(not within(runs[name]),
+              f"{label} {mode}: the limits do not tell the {name} apart")
+    return {"ray_share_within": sound[0], "max_rel_err_rays": sound[1],
+            "max_rel_err_leaves": sound[2], "max_abs_err": sound[3],
+            "rays_left_out_of_leaves": n_wild,
+            "ray_share_within_control_scale": runs["control scale"][0],
+            "max_rel_err_leaves_control_scale": runs["control scale"][2],
+            "ray_share_within_control_cotangents":
+                runs["control cotangents"][0],
+            "max_rel_err_leaves_control_cotangents":
+                runs["control cotangents"][2]}
+
+
+def bulb_ptxas(log):
+    """(entry, registers, stack frame bytes, spill store bytes) of every
+    kernel in a build's ``-Xptxas -v`` report."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", chunk)
+        out.append((chunk.split("'")[0], int(regs.group(1)),
+                    int(frame.group(1)), int(frame.group(2))))
+    return out
+
+
+def bulb_slice(card, out_dir: Path):
+    """The Mandelbulb slice on the card: the bulb's library (registers,
+    stack), every kernel against its plain version (forward at tau = 1e-4
+    and 0 with the agreement limit and its control, the training outputs,
+    the backward with history and recompute, the march and its backward,
+    the two-level backward; each backward mode ray by ray and leaf by leaf
+    with its controls; f32 at 1440×900, f64 at 256×160), then the main
+    paths, counted: the README's serving command, 20 FastRenderer frames and
+    20 Renderer(use_pallas=True) frames, 3 optimize() steps on the scale
+    leaf, one two-level step, one modular gradient and the CLI's optimize;
+    timings, profiles and bounds. Returns its rows of the kernels line."""
+    import torch
+
+    from ray_marching_tpu_torch.cli import main as cli_main
+    from ray_marching_tpu_torch.io.image import write_png
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.ops.params import split_params_padded
+    from ray_marching_tpu_torch.optim.inverse import InverseConfig
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+
+    main = bulb_renderer(FastRenderer, BULB_W, BULB_H, torch.float32)
+    prog = main.program
+    key = rk.kernel_key(prog)
+    entries = bulb_ptxas(rk.BUILD_LOG.get(key, ""))
+    print(f"bulb library {key}: {prog.ops_per_eval} ops per SDF evaluation, "
+          f"{prog.vjp_ops_per_eval} per SDF VJP; ptxas (registers, stack "
+          "bytes, spill store bytes): "
+          + "; ".join(f"{e[:40]} {r} {f} {sp}" for e, r, f, sp in entries))
+    errs = {}
+
+    # 1. Kernels vs plain versions, f32 at the main paths' planes: the
+    # fused kernels at FastRenderer's, the march kernel and its backward at
+    # the modular Renderer's.
+    flat, rays7 = main_rays(main, BENCH_Q, BENCH_T)
+    modular = bulb_renderer(Renderer, BULB_W, BULB_H, torch.float32,
+                            use_pallas=True)
+    m_flat, m_rays7 = modular_rays(modular, BENCH_Q, BENCH_T)
+    control_flat, _, _ = split_params_padded(
+        with_scale(main.init_params, BULB_CONTROL_SCALE), torch.float32,
+        main.device)
+    label = f"f32 {BULB_W}x{BULB_H} mandelbulb"
+    for tau in (BULB_TAU, 0.0):
+        errs[("fwd", tau)] = compare(f"{label} tau={tau:g}", prog, flat,
+                                     rays7, tau, False, steps=BULB_STEPS)
+    errs["agree"] = bulb_agreement(f"{label} tau={BULB_TAU:g}", prog, flat,
+                                   rays7, BULB_TAU, control_flat)
+    ref = compare_training_outputs(f"{label} tau={BULB_TAU:g}", prog, flat,
+                                   rays7, BULB_TAU, steps=BULB_STEPS)
+    _, masked = compare_backward(f"{label} tau={BULB_TAU:g}", prog, flat,
+                                 rays7, BULB_TAU, False, ref, 61,
+                                 steps=BULB_STEPS)
+    check(not masked, f"{label}: plain backward non-finite on the main path")
+    del ref
+    errs["march"], _ = compare_march(
+        f"{label} tau={BULB_TAU:g}", prog, m_flat, m_rays7, BULB_TAU, False,
+        backward=True, steps=BULB_STEPS)
+    compare_two_level(f"{label} tau=0 {BULB_TRAIN_MARCH} steps", prog, flat,
+                      rays7, False, 62, steps=BULB_TRAIN_MARCH)
+
+    def by_ray(lab, f_flat, f_rays, m_flat_, m_rays, ctrl, f64, runs):
+        """bulb_backward_vs_plain for each (steps, tau, modes) of ``runs``;
+        the march-only mode at the march kernel's planes."""
+        for steps, tau, modes in runs:
+            for i, mode in enumerate(modes):
+                march = mode == "march-only"
+                errs[(mode, steps, tau, f64)] = bulb_backward_vs_plain(
+                    f"{lab} {steps} steps tau={tau:g}", prog,
+                    m_flat_ if march else f_flat, m_rays if march else f_rays,
+                    tau, steps, f64, mode, ctrl, 70 + i)
+
+    # Each backward mode ray by ray and leaf by leaf: at the serving
+    # configuration and at the training one.
+    by_ray(label, flat, rays7, m_flat, m_rays7, control_flat, False,
+           ((BULB_STEPS, BULB_TAU, ("history", "march-only")),
+            (BULB_TRAIN_MARCH, 0.0, ("history", "two-level", "march-only"))))
+    # tau = 0 at 64 steps: the f32 parameter cotangent overflows in the
+    # kernel and the plain version alike (BULB_TRAIN_MARCH says why).
+    out0, ex0 = rk.march_forward(prog, flat, rays7, BULB_STEPS, 0.0, 5e-2,
+                                 log_hist=True)
+    g0 = torch.as_tensor(np.random.default_rng(63).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=torch.float32).to(rays7.device)
+    finite = [bool(torch.isfinite(r[0][prog.scalar_offsets]).all()) for r in (
+        bk.fused_backward(prog, flat, rays7, g0, BULB_STEPS, 0.0, 5e-2,
+                          hist=ex0["hist"], nlive=ex0["nlive"]),
+        bk.reference_backward(prog, flat, rays7, g0, BULB_STEPS, 0.0, 5e-2,
+                              hist=ex0["hist"], nlive=ex0["nlive"]))]
+    print(f"bulb backward {label} tau=0 {BULB_STEPS} steps: parameter "
+          f"cotangent finite: kernel {finite[0]}, plain version {finite[1]} "
+          "(the derivative of the march grows with the steps a converged ray "
+          "takes at the fractal's surface)")
+    del out0, ex0, g0
+
+    # f64 at 256×160, tight limits.
+    r64 = bulb_renderer(FastRenderer, BULB_F64_W, BULB_F64_H, torch.float64)
+    f_flat, f_rays = main_rays(r64, BENCH_Q, BENCH_T)
+    m64 = bulb_renderer(Renderer, BULB_F64_W, BULB_F64_H, torch.float64,
+                        use_pallas=True)
+    mf_flat, mf_rays = modular_rays(m64, BENCH_Q, BENCH_T)
+    f_control, _, _ = split_params_padded(
+        with_scale(r64.init_params, BULB_CONTROL_SCALE), torch.float64,
+        r64.device)
+    label64 = f"f64 {BULB_F64_W}x{BULB_F64_H} mandelbulb"
+    for tau in (BULB_TAU, 0.0):
+        lab = f"{label64} tau={tau:g}"
+        compare(lab, prog, f_flat, f_rays, tau, True, steps=BULB_STEPS)
+        ref = compare_training_outputs(lab, prog, f_flat, f_rays, tau,
+                                       steps=BULB_STEPS)
+        _, masked = compare_backward(lab, prog, f_flat, f_rays, tau, True,
+                                     ref, 64, steps=BULB_STEPS)
+        check(not masked, f"{lab}: plain backward non-finite")
+        compare_march(lab, prog, mf_flat, mf_rays, tau, True, backward=True,
+                      steps=BULB_STEPS)
+    compare_two_level(f"{label64} tau=0", prog, f_flat, f_rays, True, 65,
+                      steps=BULB_STEPS)
+    by_ray(label64, f_flat, f_rays, mf_flat, mf_rays, f_control, True,
+           ((BULB_STEPS, BULB_TAU, ("history", "march-only")),
+            (BULB_STEPS, 0.0, ("history", "two-level", "march-only"))))
+    f64_runs = [v for k, v in errs.items() if len(k) == 4 and k[3]]
+    del r64, m64, f_flat, f_rays, mf_flat, mf_rays, f_control, ref
+
+    # 2. Serving, counted: the README's command, then 20 frames of the
+    # same configuration through FastRenderer and through the modular
+    # Renderer(use_pallas=True), timed with CUDA events.
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = mk.LAUNCHES = 0
+    with PlainMarchCalls() as plain:
+        cli_main(BULB_CLI + ["-o", str(out_dir / "mandelbulb_cli.png")])
+        torch.cuda.synchronize()
+    cli_launches = rk.LAUNCHES
+    check(cli_launches == 1 and plain.n == 0,
+          f"bulb cli render: {cli_launches} launches, {plain.n} plain")
+    params = main.init_params
+
+    def frames(renderer, counter):
+        renderer.render(params, BENCH_Q, BENCH_T, mode=BULB_MODE, degree=2)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        counter.LAUNCHES = 0
+        with torch.no_grad(), PlainMarchCalls() as plain:
+            start.record()
+            for _ in range(BULB_FRAMES):
+                img = renderer.render(params, BENCH_Q, BENCH_T,
+                                      mode=BULB_MODE, degree=2)
+            stop.record()
+            torch.cuda.synchronize()
+        return (img, counter.LAUNCHES, plain.n,
+                start.elapsed_time(stop) / BULB_FRAMES)
+
+    frame, launches, n_plain, frame_ms = frames(main, rk)
+    mod_frame, mod_launches, m_plain, mod_ms = frames(modular, mk)
+    print(f"bulb serving ({BULB_W}x{BULB_H}, {BULB_STEPS} steps, tau "
+          f"{BULB_TAU:g}, mode normal): cli render 1 launch; FastRenderer "
+          f"{BULB_FRAMES} frames, forward launches {launches}, plain marches "
+          f"{n_plain}, {frame_ms:.4f} ms per frame; Renderer(use_pallas="
+          f"True) {BULB_FRAMES} frames, march launches {mod_launches}, plain "
+          f"marches {m_plain}, {mod_ms:.4f} ms per frame (CUDA events)")
+    check((launches, n_plain, mod_launches, m_plain)
+          == (BULB_FRAMES, 0, BULB_FRAMES, 0), "bulb serving: launches")
+    shape = (1, BULB_H, BULB_W, 3)
+    for name, img in (("mandelbulb_normal", frame),
+                      ("mandelbulb_modular_normal", mod_frame)):
+        check(tuple(img.shape) == shape and bool(torch.isfinite(img).all()),
+              f"{name}: shape or non-finite pixels")
+        write_png(out_dir / f"{name}.png", img)
+    with torch.no_grad():
+        hit, _ = main._march_planes(params, *main._pose_planes(
+            *main._pose(BENCH_Q, BENCH_T)), BULB_STEPS)
+        conv = main._assemble([(hit[3].abs() < CONVERGED).to(torch.float32)]
+                              ) > 0.5
+    diff = (mod_frame - frame).abs()[conv.expand_as(frame)]
+    share = float((diff > MODULAR_VS_FAST_ATOL).float().mean())
+    print(f"bulb modular frame vs FastRenderer frame: {int(conv.sum())} "
+          f"converged pixels, max abs diff {float(diff.max()):.3e}, share "
+          f"above {MODULAR_VS_FAST_ATOL:g} {share:.3e}")
+    check(share <= MAX_SHARE_OUT_F32, "bulb modular and fast frames differ")
+    del hit, conv, diff, frame, mod_frame
+
+    # 3. Training, counted: optimize() on the scale leaf at the training
+    # configuration (BULB_TRAIN_MARCH march steps, tau = 0), its first step
+    # again with two levels, one gradient through the modular
+    # Renderer(use_pallas=True) and the CLI's optimize.
+    trainer = bulb_renderer(FastRenderer, BULB_W, BULB_H, torch.float32,
+                            steps=BULB_TRAIN_MARCH, tau=0.0)
+    with torch.no_grad():
+        target = trainer.render(params, BENCH_Q, BENCH_T, mode=0, degree=2)
+    start_params = with_scale(params, BULB_SCALE0)
+    cfg = InverseConfig(learning_rate=1e-2, steps=BULB_TRAIN_STEPS, mode=0,
+                        degree=2, trainable=["c1/child/scale"])
+    out, grads, step_ms, train_launches, two_level_launches = drive_optimize(
+        f"bulb training ({BULB_W}x{BULB_H}, {BULB_TRAIN_MARCH} steps, tau 0, "
+        f"scale from {BULB_SCALE0})", trainer, target, BENCH_Q, BENCH_T, cfg,
+        start_params)
+    scales = [float(g["c1/child/scale"]) for g in grads]
+    print(f"bulb training: scale -> "
+          f"{float(out['params']['c1']['child']['scale']):.6f}")
+    check(all(v != 0.0 for v in scales), "bulb training: zero scale gradient")
+    mod_train = bulb_renderer(Renderer, BULB_W, BULB_H, torch.float32,
+                              steps=BULB_TRAIN_MARCH, tau=0.0,
+                              use_pallas=True)
+    mod_counts, leaves = counted_gradient(mod_train, start_params, BENCH_Q,
+                                          BENCH_T, target, 2)
+    mod_grad = float(leaves["c1"]["child"]["scale"].grad)
+    print(f"bulb modular gradient (launches: forward, backward, march, march "
+          f"backward; plain marches, plain backwards; all finite) "
+          f"{mod_counts}; scale gradient {mod_grad:.6e}")
+    check(mod_counts == (0, 0, 1, 1, 0, 0, True) and mod_grad != 0.0,
+          "bulb modular gradient")
+    del leaves, mod_train
+    cli_optimize(["--scene", "mandelbulb", "--target", "selftest",
+                  "--trainable", "c1/child/scale", "--steps",
+                  str(BULB_TRAIN_MARCH), "--opt-steps", "2"], 2)
+
+    # 4. Timing at the main paths' own inputs: serving at the scene's
+    # parameters, training at the start of the fit. At tau = 0 every ray
+    # sweeps every step: the kernels' work does not depend on where Adam
+    # has moved the scale.
+    s2 = BULB_TRAIN_MARCH
+    t_flat, _, _ = split_params_padded(start_params, torch.float32,
+                                       main.device)
+    ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7,
+                                                BULB_STEPS, BULB_TAU, 5e-2),
+                 20)
+    ms_tau0 = cuda_ms(lambda: rk.fused_march_normals(
+        prog, flat, rays7, BULB_STEPS, 0.0, 5e-2), 10)
+    plain_ms = cuda_ms(lambda: rk.reference_march_normals(
+        prog, flat, rays7, BULB_STEPS, BULB_TAU, 5e-2), 1)
+    march_ms = cuda_ms(lambda: mk.march_planes(prog, m_flat, m_rays7,
+                                               BULB_STEPS, BULB_TAU), 20)
+    march_plain_ms = cuda_ms(lambda: mk.reference_march(
+        prog, m_flat, m_rays7, BULB_STEPS, BULB_TAU), 1)
+    times, turns = backward_timings(prog, t_flat, rays7, s2, m_rays7, 3)
+    # The backward with history at the serving configuration, for the
+    # record.
+    g8 = torch.as_tensor(np.random.default_rng(66).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=torch.float32).to(rays7.device)
+    _, ex_h = rk.march_forward(prog, flat, rays7, BULB_STEPS, BULB_TAU,
+                               5e-2, log_hist=True)
+    bwd_serving_ms = cuda_ms(lambda: bk.fused_backward(
+        prog, flat, rays7, g8, BULB_STEPS, BULB_TAU, 5e-2, hist=ex_h["hist"],
+        nlive=ex_h["nlive"]), 3)
+    del ex_h, g8
+    step_ev_ms, step_prof = train_step_profile(
+        trainer, start_params, cfg.trainable, BENCH_Q, BENCH_T, target, 2,
+        1e-2, 5, 3, times)
+    frame_prof = profile_frames(
+        lambda: main.render(params, BENCH_Q, BENCH_T, mode=BULB_MODE,
+                            degree=2), frame_ms, frames=3,
+        expect={"void render_fwd_kernel<float>": (ms, 1)})
+    print(f"bulb timing on {card} ({BULB_W}x{BULB_H}, f32): serving "
+          f"({BULB_STEPS} steps, tau {BULB_TAU:g}): forward kernel "
+          f"{ms:.4f} ms ({ms_tau0:.4f} at tau 0), plain {plain_ms:.3f} ms; "
+          f"march kernel {march_ms:.4f} ms, plain {march_plain_ms:.3f} ms; "
+          f"training ({s2} steps, tau 0, scale {BULB_SCALE0}): "
+          + ", ".join(f"{m} {v:.4f} ms" for m, v in times.items())
+          + " (turns " + ", ".join(f"{n} {v:.4f}" for n, v in turns)
+          + f"); backward with history at the serving configuration "
+          f"{bwd_serving_ms:.4f} ms; training step {step_ev_ms:.4f} ms (CUDA "
+          f"events), device busy {sum(step_prof.values()):.4f} ms "
+          f"(profiler); serving frame {frame_ms:.4f} ms, busy "
+          f"{sum(frame_prof.values()):.4f} ms")
+
+    # 5. Bounds from this run's inputs: operations from the op counts and
+    # the steps the rays really took, bytes from the planes, the history
+    # and the partial rows, each read or written once.
+    n_valid = int((rays7[6] > 0.5).sum())
+    live_sum, n_frozen = live_steps(prog, flat, rays7, BULB_STEPS, BULB_TAU)
+    m_valid = int((m_rays7[6] > 0.5).sum())
+    m_live, m_frozen = live_steps(prog, m_flat, m_rays7, BULB_STEPS,
+                                  BULB_TAU)
+    plane = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
+    m_plane = m_rays7.shape[1] * m_rays7.shape[2] * m_rays7.element_size()
+    work, _ = backward_work(prog, rays7, s2, m_rays7)
+    work.update({
+        "forward": (forward_ops_live(prog, n_valid, live_sum, n_frozen),
+                    15 * plane),
+        # A march evaluates once per live step, once where it froze and
+        # once at its end.
+        "march": ((m_live + m_frozen + m_valid) * prog.ops_per_eval
+                  + m_live * rk.OPS_PER_STEP, 11 * m_plane),
+    })
+    bounds = bounds_of(work)
+    print(f"bulb bounds (serving: live steps per valid ray "
+          f"{live_sum / n_valid:.3f}, march {m_live / m_valid:.3f}): "
+          + "; ".join(f"{n} {work[n][0]} ops, {work[n][1]} bytes -> "
+                      f"{b:.4f} ms ({by})" for n, (b, by) in bounds.items()))
+
+    regs = {e: (r, f, sp) for e, r, f, sp in entries}
+
+    def ptx(kernel, args):
+        r, f, sp = next((v for e, v in regs.items()
+                         if re.match(r"_Z\d+" + kernel + args, e)),
+                        (None, None, None))
+        return {"registers": r, "stack_bytes": f, "spill_store_bytes": sp}
+
+    rows = [kernel_row(
+        name, f"ray_marching_tpu_torch/ops/csrc/{source}",
+        f"ray_marching_tpu/ops/{replaces}", n, t, p_ms, bounds[work_key],
+        card, scene="mandelbulb", **ptx(*ptx_key), **err)
+        for name, source, replaces, n, t, p_ms, work_key, ptx_key, err in (
+            ("render_fwd_bulb", "render_fwd.cu", "pallas_render.py:227",
+             launches + cli_launches, ms, plain_ms, "forward",
+             ("render_fwd_kernel", "IfE"),
+             {"max_abs_err": errs[("fwd", BULB_TAU)]}),
+            ("march_bulb", "march.cu", "pallas_march.py:173", mod_launches,
+             march_ms, march_plain_ms, "march", ("march_kernel", "IfE"),
+             {"max_abs_err": errs["march"]}),
+            ("render_bwd_bulb", "render_bwd.cu", "pallas_backward.py:119",
+             train_launches, times["history"], times["plain"], "history",
+             ("render_bwd_kernel", "IfLb0ELb0ELb0EE"),
+             errs[("history", s2, 0.0, False)]),
+            ("render_bwd_two_level_bulb", "render_bwd.cu",
+             "pallas_backward.py:377", two_level_launches,
+             times["two-level"], times["plain two-level"], "two-level",
+             ("render_bwd_kernel", "IfLb0ELb1ELb0EE"),
+             errs[("two-level", s2, 0.0, False)]),
+            ("march_bwd_bulb", "render_bwd.cu", "pallas_march.py:358",
+             mod_counts[3], times["march-only"], times["plain march-only"],
+             "march-only", ("render_bwd_kernel", "IfLb0ELb0ELb1EE"),
+             errs[("march-only", s2, 0.0, False)]))]
+    rows[0].update(ms_tau_0=ms_tau0, frame_ms=frame_ms,
+                   agree_share=errs["agree"][0],
+                   disagreeing_rays=errs["agree"][1],
+                   agree_share_control=errs["agree"][2],
+                   profiler_kernel_ms=next(
+                       (v for k_, v in frame_prof.items()
+                        if k_.startswith("void render_fwd_kernel<float>")),
+                       None))
+    rows[1].update(frame_ms=mod_ms)
+    serving = {mode: errs[(mode, BULB_STEPS, BULB_TAU, False)]
+               for mode in ("history", "march-only")}
+    for row in rows[2:]:
+        row.update(steps=s2, f64_min_ray_share_within=min(
+            r["ray_share_within"] for r in f64_runs),
+            f64_max_rel_err_leaves=max(
+                r["max_rel_err_leaves"] for r in f64_runs))
+    rows[2].update(ms_recompute=times["recompute"],
+                   bound_ms_recompute=bounds["recompute"][0],
+                   ms_serving_configuration=bwd_serving_ms,
+                   forward_with_history_ms=times["forward with history"],
+                   step_ms=step_ev_ms, step_busy_ms=sum(step_prof.values()),
+                   optimize_step_ms=step_ms, losses=out["losses"],
+                   scale_gradients=scales,
+                   profiler_kernel_ms=next(
+                       (v for k_, v in step_prof.items()
+                        if k_.startswith("void render_bwd_kernel<float")),
+                       None),
+                   **{f"serving_{k}": v
+                      for k, v in serving["history"].items()})
+    rows[4].update(**{f"serving_{k}": v
+                      for k, v in serving["march-only"].items()})
     return rows
 
 
@@ -1844,8 +2589,8 @@ def run(out_dir: Path):
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. Build every kernel of the run, all nvcc processes together: the
-    # analytic scenes, the neural slices' scenes and the analytic target of
-    # the weights check.
+    # analytic scenes, the neural slices' scenes, the analytic target of
+    # the weights check and the Mandelbulb.
     scenes = ("test_scene2", "test_scene")
     programs = {s: SdfProgram(registry.make_scene(s)) for s in scenes}
     programs.update({
@@ -1853,6 +2598,7 @@ def run(out_dir: Path):
         "neural w256 bf16": SdfProgram(neural_scene("bfloat16")),
         "neural_demo": SdfProgram(registry.make_scene("neural_demo")),
         "distillation target": SdfProgram(target_scene()),
+        "mandelbulb": SdfProgram(registry.make_scene("mandelbulb")),
     })
     t0 = time.perf_counter()
     rk.build_kernels(programs.values())
@@ -2033,16 +2779,8 @@ def run(out_dir: Path):
     ops = rk.kernel_ops(prog, n_valid, STEPS)
     nbytes = 15 * plane_bytes
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    # tau = 1e-3: a ray evaluates the SDF once per live step, once more when
-    # it freezes before the last step, and 5 times in the tail.
-    _, ex_tau = rk.march_forward(prog, flat, rays7, STEPS, 1e-3, 5e-2,
-                                 log_hist=True)
-    nlive = ex_tau["nlive"][rays7[6] > 0.5].long()
-    live_sum = int(nlive.sum())
-    tau_ops = ((live_sum + int((nlive < STEPS).sum()) + 5 * n_valid)
-               * prog.ops_per_eval + live_sum * rk.OPS_PER_STEP
-               + n_valid * rk.OPS_TAIL)
-    del ex_tau
+    live_sum, n_frozen = live_steps(prog, flat, rays7, STEPS, 1e-3)
+    tau_ops = forward_ops_live(prog, n_valid, live_sum, n_frozen)
     print(f"timing on {card}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"frame (FastRenderer.render) {frame_ms:.4f} ms; bound: "
           f"{ops} ops ({prog.ops_per_eval} per SDF evaluation) -> "
@@ -2051,8 +2789,9 @@ def run(out_dir: Path):
           f"{live_sum / n_valid:.3f}, {tau_ops} ops -> "
           f"{tau_ops / PEAK_F32_FLOPS * 1e3:.4f} ms")
     prof = profile_frames(lambda: main.render(main.init_params, q, t,
-                                              mode=0, degree=2), frame_ms)
-    kernel_dev_ms = next((v for k, v in (prof or {}).items()
+                                              mode=0, degree=2), frame_ms,
+                          expect={"void render_fwd_kernel<float>": (ms, 1)})
+    kernel_dev_ms = next((v for k, v in prof.items()
                           if k.startswith("void render_fwd_kernel<float>")),
                          None)
 
@@ -2219,7 +2958,8 @@ def run(out_dir: Path):
     print(f"modular frame (Renderer.render, use_pallas=True, 1080p) on "
           f"{card}: {modular_ms:.4f} ms; with one reflection bounce "
           f"{bounce_ms:.4f} ms")
-    mod_prof = profile_frames(modular_frame, modular_ms) or {}
+    mod_prof = profile_frames(modular_frame, modular_ms, expect={
+        "void march_kernel<float>": (march_ms, 1)})
     march_dev_ms = next((v for k_, v in mod_prof.items()
                          if k_.startswith("void march_kernel<float>")), None)
     if march_dev_ms is not None:
@@ -2255,12 +2995,18 @@ def run(out_dir: Path):
               f"{'history' if hist else 'recompute'}): "
               f"{step_ms[hist]:.4f} ms")
         if hist == default_hist:
-            step_prof = profile_frames(train_step, step_ms[hist])
+            expect = {"void render_bwd_kernel<float": (
+                bwd_hist_ms if hist else bwd_rec_ms, 1)}
+            if hist:
+                expect["void render_fwd_train_kernel<float>"] = (fwd_hist_ms,
+                                                                 1)
+            step_prof = profile_frames(train_step, step_ms[hist],
+                                       expect=expect)
     rk.BWD_HIST = default_hist
-    bwd_dev_ms = next((v for k, v in (step_prof or {}).items()
+    bwd_dev_ms = next((v for k, v in step_prof.items()
                        if k.startswith("void render_bwd_kernel<float")), None)
     fwd_train_dev_ms = next(
-        (v for k, v in (step_prof or {}).items()
+        (v for k, v in step_prof.items()
          if k.startswith("void render_fwd_train_kernel<float>")), None)
 
     bwd_ms = bwd_hist_ms if default_hist else bwd_rec_ms
@@ -2374,6 +3120,8 @@ def run(out_dir: Path):
     kernels["kernels"] += neural_slice(card, out_dir)
     # 7. Neural training: the MLP's VJP in the backward kernel.
     kernels["kernels"] += neural_training(card, out_dir)
+    # 8. The Mandelbulb: a custom node lowered into all three kernels.
+    kernels["kernels"] += bulb_slice(card, out_dir)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)

@@ -286,12 +286,11 @@ __device__ __forceinline__ T rm_mlp_last(const T* __restrict__ b,
 // polynomial derivative in its Horner order, cos, 1 - y*y, the two branches
 // of softplus with the tie of max split in half), each multiplied by the
 // incoming cotangent, then by w0. Sums run in other orders than torch's,
-// so kernel and plain version differ by rounding. bf16 operands (f32): the
-// plain version's operand roundings are differentiated as casts, so the
-// cotangent of a layer's input is W_bf16·δ rounded to bf16, and a ⊗ δ takes
-// the bf16-rounded a; the plain version also rounds each evaluation's matrix
-// cotangent summed over all its rays to bf16, which a per-block sum cannot
-// do: there the kernel keeps the f32 sum (a relative 2^-9 apart).
+// so kernel and plain version differ by rounding. bf16 operands (f32), the
+// port's one rule (scene/neural.py): the cotangent of a layer's input is
+// W_bf16·δ rounded to bf16, as the plain version's cast of the input
+// differentiates; a ⊗ δ takes the bf16-rounded a and its sums stay f32,
+// never rounded, in the kernel and the plain version alike.
 
 template <typename T>
 struct RmVec3 {

@@ -50,6 +50,12 @@ matrix and bias cotangents to the backward kernel's per-block sink; on tensors
 :meth:`SdfProgram.evaluate_vjp` returns them from. The radius goes through
 the scalar rules.
 
+Custom nodes other than ``NeuralSDF`` enter through
+:func:`register_lowering`: a function that emits the node with the
+builder's scalar ops, as ``scene/fractals.py`` does for the Mandelbulb.
+Without one, a registered custom node raises ``NotImplementedError`` here
+(``Renderer`` without ``use_pallas`` still runs it through its torch SDF).
+
 Op count convention (:meth:`SdfProgram.op_counts`): one per add, sub, mul,
 div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
 the query point. Parameter loads and arithmetic on parameters alone are not
@@ -88,6 +94,7 @@ from ray_marching_tpu_torch.scene.graph import (
     _unknown,
     compile_node,
     init_params,
+    most_derived,
 )
 from ray_marching_tpu_torch.scene.neural import (
     NeuralSDF,
@@ -108,9 +115,12 @@ _OPS = {
     "exp": (1, "rm_exp({0})", "exp"),
     "log": (1, "rm_log({0})", "log"),
     "max": (2, "rm_max_nan({0}, {1})", "select"),
-    # sel_lt(a, b, t, f) = a < b ? t : f; sel_gt likewise with >.
+    # sel_lt(a, b, t, f) = a < b ? t : f; sel_gt and sel_le likewise with >
+    # and <=. A NaN compare takes f in all three, as jnp.where does, so
+    # where(a <= b, t, f) is sel_le and not sel_gt(a, b, f, t).
     "sel_lt": (4, "({0} < {1}) ? {2} : {3}", "select"),
     "sel_gt": (4, "({0} > {1}) ? {2} : {3}", "select"),
+    "sel_le": (4, "({0} <= {1}) ? {2} : {3}", "select"),
     # Adjoint code only: the slope of abs, and the tie test of max.
     "sign": (1, "rm_sign({0})", "select"),
     "sel_eq": (4, "({0} == {1}) ? {2} : {3}", "select"),
@@ -335,12 +345,47 @@ def _lower(node: Node, b: _Builder, prefix: str, x: int, y: int, z: int) -> int:
         s = b.add(b.add(b.mul(x, x), b.mul(y, y)), b.mul(z, z))
         return b.add(b.sub(b.sqrt(s), p("radius")),
                      b.mlp(node, prefix, x, y, z))
+    lower_fn = most_derived(_LOWERINGS, node)
+    if lower_fn is not None:
+        return lower_fn(node, b, prefix, x, y, z)
     if _custom_entry(node) is not None:
         raise NotImplementedError(
-            f"{type(node).__name__}: the kernels have no lowering for custom "
-            "nodes other than NeuralSDF yet (ROADMAP.md queues one after the "
-            "neural training slice); Renderer without use_pallas runs it")
+            f"{type(node).__name__}: a custom node without a kernel lowering; "
+            "Renderer without use_pallas runs it through its torch SDF, and "
+            "codegen.register_lowering(node_type, lower_fn) lets the kernels "
+            "take it")
     return _unknown(node)
+
+
+#: Kernel lowerings of custom nodes: node type -> lower_fn.
+_LOWERINGS: dict = {}
+
+
+def register_lowering(node_type, lower_fn) -> None:
+    """Let the kernels take a custom node (the counterpart of the JAX
+    kernels tracing a registered node's SDF into their body).
+
+    ``lower_fn(node, builder, prefix, x, y, z) -> id`` emits the node's SDF
+    at the SSA values ``x, y, z`` with the builder's ops (``add``, ``sub``,
+    ``mul``, ``div``, ``neg``, ``abs``, ``sqrt``, ``exp``, ``log``, ``max``,
+    ``sel_lt``/``sel_gt``/``sel_le``, ``const(value)`` and
+    ``param(param_path(prefix, key), index)`` for the node's parameters)
+    and returns the id of its distance. Emit the ops of the node's torch
+    SDF (the one :func:`graph.register_custom_node` was given) in its order:
+    the tests hold :meth:`SdfProgram.evaluate` to it bit for bit, and the
+    kernels' parity with their plain versions rests on that. The adjoint
+    comes from the same ops. ``node_type`` must subclass ``graph.Node``;
+    the most-derived registered base of a node's type gives its lowering,
+    as for ``graph.register_custom_node``."""
+    if not (isinstance(node_type, type) and issubclass(node_type, Node)):
+        raise TypeError(f"node_type must subclass Node, got {node_type!r}")
+    _LOWERINGS[node_type] = lower_fn
+
+
+def param_path(prefix: str, key: str) -> str:
+    """The flat-vector path of parameter ``key`` of the node at ``prefix``
+    (what a lowering hands to ``builder.param``)."""
+    return _path(prefix, key)
 
 
 def _cross(b, ux, uy, uz, vx, vy, vz):
@@ -406,7 +451,7 @@ def _append_adjoint(b, out):
             p, q = args
             acc(p, b.sel_gt(p, q, gi, b.sel_eq(p, q, half, zero)))
             acc(q, b.sel_gt(q, p, gi, b.sel_eq(p, q, half, zero)))
-        elif kind in ("sel_lt", "sel_gt"):  # to the chosen branch only
+        elif kind in ("sel_lt", "sel_gt", "sel_le"):  # chosen branch only
             zero = b.const(0.0)
             sel = getattr(b, kind)
             acc(args[2], sel(args[0], args[1], gi, zero))
@@ -562,6 +607,8 @@ class SdfProgram:
                     v = torch.where(a[0] < a[1], a[2], a[3])
                 elif kind == "sel_gt":
                     v = torch.where(a[0] > a[1], a[2], a[3])
+                elif kind == "sel_le":
+                    v = torch.where(a[0] <= a[1], a[2], a[3])
                 else:  # sel_eq
                     v = torch.where(a[0] == a[1], a[2], a[3])
             vals.append(v)

@@ -10,8 +10,11 @@ tensors, the same layout and key names as the JAX pytree).
 arrays, across.
 
 Custom leaves enter through :func:`register_custom_node`, the JAX package's
-door: ``NeuralSDF`` (scene/neural.py) registers itself when its module is
-imported. ``Mandelbulb`` is not ported (:data:`CUSTOM_NODE_SLICE`).
+door: ``NeuralSDF`` (scene/neural.py) and ``Mandelbulb`` (scene/fractals.py)
+register themselves when their module is imported (``scene/serialize.py``
+imports both, the registry imports each where a scene needs it). The kernels
+take a custom node once :func:`ray_marching_tpu_torch.scene.codegen.
+register_lowering` has given it a lowering.
 
 The union bounding-sphere short-circuit (``compile_node(prune=True)`` in the
 JAX package) is not ported: it is off by default there and was measured as
@@ -107,12 +110,6 @@ _PRIMITIVE_FNS = {
     Torus: primitives.torus,
 }
 
-CUSTOM_NODE_SLICE = (
-    "the Mandelbulb fractal (scene/fractals.py) is not ported yet: ROADMAP.md "
-    "queues it, with a kernel lowering for custom nodes, after the neural "
-    "training slice"
-)
-
 #: User-extensible SDF leaves: node type -> (compile_fn, init_fn).
 _CUSTOM_NODES: dict = {}
 
@@ -149,14 +146,19 @@ def custom_node_types():
     return {cls.__name__: cls for cls in _CUSTOM_NODES}
 
 
-def _custom_entry(node):
-    """Registry entry for a node with isinstance semantics: the most-derived
-    registered base wins."""
+def most_derived(table, node):
+    """``table``'s entry for a node with isinstance semantics: the
+    most-derived registered base wins."""
     for base in type(node).__mro__:
-        entry = _CUSTOM_NODES.get(base)
+        entry = table.get(base)
         if entry is not None:
             return entry
     return None
+
+
+def _custom_entry(node):
+    """Registry entry (compile_fn, init_fn) of a custom node, or None."""
+    return most_derived(_CUSTOM_NODES, node)
 
 
 def _unknown(node):

@@ -17,6 +17,17 @@ Two evaluators with the JAX package's association order:
   product in f32 (operands cast back to f32 before ``torch.matmul``, which
   would return bf16 otherwise), for f32 only, as in JAX.
 
+bf16 cotangents follow one rule in the port, the backward kernel's: the
+cotangent of a layer's *input* is rounded to bf16, as autograd
+differentiates the input's cast; the cotangent of a *matrix* (``a ⊗ δ``
+summed over the points) and of a bias stay f32 sums, never rounded. The
+matrix's cast therefore passes its cotangent back unrounded
+(:func:`_bf16_operand`), and :func:`mlp_vjp` writes the same rule out. The
+JAX package rounds each TPU tile's per-evaluation matrix sum to bf16
+instead (its backward kernel differentiates the cast per tile), so the two
+packages' matrix gradients differ by at most a relative 2^-9 of each such
+sum.
+
 On the card the MLP runs inside the forward and march kernels and its VJP
 inside the backward kernel (``ops/csrc/neural.cuh``, reached through the
 ``mlp`` and ``mlp_vjp`` ops of :mod:`ray_marching_tpu_torch.scene.codegen`);
@@ -199,6 +210,23 @@ def _bf16(t):
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+class _Bf16Operand(torch.autograd.Function):
+    """A matrix rounded to bf16 on the way forward whose cotangent passes
+    back as it is: the port's bf16 rule keeps matrix cotangents in f32."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _bf16(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _bf16_operand(t):
+    return _Bf16Operand.apply(t)
+
+
 def _block(x, y, z):
     """``(3, N)`` block of the broadcast coordinates, and their shape."""
     shape = torch.broadcast_shapes(x.shape, y.shape, z.shape)
@@ -209,10 +237,11 @@ def _block(x, y, z):
 
 
 def _matmul_layer(node, params, h, layer):
-    """``Wᵀ @ H + b`` of one layer (bf16 operands where asked, f32 only)."""
+    """``Wᵀ @ H + b`` of one layer (bf16 operands where asked, f32 only;
+    the cotangent of ``H`` rounded to bf16 by its cast, ``W``'s not)."""
     lhs, rhs = params[f"w{layer}"].T, h
     if node.matmul_dtype == "bfloat16" and h.dtype == torch.float32:
-        lhs, rhs = _bf16(lhs), _bf16(rhs)
+        lhs, rhs = _bf16_operand(lhs), _bf16(rhs)
     return torch.matmul(lhs, rhs) + params[f"b{layer}"].reshape(-1, 1)
 
 
@@ -292,10 +321,11 @@ def mlp_vjp(node: NeuralSDF, params, x, y, z, g):
     ``δ_l = (W_l · δ_{l+1}) ⊙ act'`` (times ``w0`` for the first layer of
     the sine variants). ``g`` is the cotangent of :func:`mlp`'s output.
 
-    bf16 operands (matmul impl, f32): the operand casts are differentiated
-    as autograd does, so the cotangents of a layer's input and of its matrix
-    (summed over the points) are rounded to bf16, and both products take
-    the rounded operands.
+    bf16 operands (matmul impl, f32), the port's one rule (module doc): the
+    cotangent of a layer's input is rounded to bf16, as autograd
+    differentiates its cast; a matrix's cotangent is the f32 sum of the
+    rounded input times δ, never rounded; both products take the rounded
+    operands.
 
     Returns ``(gx, gy, gz, grads)``: the coordinates' cotangents and, per
     parameter name, ``w<l>``'s cotangent summed over the points and
@@ -318,11 +348,11 @@ def mlp_vjp(node: NeuralSDF, params, x, y, z, g):
         slopes.append(_act_slope(node, v))
     gout = g.expand(shape).reshape(1, -1).to(h.dtype)
     last = n_layers - 1
-    grads = {f"w{last}": op(op(acts[-1]) @ gout.T), f"b{last}": gout}
+    grads = {f"w{last}": op(acts[-1]) @ gout.T, f"b{last}": gout}
     ga = op(op(params[f"w{last}"]) @ gout)
     for layer in range(last - 1, -1, -1):
         delta = (ga * slopes[layer]) * _scale(node, layer)
-        grads[f"w{layer}"] = op(op(acts[layer]) @ delta.T)
+        grads[f"w{layer}"] = op(acts[layer]) @ delta.T
         grads[f"b{layer}"] = delta
         ga = op(op(params[f"w{layer}"]) @ delta)
     gx, gy, gz = (c.reshape(shape) for c in ga)

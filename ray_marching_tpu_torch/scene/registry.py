@@ -7,7 +7,6 @@ import math
 from typing import Callable, Dict
 
 from ray_marching_tpu_torch.scene.graph import (
-    CUSTOM_NODE_SLICE,
     Affine,
     Box,
     Line,
@@ -118,8 +117,21 @@ def make_neural_demo() -> Node:
 
 @register("mandelbulb")
 def make_mandelbulb() -> Node:
-    """A power-8 Mandelbulb inside the room shell (not ported yet)."""
-    raise NotImplementedError(f"scene 'mandelbulb': {CUSTOM_NODE_SLICE}")
+    """A power-8 Mandelbulb inside the room shell (scene/fractals.py),
+    marched by the same kernels as the analytic scenes; the room ends every
+    ray, so miss pixels stay finite."""
+    from ray_marching_tpu_torch.scene.fractals import Mandelbulb
+
+    return Union(
+        children=(
+            Onion(child=Box(halfsides=(5.0, 5.0, 5.0)), radius=0.1),
+            Affine(
+                child=Mandelbulb(power=8, iterations=10, scale=1.0),
+                orientation=(0.9239, 0.0, 0.3827, 0.0),  # ~45 deg about y
+                translation=(0.0, 0.0, 0.0),
+            ),
+        )
+    )
 
 
 @register("composite")

@@ -4,9 +4,9 @@ written by either package loads in the other).
 
 Every node is ``{"type": <class name>, ...fields}``; children are nested
 nodes; tuples become lists. Importing this module registers ``NeuralSDF``
-(scene/neural.py), so its scene files load without the caller importing
-anything first; third-party custom nodes load once their defining module is
-imported. A ``Mandelbulb`` raises ``NotImplementedError``: it is not ported.
+(scene/neural.py) and ``Mandelbulb`` (scene/fractals.py), so their scene
+files load without the caller importing anything first; third-party custom
+nodes load once their defining module is imported.
 """
 
 from __future__ import annotations
@@ -15,12 +15,11 @@ import dataclasses
 import json
 from pathlib import Path
 
+from ray_marching_tpu_torch.scene import fractals as _fractals  # noqa: F401
 from ray_marching_tpu_torch.scene import graph
 from ray_marching_tpu_torch.scene import neural as _neural  # noqa: F401
 
 _BUILTIN_TYPES = {cls.__name__: cls for cls in graph._BUILTIN_NODES}
-#: Node types of the JAX package's scene files that the port does not run.
-_NOT_PORTED = {"Mandelbulb": graph.CUSTOM_NODE_SLICE}
 
 
 def _node_types() -> dict:
@@ -46,9 +45,6 @@ def node_from_dict(data: dict) -> graph.Node:
     data = dict(data)
     type_name = data.pop("type")
     node_types = _node_types()
-    if type_name not in node_types and type_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"scene node {type_name!r}: {_NOT_PORTED[type_name]}")
     try:
         cls = node_types[type_name]
     except KeyError:

@@ -552,8 +552,7 @@ def test_scene_file_round_trips_with_jax(tmp_path):
     bulb = {"type": "Union", "children": [
         {"type": "Sphere", "radius": 0.5},
         {"type": "Mandelbulb", "power": 8, "iterations": 10, "scale": 1.0}]}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tser.node_from_dict(bulb)
+    assert repr(tser.node_from_dict(bulb)) == repr(jser.node_from_dict(bulb))
     with pytest.raises(ValueError, match="unknown scene node type"):
         tser.node_from_dict({"type": "Teapot"})
 

@@ -206,11 +206,11 @@ def test_evaluate_vjp_matches_autograd(width, act, impl):
 
 
 def test_evaluate_vjp_bf16_operands_f32():
-    """bf16 operands in f32: the VJP differentiates the operand casts as
-    autograd does (the input's and the matrices' cotangents rounded to
-    bf16), so it agrees with autograd to one bf16 rounding (2^-8) where the
-    two sum in other orders and land on either side of a rounding
-    boundary."""
+    """bf16 operands in f32, the port's one rule in both the written-out
+    VJP and autograd: the input's cotangent rounded to bf16 (the cast
+    differentiated), the matrices' kept as f32 sums. They agree to one bf16
+    rounding (2^-8) where the two sum in other orders and an input
+    cotangent lands on either side of a rounding boundary."""
     node = tgraph.Union(children=(
         tgraph.Sphere(radius=0.05),
         tneural.NeuralSDF(hidden=(16, 16), activation="tanh", impl="matmul",
@@ -237,10 +237,10 @@ def test_evaluate_vjp_bf16_operands_f32():
                      *zip(gp[n:], want[1:1 + len(mats)])]:
         torch.testing.assert_close(got, ref, rtol=2 ** -8,
                                    atol=2 ** -8 * float(ref.abs().max()))
-    # A matrix's cotangent is a sum rounded to bf16, in both.
+    # A matrix's cotangent is an f32 sum, never rounded to bf16, in both.
     for got, ref in zip(gp[n:], want[1:1 + len(mats)]):
         for m in (got, ref):
-            assert torch.equal(m, m.to(torch.bfloat16).to(torch.float32))
+            assert not torch.equal(m, m.to(torch.bfloat16).to(torch.float32))
 
 
 def test_vjp_op_count_w256():

@@ -296,14 +296,11 @@ def test_params_from_jax_round_trip():
 
 @pytest.mark.parametrize("name", ["neural_demo", "mandelbulb"])
 def test_custom_node_scenes_not_ported(name):
-    """Of the two custom-node scenes only the Mandelbulb is still to port;
-    neural_demo builds the JAX package's tree."""
+    """Both custom-node scenes are ported now: each builds the JAX
+    package's tree, and the kernels' code generator lowers it."""
     assert name in treg.available_scenes()
-    if name == "neural_demo":
-        assert repr(treg.make_scene(name)) == repr(jreg.make_scene(name))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        treg.make_scene(name)
+    assert repr(treg.make_scene(name)) == repr(jreg.make_scene(name))
+    assert SdfProgram(treg.make_scene(name)).ops_per_eval > 0
 
 
 def test_unknown_scene_lists_available():
