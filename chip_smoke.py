@@ -14,7 +14,9 @@ training: ``optim.inverse.optimize`` on the same setup, with and without the
 silhouette loss, with the implicit backward and with the two-level backward;
 the modular pipeline: ``Renderer`` with ``use_pallas=True`` at the same
 setup, a frame, a frame with a reflection bounce, all 8 modes and one
-gradient; the neural slices: the trained width-256 NeuralSDF served, and
+gradient; the neural slices: the trained width-256 NeuralSDF served (its
+MLP on the tensor cores in the serving forward and the march, held against
+the plain version, the per-thread route and a 1xTF32 control), and
 trained by ``optimize`` through the backward kernel with the MLP's VJP; the
 Mandelbulb slice: the ``mandelbulb`` scene, a custom node lowered through
 ``codegen.register_lowering``, served by the README's command at 1440×900
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -53,6 +56,9 @@ STEPS = 32
 #: Card peaks for the bound (NVIDIA H100 SXM data sheet): f32 outside the
 #: tensor cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+#: Dense tensor-core peaks of the H100 SXM (NVIDIA H100 data sheet).
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 #: Kernel vs plain version, on rays whose plain terminal |d| < CONVERGED.
 #: f32: positions and d within 1e-4, normals 1e-3, Laplacian 1e-2 (it is
@@ -102,6 +108,19 @@ LONG_STEPS = 128
 #: the demo's own resolution, step count and pose (view 0 of
 #: tools/train_neural_demo.py's poses), f32.
 ROOT = Path(__file__).resolve().parent
+#: sha256 of the generated SDF sources of the scenes without a tensor-core
+#: MLP leaf, as the generator wrote them before the tensor-core evaluation
+#: existed: their libraries run the same code as before.
+PER_THREAD_SOURCES = {
+    "test_scene2":
+        "01995bdb88b485bee773c22c8a51a6079fd70d4f52d88e5ee44821a37bdee8c1",
+    "test_scene":
+        "93b989af7cc5b0632446ee26c0a42e1a204cd9e35660b86950dbda5e1219d52f",
+    "distillation target":
+        "0466ffd3fbef4bd33176bed621273cc3944d97a9954559c47c81f8ee651adff0",
+    "mandelbulb":
+        "29bf4ad2bce69c7b83c765287b8cd1caa0cfe05a9a181efa06b8a4c74b32c04d",
+}
 NEURAL_WEIGHTS = ROOT / "docs" / "neural_fit_w256" / "weights.npz"
 NEURAL_SCENE_FILE = ROOT / "docs" / "examples" / "neural_demo.json"
 NEURAL_RES, NEURAL_F64_RES, NEURAL_STEPS, NEURAL_FRAMES = 512, 128, 24, 20
@@ -114,6 +133,12 @@ NEURAL_Q, NEURAL_T = [[0.0, 0.0, 1.0, 0.0]], [[0.0, 0.2, 2.2]]
 #: and d within 1e-3, normals 1e-2, Laplacian 1.0; at most 1 % of the
 #: converged rays outside.
 TOL_BF16 = (1e-3, 1e-3, 1e-3, 1e-3, 1e-2, 1e-2, 1e-2, 1.0)
+#: The tensor-core forward is held to TOL_F32 and, at tau = 0, to a tenth of
+#: it as well, which it meets on every converged ray while its 1xTF32
+#: control (the weights' lo zeroed) misses it on 3.9e-2 of them: TOL_F32
+#: alone lets the control through (5 of 256,456 rays outside on an NVIDIA
+#: H100 80GB HBM3, 700.00 W).
+TOL_F32_TC = tuple(t / 10 for t in TOL_F32)
 MAX_SHARE_OUT_BF16 = 1e-2
 #: The neural frame against the analytic target the field was distilled to
 #: (tools/train_neural_demo.py), mode 0 at the demo's pose: thresholds fixed
@@ -156,6 +181,10 @@ TOL_NEURAL_BWD_BF16 = (0.9, 1e-3, 1e-2)
 #: A profile may read a kernel at most this far below its CUDA-event time
 #: (profile_frames).
 PROFILE_MAX_UNDER = 0.05
+#: The spin that kernel_ms queues its launches behind: about 10 ms at the
+#: H100's 1.98 GHz boost clock, longer than the host takes to queue a
+#: timing loop's calls.
+SPIN_CYCLES = 20_000_000
 #: The Mandelbulb slice: the registry's ``mandelbulb`` scene (the room and
 #: Affine(Mandelbulb(power=8, iterations=10, scale=1.0)) about 45° about y),
 #: f32, the CLI's default pose and 1440×900, served by the README's command
@@ -266,17 +295,25 @@ def modular_rays(renderer, q, t):
 
 
 def compare(label, program, flat, rays7, tau, f64, steps=STEPS, mats=(),
-            tol=TOL_F32, max_share=MAX_SHARE_OUT_F32):
+            tol=TOL_F32, max_share=MAX_SHARE_OUT_F32, route=None,
+            tc_mats=None, must_fail=False):
     """Kernel vs plain version on the same card inputs; returns the max abs
     difference over converged rays. ``tol`` and ``max_share`` are the f32
     tolerances per plane and the share of converged rays allowed outside
-    them (f64: TOL_F64 on every plane, no ray outside)."""
+    them (f64: TOL_F64 on every plane, no ray outside). The kernel is
+    ``fused_march_normals``'s, or with ``route`` / ``tc_mats`` the one
+    ``render_kernel.march_forward`` launches with them. ``must_fail``: a
+    control, which must leave more than ``max_share`` outside."""
     import torch
 
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
-    got = rk.fused_march_normals(program, flat, rays7, steps, tau, 5e-2,
-                                 mats=mats)
+    if route is None and tc_mats is None:
+        got = rk.fused_march_normals(program, flat, rays7, steps, tau, 5e-2,
+                                     mats=mats)
+    else:
+        got = rk.march_forward(program, flat, rays7, steps, tau, 5e-2,
+                               mats=mats, route=route, tc_mats=tc_mats)[0]
     want = rk.reference_march_normals(program, flat, rays7, steps, tau, 5e-2,
                                       mats=mats)
     torch.cuda.synchronize()
@@ -299,8 +336,12 @@ def compare(label, program, flat, rays7, tau, f64, steps=STEPS, mats=(),
           f"tolerance {share:.3e}, bitwise-equal share of valid rays "
           f"{exact:.6f}, max abs diff per plane "
           + " ".join(f"{n}={d:.3e}" for n, d in zip(PLANES, diffs)))
-    check(share <= (0.0 if f64 else max_share),
-          f"{label}: {share:.3e} of converged rays outside tolerance")
+    limit = 0.0 if f64 else max_share
+    if must_fail:
+        check(share > limit, f"{label}: the control is within tolerance")
+    else:
+        check(share <= limit,
+              f"{label}: {share:.3e} of converged rays outside tolerance")
     return max(diffs)
 
 
@@ -582,6 +623,8 @@ def forward_ops_live(program, n_valid, live_sum, n_frozen):
 
 
 def cuda_ms(fn, reps):
+    """Time per call by CUDA events over ``reps`` calls as the host issues
+    them: what a caller sees, the host's gaps included."""
     import torch
 
     fn()
@@ -593,6 +636,38 @@ def cuda_ms(fn, reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(fn, reps):
+    """Device time per launch of a kernel wrapper: CUDA events around
+    ``reps`` back-to-back calls queued behind a spin kernel, so that the
+    host's work per call (the wrapper's checks, allocations and launch)
+    cannot leave the card idle between launches, as it can in
+    :func:`cuda_ms` when the host runs slower than a sub-ms kernel. If the
+    spin ended before the last call was queued, the run is repeated with a
+    spin four times as long."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        drained = start.query()
+        torch.cuda.synchronize()
+        if not drained:
+            break
+        cycles *= 4
+    else:
+        print(f"kernel_ms: {reps} calls took longer to queue than a spin of "
+              f"{cycles // 4} cycles; the time may hold host gaps")
     return start.elapsed_time(stop) / reps
 
 
@@ -1082,20 +1157,38 @@ class PlainMarchCalls:
 
 
 def ptxas_entry(log, kernel, args="IfE"):
-    """(registers, stack frame bytes, spill store bytes) of the f32
-    instantiation of ``kernel`` (its mangled template arguments ``args``) in
-    a build's ``-Xptxas -v`` report (None each when the library was built
+    """(registers, stack frame bytes, spill store bytes, static shared
+    memory bytes) of the f32 instantiation of ``kernel`` (its mangled
+    template arguments ``args``; ``PKf`` for a kernel that is no template)
+    in a build's ``-Xptxas -v`` report (None each when the library was built
     before this run)."""
     if not log:
-        return None, None, None
+        return None, None, None, None
     for chunk in log.split("Compiling entry function '")[1:]:
         if re.match(r"_Z\d+" + kernel + args, chunk):
             regs = re.search(r"Used (\d+) registers", chunk)
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores", chunk)
-            return int(regs.group(1)), int(frame.group(1)), int(
-                frame.group(2))
+            smem = re.search(r"(\d+) bytes smem", chunk)
+            return (int(regs.group(1)), int(frame.group(1)),
+                    int(frame.group(2)), int(smem.group(1)) if smem else 0)
     raise SmokeFailure(f"no ptxas report for {kernel}")
+
+
+def tc_bound_ms(program, ops, n_evals):
+    """The least time of ``ops`` operations over ``n_evals`` SDF
+    evaluations when the tensor-core layers of ``program`` run on the tensor
+    cores: their multiplies and adds (2·N1·N2 per evaluation) at the TF32
+    rate taken three times (3xTF32) or the bf16 rate, the rest at the f32
+    SIMT rate."""
+    tc_s, tc_ops = 0.0, 0
+    for k in program.tc:
+        sizes = program.mlps[k].sizes
+        n = n_evals * 2 * sizes[1] * sizes[2]
+        bf16 = program.mlps[k].node.matmul_dtype == "bfloat16"
+        tc_s += n / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
+        tc_ops += n
+    return (tc_s + (ops - tc_ops) / PEAK_F32_FLOPS) * 1e3
 
 
 def frame_and_hits(renderer, params):
@@ -1116,13 +1209,15 @@ def frame_and_hits(renderer, params):
 
 def neural_slice(card, out_dir: Path):
     """The neural slice on the card: kernels vs plain versions (f32 at the
-    main configuration's planes, tau 0 and 1e-3; f64 128×128; bf16 operands
-    128×128), the march kernel vs the forward's planes 0-3 bitwise, the
-    main path (FastRenderer.render, 20 frames, counted; no plain march), the
-    weights check against the analytic target, the modular path
-    (Renderer, use_pallas=True, one frame, counted), the CLI on the JAX
-    package's neural scene file, timings and bounds. Returns the two entries
-    of the kernels line."""
+    main configuration's planes, tau 0 and 1e-3, the MLP on the tensor
+    cores; the per-thread route; f64 128×128; bf16 operands 128×128), the
+    march kernel vs the forward's planes 0-3 bitwise for both routes and
+    under a gradient against the training forward, the 1xTF32 control, the
+    main path (FastRenderer.render, 20 frames, counted; every launch on the
+    tensor cores, no plain march), the weights check against the analytic
+    target, the modular path (Renderer, use_pallas=True, one frame,
+    counted), the CLI on the JAX package's neural scene file, timings and
+    both bounds. Returns the two entries of the kernels line."""
     import torch
 
     from ray_marching_tpu_torch.cli import main as cli_main
@@ -1140,15 +1235,63 @@ def neural_slice(card, out_dir: Path):
     main, params = neural_renderer(NEURAL_RES, torch.float32)
     prog = main.program
     flat, mats, rays7 = neural_rays(main, params)
+    check(rk.mlp_route(prog, torch.float32) == "tc",
+          "the w256 scene does not take the tensor-core route")
     errs = {}
     for tau in (0.0, 1e-3):
         label = f"neural f32 {NEURAL_RES}x{NEURAL_RES} w256 tau={tau:g}"
-        errs[tau] = compare(label, prog, flat, rays7, tau, False,
-                            NEURAL_STEPS, mats)
-        m_err, _ = compare_march(label, prog, flat, rays7, tau, False,
-                                 backward=False, steps=NEURAL_STEPS,
-                                 mats=mats)
+        errs[tau] = compare(label + " (tensor cores)", prog, flat, rays7,
+                            tau, False, NEURAL_STEPS, mats)
+        m_err, _ = compare_march(label + " (tensor cores)", prog, flat,
+                                 rays7, tau, False, backward=False,
+                                 steps=NEURAL_STEPS, mats=mats)
         errs[("march", tau)] = m_err
+    compare(
+        f"neural f32 {NEURAL_RES}x{NEURAL_RES} w256 tau=0 (tensor cores, "
+        "a tenth of TOL_F32)", prog, flat, rays7, 0.0, False, NEURAL_STEPS,
+        mats, tol=TOL_F32_TC)
+    errs["thread"] = compare(
+        f"neural f32 {NEURAL_RES}x{NEURAL_RES} w256 tau=0 (per-thread MLP)",
+        prog, flat, rays7, 0.0, False, NEURAL_STEPS, mats, route="thread")
+    # The 1xTF32 control: the same kernel, the weights' lo zeroed in the
+    # prepared buffer. It must miss a tenth of TOL_F32.
+    control = rk.tc_buffer(prog, mats)
+    control[prog.mat_size:].view(-1, 4)[:, 2:] = 0
+    label = (f"neural f32 {NEURAL_RES}x{NEURAL_RES} w256 tau=0, 1xTF32 "
+             "control")
+    compare(label + " (a tenth of TOL_F32: must fail)", prog, flat, rays7,
+            0.0, False, NEURAL_STEPS, mats, tol=TOL_F32_TC, tc_mats=control,
+            must_fail=True)
+    errs["control"] = compare(label + " (TOL_F32 itself)", prog, flat, rays7,
+                              0.0, False, NEURAL_STEPS, mats,
+                              tc_mats=control)
+    del control
+    # The routes' pairs, bit for bit: the per-thread serving forward and
+    # march; the march under a gradient (the per-thread entry) and the
+    # training forward.
+    thread, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                                 mats=mats, route="thread")
+    thread_march = mk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0,
+                                    mats, route="thread")
+    train, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                                log_hist=True, mats=mats)
+    mk.LAUNCHES = mk.TC_LAUNCHES = 0
+    grad_march = mk.march_planes(prog, flat.clone().requires_grad_(True),
+                                 rays7, NEURAL_STEPS, 0.0, mats)
+    torch.cuda.synchronize()
+    check((mk.LAUNCHES, mk.TC_LAUNCHES) == (1, 0),
+          "the march under a gradient did not take the per-thread entry")
+    check(bool(same_bits(thread_march, thread[:4]).all()),
+          "per-thread march differs from the per-thread forward's planes")
+    check(bool(same_bits(grad_march.detach(), train[:4]).all()),
+          "the gradient route's march differs from the training forward")
+    check(bool(same_bits(train[:8], thread).all()),
+          "the training forward differs from the per-thread serving one")
+    print("neural routes: per-thread march == per-thread forward planes 0-3, "
+          "the gradient route's march (per-thread entry) == the training "
+          "forward's planes 0-3, training forward == per-thread serving "
+          "planes 0-7, all bit for bit")
+    del thread, thread_march, train, grad_march
     r64, p64 = neural_renderer(NEURAL_F64_RES, torch.float64)
     f_flat, f_mats, f_rays = neural_rays(r64, p64)
     label = f"neural f64 {NEURAL_F64_RES}x{NEURAL_F64_RES} w256"
@@ -1171,21 +1314,22 @@ def neural_slice(card, out_dir: Path):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    rk.LAUNCHES = 0
+    rk.LAUNCHES = rk.TC_LAUNCHES = 0
     with PlainMarchCalls() as plain:
         start.record()
         for _ in range(NEURAL_FRAMES):
             frame = main.render(params, NEURAL_Q, NEURAL_T, mode=0, degree=1)
         stop.record()
         torch.cuda.synchronize()
-    launches = rk.LAUNCHES
+    launches, tc_launches = rk.LAUNCHES, rk.TC_LAUNCHES
     frame_ms = start.elapsed_time(stop) / NEURAL_FRAMES
     print(f"neural main path (FastRenderer.render, march_impl='auto', w256, "
           f"{NEURAL_RES}x{NEURAL_RES}, {NEURAL_STEPS} steps): {NEURAL_FRAMES} "
-          f"frames, forward-kernel launches {launches}, plain-march calls "
-          f"{plain.n}; {frame_ms:.4f} ms per frame (CUDA events)")
-    check(launches == NEURAL_FRAMES and plain.n == 0,
-          "neural main path: launches or plain marches")
+          f"frames, forward-kernel launches {launches} (tensor-core entry "
+          f"{tc_launches}), plain-march calls {plain.n}; {frame_ms:.4f} ms "
+          "per frame (CUDA events)")
+    check(launches == tc_launches == NEURAL_FRAMES and plain.n == 0,
+          "neural main path: launches, route or plain marches")
     valid_px = main._assemble([main._valid]) > 0.5
     check(tuple(frame.shape) == (1, NEURAL_RES, NEURAL_RES, 3)
           and bool(torch.isfinite(frame[valid_px.expand_as(frame)]).all()),
@@ -1214,12 +1358,12 @@ def neural_slice(card, out_dir: Path):
     with torch.no_grad():
         modular.render(params, NEURAL_Q, NEURAL_T, mode=0, degree=1)
         torch.cuda.synchronize()
-        mk.LAUNCHES = 0
+        mk.LAUNCHES = mk.TC_LAUNCHES = 0
         with PlainMarchCalls() as plain:
             mod_frame = modular.render(params, NEURAL_Q, NEURAL_T, mode=0,
                                        degree=1)
             torch.cuda.synchronize()
-        march_launches = mk.LAUNCHES
+        march_launches, march_tc_launches = mk.LAUNCHES, mk.TC_LAUNCHES
         hit, _ = main._march_planes(params, *main._pose_planes(
             *main._pose(NEURAL_Q, NEURAL_T)), NEURAL_STEPS)
         conv = main._assemble([(hit[3].abs() < CONVERGED).to(torch.float32)]
@@ -1227,37 +1371,52 @@ def neural_slice(card, out_dir: Path):
     diff = (mod_frame - frame).abs()[conv.expand_as(frame)]
     share = float((diff > MODULAR_VS_FAST_ATOL).float().mean())
     print(f"neural modular path (Renderer, use_pallas=True): march launches "
-          f"{march_launches}, plain-march calls {plain.n}; vs the "
+          f"{march_launches} (tensor-core entry {march_tc_launches}), "
+          f"plain-march calls {plain.n}; vs the "
           f"FastRenderer frame on {int(conv.sum())} converged pixels: max abs "
           f"diff {float(diff.max()):.3e}, share above "
           f"{MODULAR_VS_FAST_ATOL:g} {share:.3e}")
-    check(march_launches == 1 and plain.n == 0,
-          "neural modular path: launches or plain marches")
+    check(march_launches == march_tc_launches == 1 and plain.n == 0,
+          "neural modular path: launches, route or plain marches")
     check(share <= MAX_SHARE_OUT_F32, "neural modular and fast frames differ")
     write_png(out_dir / "neural_w256_modular_mode0.png", mod_frame)
 
     # The JAX package's CLI entry for neural scenes, in process.
-    rk.LAUNCHES = 0
+    rk.LAUNCHES = rk.TC_LAUNCHES = 0
     cli_main(["render", "--scene-file", str(NEURAL_SCENE_FILE), "--fast",
               "-o", str(out_dir / "neural_demo_cli.png")])
     torch.cuda.synchronize()
-    check(rk.LAUNCHES == 1, f"cli render: {rk.LAUNCHES} launches")
+    check(rk.LAUNCHES == rk.TC_LAUNCHES == 1,
+          f"cli render: {rk.LAUNCHES} launches, {rk.TC_LAUNCHES} on the "
+          "tensor cores")
     cli_launches = rk.LAUNCHES
 
     # Timing: the kernels at the main configuration, their plain versions,
     # the modular frame; both marches for both neural scenes.
-    ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7,
+    ms = kernel_ms(lambda: rk.fused_march_normals(prog, flat, rays7,
                                                 NEURAL_STEPS, 0.0, 5e-2,
                                                 mats=mats), 5)
+    thread_ms = kernel_ms(lambda: rk.march_forward(
+        prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2, mats=mats,
+        route="thread"), 3)
     plain_ms = cuda_ms(lambda: rk.reference_march_normals(
         prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2, mats=mats), 2)
+    rbf, pbf = neural_renderer(NEURAL_RES, torch.float32,
+                               scene=neural_scene("bfloat16"))
+    bf_flat, bf_mats, bf_rays = neural_rays(rbf, pbf)
+    bf16_ms = {route: kernel_ms(lambda: rk.march_forward(
+        rbf.program, bf_flat, bf_rays, NEURAL_STEPS, 0.0, 5e-2, mats=bf_mats,
+        route=route), 3) for route in ("tc", "thread")}
+    del rbf, pbf, bf_flat, bf_mats, bf_rays
     m_flat, m_mats, _ = split_params_padded(params, torch.float32,
                                             modular.device)
     _, _, ray_pos, ray_dirs = modular.camera.pose(
         modular._tensor(NEURAL_Q), modular._tensor(NEURAL_T))
     m_rays7 = mk.rays_to_planes(ray_pos, ray_dirs).contiguous()
-    march_ms = cuda_ms(lambda: mk.march_planes(prog, m_flat, m_rays7,
+    march_ms = kernel_ms(lambda: mk.march_planes(prog, m_flat, m_rays7,
                                                NEURAL_STEPS, 0.0, m_mats), 5)
+    march_thread_ms = kernel_ms(lambda: mk.march_forward(
+        prog, m_flat, m_rays7, NEURAL_STEPS, 0.0, m_mats, route="thread"), 3)
     march_plain_ms = cuda_ms(lambda: mk.reference_march(
         prog, m_flat, m_rays7, NEURAL_STEPS, 0.0, m_mats), 2)
 
@@ -1270,10 +1429,18 @@ def neural_slice(card, out_dir: Path):
     prof = profile_frames(lambda: main.render(params, NEURAL_Q, NEURAL_T,
                                               mode=0, degree=1), frame_ms,
                           frames=3,
-                          expect={"void render_fwd_kernel<float>": (ms, 1)})
+                          expect={"render_fwd_tc_kernel": (ms, 1)})
     kernel_dev_ms = next((v for k, v in prof.items()
-                          if k.startswith("void render_fwd_kernel<float>")),
-                         None)
+                          if k.startswith("render_fwd_tc_kernel")), None)
+    # The tensor-core buffer each serving launch prepares (tc_buffer): its
+    # time per call as issued, and its device time.
+    prep_ms = cuda_ms(lambda: rk.tc_buffer(prog, mats), 20)
+    prep_dev_ms = sum(profile_frames(lambda: rk.tc_buffer(prog, mats),
+                                     prep_ms, frames=3).values())
+    print(f"tensor-core buffer (tc_buffer, once per serving launch): "
+          f"{prep_ms:.4f} ms per call by CUDA events as issued, "
+          f"{prep_dev_ms:.4f} ms of device time; the serving frame "
+          f"{frame_ms:.4f} ms, its kernel {ms:.4f} ms")
     dispatch = {}
     demo = registry.make_scene("neural_demo")
     for name, scene, p in (("neural_demo", demo, None),
@@ -1286,8 +1453,13 @@ def neural_slice(card, out_dir: Path):
                 lambda: r.render(p_, NEURAL_Q, NEURAL_T, mode=0, degree=1),
                 3)
     print(f"neural timing on {card} ({NEURAL_RES}x{NEURAL_RES}, "
-          f"{NEURAL_STEPS} steps, f32): forward kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms; march kernel {march_ms:.4f} ms, plain "
+          f"{NEURAL_STEPS} steps, f32): forward kernel {ms:.4f} ms on the "
+          f"tensor cores, {thread_ms:.4f} ms per thread, plain "
+          f"{plain_ms:.3f} ms; "
+          f"bf16 operands {bf16_ms['tc']:.4f} ms on the tensor cores, "
+          f"{bf16_ms['thread']:.4f} ms per thread; march kernel "
+          f"{march_ms:.4f} ms on the tensor cores, {march_thread_ms:.4f} ms "
+          f"per thread, plain "
           f"{march_plain_ms:.3f} ms; frame {frame_ms:.4f} ms (FastRenderer), "
           f"{modular_ms:.4f} ms (Renderer, use_pallas=True); march_impl "
           "fused vs xla, frame ms: "
@@ -1307,16 +1479,27 @@ def neural_slice(card, out_dir: Path):
     m_ops = mk.march_ops(prog, m_valid, NEURAL_STEPS)
     tm_ops = m_ops / PEAK_F32_FLOPS * 1e3
     tm_bytes = (11 * m_plane_bytes + mat_bytes) / PEAK_BYTES * 1e3
+    # The tensor-core bounds: the hidden layer's multiplies and adds at the
+    # 3xTF32 rate, the rest of each evaluation at the f32 SIMT rate.
+    t_tc = tc_bound_ms(prog, ops, n_valid * (NEURAL_STEPS + 5))
+    tm_tc = tc_bound_ms(prog, m_ops, m_valid * (NEURAL_STEPS + 1))
     log = rk.BUILD_LOG.get(rk.kernel_key(prog), "")
-    fwd_regs = ptxas_entry(log, "render_fwd_kernel")
-    march_regs = ptxas_entry(log, "march_kernel")
+    regs = {name: ptxas_entry(log, kernel, args) for name, kernel, args in (
+        ("forward, tensor cores", "render_fwd_tc_kernel", "PKf"),
+        ("march, tensor cores", "march_tc_kernel", "PKf"),
+        ("forward, per thread", "render_fwd_kernel", "IfE"),
+        ("march, per thread", "march_kernel", "IfE"))}
     print(f"neural bounds: forward {ops} ops ({prog.ops_per_eval} per SDF "
-          f"evaluation) -> {t_ops:.4f} ms, bytes -> {t_bytes:.4f} ms; march "
-          f"{m_ops} ops -> {tm_ops:.4f} ms, bytes -> {tm_bytes:.4f} ms; "
-          f"ptxas (f32): forward {fwd_regs[0]} registers, {fwd_regs[1]} bytes "
-          f"stack, {fwd_regs[2]} bytes spilled; march {march_regs[0]} "
-          f"registers, {march_regs[1]} bytes stack, {march_regs[2]} bytes "
-          "spilled")
+          f"evaluation) -> {t_ops:.4f} ms at the f32 SIMT rate, "
+          f"{t_tc:.4f} ms with the hidden layer on the tensor cores "
+          f"(3xTF32), bytes -> {t_bytes:.4f} ms; march {m_ops} ops -> "
+          f"{tm_ops:.4f} ms SIMT, {tm_tc:.4f} ms tensor cores, bytes -> "
+          f"{tm_bytes:.4f} ms; ptxas (f32; registers, stack, spill stores, "
+          "shared memory): "
+          + "; ".join(f"{k} {v[0]}, {v[1]} B, {v[2]} B, {v[3]} B"
+                      for k, v in regs.items()))
+    fwd_regs, march_regs = (regs["forward, tensor cores"],
+                            regs["march, tensor cores"])
     common = {"route": "cuda", "library_ms": None, "card": card}
     return [{
         "name": "render_fwd_neural",
@@ -1326,17 +1509,29 @@ def neural_slice(card, out_dir: Path):
                     "ray_marching_tpu/scene/neural.py:232",
         "launches": launches,
         "launches_cli": cli_launches,
+        "launches_tc": tc_launches,
+        "mlp": "tensor cores, mma.sync 3xTF32",
         "max_abs_err": errs[0.0],
         "max_abs_err_tau_1e-3": errs[1e-3],
+        "max_abs_err_per_thread": errs["thread"],
+        "max_abs_err_control_1xtf32": errs["control"],
         "ms": ms,
+        "ms_per_thread": thread_ms,
+        "ms_bf16": bf16_ms["tc"],
+        "ms_bf16_per_thread": bf16_ms["thread"],
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": max(t_tc, t_bytes),
+        "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+        "bound_ms_simt": max(t_ops, t_bytes),
         "frame_ms": frame_ms,
         "profiler_kernel_ms": kernel_dev_ms,
+        "tc_buffer_ms": prep_ms,
+        "tc_buffer_device_ms": prep_dev_ms,
         "registers": fwd_regs[0],
         "stack_bytes": fwd_regs[1],
         "spill_store_bytes": fwd_regs[2],
+        "smem_bytes": fwd_regs[3],
+        "registers_per_thread_route": regs["forward, per thread"][0],
         **dispatch,
         **common,
     }, {
@@ -1346,16 +1541,22 @@ def neural_slice(card, out_dir: Path):
         "replaces": "ray_marching_tpu/ops/pallas_march.py:173 + "
                     "ray_marching_tpu/scene/neural.py:232",
         "launches": march_launches,
+        "launches_tc": march_tc_launches,
+        "mlp": "tensor cores, mma.sync 3xTF32",
         "max_abs_err": errs[("march", 0.0)],
         "max_abs_err_tau_1e-3": errs[("march", 1e-3)],
         "ms": march_ms,
+        "ms_per_thread": march_thread_ms,
         "plain_ms": march_plain_ms,
-        "bound_ms": max(tm_ops, tm_bytes),
-        "bound_by": "operations" if tm_ops >= tm_bytes else "bytes",
+        "bound_ms": max(tm_tc, tm_bytes),
+        "bound_by": "operations" if tm_tc >= tm_bytes else "bytes",
+        "bound_ms_simt": max(tm_ops, tm_bytes),
         "frame_ms": modular_ms,
         "registers": march_regs[0],
         "stack_bytes": march_regs[1],
         "spill_store_bytes": march_regs[2],
+        "smem_bytes": march_regs[3],
+        "registers_per_thread_route": regs["march, per thread"][0],
         **common,
     }]
 
@@ -1552,7 +1753,7 @@ def backward_timings(prog, flat, rays7, steps, m_rays7, reps, mats=()):
         return bk.fused_backward(prog, flat, rays7, g8, steps, 0.0, 5e-2,
                                  mats=mats, **mode_kw[mode])
 
-    turns = [(m, cuda_ms(lambda m=m: bwd(m), reps))
+    turns = [(m, kernel_ms(lambda m=m: bwd(m), reps))
              for m in ("history", "two-level", "recompute", "recompute",
                        "two-level", "history")]
     ms = {m: sum(v for n, v in turns if n == m) / 2 for m in mode_kw}
@@ -1562,12 +1763,12 @@ def backward_timings(prog, flat, rays7, steps, m_rays7, reps, mats=()):
     ms["plain two-level"] = cuda_ms(lambda: bk.reference_backward(
         prog, flat, rays7, g8, steps, 0.0, 5e-2, mats=mats, two_level=True),
         1)
-    ms["march-only"] = cuda_ms(lambda: bk.march_backward(
+    ms["march-only"] = kernel_ms(lambda: bk.march_backward(
         prog, flat, m_rays7, g4, steps, 0.0, mats), reps)
     ms["plain march-only"] = cuda_ms(lambda: bk.reference_backward(
         prog, flat, m_rays7, g4, steps, 0.0, None, march_only=True,
         mats=mats), 1)
-    ms["forward with history"] = cuda_ms(lambda: rk.march_forward(
+    ms["forward with history"] = kernel_ms(lambda: rk.march_forward(
         prog, flat, rays7, steps, 0.0, 5e-2, log_hist=True, mats=mats), reps)
     return ms, turns
 
@@ -2430,14 +2631,14 @@ def bulb_slice(card, out_dir: Path):
     s2 = BULB_TRAIN_MARCH
     t_flat, _, _ = split_params_padded(start_params, torch.float32,
                                        main.device)
-    ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7,
+    ms = kernel_ms(lambda: rk.fused_march_normals(prog, flat, rays7,
                                                 BULB_STEPS, BULB_TAU, 5e-2),
                  20)
-    ms_tau0 = cuda_ms(lambda: rk.fused_march_normals(
+    ms_tau0 = kernel_ms(lambda: rk.fused_march_normals(
         prog, flat, rays7, BULB_STEPS, 0.0, 5e-2), 10)
     plain_ms = cuda_ms(lambda: rk.reference_march_normals(
         prog, flat, rays7, BULB_STEPS, BULB_TAU, 5e-2), 1)
-    march_ms = cuda_ms(lambda: mk.march_planes(prog, m_flat, m_rays7,
+    march_ms = kernel_ms(lambda: mk.march_planes(prog, m_flat, m_rays7,
                                                BULB_STEPS, BULB_TAU), 20)
     march_plain_ms = cuda_ms(lambda: mk.reference_march(
         prog, m_flat, m_rays7, BULB_STEPS, BULB_TAU), 1)
@@ -2448,7 +2649,7 @@ def bulb_slice(card, out_dir: Path):
         (8,) + tuple(rays7.shape[1:])), dtype=torch.float32).to(rays7.device)
     _, ex_h = rk.march_forward(prog, flat, rays7, BULB_STEPS, BULB_TAU,
                                5e-2, log_hist=True)
-    bwd_serving_ms = cuda_ms(lambda: bk.fused_backward(
+    bwd_serving_ms = kernel_ms(lambda: bk.fused_backward(
         prog, flat, rays7, g8, BULB_STEPS, BULB_TAU, 5e-2, hist=ex_h["hist"],
         nlive=ex_h["nlive"]), 3)
     del ex_h, g8
@@ -2609,6 +2810,14 @@ def run(out_dir: Path):
         print(f"ptxas report ({s}, {key}, units "
               f"{', '.join(rk.KERNEL_UNITS)}):")
         print(rk.BUILD_LOG.get(key, "(built before this run)").strip())
+    for s, digest in PER_THREAD_SOURCES.items():
+        check(not programs[s].tc and hashlib.sha256(
+            programs[s].cuda_source().encode()).hexdigest() == digest,
+              f"{s}: the generated source is not the per-thread one")
+    print("generated sources without a tensor-core MLP leaf ("
+          + ", ".join(PER_THREAD_SOURCES) + "): byte-identical to the "
+          "per-thread generator's (sha256); with one: "
+          + ", ".join(s for s, p in programs.items() if p.tc))
 
     # 2. Kernels vs plain versions on the card: the forward's serving
     # configuration, its training outputs, the backward (history on and
@@ -2765,14 +2974,14 @@ def run(out_dir: Path):
     # 5. Timing at the main path's shapes.
     flat, rays7 = main_rays(main, BENCH_Q, BENCH_T)
     prog = main.program
-    ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7, STEPS,
+    ms = kernel_ms(lambda: rk.fused_march_normals(prog, flat, rays7, STEPS,
                                                 0.0, 5e-2), 50)
     plain_ms = cuda_ms(lambda: rk.reference_march_normals(
         prog, flat, rays7, STEPS, 0.0, 5e-2), 3)
     q, t = poses[0]
     frame_ms = cuda_ms(lambda: main.render(main.init_params, q, t, mode=0,
                                            degree=2), 20)
-    tau_ms = cuda_ms(lambda: rk.fused_march_normals(prog, flat, rays7, STEPS,
+    tau_ms = kernel_ms(lambda: rk.fused_march_normals(prog, flat, rays7, STEPS,
                                                     1e-3, 5e-2), 50)
     n_valid = int((rays7[6] > 0.5).sum())
     plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
@@ -2810,8 +3019,8 @@ def run(out_dir: Path):
         return bk.fused_backward(prog, flat, rays7, g8, STEPS, 0.0, 5e-2,
                                  **kw)
 
-    fwd_hist_ms = cuda_ms(fwd_hist, 20)
-    turns = [(h, cuda_ms(lambda: bwd(h), 10))
+    fwd_hist_ms = kernel_ms(fwd_hist, 20)
+    turns = [(h, kernel_ms(lambda: bwd(h), 10))
              for h in (True, False, False, True)]
     bwd_hist_ms = sum(v for h, v in turns if h) / 2
     bwd_rec_ms = sum(v for h, v in turns if not h) / 2
@@ -2855,9 +3064,9 @@ def run(out_dir: Path):
     # versions.
     m_flat, m_rays7 = modular_rays(modular, BENCH_Q, BENCH_T)
     m_prog = modular.program
-    march_ms = cuda_ms(lambda: mk.march_planes(m_prog, m_flat, m_rays7, STEPS,
+    march_ms = kernel_ms(lambda: mk.march_planes(m_prog, m_flat, m_rays7, STEPS,
                                                0.0), 50)
-    march_tau_ms = cuda_ms(lambda: mk.march_planes(m_prog, m_flat, m_rays7,
+    march_tau_ms = kernel_ms(lambda: mk.march_planes(m_prog, m_flat, m_rays7,
                                                    STEPS, 1e-3), 50)
     march_plain_ms = cuda_ms(lambda: mk.reference_march(m_prog, m_flat,
                                                         m_rays7, STEPS, 0.0),
@@ -2865,7 +3074,7 @@ def run(out_dir: Path):
     g4 = torch.as_tensor(np.random.default_rng(8).standard_normal(
         (4,) + tuple(m_rays7.shape[1:])), dtype=m_rays7.dtype).to(
             m_rays7.device)
-    march_bwd_ms = cuda_ms(lambda: bk.march_backward(m_prog, m_flat, m_rays7,
+    march_bwd_ms = kernel_ms(lambda: bk.march_backward(m_prog, m_flat, m_rays7,
                                                      g4, STEPS, 0.0), 10)
     march_bwd_plain_ms = cuda_ms(lambda: bk.reference_backward(
         m_prog, m_flat, m_rays7, g4, STEPS, 0.0, None, march_only=True), 1)
@@ -2881,7 +3090,7 @@ def run(out_dir: Path):
         return bk.fused_backward(prog, flat, rays7, g8, STEPS, 0.0, 5e-2,
                                  two_level=True)
 
-    turns_2l = [(name, cuda_ms(fn, 10)) for name, fn in (
+    turns_2l = [(name, kernel_ms(fn, 10)) for name, fn in (
         ("history", lambda: bwd(True)), ("two-level", bwd_two_level),
         ("recompute", lambda: bwd(False)), ("recompute", lambda: bwd(False)),
         ("two-level", bwd_two_level), ("history", lambda: bwd(True)))]
@@ -2927,13 +3136,13 @@ def run(out_dir: Path):
     long_ckpt_bytes = LONG_STEPS // k * 3 * plane_bytes
     _, ex_long = rk.march_forward(prog, flat, rays7, LONG_STEPS, 0.0, 5e-2,
                                   log_hist=True)
-    long_hist_ms = cuda_ms(lambda: bk.fused_backward(
+    long_hist_ms = kernel_ms(lambda: bk.fused_backward(
         prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2, hist=ex_long["hist"],
         nlive=ex_long["nlive"]), 3)
     del ex_long
-    long_rec_ms = cuda_ms(lambda: bk.fused_backward(
+    long_rec_ms = kernel_ms(lambda: bk.fused_backward(
         prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2), 3)
-    long_2l_ms = cuda_ms(lambda: bk.fused_backward(
+    long_2l_ms = kernel_ms(lambda: bk.fused_backward(
         prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2, two_level=True), 3)
     check(bk.LAST_PATH["two_level"], "two levels did not engage at 128 steps")
     print(f"backward at 1080p x {LONG_STEPS} steps on {card}: history "

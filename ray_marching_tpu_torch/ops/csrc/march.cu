@@ -22,7 +22,14 @@
 // access coalesced, the ray in registers through all steps; the loop is
 // march_ray of march_loop.cuh, the one render_fwd.cu runs, so the 4 planes
 // equal planes 0-3 of the fused kernel bit for bit. tau > 0: each ray leaves
-// its loop on its own. The TPU kernel's row tiles, its tile-wide while_loop
+// its loop on its own. march_tc_kernel (f32, a scene with a tensor-core MLP
+// leaf, SCENE_TC) is the same march on neural.cuh's rm_mlp_tc: warp-masked
+// (march_loop.cuh), an invalid slot evaluating at its unmoved position with
+// its distance stored as 0; its 4 planes equal planes 0-3 of render_fwd.cu's
+// render_fwd_tc_kernel bit for bit. The wrapper takes the per-thread kernel
+// when the march is differentiated: its backward marches again per thread
+// (render_bwd.cu), and differentiates those positions.
+// The TPU kernel's row tiles, its tile-wide while_loop
 // and its VMEM budgets are not carried over. Built with --fmad=false and
 // IEEE sqrt and division, like the other kernels, for op-for-op parity with
 // the plain PyTorch version.
@@ -53,6 +60,29 @@ march_kernel(const T* __restrict__ P, const T* __restrict__ M,
   out[3 * plane + i] = d;
 }
 
+#ifdef SCENE_TC
+__global__ void __launch_bounds__(128)
+march_tc_kernel(const float* __restrict__ P, const float* __restrict__ M,
+                const float* __restrict__ rays, float* __restrict__ out,
+                long long plane, int steps, float tau) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  float x = rays[i];
+  float y = rays[plane + i];
+  float z = rays[2 * plane + i];
+  const bool valid = rays[6 * plane + i] > 0.5f;
+  NoObserver none;
+  march_ray<float, NoObserver, true>(P, M, x, y, z, rays[3 * plane + i],
+                                     rays[4 * plane + i], rays[5 * plane + i],
+                                     steps, tau, none, valid);
+  const float d = scene_sdf<float, true>(P, M, x, y, z);
+  out[i] = x;
+  out[plane + i] = y;
+  out[2 * plane + i] = z;
+  out[3 * plane + i] = valid ? d : 0.0f;
+}
+#endif
+
 template <typename T>
 static int launch(const T* P, const T* M, const T* rays, T* out,
                   long long plane, int steps, double tau, void* stream) {
@@ -79,3 +109,18 @@ extern "C" int rm_march_f64(const double* P, const double* M,
                             int steps, double tau, void* stream) {
   return launch<double>(P, M, rays, out, plane, steps, tau, stream);
 }
+
+#ifdef SCENE_TC
+// The march on the tensor cores, f32: M is the packed matrix buffer followed
+// by the tensor-core fragments (ops/params.py tc_fragments); plane a
+// multiple of 128.
+extern "C" int rm_march_tc_f32(const float* P, const float* M,
+                               const float* rays, float* out, long long plane,
+                               int steps, double tau, void* stream) {
+  const int block = 128;
+  march_tc_kernel<<<(unsigned int)(plane / block), block, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      P, M, rays, out, plane, steps, static_cast<float>(tau));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

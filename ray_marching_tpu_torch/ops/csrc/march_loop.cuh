@@ -14,10 +14,32 @@
 // of the JAX kernels (a frozen ray re-evaluates the same position and stays
 // frozen). The test is !(|d| >= tau), so a NaN distance freezes the ray as
 // jnp.abs(d) >= tau does. Returns the number of steps the ray moved.
+//
+// TC (the serving forward and the march of a scene with a tensor-core MLP
+// leaf, SCENE_TC in the generated header): the SDF is scene_sdf<T, true>,
+// whose MLP needs every lane of the warp. The loop is then warp-masked: a
+// lane that is frozen, or not live from the start (an invalid slot), keeps
+// evaluating at its own unchanged position with its observer and its moves
+// masked, and the warp leaves the loop when no lane is live or after steps.
+// That is the JAX kernels' own semantics, and rows of the MLP's matrix
+// products are independent, so every ray gets the bits of the per-ray
+// break; the observer sees the same steps.
 #pragma once
 
 #include "sdf_prims.cuh"
 #include "scene_sdf.cuh"
+
+template <typename T, bool TC>
+__device__ __forceinline__ T march_sdf(const T* __restrict__ P,
+                                       const T* __restrict__ M, T x, T y,
+                                       T z) {
+#ifdef SCENE_TC
+  return scene_sdf<T, TC>(P, M, x, y, z);
+#else
+  static_assert(!TC, "the scene has no tensor-core MLP leaf");
+  return scene_sdf<T>(P, M, x, y, z);
+#endif
+}
 
 struct NoObserver {
   template <typename T>
@@ -54,21 +76,35 @@ struct HistoryObserver {
   }
 };
 
-template <typename T, typename Observer>
+template <typename T, typename Observer, bool TC = false>
 __device__ __forceinline__ int march_ray(const T* __restrict__ P,
                                          const T* __restrict__ M, T& x, T& y,
                                          T& z, const T vx, const T vy,
                                          const T vz, const int steps,
-                                         const T tau, Observer& observe) {
+                                         const T tau, Observer& observe,
+                                         bool live = true) {
   const bool freeze = tau != static_cast<T>(0);
   int s = 0;
-  for (; s < steps; ++s) {
-    const T d = scene_sdf<T>(P, M, x, y, z);
-    observe(s, x, y, z, d);
-    if (freeze && !(rm_abs(d) >= tau)) break;
+  for (int k = 0; k < steps; ++k) {
+    if constexpr (TC) {
+      if (!__any_sync(0xffffffffu, live)) break;
+    }
+    const T d = march_sdf<T, TC>(P, M, x, y, z);
+    if (live) {
+      observe(k, x, y, z, d);
+      if (freeze && !(rm_abs(d) >= tau)) live = false;
+    }
+    if (!live) {
+      if constexpr (TC) {
+        continue;
+      } else {
+        break;
+      }
+    }
     x = x + d * vx;
     y = y + d * vy;
     z = z + d * vz;
+    s = k + 1;
   }
   return s;
 }

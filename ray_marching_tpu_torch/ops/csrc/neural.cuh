@@ -1,5 +1,6 @@
 // The MLP of a NeuralSDF leaf, evaluated inside the kernels: one thread per
-// ray, as scene_sdf runs everywhere else.
+// ray, as scene_sdf runs everywhere else; and, for the serving forward and
+// the march, warp-cooperative on the tensor cores (rm_mlp_tc, below).
 //
 // Replaces: ray_marching_tpu/scene/neural.py::neural_sdf_matmul (and
 // ::neural_sdf_componentwise), which the JAX package traces into the bodies
@@ -28,8 +29,8 @@
 // layer is never stored: each chunk goes through its activation and straight
 // into the output layer's dot product, so a leaf with two hidden layers keeps
 // one hidden vector. There are no barriers, so the kernels keep their
-// per-thread early exits (pad slots, the tau > 0 break). Tensor cores are a
-// later redesign.
+// per-thread early exits (pad slots, the tau > 0 break). The tensor-core
+// evaluation below replaces it in the serving forward and the march.
 //
 // Parity with the plain version (scene/neural.py), kept deliberately:
 //  - matmul impl: the products summed over i from 0, then the bias, then the
@@ -249,6 +250,297 @@ __device__ __forceinline__ T rm_mlp_last(const T* __restrict__ b,
     }
   }
   return MATMUL ? o + __ldg(bo) : o;
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core evaluation, for the serving forward and the march only
+// (render_fwd.cu render_fwd_tc_kernel, march.cu march_tc_kernel), f32.
+//
+// Replaces, inside those two kernels, the per-thread evaluation above for a
+// matmul-impl leaf 3 -> N1 -> N2 -> 1 with N1 a multiple of 16 and N2 a
+// multiple of 8 up to 256 (scene/codegen.py tc_leaf; the w256 field's
+// 256 -> 256 layer is 65,536 of its 66,560 multiply-adds). Every other
+// leaf, f64, the training forward and the backward kernel keep the
+// per-thread evaluation, whose bits their bitwise equalities rest on.
+//
+// Bound on an H100: the hidden layer's multiply-adds on the tensor cores
+// (495 TFLOP/s TF32, three passes for f32 accuracy; 989 TFLOP/s bf16), the
+// rest of the evaluation (layer 0, the activations, the output dot) at the
+// f32 SIMT rate.
+//
+// Design: warp-cooperative. The 32 lanes evaluate their 32 rays together,
+// so every lane of the warp must call (the masked march of march_loop.cuh
+// keeps them converged). The rays are the rows of two 16-row m-tiles of
+// mma.sync: one pass covers all 32 rows and NC = 128 of the N2 columns, so
+// each B fragment loaded feeds both m-tiles (16 rows over all 256 columns
+// per pass would load every B fragment twice per warp; it measured 8-9 %
+// slower on an H100, PERF.md):
+//  - layer 0 (3 -> N1, SIMT, in rm_mlp_layer's operation order) is computed
+//    straight into the A fragments: each lane computes the entries it owns
+//    (2 units x 4 rows per k-step) from the rays' positions, which one
+//    __shfl_sync each brings; the hidden vector never goes to memory;
+//  - the hidden layer N1 -> N2 runs on mma.sync: f32 in 3xTF32, each operand
+//    split as hi = tf32(v), lo = tf32(v - hi) (cvt.rna) and the product taken
+//    as lo*hi + hi*lo + hi*hi into f32 accumulators (one TF32 pass keeps
+//    about 3 decimal digits: it moves the w256 distance by 4.8e-5, three by
+//    2.4e-7, tests/test_torch_neural_tc.py); bf16 operands
+//    (matmul_dtype='bfloat16') one m16n8k16 pass, the operands rounded by
+//    __float2bfloat16_rn as rm_operand rounds them;
+//  - B (the weights) comes prepared by the wrapper in fragment order
+//    (ops/params.py tc_fragments): one 16-byte load per lane, k-step and
+//    n-tile (hi and lo of its two entries), 8 bytes for bf16, through the
+//    read-only path, coalesced over the warp;
+//  - the epilogue adds the bias, applies the activation to the accumulators
+//    in registers (the m16n8 C layout: rows gid, gid + 8, columns 2 tig,
+//    2 tig + 1), forms each lane's part of the output dot, sums the quad with
+//    two shuffles and hands each ray's value to its lane. The last hidden
+//    layer is never stored.
+// Row r of an mma output depends only on row r of A, so a lane at a dummy or
+// frozen position cannot change another ray's result, and a ray's bits do
+// not depend on its warp's other rays.
+
+#define RM_FULL_WARP 0xffffffffu
+
+// cvt.rna.tf32.f32: 10 mantissa bits, round to nearest, ties away from zero;
+// the mask clears the 13 bits below them, so the result is a float again.
+__device__ __forceinline__ float rm_tf32(float v) {
+  unsigned int r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// Two floats rounded to bf16 in one register, the first in the low half.
+__device__ __forceinline__ unsigned int rm_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned int*>(&v);
+}
+
+// d += a b on one m16n8k8 tile, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void rm_mma_tf32(float (&d)[4], const float (&a)[4],
+                                            float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// d += a b on one m16n8k16 tile, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void rm_mma_bf16(float (&d)[4],
+                                            const unsigned int (&a)[4],
+                                            unsigned int b0, unsigned int b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Columns per pass: the largest multiple of 8 that divides n and keeps a
+// lane's accumulators (cols over the two m-tiles) within 128.
+__host__ __device__ constexpr int rm_tc_cols(int n) {
+  int c = 128;
+  while (n % c != 0) c -= 8;
+  return c;
+}
+
+// One unit of layer 0 at the point p, as rm_mlp_layer computes it (matmul
+// impl): the products from 0 in input order, the bias, the scale, the
+// activation. w = the unit's column of W0 and its bias.
+template <int ACT, bool BF16, bool SCALE>
+__device__ __forceinline__ float rm_tc_unit0(const float (&w)[4], float w0,
+                                             const float (&p)[3]) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acc = acc + rm_operand<float, BF16>(p[i]) * rm_operand<float, BF16>(w[i]);
+  }
+  acc = acc + w[3];
+  return rm_act<float, ACT>(SCALE ? acc * w0 : acc);
+}
+
+template <int N1>
+__device__ __forceinline__ void rm_tc_col0(const float* __restrict__ b0,
+                                           const float* __restrict__ W0, int u,
+                                           float (&w)[4]) {
+  w[0] = __ldg(W0 + u);
+  w[1] = __ldg(W0 + N1 + u);
+  w[2] = __ldg(W0 + 2 * N1 + u);
+  w[3] = __ldg(b0 + u);
+}
+
+// The MLP 3 -> N1 -> N2 -> 1 of the 32 rays at the lanes' (x, y, z); returns
+// this lane's. b0/W0, b1, b2/W2: biases and matrices as the per-thread
+// evaluation reads them; F1 the prepared fragments of W1. SCALE: layer 0
+// scaled by w0. Every lane of the warp must call.
+template <int N1, int N2, int ACT, bool BF16, bool SCALE>
+__device__ __forceinline__ float rm_mlp_tc(
+    const float* __restrict__ b0, const float* __restrict__ W0,
+    const float* __restrict__ b1, const float* __restrict__ F1,
+    const float* __restrict__ b2, const float* __restrict__ W2, float w0,
+    float x, float y, float z) {
+  static_assert(N1 % 16 == 0 && N2 % 8 == 0 && N2 <= 256, "layer sizes");
+  constexpr int KS = BF16 ? 16 : 8;          // k per mma
+  constexpr int NC = rm_tc_cols(N2);         // columns per pass
+  constexpr int NT = NC / 8;                 // n-tiles per pass
+  constexpr int G = NT % 4 == 0 ? 4 : (NT % 2 == 0 ? 2 : 1);
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  float mine = 0.0f;
+  // The rays of this lane's rows: gid and gid + 8 of each m-tile.
+  float p[2][2][3];
+  float o[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int src = mt * 16 + gid + 8 * h;
+      p[mt][h][0] = __shfl_sync(RM_FULL_WARP, x, src);
+      p[mt][h][1] = __shfl_sync(RM_FULL_WARP, y, src);
+      p[mt][h][2] = __shfl_sync(RM_FULL_WARP, z, src);
+      o[mt][h] = 0.0f;
+    }
+  }
+#pragma unroll 1
+  for (int np = 0; np < N2 / NC; ++np) {
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      }
+    }
+#pragma unroll 1
+    for (int kt = 0; kt < N1 / KS; ++kt) {
+      const long long frag = (long long)kt * (N2 / 8) + np * NT;
+      if constexpr (BF16) {
+        // A: rows gid / gid + 8, columns 2 tig + {0, 1} and + 8.
+        unsigned int a[2][4];
+        float w[4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          rm_tc_col0<N1>(b0, W0, kt * 16 + 2 * tig + (c & 1) + 8 * (c >> 1),
+                         w[c]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int h = r & 1;
+            const int c = 2 * (r >> 1);
+            a[mt][r] = rm_bf16x2(
+                rm_tc_unit0<ACT, BF16, SCALE>(w[c], w0, p[mt][h]),
+                rm_tc_unit0<ACT, BF16, SCALE>(w[c + 1], w0, p[mt][h]));
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < NT; g += G) {
+          uint2 b[G];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            b[j] = __ldg(reinterpret_cast<const uint2*>(F1) +
+                         (frag + g + j) * 32 + lane);
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_bf16(acc[mt][g + j], a[mt], b[j].x, b[j].y);
+            }
+          }
+        }
+      } else {
+        // A: rows gid / gid + 8, columns tig and tig + 4, hi and lo.
+        float ahi[2][4], alo[2][4];
+        float w[2][4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          rm_tc_col0<N1>(b0, W0, kt * 8 + tig + 4 * c, w[c]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float v =
+                rm_tc_unit0<ACT, false, SCALE>(w[r >> 1], w0, p[mt][r & 1]);
+            ahi[mt][r] = rm_tf32(v);
+            alo[mt][r] = rm_tf32(v - ahi[mt][r]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < NT; g += G) {
+          float4 b[G];  // hi of rows tig, tig + 4; lo of the same
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            b[j] = __ldg(reinterpret_cast<const float4*>(F1) +
+                         (frag + g + j) * 32 + lane);
+          }
+          // The small terms first, each over independent tiles.
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_tf32(acc[mt][g + j], alo[mt], b[j].x, b[j].y);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_tf32(acc[mt][g + j], ahi[mt], b[j].z, b[j].w);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_tf32(acc[mt][g + j], ahi[mt], b[j].x, b[j].y);
+            }
+          }
+        }
+      }
+    }
+    // Bias, activation and this lane's part of the output dot, in column
+    // order.
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = (np * NT + nt) * 8 + 2 * tig;
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + col));
+      const float wo[2] = {rm_operand<float, BF16>(__ldg(W2 + col)),
+                           rm_operand<float, BF16>(__ldg(W2 + col + 1))};
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float a = rm_act<float, ACT>(acc[mt][nt][e] +
+                                             (e & 1 ? bb.y : bb.x));
+          o[mt][e >> 1] = o[mt][e >> 1] + rm_operand<float, BF16>(a) * wo[e & 1];
+        }
+      }
+    }
+  }
+  // The quad's sum (the same bits in its four lanes), the output bias,
+  // and each ray's value to its lane.
+  const float bo = __ldg(b2);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    float s[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h] = o[mt][h] + __shfl_xor_sync(RM_FULL_WARP, o[mt][h], 1);
+      s[h] = s[h] + __shfl_xor_sync(RM_FULL_WARP, s[h], 2);
+      s[h] = s[h] + bo;
+    }
+    const int r = lane & 15;
+    const float lo = __shfl_sync(RM_FULL_WARP, s[0], 4 * (r & 7));
+    const float hi = __shfl_sync(RM_FULL_WARP, s[1], 4 * (r & 7));
+    if ((lane >> 4) == mt) mine = r < 8 ? lo : hi;
+  }
+  return mine;
 }
 
 // ---------------------------------------------------------------------------

@@ -46,6 +46,18 @@
 // march_loop.cuh, shared with march.cu and render_bwd.cu. The TPU kernel's
 // 64-row tiles, EXIT_SEG segments and static unroll are not carried over.
 //
+// Tensor cores (render_fwd_tc_kernel, f32, built for a scene with a
+// tensor-core MLP leaf, SCENE_TC): the serving configuration with the MLP
+// of neural.cuh's rm_mlp_tc, 128-thread blocks. mma.sync needs the warp's 32
+// lanes converged, so nothing breaks out per lane: the march is the
+// warp-masked one of march_loop.cuh, an invalid slot evaluates at its unmoved
+// position with its stores masked (its outputs are the per-thread kernel's:
+// the position, zeros), and the normals tail runs on every lane. Its planes
+// are within the f32 tolerance of the per-thread kernel, not equal to it;
+// march.cu's march_tc_kernel gives its planes 0-3 bit for bit. The training
+// kernel keeps the per-thread MLP (its history must equal the backward's
+// recompute bit for bit).
+//
 // Parity traps, kept deliberately:
 //  - min/max/clamp/relu are selects (sdf_prims.cuh), not fminf/fmaxf;
 //  - built with --fmad=false and without --use_fast_math: no contraction
@@ -74,20 +86,37 @@ struct TrainOuts {
   int* nlive;  // or null
 };
 
-// Terminal distance, tetrahedral normals and Laplacian at (x, y, z):
-// planes 0..7 of out.
+// The outputs of an invalid slot: its position, zeros.
 template <typename T>
+__device__ __forceinline__ void store_pad(T* __restrict__ out,
+                                          long long plane, long long i, T x,
+                                          T y, T z) {
+  out[i] = x;
+  out[plane + i] = y;
+  out[2 * plane + i] = z;
+  for (int k = 3; k < 8; ++k) out[k * plane + i] = static_cast<T>(0);
+}
+
+// Terminal distance, tetrahedral normals and Laplacian at (x, y, z):
+// planes 0..7 of out. TC: every lane evaluates, an invalid one stores the
+// pad outputs.
+template <typename T, bool TC = false>
 __device__ __forceinline__ void store_hit(const T* __restrict__ P,
                                           const T* __restrict__ M,
                                           T* __restrict__ out, long long plane,
                                           long long i, T x, T y, T z,
-                                          const RenderConsts<T>& c) {
-  const T d_centre = scene_sdf<T>(P, M, x, y, z);
+                                          const RenderConsts<T>& c,
+                                          bool valid = true) {
+  const T d_centre = march_sdf<T, TC>(P, M, x, y, z);
   T f[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    f[k] = scene_sdf<T>(P, M, x + c.off[k][0], y + c.off[k][1],
-                      z + c.off[k][2]);
+    f[k] = march_sdf<T, TC>(P, M, x + c.off[k][0], y + c.off[k][1],
+                            z + c.off[k][2]);
+  }
+  if (!valid) {
+    store_pad<T>(out, plane, i, x, y, z);
+    return;
   }
   const T d1 = f[1] - f[0];
   const T d2 = f[2] - f[0];
@@ -118,12 +147,8 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ M,
   T x = rays[i];
   T y = rays[plane + i];
   T z = rays[2 * plane + i];
-  const T zero = static_cast<T>(0);
   if (!(rays[6 * plane + i] > static_cast<T>(0.5))) {
-    out[i] = x;
-    out[plane + i] = y;
-    out[2 * plane + i] = z;
-    for (int k = 3; k < 8; ++k) out[k * plane + i] = zero;
+    store_pad<T>(out, plane, i, x, y, z);
     return;
   }
   const T dx = rays[3 * plane + i];
@@ -133,6 +158,27 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ M,
   march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, none);
   store_hit<T>(P, M, out, plane, i, x, y, z, c);
 }
+
+#ifdef SCENE_TC
+// The serving configuration on the tensor cores; every ray slot of a warp
+// takes part in every evaluation (plane is a multiple of 128).
+__global__ void __launch_bounds__(128)
+render_fwd_tc_kernel(const float* __restrict__ P, const float* __restrict__ M,
+                     const float* __restrict__ rays, float* __restrict__ out,
+                     long long plane, int steps, RenderConsts<float> c) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  float x = rays[i];
+  float y = rays[plane + i];
+  float z = rays[2 * plane + i];
+  const bool valid = rays[6 * plane + i] > 0.5f;
+  NoObserver none;
+  march_ray<float, NoObserver, true>(P, M, x, y, z, rays[3 * plane + i],
+                                     rays[4 * plane + i], rays[5 * plane + i],
+                                     steps, c.tau, none, valid);
+  store_hit<float, true>(P, M, out, plane, i, x, y, z, c, valid);
+}
+#endif
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -145,13 +191,9 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ M,
   T x = rays[i];
   T y = rays[plane + i];
   T z = rays[2 * plane + i];
-  const T zero = static_cast<T>(0);
   const long long p3 = 3 * plane;
   if (!(rays[6 * plane + i] > static_cast<T>(0.5))) {
-    out[i] = x;
-    out[plane + i] = y;
-    out[2 * plane + i] = z;
-    for (int k = 3; k < 8; ++k) out[k * plane + i] = zero;
+    store_pad<T>(out, plane, i, x, y, z);
     if (t.minf) t.minf[i] = big;
     if (t.amin) t.amin[i] = -1;
     if (t.argpos) {
@@ -224,6 +266,19 @@ static int launch_train(const T* P, const T* M, const T* rays, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifdef SCENE_TC
+static int launch_tc(const float* P, const float* M, const float* rays,
+                     float* out, long long plane, int steps,
+                     const float* host_consts, void* stream) {
+  const RenderConsts<float> c = unpack_consts<float>(host_consts);
+  const int block = 128;
+  render_fwd_tc_kernel<<<(unsigned int)(plane / block), block, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      P, M, rays, out, plane, steps, c);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 // Plain C interface (bound with ctypes). M is the packed matrix buffer, null
 // for a scene without neural leaves. host_consts: 23 values of T on the
 // host: offsets (4x3, row-major), inverse (3x3), 6/eps^2, tau. Returns the
@@ -264,3 +319,15 @@ extern "C" int rm_render_fwd_train_f64(const double* P, const double* M,
   return launch_train<double>(P, M, rays, out, plane, steps, host_consts,
                               track_min, amin, argpos, hist, nlive, stream);
 }
+
+#ifdef SCENE_TC
+// The serving configuration on the tensor cores, f32: M is the packed matrix
+// buffer followed by the tensor-core fragments (ops/params.py tc_fragments);
+// plane a multiple of 128.
+extern "C" int rm_render_fwd_tc_f32(const float* P, const float* M,
+                                    const float* rays, float* out,
+                                    long long plane, int steps,
+                                    const float* host_consts, void* stream) {
+  return launch_tc(P, M, rays, out, plane, steps, host_consts, stream);
+}
+#endif

@@ -17,7 +17,10 @@ the plain versions only for tensors on the CPU. For CUDA tensors they launch
 the kernels or raise; they never fall back. A scene with ``NeuralSDF``
 leaves passes its matrix parameters as ``mats``; the MLP runs inside the
 kernel and its VJP inside the backward kernel, which returns the matrices'
-cotangents too.
+cotangents too. A march without a gradient on a scene with a tensor-core
+leaf in f32 launches the tensor-core entry (``march_tc_kernel``); a
+differentiated one the per-thread entry, whose positions the backward
+marches again.
 """
 
 from __future__ import annotations
@@ -34,29 +37,44 @@ LANES = rk.LANES
 #: March-kernel launches so far (the wrapper adds one per launch, nowhere
 #: else; its backward counts its own in backward_kernel.MARCH_LAUNCHES).
 LAUNCHES = 0
+#: Those of them that launched the tensor-core entry (march_tc_kernel).
+TC_LAUNCHES = 0
 
 
 def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
-                  mats=()):
+                  mats=(), route=None, tc_mats=None):
     """One march, not differentiable: rays7 (7, rows, 128) → (4, rows, 128),
-    the marched x y z and the terminal distance (0 on pad slots). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    global LAUNCHES
+    the marched x y z and the terminal distance (0 on pad slots), on the MLP
+    ``route`` (by default the serving one, :func:`render_kernel.mlp_route`),
+    which ``tc_mats`` may hand a prepared buffer
+    (:func:`render_kernel.tc_buffer`). CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    global LAUNCHES, TC_LAUNCHES
     rk._check(program, params_flat, rays7, steps, mats)
+    if route is None:
+        route = rk.mlp_route(program, rays7.dtype)
+    rk._check_route(program, rays7, route, tc_mats)
     if rays7.device.type == "cpu":
         return reference_march(program, params_flat, rays7, steps, tau, mats)
     if rays7.device.type != "cuda":
         raise ValueError(f"unsupported device {rays7.device}")
     if not (rays7.is_contiguous() and params_flat.is_contiguous()):
         raise ValueError("rays7 and params_flat must be contiguous")
-    packed = rk._packed(mats)
-    lib = rk._load(program)
+    if route == "tc":
+        lib_fn = "rm_march_tc_f32"
+        packed = rk.tc_buffer(program, mats) if tc_mats is None else tc_mats
+    else:
+        lib_fn = ("rm_march_f32" if rays7.dtype == torch.float32
+                  else "rm_march_f64")
+        packed = rk._packed(mats)
+    fn = getattr(rk._load(program), lib_fn)
     out = torch.empty((4,) + tuple(rays7.shape[1:]), dtype=rays7.dtype,
                       device=rays7.device)
-    fn = lib.rm_march_f32 if rays7.dtype == torch.float32 else lib.rm_march_f64
     with torch.cuda.device(rays7.device):
         stream = torch.cuda.current_stream(rays7.device).cuda_stream
         LAUNCHES += 1
+        if route == "tc":
+            TC_LAUNCHES += 1
         err = fn(params_flat.data_ptr(), rk._ptr(packed), rays7.data_ptr(),
                  out.data_ptr(), rays7.shape[1] * LANES, int(steps),
                  float(tau), stream)
@@ -74,7 +92,8 @@ class _March(torch.autograd.Function):
     def forward(ctx, params_flat, rays7, program, steps, tau, *mats):
         ctx.cfg = (program, steps, tau)
         ctx.save_for_backward(params_flat, rays7, *mats)
-        return march_forward(program, params_flat, rays7, steps, tau, mats)
+        return march_forward(program, params_flat, rays7, steps, tau, mats,
+                             route="thread")
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -91,8 +110,9 @@ class _March(torch.autograd.Function):
 def march_planes(program: SdfProgram, params_flat, rays7, steps, tau=0.0,
                  mats=()):
     """rays7 (7, rows, 128) → (4, rows, 128): x y z d, the first four planes
-    of :func:`render_kernel.fused_march_normals` bit for bit. Differentiable
-    in ``params_flat``, ``rays7`` and ``mats``."""
+    of :func:`render_kernel.fused_march_normals` bit for bit (under a
+    gradient: of its training configuration, the per-thread route of both).
+    Differentiable in ``params_flat``, ``rays7`` and ``mats``."""
     if rk._requires_grad(params_flat, rays7, *mats):
         return _March.apply(params_flat, rays7, program, steps, tau, *mats)
     return march_forward(program, params_flat, rays7, steps, tau, mats)

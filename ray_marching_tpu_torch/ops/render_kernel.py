@@ -31,6 +31,15 @@ training configuration of the kernel (with the march history when
 ``bwd_two_level``) and ``backward()`` launches the backward kernel. Both take
 the plain versions only for tensors on the CPU. For CUDA tensors they launch the
 kernels or raise; they never fall back.
+
+Two MLP routes (:func:`mlp_route`): a scene with a tensor-core leaf
+(``SdfProgram.tc``) served in f32 without a gradient launches the
+tensor-core entry (``render_fwd_tc_kernel``: the MLP on ``mma.sync``, 3xTF32
+or bf16 operands, within the f32 tolerance of the plain version rather than
+equal to the per-thread kernel); every differentiated call, f64 and every
+other scene take the per-thread entries, whose history, recompute and
+two-level backward stay bitwise equal. The tensor-core entry takes the
+packed matrices followed by the fragments of :func:`ops.params.pack_tc`.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ray_marching_tpu_torch.ops.params import pack_mats
+from ray_marching_tpu_torch.ops.params import pack_mats, pack_tc
 from ray_marching_tpu_torch.render.normals import make_offsets
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 
@@ -74,6 +83,8 @@ NVCC_FLAGS = (
 #: Forward-kernel launches so far (the wrapper adds one per launch, nowhere
 #: else; the backward kernel counts its own in backward_kernel.LAUNCHES).
 LAUNCHES = 0
+#: Those of them that launched the tensor-core entry (render_fwd_tc_kernel).
+TC_LAUNCHES = 0
 #: Whether a differentiated forward logs its march history for the backward
 #: kernel; the counterpart of the JAX package's RM_TPU_BWD_HIST, and the one
 #: default (the ``bwd_hist`` argument of the two entry points is the one
@@ -212,6 +223,13 @@ def _load(program: SdfProgram):
             fn.restype = i32
         lib.rm_render_bwd_block.argtypes = []
         lib.rm_render_bwd_block.restype = i32
+        if program.tc:
+            lib.rm_render_fwd_tc_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
+                                                 ptr, ptr]
+            lib.rm_render_fwd_tc_f32.restype = i32
+            lib.rm_march_tc_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f64,
+                                            ptr]
+            lib.rm_march_tc_f32.restype = i32
         _LIBS[key] = lib
     _BOUND[program] = lib
     return lib
@@ -274,9 +292,42 @@ def _packed(mats):
     return packed
 
 
+def mlp_route(program: SdfProgram, dtype) -> str:
+    """The MLP evaluation a serving launch of the forward or the march
+    takes: ``"tc"`` (the tensor-core entries) for a scene with a tensor-core
+    leaf in float32, ``"thread"`` (one thread per ray) otherwise. A
+    differentiated march takes ``"thread"`` whatever this says: its backward
+    marches again per thread."""
+    return "tc" if program.tc and dtype == torch.float32 else "thread"
+
+
+def tc_buffer(program: SdfProgram, mats):
+    """The matrix buffer of the tensor-core entries: the packed matrices,
+    then each tensor-core layer's fragments (:func:`ops.params.pack_tc`),
+    prepared from ``mats`` on their device."""
+    with torch.no_grad():
+        return pack_tc(_packed(mats), mats, program.tc_mats)
+
+
+def _check_route(program, rays7, route, tc_mats=None):
+    if route not in ("tc", "thread"):
+        raise ValueError(f"route must be 'tc' or 'thread', got {route!r}")
+    if route == "tc" and not (program.tc and rays7.dtype == torch.float32):
+        raise ValueError("the tensor-core route needs a scene with a "
+                         "tensor-core MLP leaf and float32")
+    if tc_mats is not None and (
+            route != "tc" or tc_mats.shape != (program.tc_size,)
+            or tc_mats.dtype != torch.float32
+            or tc_mats.device != rays7.device
+            or not tc_mats.is_contiguous() or tc_mats.data_ptr() % 16):
+        raise ValueError(f"tc_mats must be a contiguous, 16-byte aligned "
+                         f"({program.tc_size},) float32 buffer on "
+                         f"{rays7.device}, for the tensor-core route")
+
+
 def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
                   normals_eps, track_min=False, log_hist=False,
-                  track_argpos=False, mats=()):
+                  track_argpos=False, mats=(), route=None, tc_mats=None):
     """One forward march, not differentiable: ``(out, extras)``. ``mats``
     are the scene's matrix parameters (``split_params_padded``).
 
@@ -285,10 +336,19 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     arg-min step, with ``track_min`` and ``log_hist``), ``argpos``
     (3, rows, 128), ``hist`` (steps + 1, 3, rows, 128) and ``nlive`` (int32
     live-step count). With none of the options this is the serving
-    configuration of the kernel. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    global LAUNCHES
+    configuration of the kernel, on the MLP ``route`` (:func:`mlp_route`;
+    by default the serving one), which ``tc_mats`` may hand a prepared
+    buffer (:func:`tc_buffer`); the training outputs take the per-thread
+    route. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    global LAUNCHES, TC_LAUNCHES
     _check(program, params_flat, rays7, steps, mats)
+    training = track_min or log_hist or track_argpos
+    if route is None:
+        route = "thread" if training else mlp_route(program, rays7.dtype)
+    _check_route(program, rays7, route, tc_mats)
+    if training and route == "tc":
+        raise ValueError("the training outputs take the per-thread route")
     if rays7.device.type == "cpu":
         return _reference_march(program, params_flat, rays7, steps, tau,
                                 normals_eps, track_min, log_hist,
@@ -297,7 +357,10 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
         raise ValueError(f"unsupported device {rays7.device}")
     if not (rays7.is_contiguous() and params_flat.is_contiguous()):
         raise ValueError("rays7 and params_flat must be contiguous")
-    packed = _packed(mats)
+    if route == "tc":
+        packed = tc_buffer(program, mats) if tc_mats is None else tc_mats
+    else:
+        packed = _packed(mats)
     lib = _load(program)
     plane_shape = tuple(rays7.shape[1:])
     dev, dtype = rays7.device, rays7.dtype
@@ -322,7 +385,12 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         LAUNCHES += 1
-        if track_min or extras:
+        if route == "tc":
+            TC_LAUNCHES += 1
+            err = lib.rm_render_fwd_tc_f32(
+                params_flat.data_ptr(), packed.data_ptr(), rays7.data_ptr(),
+                out.data_ptr(), n, int(steps), consts_p, stream)
+        elif track_min or extras:
             fn = (lib.rm_render_fwd_train_f32 if f32
                   else lib.rm_render_fwd_train_f64)
             err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
@@ -348,9 +416,10 @@ class _FusedMarch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
                 track_min, log_hist, two_level, *mats):
-        out, extras = march_forward(program, params_flat, rays7, steps, tau,
-                                    normals_eps, track_min=track_min,
-                                    log_hist=log_hist, mats=mats)
+        out, extras = march_forward(
+            program, params_flat, rays7, steps, tau, normals_eps,
+            track_min=track_min, log_hist=log_hist, mats=mats,
+            route="thread")
         ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist,
                    two_level)
         saved = [params_flat, rays7, *mats]
@@ -441,7 +510,10 @@ class _FusedMarchIFT(torch.autograd.Function):
     (counterpart of ``fused_march_normals_ift`` / ``_cov_ift`` of the JAX
     package, whose backward is tensor code outside any kernel too): no
     reverse sweep. Exact on converged rays; silhouette gradients differ
-    from the unrolled backward."""
+    from the unrolled backward. Without ``track_min`` the forward is the
+    serving configuration on its serving route, the tensor-core entry for a
+    scene with a tensor-core leaf in f32: the backward differentiates that
+    endpoint with plain torch."""
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
@@ -536,7 +608,10 @@ def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,
     """:func:`fused_march_normals` (``track_min``: ``_cov``) with the
     implicit-function-theorem backward: the forward kernel, then plain
     PyTorch at the endpoint; with ``track_min`` the ``min_f`` gradient takes
-    the arg-min position (a further kernel output) as fixed."""
+    the arg-min position (a further kernel output) as fixed. Without
+    ``track_min`` the forward takes the serving route even under a gradient
+    (:class:`_FusedMarchIFT`): on a scene with a tensor-core leaf in f32 the
+    gradient is that of the tensor-core endpoint."""
     if _requires_grad(params_flat, rays7, *mats):
         return _FusedMarchIFT.apply(params_flat, rays7, program, steps, tau,
                                     normals_eps, track_min, hit_threshold,

@@ -50,6 +50,19 @@ matrix and bias cotangents to the backward kernel's per-block sink; on tensors
 :meth:`SdfProgram.evaluate_vjp` returns them from. The radius goes through
 the scalar rules.
 
+A leaf of the shape :func:`tc_leaf` takes (matmul impl, ``3 -> N1 -> N2 ->
+1`` with ``N1`` a multiple of 16 and ``N2`` a multiple of 8 up to 256) gets a
+second device function, ``neural_leaf_tc_<k>``: the warp-cooperative
+tensor-core evaluation of neural.cuh (``rm_mlp_tc``), whose hidden layer
+reads the fragments that :func:`ray_marching_tpu_torch.ops.params.tc_fragments`
+prepares, after the packed matrices (:attr:`SdfProgram.tc_mats`). The
+header then defines ``SCENE_TC`` and ``scene_sdf`` takes a compile-time
+switch, ``scene_sdf<T, true>`` calling the tensor-core function: the serving
+forward and the march kernel take it (f32), every other kernel keeps
+``scene_sdf<T>``. A scene without such a leaf generates the source it did
+before the tensor-core evaluation existed, byte for byte. The tensor
+evaluator and the op counts do not change.
+
 Custom nodes other than ``NeuralSDF`` enter through
 :func:`register_lowering`: a function that emits the node with the
 builder's scalar ops, as ``scene/fractals.py`` does for the Mandelbulb.
@@ -140,6 +153,16 @@ class MlpLeaf(NamedTuple):
     bias: Tuple[int, ...]
     radius: int
     mats: Tuple[int, ...]
+
+
+def tc_leaf(leaf: MlpLeaf) -> bool:
+    """Whether neural.cuh's tensor-core evaluation takes the leaf: matmul
+    impl, two hidden layers, the hidden layer's input a multiple of 16 wide
+    (the bf16 k-step) and its output a multiple of 8 up to 256 (the n-tile,
+    and the accumulators a lane holds)."""
+    sizes = leaf.sizes
+    return (resolve_impl(leaf.node) == "matmul" and len(sizes) == 4
+            and sizes[1] % 16 == 0 and sizes[2] % 8 == 0 and sizes[2] <= 256)
 
 
 #: Activation name -> neural.cuh constant; any other name is tanh, as in
@@ -483,6 +506,7 @@ class SdfProgram:
         from ray_marching_tpu_torch.ops.params import (
             mat_specs,
             split_params_padded,
+            tc_segment,
         )
 
         self._template = init_params(node, torch.float64)
@@ -519,6 +543,26 @@ class SdfProgram:
                             list(range(len(self.scalar_offsets))))
         self.ops = b.ops
         self.ray_dependent = b.dep
+        #: Tensor-core leaves: ``{leaf index: (index of the hidden layer's
+        #: matrix in mat_specs, bf16 operands, fragment offset after the
+        #: packed matrices)}``.
+        self.tc = {}
+        mat_index = {s.offset: k for k, s in enumerate(self.mat_specs)}
+        off = 0
+        for k, leaf in enumerate(self.mlps):
+            if tc_leaf(leaf):
+                bf16 = leaf.node.matmul_dtype == "bfloat16"
+                self.tc[k] = (mat_index[leaf.mats[1]], bf16, off)
+                off += tc_segment(leaf.sizes[1], leaf.sizes[2], bf16)
+        #: Length of the tensor-core entries' buffer: the packed matrices,
+        #: then the fragments (ops/params.py pack_tc).
+        self.tc_size = self.mat_size + off
+
+    @property
+    def tc_mats(self):
+        """``(matrix index, bf16)`` of each tensor-core layer, in the order
+        of their fragments after the packed matrices."""
+        return tuple(v[:2] for v in self.tc.values())
 
     @property
     def n_mats(self) -> int:
@@ -663,6 +707,16 @@ class SdfProgram:
             elif kind == "mlp" and vjp and self._keeps(args[0]):
                 expr = (f"sink.active ? neural_leaf_keep_{args[0]}<T>(P, M, "
                         f"{xyz}, keep{args[0]}) : static_cast<T>(0)")
+            elif kind == "mlp" and not vjp and args[0] in self.tc:
+                lines += [
+                    f"  T {names[i]};",
+                    "  if constexpr (TC) {",
+                    f"    {names[i]} = neural_leaf_tc_{args[0]}(P, M, {xyz});",
+                    "  } else {",
+                    f"    {names[i]} = neural_leaf_{args[0]}<T>(P, M, {xyz});",
+                    "  }",
+                ]
+                continue
             elif kind == "mlp":
                 expr = f"neural_leaf_{args[0]}<T>(P, M, {xyz})"
                 if vjp:
@@ -740,6 +794,30 @@ class SdfProgram:
                 f"{sizes[last + 1]}, {flags}, {scale}>({b[last]}, "
                 f"{m[last]}, w0, {src}, {b[last + 1]}, {m[last + 1]});")
         return lines + ["}", ""]
+
+    def _mlp_tc_source(self, k: int, leaf: MlpLeaf) -> List[str]:
+        """The tensor-core device function of neural leaf ``k`` (f32): the
+        warp-cooperative rm_mlp_tc of neural.cuh, its hidden layer's
+        fragments after the packed matrices."""
+        node, sizes = leaf.node, leaf.sizes
+        _, bf16, frag = self.tc[k]
+        act = _ACT.get(node.activation, "RM_ACT_TANH")
+        scale = str(node.activation.startswith("sine")).lower()
+        return [
+            f"// {leaf.prefix or 'scene'}: the same MLP on the tensor cores; "
+            "every lane of the warp calls",
+            f"static __device__ __noinline__ float neural_leaf_tc_{k}(const "
+            "float* __restrict__ P, const float* __restrict__ M, float x, "
+            "float y, float z) {",
+            f"  return rm_mlp_tc<{sizes[1]}, {sizes[2]}, {act}, "
+            f"{str(bf16).lower()}, {scale}>(P + {leaf.bias[0]}, "
+            f"M + {leaf.mats[0]}, P + {leaf.bias[1]}, "
+            f"M + {self.mat_size + frag}, P + {leaf.bias[2]}, "
+            f"M + {leaf.mats[2]}, static_cast<float>({float(node.w0).hex()}), "
+            "x, y, z);",
+            "}",
+            "",
+        ]
 
     @staticmethod
     def _keep_offsets(leaf: MlpLeaf) -> List[int]:
@@ -861,6 +939,7 @@ class SdfProgram:
             "// Generated by ray_marching_tpu_torch/scene/codegen.py from",
             f"// {self.node!r}",
             "#pragma once",
+            *(["#define SCENE_TC 1"] if self.tc else []),
             f"constexpr int SCENE_N_SCALARS = {len(self.scalar_offsets)};",
             f"constexpr int SCENE_N_MLP = {len(self.mlps)};",
             f"constexpr int SCENE_N_ACC = {len(self.acc_scalars)};",
@@ -875,11 +954,14 @@ class SdfProgram:
             lines += ['#include "neural.cuh"', ""]
             for k, leaf in enumerate(self.mlps):
                 lines += self._mlp_source(k, leaf)
+                if k in self.tc:
+                    lines += self._mlp_tc_source(k, leaf)
                 if self._keeps(k):
                     lines += self._mlp_keep_source(k, leaf)
                 lines += self._mlp_vjp_source(k, leaf)
         lines += [
-            "template <typename T>",
+            ("template <typename T, bool TC = false>" if self.tc
+             else "template <typename T>"),
             "__device__ __forceinline__ T scene_sdf(const T* __restrict__ P,"
             " const T* __restrict__ M, T x, T y, T z) {",
             *self._emit(names, 3, n),

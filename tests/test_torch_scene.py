@@ -295,7 +295,7 @@ def test_params_from_jax_round_trip():
 
 
 @pytest.mark.parametrize("name", ["neural_demo", "mandelbulb"])
-def test_custom_node_scenes_not_ported(name):
+def test_custom_node_scenes_build_and_lower(name):
     """Both custom-node scenes are ported now: each builds the JAX
     package's tree, and the kernels' code generator lowers it."""
     assert name in treg.available_scenes()
