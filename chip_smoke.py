@@ -121,6 +121,13 @@ PER_THREAD_SOURCES = {
     "mandelbulb":
         "29bf4ad2bce69c7b83c765287b8cd1caa0cfe05a9a181efa06b8a4c74b32c04d",
 }
+#: sha256 of the f64 neural training forward's history and the backward's
+#: cotangents at 128² (neural_f64_digest), as the port computed them on an
+#: NVIDIA H100 80GB HBM3 before the tensor-core backward existed (commit
+#: 994f98a; tools/torch_tc_variants.py digest): f64 keeps the per-thread
+#: route, so its bits must not move.
+NEURAL_F64_DIGEST = (
+    "70ef492de97fdbb332f647b8149610a3d498fc7cc98f977cd2fad2981171e8ca")
 NEURAL_WEIGHTS = ROOT / "docs" / "neural_fit_w256" / "weights.npz"
 NEURAL_SCENE_FILE = ROOT / "docs" / "examples" / "neural_demo.json"
 NEURAL_RES, NEURAL_F64_RES, NEURAL_STEPS, NEURAL_FRAMES = 512, 128, 24, 20
@@ -139,6 +146,13 @@ TOL_BF16 = (1e-3, 1e-3, 1e-3, 1e-3, 1e-2, 1e-2, 1e-2, 1.0)
 #: alone lets the control through (5 of 256,456 rays outside on an NVIDIA
 #: H100 80GB HBM3, 700.00 W).
 TOL_F32_TC = tuple(t / 10 for t in TOL_F32)
+#: The f32 training forward's history against the plain march's, on the
+#: converged rays, at every step both ran: each step moves the position by
+#: the SDF's value, whose rounding TOL_F32 bounds by its d limit, and a step
+#: of a ray that is not yet near the surface does not contract the error
+#: carried in (a converged ray's final position does), so the limit is the d
+#: plane's carried over every step.
+HIST_TOL_F32 = NEURAL_STEPS * TOL_F32[3]
 MAX_SHARE_OUT_BF16 = 1e-2
 #: The neural frame against the analytic target the field was distilled to
 #: (tools/train_neural_demo.py), mode 0 at the demo's pose: thresholds fixed
@@ -181,6 +195,10 @@ TOL_NEURAL_BWD_BF16 = (0.9, 1e-3, 1e-2)
 #: A profile may read a kernel at most this far below its CUDA-event time
 #: (profile_frames).
 PROFILE_MAX_UNDER = 0.05
+#: Cycles profile_frames may discard, over all its calls, because the
+#: profiler delivered fewer records of an expected kernel than the call
+#: launched.
+PROFILE_MAX_DROPPED = 3
 #: The spin that kernel_ms queues its launches behind: about 10 ms at the
 #: H100's 1.98 GHz boost clock, longer than the host takes to queue a
 #: timing loop's calls.
@@ -320,15 +338,8 @@ def compare(label, program, flat, rays7, tau, f64, steps=STEPS, mats=(),
     conv = (rays7[6] > 0.5) & (want[3].abs() < CONVERGED)
     n_conv = int(conv.sum())
     check(n_conv > 0, f"{label}: no converged rays")
-    diffs, outside = [], torch.zeros_like(conv)
-    for i, name in enumerate(PLANES):
-        diff = (got[i] - want[i]).abs()
-        nan_mismatch = torch.isnan(got[i]) != torch.isnan(want[i])
-        diff = torch.where(torch.isnan(got[i]) & torch.isnan(want[i]),
-                           torch.zeros_like(diff), diff)
-        bad = nan_mismatch | (diff > (TOL_F64 if f64 else tol[i]))
-        outside |= bad & conv
-        diffs.append(float(torch.where(conv, diff, 0.0).max()))
+    diffs, outside = plane_errors(got, want, conv,
+                                  (TOL_F64,) * len(PLANES) if f64 else tol)
     share = int(outside.sum()) / n_conv
     exact = float(((got == want) | (torch.isnan(got) & torch.isnan(want)))
                   .all(0)[rays7[6] > 0.5].float().mean())
@@ -343,6 +354,23 @@ def compare(label, program, flat, rays7, tau, f64, steps=STEPS, mats=(),
         check(share <= limit,
               f"{label}: {share:.3e} of converged rays outside tolerance")
     return max(diffs)
+
+
+def plane_errors(got, want, conv, tol):
+    """Per plane i, the largest |got[i] - want[i]| on the rays ``conv``
+    marks, and the mask of those rays with a plane outside ``tol[i]`` or NaN
+    in only one of the two."""
+    import torch
+
+    diffs, outside = [], torch.zeros_like(conv)
+    for i, t in enumerate(tol):
+        diff = (got[i] - want[i]).abs()
+        nan_mismatch = torch.isnan(got[i]) != torch.isnan(want[i])
+        diff = torch.where(torch.isnan(got[i]) & torch.isnan(want[i]),
+                           torch.zeros_like(diff), diff)
+        outside |= (nan_mismatch | (diff > t)) & conv
+        diffs.append(float(torch.where(conv, diff, 0.0).max()))
+    return diffs, outside
 
 
 def same_bits(a, b):
@@ -679,41 +707,61 @@ def profile_frames(fn, frame_ms, frames=5, expect=None):
     One call per cycle because a cycle over several calls once lost a whole
     launch of a 127 ms kernel (the neural frame read 85.58 ms busy per frame
     against 126.81 ms by CUDA events: two records of three); each cycle here
-    ends in a synchronise, and every record is counted. ``expect`` maps a
-    kernel-name prefix to (its CUDA-event ms per launch at the same inputs,
-    launches per call): the profile fails if it holds fewer records of that
-    kernel than the wrapper launched, or reads it more than
+    ends in a synchronise. A cycle can still come back without a record
+    (once two of three records of the 2.2 ms bulb training forward): a cycle
+    that holds fewer records of an ``expect`` kernel than its call launched
+    is reported and discarded, and the call profiled again, at most
+    PROFILE_MAX_DROPPED times in all. ``expect`` maps a kernel-name prefix
+    to (its CUDA-event ms per launch at the same inputs, launches per
+    call): the profile fails if the kept cycles hold fewer records of that
+    kernel than the wrapper launched, or read it more than
     PROFILE_MAX_UNDER below its CUDA-event time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    expect = expect or {}
     fn()
     torch.cuda.synchronize()
     totals = {}  # kernel -> [records, device µs]
-    for _ in range(frames):
+    kept = dropped = 0
+    while kept < frames:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         # Device-side entries only; "Optimizer.step#..." is an annotation
         # that spans the optimizer's kernels, not a kernel.
-        for e in prof.key_averages():
-            if (e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0
-                    and not e.key.startswith("Optimizer.")):
-                t = totals.setdefault(e.key, [0, 0.0])
-                t[0] += e.count
-                t[1] += e.self_device_time_total
+        cycle = {e.key: (e.count, e.self_device_time_total)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0
+                 and not e.key.startswith("Optimizer.")}
+        short = {prefix: n for prefix, (_, per_call) in expect.items()
+                 if (n := sum(c for k, (c, _) in cycle.items()
+                              if k.startswith(prefix))) < per_call}
+        if short:
+            dropped += 1
+            print(f"profile: cycle discarded, records short of the call's "
+                  f"launches: {short} ({dropped} of at most "
+                  f"{PROFILE_MAX_DROPPED})")
+            check(dropped <= PROFILE_MAX_DROPPED,
+                  f"profile: {dropped} cycles short of records")
+            continue
+        kept += 1
+        for key, (n, us) in cycle.items():
+            t = totals.setdefault(key, [0, 0.0])
+            t[0] += n
+            t[1] += us
     busy_ms = sum(t[1] for t in totals.values()) / 1e3 / frames
     check(busy_ms > 0.0, "profile: no device time recorded")
-    print(f"profile ({frames} calls, one per cycle): kernels busy "
-          f"{busy_ms:.4f} ms per call, {busy_ms / frame_ms:.3f} of the "
-          f"{frame_ms:.4f} ms call")
+    print(f"profile ({frames} calls, one per cycle, {dropped} cycles "
+          f"discarded): kernels busy {busy_ms:.4f} ms per call, "
+          f"{busy_ms / frame_ms:.3f} of the {frame_ms:.4f} ms call")
     for key, (n, us) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {us / 1e3 / frames:9.4f} ms/call {n // frames:4d}x/call  "
               f"{key[:100]}")
-    for prefix, (event_ms, per_call) in (expect or {}).items():
+    for prefix, (event_ms, per_call) in expect.items():
         n, us = next((t for k, t in totals.items() if k.startswith(prefix)),
                      (0, 0.0))
         prof_ms = us / 1e3 / max(n, 1)
@@ -1175,19 +1223,24 @@ def ptxas_entry(log, kernel, args="IfE"):
     raise SmokeFailure(f"no ptxas report for {kernel}")
 
 
-def tc_bound_ms(program, ops, n_evals):
+def tc_bound_ms(program, ops, n_evals, n_vjps=0):
     """The least time of ``ops`` operations over ``n_evals`` SDF
-    evaluations when the tensor-core layers of ``program`` run on the tensor
-    cores: their multiplies and adds (2·N1·N2 per evaluation) at the TF32
-    rate taken three times (3xTF32) or the bf16 rate, the rest at the f32
-    SIMT rate."""
+    evaluations and ``n_vjps`` SDF VJPs when the tensor-core layers of
+    ``program`` run on the tensor cores: their multiplies and adds (2·N1·N2
+    per evaluation; three such products per VJP: its primal, W·δ and
+    a ⊗ δ) at the TF32 rate taken three times (3xTF32) or, for bf16
+    operands, the bf16 rate (the primal) and the TF32 rate taken twice (the
+    products with δ, which stays f32), the rest at the f32 SIMT rate."""
     tc_s, tc_ops = 0.0, 0
     for k in program.tc:
         sizes = program.mlps[k].sizes
-        n = n_evals * 2 * sizes[1] * sizes[2]
+        per = 2 * sizes[1] * sizes[2]
         bf16 = program.mlps[k].node.matmul_dtype == "bfloat16"
-        tc_s += n / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
-        tc_ops += n
+        primal = (n_evals + n_vjps) * per
+        back = 2 * n_vjps * per
+        tc_s += primal / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
+        tc_s += back / (PEAK_TF32_FLOPS / (2 if bf16 else 3))
+        tc_ops += primal + back
     return (tc_s + (ops - tc_ops) / PEAK_F32_FLOPS) * 1e3
 
 
@@ -1267,31 +1320,41 @@ def neural_slice(card, out_dir: Path):
                               tc_mats=control)
     del control
     # The routes' pairs, bit for bit: the per-thread serving forward and
-    # march; the march under a gradient (the per-thread entry) and the
-    # training forward.
+    # march and training forward; the tensor-core serving forward, training
+    # forward and march under a gradient.
     thread, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
                                  mats=mats, route="thread")
     thread_march = mk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0,
                                     mats, route="thread")
+    thread_train, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0,
+                                       5e-2, log_hist=True, mats=mats,
+                                       route="thread")
+    serve, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                                mats=mats)
+    rk.LAUNCHES = rk.TC_LAUNCHES = 0
     train, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
                                 log_hist=True, mats=mats)
     mk.LAUNCHES = mk.TC_LAUNCHES = 0
     grad_march = mk.march_planes(prog, flat.clone().requires_grad_(True),
                                  rays7, NEURAL_STEPS, 0.0, mats)
     torch.cuda.synchronize()
-    check((mk.LAUNCHES, mk.TC_LAUNCHES) == (1, 0),
-          "the march under a gradient did not take the per-thread entry")
+    check((rk.LAUNCHES, rk.TC_LAUNCHES, mk.LAUNCHES, mk.TC_LAUNCHES)
+          == (1, 1, 1, 1), "the training forward or the march under a "
+          "gradient did not take the tensor-core entry")
     check(bool(same_bits(thread_march, thread[:4]).all()),
           "per-thread march differs from the per-thread forward's planes")
+    check(bool(same_bits(thread_train[:8], thread).all()),
+          "the per-thread training forward differs from its serving one")
+    check(bool(same_bits(train[:8], serve).all()),
+          "the tensor-core training forward differs from the serving one")
     check(bool(same_bits(grad_march.detach(), train[:4]).all()),
           "the gradient route's march differs from the training forward")
-    check(bool(same_bits(train[:8], thread).all()),
-          "the training forward differs from the per-thread serving one")
     print("neural routes: per-thread march == per-thread forward planes 0-3, "
-          "the gradient route's march (per-thread entry) == the training "
-          "forward's planes 0-3, training forward == per-thread serving "
-          "planes 0-7, all bit for bit")
-    del thread, thread_march, train, grad_march
+          "per-thread training forward == per-thread serving planes 0-7; "
+          "tensor-core training forward == tensor-core serving planes 0-7, "
+          "the march under a gradient (tensor-core entry) == its planes 0-3; "
+          "all bit for bit")
+    del thread, thread_march, thread_train, serve, train, grad_march
     r64, p64 = neural_renderer(NEURAL_F64_RES, torch.float64)
     f_flat, f_mats, f_rays = neural_rays(r64, p64)
     label = f"neural f64 {NEURAL_F64_RES}x{NEURAL_F64_RES} w256"
@@ -1597,12 +1660,13 @@ def trainable_leaves(tree, trainable):
 
 
 def counted_optimize(label, renderer, target, q, t, cfg, init_params,
-                     two_level=False):
+                     two_level=False, tc=False):
     """optimize() through the kernels, counted: one forward and one backward
-    launch per step, no plain march or backward, the backward path asked
-    for (the history, or two levels without one), finite losses and a
-    finite gradient of every trainable leaf at every step. Returns (result,
-    the trainable leaves' gradients at each step, each step's ms by the host
+    launch per step (``tc``: all of them on the tensor-core entries, else
+    none), no plain march or backward, the backward path asked for (the
+    history, or two levels without one), finite losses and a finite
+    gradient of every trainable leaf at every step. Returns (result, the
+    trainable leaves' gradients at each step, each step's ms by the host
     clock; every step ends in a synchronise)."""
     import torch
 
@@ -1620,7 +1684,7 @@ def counted_optimize(label, renderer, target, q, t, cfg, init_params,
                                                    cfg.trainable).items()})
 
     torch.cuda.synchronize()
-    rk.LAUNCHES = bk.LAUNCHES = 0
+    rk.LAUNCHES = bk.LAUNCHES = rk.TC_LAUNCHES = bk.TC_LAUNCHES = 0
     bk.LAST_PATH.clear()
     rk.BWD_TWO_LEVEL = two_level
     stamps.append(time.perf_counter())
@@ -1633,6 +1697,7 @@ def counted_optimize(label, renderer, target, q, t, cfg, init_params,
         rk.BWD_TWO_LEVEL = False
     fwd, bwd, n_plain, path = rk.LAUNCHES, bk.LAUNCHES, pm.n + pb.n, dict(
         bk.LAST_PATH)
+    tc_fwd, tc_bwd = rk.TC_LAUNCHES, bk.TC_LAUNCHES
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
 
     def shown(v):  # a scalar leaf's value, else its largest entry
@@ -1646,13 +1711,16 @@ def counted_optimize(label, renderer, target, q, t, cfg, init_params,
           + "; gradients per step " + " | ".join(
               " ".join(f"{p}={shown(v)}" for p, v in step.items())
               for step in grads)
-          + f"; forward launches {fwd}, backward launches {bwd}, plain "
-          f"calls {n_plain}, path {path}; step ms (host clock) "
+          + f"; forward launches {fwd} ({tc_fwd} tensor-core), backward "
+          f"launches {bwd} ({tc_bwd} tensor-core), plain calls {n_plain}, "
+          f"path {path}; step ms (host clock) "
           + " ".join(f"{v:.1f}" for v in step_ms))
     check(out["steps_run"] == cfg.steps and all(np.isfinite(out["losses"])),
           f"{label}: steps or losses")
     check((fwd, bwd, n_plain) == (cfg.steps, cfg.steps, 0),
           f"{label}: launches or plain calls")
+    check((tc_fwd, tc_bwd) == ((cfg.steps, cfg.steps) if tc else (0, 0)),
+          f"{label}: tensor-core launches")
     check(path.get("two_level") is two_level
           and path.get("use_hist") is not two_level, f"{label}: path {path}")
     check(len(grads) == cfg.steps and all(
@@ -1662,7 +1730,8 @@ def counted_optimize(label, renderer, target, q, t, cfg, init_params,
     return out, grads, step_ms
 
 
-def drive_optimize(label, renderer, target, q, t, cfg, init_params):
+def drive_optimize(label, renderer, target, q, t, cfg, init_params,
+                   tc=False):
     """counted_optimize with the history, then its first step again with two
     levels: the same loss and the same gradients bit for bit. Returns
     (result, gradients per step, step ms, backward launches of the history
@@ -1670,10 +1739,10 @@ def drive_optimize(label, renderer, target, q, t, cfg, init_params):
     import torch
 
     out, grads, step_ms = counted_optimize(label, renderer, target, q, t,
-                                           cfg, init_params)
+                                           cfg, init_params, tc=tc)
     out_2l, grads_2l, _ = counted_optimize(
         label, renderer, target, q, t, dataclasses.replace(cfg, steps=1),
-        init_params, two_level=True)
+        init_params, two_level=True, tc=tc)
     check(out_2l["losses"][0] == out["losses"][0]
           and all(torch.equal(v, grads[0][p])
                   for p, v in grads_2l[0].items()),
@@ -1697,6 +1766,8 @@ def counted_gradient(renderer, params, q, t, target, degree, alpha=False):
     leaves = leaf_params(params)
     torch.cuda.synchronize()
     rk.LAUNCHES = bk.LAUNCHES = bk.MARCH_LAUNCHES = mk.LAUNCHES = 0
+    rk.TC_LAUNCHES = bk.TC_LAUNCHES = bk.MARCH_TC_LAUNCHES = 0
+    mk.TC_LAUNCHES = 0
     with PlainMarchCalls() as pm, PlainBackwardCalls() as pb:
         if alpha:
             img, a = renderer.render_with_alpha(leaves, q, t, mode=0,
@@ -1713,25 +1784,28 @@ def counted_gradient(renderer, params, q, t, target, degree, alpha=False):
             pb.n, finite), leaves
 
 
-def cli_optimize(args, backward_launches):
+def cli_optimize(args, backward_launches, tc_launches=0):
     """The CLI's optimize, counted: ``backward_launches`` backward kernel
-    launches."""
+    launches, ``tc_launches`` of them on the tensor-core instantiation."""
     import torch
 
     from ray_marching_tpu_torch.cli import main as cli_main
     from ray_marching_tpu_torch.ops import backward_kernel as bk
 
-    bk.LAUNCHES = 0
+    bk.LAUNCHES = bk.TC_LAUNCHES = 0
     cli_main(["optimize", *args])
     torch.cuda.synchronize()
-    check(bk.LAUNCHES == backward_launches,
-          f"cli optimize {args}: {bk.LAUNCHES} backward launches")
+    check((bk.LAUNCHES, bk.TC_LAUNCHES) == (backward_launches, tc_launches),
+          f"cli optimize {args}: {bk.LAUNCHES} backward launches, "
+          f"{bk.TC_LAUNCHES} on the tensor cores")
 
 
-def backward_timings(prog, flat, rays7, steps, m_rays7, reps, mats=()):
-    """The training kernels at tau = 0 by CUDA events: the backward in its
-    three modes in turns (history, two-level, recompute, then backwards),
-    its plain versions, the march-only mode at the march kernel's planes
+def backward_timings(prog, flat, rays7, steps, m_rays7, reps, mats=(),
+                     route=None, plain=True):
+    """The training kernels at tau = 0 by CUDA events, on the MLP ``route``
+    (the default one when None): the backward in its three modes in turns
+    (history, two-level, recompute, then backwards), its plain versions
+    (with ``plain``), the march-only mode at the march kernel's planes
     ``m_rays7`` and its plain version, and the forward with history.
     Returns {name: ms} and the turns."""
     import torch
@@ -1745,40 +1819,45 @@ def backward_timings(prog, flat, rays7, steps, m_rays7, reps, mats=()):
     g4 = torch.as_tensor(rng.standard_normal((4,) + tuple(m_rays7.shape[1:])),
                          dtype=m_rays7.dtype).to(m_rays7.device)
     _, ex = rk.march_forward(prog, flat, rays7, steps, 0.0, 5e-2,
-                             log_hist=True, mats=mats)
+                             log_hist=True, mats=mats, route=route)
     mode_kw = {"history": dict(hist=ex["hist"], nlive=ex["nlive"]),
                "recompute": {}, "two-level": dict(two_level=True)}
 
     def bwd(mode):
         return bk.fused_backward(prog, flat, rays7, g8, steps, 0.0, 5e-2,
-                                 mats=mats, **mode_kw[mode])
+                                 mats=mats, route=route, **mode_kw[mode])
 
     turns = [(m, kernel_ms(lambda m=m: bwd(m), reps))
              for m in ("history", "two-level", "recompute", "recompute",
                        "two-level", "history")]
     ms = {m: sum(v for n, v in turns if n == m) / 2 for m in mode_kw}
+    ms["march-only"] = kernel_ms(lambda: bk.march_backward(
+        prog, flat, m_rays7, g4, steps, 0.0, mats, route=route), reps)
+    ms["forward with history"] = kernel_ms(lambda: rk.march_forward(
+        prog, flat, rays7, steps, 0.0, 5e-2, log_hist=True, mats=mats,
+        route=route), reps)
+    if not plain:
+        return ms, turns
     ms["plain"] = cuda_ms(lambda: bk.reference_backward(
         prog, flat, rays7, g8, steps, 0.0, 5e-2, mats=mats,
         **mode_kw["history"]), 1)
     ms["plain two-level"] = cuda_ms(lambda: bk.reference_backward(
         prog, flat, rays7, g8, steps, 0.0, 5e-2, mats=mats, two_level=True),
         1)
-    ms["march-only"] = kernel_ms(lambda: bk.march_backward(
-        prog, flat, m_rays7, g4, steps, 0.0, mats), reps)
     ms["plain march-only"] = cuda_ms(lambda: bk.reference_backward(
         prog, flat, m_rays7, g4, steps, 0.0, None, march_only=True,
         mats=mats), 1)
-    ms["forward with history"] = kernel_ms(lambda: rk.march_forward(
-        prog, flat, rays7, steps, 0.0, 5e-2, log_hist=True, mats=mats), reps)
     return ms, turns
 
 
 def train_step_profile(renderer, params, trainable, q, t, target, degree,
-                       lr, reps, frames, times):
+                       lr, reps, frames, times,
+                       fwd_kernel="void render_fwd_train_kernel<float>"):
     """One training step (render, mode-0 MSE, backward, Adam on the
     ``trainable`` leaves) by CUDA events over ``reps`` steps, then profiled
-    (profile_frames, held against ``times`` of backward_timings). Returns
-    (step ms, the profile's ms per kernel)."""
+    (profile_frames, held against ``times`` of backward_timings; the
+    training forward's kernel name begins ``fwd_kernel``). Returns (step
+    ms, the profile's ms per kernel)."""
     import torch
 
     leaves = leaf_params(params)
@@ -1794,8 +1873,7 @@ def train_step_profile(renderer, params, trainable, q, t, target, degree,
     step_ms = cuda_ms(train_step, reps)
     prof = profile_frames(train_step, step_ms, frames=frames, expect={
         "void render_bwd_kernel<float": (times["history"], 1),
-        "void render_fwd_train_kernel<float>": (
-            times["forward with history"], 1)})
+        fwd_kernel: (times["forward with history"], 1)})
     return step_ms, prof
 
 
@@ -1886,9 +1964,13 @@ def neural_backward_vs_plain(label, prog, flat, mats, rays7, tau, tol,
         handoff.update(minf=out[8].contiguous(), amin=ex["amin"])
     kw = {"history": handoff, "recompute": {},
           "two-level": dict(two_level=True)}
+    route = rk.mlp_route(prog, flat.dtype)
+    bk.TC_LAUNCHES = 0
     runs = {m: bk.fused_backward(prog, flat, rays7, g, NEURAL_STEPS, tau,
                                  5e-2, track_min=track_min, mats=mats,
                                  **kw[m]) for m in modes}
+    check(bk.TC_LAUNCHES == (len(modes) if route == "tc" else 0),
+          f"{label}: {bk.TC_LAUNCHES} tensor-core launches on route {route}")
     plain = bk.reference_backward(prog, flat, rays7, g, NEURAL_STEPS, tau,
                                   5e-2, track_min=track_min, mats=mats,
                                   **handoff)
@@ -1905,7 +1987,8 @@ def neural_backward_vs_plain(label, prog, flat, mats, rays7, tau, tol,
     finite = (bool(torch.isfinite(first[0]).all())
               and all(bool(torch.isfinite(m).all()) for m in first[1])
               and bool(torch.isfinite(first[2][:, conv]).all()))
-    print(f"neural backward {label}: {' == '.join(modes)} bitwise; vs plain "
+    print(f"neural backward {label} ({route} route): "
+          f"{' == '.join(modes)} bitwise; vs plain "
           f"(relative to the largest entry; tolerance {tol:g}, matrices "
           f"{mat_tol:g}): ray "
           f"cotangents {e_rays:.3e} on {int(conv.sum())} converged rays, "
@@ -2019,16 +2102,166 @@ def neural_bf16_backward(prog, flat, mats, rays7, seed):
     return readings
 
 
+def backward_recompute_history(prog, flat, mats, rays7, steps, tau):
+    """The positions the tensor-core backward marches when it is given no
+    history: the scratch history of one launch of ``rm_render_bwd_tc_f32``
+    in its recompute mode, (steps + 1, 3, rows, 128), NaN where the kernel
+    wrote nothing. A comparison launch, outside the wrappers' counts."""
+    import ctypes
+
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    lib = rk._load(prog)
+    packed = rk.tc_buffer(prog, mats, backward=True)
+    plane = tuple(rays7.shape[1:])
+    n = rays7.shape[1] * rays7.shape[2]
+    n_blocks = -(-n // lib.rm_render_bwd_block())
+    dev = rays7.device
+    hist = torch.full((steps + 1, 3) + plane, float("nan"), device=dev)
+    g = torch.zeros((8,) + plane, device=dev)
+    out = torch.empty((7,) + plane, device=dev)
+    partials = torch.empty((n_blocks, bk.partial_cols(prog)), device=dev)
+    consts = rk._host_consts(torch.float32, tau, 5e-2)
+    err = lib.rm_render_bwd_tc_f32(
+        flat.data_ptr(), packed.data_ptr(), rays7.data_ptr(), g.data_ptr(),
+        0, hist.data_ptr(), 1, None, 0, None, None, None, out.data_ptr(),
+        partials.data_ptr(), n_blocks, bk.partial_cols(prog), n, steps,
+        consts.ctypes.data_as(ctypes.c_void_p),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"recompute launch failed: cudaError {err}")
+    return hist
+
+
+def neural_training_forward(prog, flat, mats, rays7):
+    """The tensor-core training forward at the main neural configuration:
+    its 8 planes bitwise equal to the tensor-core serving forward's, its
+    history bitwise equal to the backward's recompute (tau 0 and 1e-3, on
+    every entry the forward wrote); at tau 0 against the plain version on
+    the converged rays: its 8 planes and its min_f plane (at the d plane's
+    limit) within TOL_F32 and a tenth of it, as the serving forward is held,
+    and its history at the steps both ran within HIST_TOL_F32 (the
+    per-thread route's reading printed beside it). Returns the largest
+    difference of the 8 planes there."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    for tau in (0.0, 1e-3):
+        serve, _ = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, tau,
+                                    5e-2, mats=mats)
+        out, ex = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, tau,
+                                   5e-2, track_min=True, log_hist=True,
+                                   mats=mats)
+        rec = backward_recompute_history(prog, flat, mats, rays7,
+                                         NEURAL_STEPS, tau)
+        torch.cuda.synchronize()
+        steps_idx = torch.arange(NEURAL_STEPS + 1,
+                                 device=rays7.device)[:, None, None]
+        ran = ((steps_idx < ex["nlive"][None])
+               | (steps_idx == NEURAL_STEPS))[:, None]
+        ran = ran & ((rays7[6] > 0.5) | (steps_idx == NEURAL_STEPS)[:, None])
+        same_hist = bool((same_bits(ex["hist"], rec) | ~ran).all())
+        same_planes = bool(same_bits(out[:8], serve).all())
+        print(f"neural training forward (tensor cores, tau={tau:g}): 8 "
+              f"planes == serving {same_planes}, history == the backward's "
+              f"recompute on {int(ran.sum())} written entries {same_hist}; "
+              f"mean live steps "
+              f"{float(ex['nlive'][rays7[6] > 0.5].float().mean()):.3f}")
+        check(same_planes and same_hist,
+              f"neural training forward at tau={tau:g}: planes or history")
+        del serve, out, ex, rec
+    want, wex = rk._reference_march(prog, flat, rays7, NEURAL_STEPS, 0.0,
+                                    5e-2, track_min=True, log_hist=True,
+                                    mats=mats)
+    conv = (rays7[6] > 0.5) & (want[3].abs() < CONVERGED)
+    n_conv = int(conv.sum())
+    check(n_conv > 0, "neural training forward: no converged rays")
+    steps_idx = torch.arange(NEURAL_STEPS + 1,
+                             device=rays7.device)[:, None, None]
+
+    def hist_diff(ex):
+        """Per ray, the largest |history - plain history| over the steps
+        both ran and the terminal slot (inf where NaN)."""
+        both = ((steps_idx < torch.minimum(ex["nlive"], wex["nlive"])[None])
+                | (steps_idx == NEURAL_STEPS))[:, None]
+        diff = torch.where(both, (ex["hist"] - wex["hist"]).abs(),
+                           0.0).amax((0, 1))
+        return torch.where(torch.isnan(diff), float("inf"), diff)
+
+    out, ex = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                               track_min=True, log_hist=True, mats=mats)
+    tc_hist = hist_diff(ex)
+    del ex
+    _, thread_ex = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0,
+                                    5e-2, track_min=True, log_hist=True,
+                                    mats=mats, route="thread")
+    thread_hist = hist_diff(thread_ex)
+    del thread_ex
+    torch.cuda.synchronize()
+    for name, tol in (("TOL_F32", TOL_F32), ("a tenth of TOL_F32",
+                                             TOL_F32_TC)):
+        diffs, outside = plane_errors(out, want, conv, tol + (tol[3],))
+        share = int(outside.sum()) / n_conv
+        print(f"compare neural training forward f32 {NEURAL_RES}x"
+              f"{NEURAL_RES} w256 tau=0 (tensor cores, {name}): converged "
+              f"rays {n_conv}, share outside tolerance {share:.3e}; max abs "
+              "diff per plane " + " ".join(f"{n}={d:.3e}" for n, d in zip(
+                  PLANES + ("min_f",), diffs)))
+        check(share <= MAX_SHARE_OUT_F32,
+              f"neural training forward: {share:.3e} of converged rays "
+              f"outside {name}")
+    hist_share = int(((tc_hist > HIST_TOL_F32) & conv).sum()) / n_conv
+    print(f"compare neural training forward history f32 {NEURAL_RES}x"
+          f"{NEURAL_RES} w256 tau=0 (tolerance {HIST_TOL_F32:g}): share of "
+          f"converged rays outside {hist_share:.3e}; largest difference "
+          f"{float(tc_hist[conv].max()):.3e} on the tensor cores, "
+          f"{float(thread_hist[conv].max()):.3e} per thread (share above "
+          f"the final positions' {TOL_F32[0]:g}: "
+          f"{int(((tc_hist > TOL_F32[0]) & conv).sum()) / n_conv:.3e} and "
+          f"{int(((thread_hist > TOL_F32[0]) & conv).sum()) / n_conv:.3e})")
+    check(hist_share <= MAX_SHARE_OUT_F32,
+          f"neural training forward: history outside {HIST_TOL_F32:g} on "
+          f"{hist_share:.3e} of the converged rays")
+    return max(diffs[:8])
+
+
+def neural_f64_digest(prog, flat, mats, rays7):
+    """sha256 of the f64 training forward's history (tau 0) and the bytes
+    of the backward's cotangents from it, for a cotangent drawn from seed
+    32 (NEURAL_F64_DIGEST)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    _, ex = rk.march_forward(prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2,
+                             log_hist=True, mats=mats)
+    g = torch.as_tensor(np.random.default_rng(32).standard_normal(
+        (8,) + tuple(rays7.shape[1:]))).to(rays7.device)
+    run = bk.fused_backward(prog, flat, rays7, g, NEURAL_STEPS, 0.0, 5e-2,
+                            hist=ex["hist"], nlive=ex["nlive"], mats=mats)
+    digest = hashlib.sha256()
+    for t in (ex["hist"], run[0], *run[1], run[2]):
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def neural_training(card, out_dir: Path):
-    """The neural training slice on the card: the backward kernel with the
-    MLP's VJP against its plain version (512² f32 with the history; 128² f64
-    with the three ways bitwise equal; tau = 1e-3, min_f, bf16 operands and
-    the march-only mode), then the main path (3 counted
-    optimize() steps on the w256 leaf: one forward and one backward launch
-    each, no plain march or backward), render_with_alpha, the implicit
-    backward (no backward launch), one Renderer(use_pallas=True) gradient,
-    the CLI, timings, profile and bounds. Returns its rows of the kernels
-    line."""
+    """The neural training slice on the card, on the tensor cores: the
+    backward kernel with the MLP's VJP against its plain version (512² f32
+    with the history, recompute and two levels bitwise equal; 128² f32, and
+    neural_demo's 16 -> 16 leaf; tau = 1e-3, min_f, bf16 operands and the
+    march-only mode; 128² f64 on the per-thread route), the training forward (bitwise the serving
+    forward's planes, its history bitwise the backward's recompute), then
+    the main path (3 counted optimize() steps on the w256 leaf: one forward
+    and one backward launch each, all on the tensor-core entries, no plain
+    march or backward), render_with_alpha, the implicit backward (no
+    backward launch), one Renderer(use_pallas=True) gradient, the CLI,
+    timings on both routes, profile and bounds. Returns its rows of the
+    kernels line."""
     import torch
 
     from ray_marching_tpu_torch.ops import backward_kernel as bk
@@ -2037,21 +2270,33 @@ def neural_training(card, out_dir: Path):
     from ray_marching_tpu_torch.optim.inverse import InverseConfig
     from ray_marching_tpu_torch.render.fast import FastRenderer
     from ray_marching_tpu_torch.render.pipeline import Renderer
+    from ray_marching_tpu_torch.scene import registry
 
     main, params = neural_renderer(NEURAL_RES, torch.float32)
     prog = main.program
     flat, mats, rays7 = neural_rays(main, params)
+    check(rk.mlp_route(prog, torch.float32) == "tc",
+          "the w256 scene does not train on the tensor cores")
     errs = neural_backward_vs_plain(
         f"f32 {NEURAL_RES}x{NEURAL_RES} w256", prog, flat, mats, rays7, 0.0,
         TOL_NEURAL_BWD["f32"], modes=("history", "recompute", "two-level"),
         seed=31)
+    fwd_err = neural_training_forward(prog, flat, mats, rays7)
     small = NEURAL_F64_RES
     r64, p64 = neural_renderer(small, torch.float64)
     f_flat, f_mats, f_rays = neural_rays(r64, p64)
+    check(rk.mlp_route(prog, torch.float64) == "thread",
+          "f64 does not keep the per-thread MLP")
     neural_backward_vs_plain(
         f"f64 {small}x{small} w256", prog, f_flat, f_mats, f_rays, 0.0,
         TOL_NEURAL_BWD["f64"], modes=("history", "recompute", "two-level"),
         seed=32)
+    digest = neural_f64_digest(prog, f_flat, f_mats, f_rays)
+    print(f"neural f64 {small}x{small} (per-thread route): sha256 of the "
+          f"training forward's history and the backward's cotangents "
+          f"{digest}, pinned {NEURAL_F64_DIGEST}")
+    check(digest == NEURAL_F64_DIGEST,
+          "neural f64: the per-thread route's bits moved")
     r32, p32 = neural_renderer(small, torch.float32)
     s_flat, s_mats, s_rays = neural_rays(r32, p32)
     neural_backward_vs_plain(
@@ -2066,6 +2311,18 @@ def neural_training(card, out_dir: Path):
         f"f32 {small}x{small} w256 min_f", prog, s_flat, s_mats, s_rays, 0.0,
         TOL_NEURAL_BWD_LOOSE, track_min=True, modes=("history", "recompute"),
         seed=35)
+    # neural_demo's 16 -> 16 leaf: the tensor-core VJP at its smallest
+    # shape (one m-tile of the sink, 16 columns a pass).
+    demo = FastRenderer(registry.make_scene("neural_demo"),
+                        dataclasses.replace(config(small, small),
+                                            marching_steps=NEURAL_STEPS),
+                        dtype=torch.float32)
+    d_flat, d_mats, d_rays = neural_rays(demo, demo.init_params)
+    neural_backward_vs_plain(
+        f"f32 {small}x{small} neural_demo", demo.program, d_flat, d_mats,
+        d_rays, 0.0, TOL_NEURAL_BWD["f32"],
+        modes=("history", "recompute", "two-level"), seed=39)
+    del demo, d_flat, d_mats, d_rays
     # The march-only mode, at the planes the modular Renderer gives it.
     modular = Renderer(neural_scene(),
                        dataclasses.replace(main.config, use_pallas=True),
@@ -2079,6 +2336,7 @@ def neural_training(card, out_dir: Path):
     m_ref = mk.reference_march(prog, flat, m_rays7, NEURAL_STEPS, 0.0,
                                mats)
     m_conv = (m_rays7[6] > 0.5) & (m_ref[3].abs() < CONVERGED)
+    bk.MARCH_TC_LAUNCHES = 0
     got = bk.march_backward(prog, flat, m_rays7, g4, NEURAL_STEPS, 0.0,
                             mats)
     want = bk.reference_backward(prog, flat, m_rays7, g4, NEURAL_STEPS,
@@ -2088,24 +2346,27 @@ def neural_training(card, out_dir: Path):
                rel_err(got[0], want[0]),
                max(rel_err(a, b) for a, b in zip(got[1], want[1])),
                float((got[2] - want[2])[:, m_conv].abs().max()))
-    print(f"neural march backward (march-only mode, f32 {NEURAL_RES}x"
-          f"{NEURAL_RES}) vs plain: rays {mb_errs[0]:.3e}, flat "
-          f"{mb_errs[1]:.3e}, matrices {mb_errs[2]:.3e} (tolerance "
-          f"{TOL_NEURAL_BWD['f32']:g})")
+    print(f"neural march backward (march-only mode, tensor cores "
+          f"{bk.MARCH_TC_LAUNCHES}, f32 {NEURAL_RES}x{NEURAL_RES}) vs plain: "
+          f"rays {mb_errs[0]:.3e}, flat {mb_errs[1]:.3e}, matrices "
+          f"{mb_errs[2]:.3e} (tolerance {TOL_NEURAL_BWD['f32']:g})")
     check(max(mb_errs[:3]) <= TOL_NEURAL_BWD["f32"]
+          and bk.MARCH_TC_LAUNCHES == 1
           and all(bool(torch.isfinite(m).all()) for m in got[1]),
           "neural march backward: kernel and plain disagree")
     del got, want, m_ref, g4
     rbf, pbf = neural_renderer(small, torch.float32,
                                scene=neural_scene("bfloat16"))
     bf_flat, bf_mats, bf_rays = neural_rays(rbf, pbf)
+    bk.TC_LAUNCHES = 0
     loose["bf16"] = neural_bf16_backward(rbf.program, bf_flat, bf_mats,
                                          bf_rays, seed=38)
+    check(bk.TC_LAUNCHES == 3, "bf16: the backward left the tensor cores")
     del r64, p64, r32, p32, rbf, pbf, f_flat, f_mats, f_rays, s_flat, s_mats
     del s_rays, bf_flat, bf_mats, bf_rays
 
     # The main path, counted: optimize() on the seven c1 leaves, then its
-    # first step again with two levels.
+    # first step again with two levels; every launch on the tensor cores.
     target_r = FastRenderer(target_scene(), main.config, dtype=torch.float32,
                             grid_dtype=np.float32)
     with torch.no_grad():
@@ -2119,7 +2380,7 @@ def neural_training(card, out_dir: Path):
     out, _, step_ms, train_launches, two_level_launches = drive_optimize(
         f"neural training main path (w256, {NEURAL_RES}x{NEURAL_RES}, "
         f"{NEURAL_STEPS} steps)", main, target, NEURAL_Q, NEURAL_T, cfg,
-        params)
+        params, tc=True)
     moved = {p: float((v - trainable_leaves(params, NEURAL_TRAINABLE)[p])
                       .abs().max())
              for p, v in trainable_leaves(out["params"],
@@ -2129,61 +2390,128 @@ def neural_training(card, out_dir: Path):
     check(len(moved) == 7 and all(v > 0 for v in moved.values()),
           "neural training: a c1 leaf did not move")
 
+    def tc_counts():
+        return (rk.TC_LAUNCHES, bk.TC_LAUNCHES, mk.TC_LAUNCHES,
+                bk.MARCH_TC_LAUNCHES)
+
     alpha_counts, _ = counted_gradient(main, params, NEURAL_Q, NEURAL_T,
                                        target, 1, alpha=True)
+    alpha_tc = tc_counts()
     implicit = FastRenderer(neural_scene(), dataclasses.replace(
         main.config, backward="implicit"), dtype=torch.float32)
     ift_counts, _ = counted_gradient(implicit, params, NEURAL_Q, NEURAL_T,
                                      target, 1)
+    ift_tc = tc_counts()
     mod_counts, _ = counted_gradient(modular, params, NEURAL_Q, NEURAL_T,
                                      target, 1)
+    mod_tc = tc_counts()
     print(f"neural gradients (launches: forward, backward, march, march "
-          f"backward; plain marches, plain backwards; all finite): "
-          f"render_with_alpha {alpha_counts}, backward='implicit' "
-          f"{ift_counts}, Renderer(use_pallas=True) {mod_counts}")
-    check(alpha_counts == (1, 1, 0, 0, 0, 0, True),
-          "neural render_with_alpha gradient")
-    check(ift_counts == (1, 0, 0, 0, 0, 0, True), "neural implicit gradient")
-    check(mod_counts == (0, 0, 1, 1, 0, 0, True), "neural modular gradient")
+          f"backward; plain marches, plain backwards; all finite / the "
+          f"tensor-core launches of the same four): render_with_alpha "
+          f"{alpha_counts} / {alpha_tc}, backward='implicit' {ift_counts} / "
+          f"{ift_tc}, Renderer(use_pallas=True) {mod_counts} / {mod_tc}")
+    check(alpha_counts == (1, 1, 0, 0, 0, 0, True)
+          and alpha_tc == (1, 1, 0, 0), "neural render_with_alpha gradient")
+    check(ift_counts == (1, 0, 0, 0, 0, 0, True) and ift_tc == (1, 0, 0, 0),
+          "neural implicit gradient")
+    check(mod_counts == (0, 0, 1, 1, 0, 0, True) and mod_tc == (0, 0, 1, 1),
+          "neural modular gradient")
     del implicit
 
-    # The CLI's optimize on the JAX package's neural scene file.
+    # The CLI's optimize on the JAX package's neural scene file
+    # (neural_demo's 16 -> 16 leaf: the tensor cores).
     cli_optimize(["--scene-file", str(NEURAL_SCENE_FILE), "--width", "128",
                   "--height", "96", "--steps", "16", "--opt-steps", "2",
-                  "--trainable", "c1"], 2)
+                  "--trainable", "c1"], 2, 2)
 
-    # Timing at the main configuration, a training step and its profile.
+    # Timing at the main configuration on both routes, a training step and
+    # its profile.
     times, turns = backward_timings(prog, flat, rays7, NEURAL_STEPS, m_rays7,
                                     2, mats=mats)
+    thread_times, _ = backward_timings(prog, flat, rays7, NEURAL_STEPS,
+                                       m_rays7, 1, mats=mats, route="thread",
+                                       plain=False)
+    plain_fwd_ms = cuda_ms(lambda: rk._reference_march(
+        prog, flat, rays7, NEURAL_STEPS, 0.0, 5e-2, log_hist=True,
+        mats=mats), 1)
     step_ev_ms, prof = train_step_profile(
         main, params, NEURAL_TRAINABLE, NEURAL_Q, NEURAL_T, target, 1, 1e-3,
-        2, 2, times)
+        2, 2, times, fwd_kernel="render_fwd_train_tc_kernel")
     bwd_dev_ms = next((v for k, v in prof.items()
                        if k.startswith("void render_bwd_kernel<float")), None)
+    fwd_dev_ms = next((v for k, v in prof.items()
+                       if k.startswith("render_fwd_train_tc_kernel")), None)
     busy_ms = sum(prof.values())
     print(f"neural training timing on {card} ({NEURAL_RES}x{NEURAL_RES}, "
-          f"{NEURAL_STEPS} steps, f32): "
+          f"{NEURAL_STEPS} steps, f32), tensor cores: "
           + ", ".join(f"{m} {v:.3f} ms" for m, v in times.items())
           + " (turns " + ", ".join(f"{n} {v:.3f}" for n, v in turns)
-          + f"); training step {step_ev_ms:.3f} ms (CUDA events), device "
-          f"busy {busy_ms} ms, backward kernel {bwd_dev_ms} ms (profiler)")
+          + "); per thread: "
+          + ", ".join(f"{m} {v:.3f} ms" for m, v in thread_times.items())
+          + f"; plain forward with history {plain_fwd_ms:.3f} ms; training "
+          f"step {step_ev_ms:.3f} ms (CUDA events), device busy {busy_ms} "
+          f"ms, backward kernel {bwd_dev_ms} ms, training forward "
+          f"{fwd_dev_ms} ms (profiler)")
 
-    # Bounds: operations from the op counts (the MLP's VJP dominates),
-    # bytes from the planes, the history, the matrices and the partial rows.
+    # Bounds: operations from the op counts (the MLP's VJP dominates), its
+    # three 256 x 256 products on the tensor cores; bytes from the planes,
+    # the history, the matrices and the partial rows.
     work, partial_bytes = backward_work(prog, rays7, NEURAL_STEPS, m_rays7,
                                         mats)
-    bounds = bounds_of(work)
+    simt = bounds_of(work)
+    n_valid = int((rays7[6] > 0.5).sum())
+    m_valid = int((m_rays7[6] > 0.5).sum())
+    swept, k = n_valid * NEURAL_STEPS, bk.CKPT_INTERVAL
+    evals_vjps = {
+        "history": (0, n_valid * 5 + swept),
+        "recompute": (swept, n_valid * 5 + swept),
+        "two-level": (swept + swept * (k - 1) // k, n_valid * 5 + swept),
+        "march-only": (m_valid * NEURAL_STEPS, m_valid * (1 + NEURAL_STEPS)),
+    }
+    bounds = {}
+    for m, (ops, nbytes) in work.items():
+        t_ops = tc_bound_ms(prog, ops, *evals_vjps[m])
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bounds[m] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    # The training forward: the serving forward's operations, its 8 planes
+    # and history, the live-step plane, the matrices.
+    plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
+    mat_bytes = sum(m.numel() for m in mats) * rays7.element_size()
+    f_ops = rk.kernel_ops(prog, n_valid, NEURAL_STEPS)
+    f_t_ops = tc_bound_ms(prog, f_ops, n_valid * (NEURAL_STEPS + 5))
+    f_t_bytes = ((7 + 8 + 1 + 3 * (NEURAL_STEPS + 1)) * plane_bytes
+                 + mat_bytes) / PEAK_BYTES * 1e3
+    f_bound = (max(f_t_ops, f_t_bytes),
+               "operations" if f_t_ops >= f_t_bytes else "bytes")
     log = rk.BUILD_LOG.get(rk.kernel_key(prog), "")
-    # The f32 history instantiation (no min_f, not two-level, not
-    # march-only).
-    regs = ptxas_entry(log, "render_bwd_kernel", "IfLb0ELb0ELb0EE")
+    regs = {name: ptxas_entry(log, kernel, args) for name, kernel, args in (
+        ("backward history, tensor cores", "render_bwd_kernel",
+         "IfLb0ELb0ELb0ELb1EE"),
+        ("backward two-level, tensor cores", "render_bwd_kernel",
+         "IfLb0ELb1ELb0ELb1EE"),
+        ("backward march-only, tensor cores", "render_bwd_kernel",
+         "IfLb0ELb0ELb1ELb1EE"),
+        ("backward history, per thread", "render_bwd_kernel",
+         "IfLb0ELb0ELb0ELb0EE"),
+        ("training forward, tensor cores", "render_fwd_train_tc_kernel",
+         "PKf"),
+        ("training forward, per thread", "render_fwd_train_kernel", "IfE"))}
+    smem_tc = rk._load(prog).rm_render_bwd_tc_smem()
+    step_bound = bounds["history"][0] + f_bound[0]
     print(f"neural backward bounds ({prog.vjp_ops_per_eval} ops per SDF VJP, "
           f"{prog.ops_per_eval} per evaluation; partial rows "
           f"{partial_bytes} bytes per launch): "
-          + "; ".join(f"{m} {o} ops, {nb} bytes -> {bounds[m][0]:.4f} ms "
-                      f"({bounds[m][1]})" for m, (o, nb) in work.items())
-          + f"; ptxas (f32, history): {regs[0]} registers, "
-          f"{regs[1]} bytes stack, {regs[2]} bytes spilled")
+          + "; ".join(f"{m} {o} ops, {nb} bytes -> tensor cores "
+                      f"{bounds[m][0]:.4f} ms ({bounds[m][1]}), f32 SIMT "
+                      f"{simt[m][0]:.4f} ms" for m, (o, nb) in work.items())
+          + f"; training forward with history {f_ops} ops -> tensor cores "
+          f"{f_bound[0]:.4f} ms ({f_bound[1]}); the step's two kernels "
+          f"{step_bound:.4f} ms; ptxas (f32; registers, stack, spill stores, "
+          f"static shared memory): "
+          + "; ".join(f"{k_} {v[0]}, {v[1]} B, {v[2]} B, {v[3]} B"
+                      for k_, v in regs.items())
+          + f"; dynamic shared memory of the tensor-core backward {smem_tc} B")
 
     source = ("ray_marching_tpu_torch/ops/csrc/render_bwd.cu + "
               "ray_marching_tpu_torch/ops/csrc/neural.cuh")
@@ -2192,32 +2520,54 @@ def neural_training(card, out_dir: Path):
         launches, times[mode], times[f"plain {mode}"
                                      if mode != "history" else "plain"],
         bounds[mode], card, max_abs_err=err[3], max_rel_err_rays=err[0],
-        max_rel_err_flat=err[1], max_rel_err_mats=err[2])
-        for name, mode, replaces, launches, err in (
+        max_rel_err_flat=err[1], max_rel_err_mats=err[2],
+        mlp="tensor cores, mma.sync 3xTF32", ms_per_thread=thread_times[mode],
+        bound_ms_simt=simt[mode][0], registers=regs[reg][0],
+        stack_bytes=regs[reg][1], spill_store_bytes=regs[reg][2],
+        dynamic_smem_bytes=smem_tc)
+        for name, mode, replaces, launches, err, reg in (
             ("render_bwd_neural", "history",
              "ray_marching_tpu/ops/pallas_backward.py:119", train_launches,
-             errs),
+             errs, "backward history, tensor cores"),
             ("render_bwd_two_level_neural", "two-level",
              "ray_marching_tpu/ops/pallas_backward.py:377",
-             two_level_launches, errs),
+             two_level_launches, errs, "backward two-level, tensor cores"),
             ("march_bwd_neural", "march-only",
              "ray_marching_tpu/ops/pallas_march.py:358", mod_counts[3],
-             mb_errs))]
+             mb_errs, "backward march-only, tensor cores"))]
     rows[0].update(ms_recompute=times["recompute"],
+                   ms_recompute_per_thread=thread_times["recompute"],
                    bound_ms_recompute=bounds["recompute"][0],
                    launches_render_with_alpha=alpha_counts[1],
                    launches_implicit=ift_counts[1],
                    optimize_step_ms=step_ms, step_ms=step_ev_ms,
-                   step_busy_ms=busy_ms, profiler_kernel_ms=bwd_dev_ms,
-                   forward_with_history_ms=times["forward with history"],
+                   step_busy_ms=busy_ms, step_bound_ms=step_bound,
+                   profiler_kernel_ms=bwd_dev_ms,
                    partial_bytes=partial_bytes,
                    max_rel_err_tau_1e_3=max(loose["tau"][:3]),
                    max_rel_err_min_f=max(loose["min_f"][:3]),
                    bf16_share_rays_within=loose["bf16"]["sound"][0],
                    bf16_share_rays_within_control=loose["bf16"]["control"][0],
                    max_rel_err_bf16_mats=loose["bf16"]["sound"][2],
-                   registers=regs[0], stack_bytes=regs[1],
-                   spill_store_bytes=regs[2])
+                   registers_per_thread_route=regs[
+                       "backward history, per thread"][0])
+    rows.append(kernel_row(
+        "render_fwd_train_neural",
+        "ray_marching_tpu_torch/ops/csrc/render_fwd.cu + "
+        "ray_marching_tpu_torch/ops/csrc/neural.cuh",
+        "ray_marching_tpu/ops/pallas_render.py:227 + "
+        "ray_marching_tpu/scene/neural.py:232",
+        train_launches, times["forward with history"], plain_fwd_ms,
+        f_bound, card, max_abs_err=fwd_err,
+        launches_render_with_alpha=alpha_counts[0],
+        mlp="tensor cores, mma.sync 3xTF32",
+        ms_per_thread=thread_times["forward with history"],
+        bound_ms_simt=max(f_ops / PEAK_F32_FLOPS * 1e3, f_t_bytes),
+        profiler_kernel_ms=fwd_dev_ms,
+        registers=regs["training forward, tensor cores"][0],
+        stack_bytes=regs["training forward, tensor cores"][1],
+        spill_store_bytes=regs["training forward, tensor cores"][2],
+        registers_per_thread_route=regs["training forward, per thread"][0]))
     return rows
 
 
@@ -2720,16 +3070,16 @@ def bulb_slice(card, out_dir: Path):
              {"max_abs_err": errs["march"]}),
             ("render_bwd_bulb", "render_bwd.cu", "pallas_backward.py:119",
              train_launches, times["history"], times["plain"], "history",
-             ("render_bwd_kernel", "IfLb0ELb0ELb0EE"),
+             ("render_bwd_kernel", "IfLb0ELb0ELb0ELb0EE"),
              errs[("history", s2, 0.0, False)]),
             ("render_bwd_two_level_bulb", "render_bwd.cu",
              "pallas_backward.py:377", two_level_launches,
              times["two-level"], times["plain two-level"], "two-level",
-             ("render_bwd_kernel", "IfLb0ELb1ELb0EE"),
+             ("render_bwd_kernel", "IfLb0ELb1ELb0ELb0EE"),
              errs[("two-level", s2, 0.0, False)]),
             ("march_bwd_bulb", "render_bwd.cu", "pallas_march.py:358",
              mod_counts[3], times["march-only"], times["plain march-only"],
-             "march-only", ("render_bwd_kernel", "IfLb0ELb0ELb1EE"),
+             "march-only", ("render_bwd_kernel", "IfLb0ELb0ELb1ELb0EE"),
              errs[("march-only", s2, 0.0, False)]))]
     rows[0].update(ms_tau_0=ms_tau0, frame_ms=frame_ms,
                    agree_share=errs["agree"][0],

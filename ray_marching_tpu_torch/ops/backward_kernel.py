@@ -19,6 +19,14 @@ block into rows of partials (one row per block, the scalars then the packed
 matrices, allocated per launch), which the wrapper sums over the blocks in
 their order.
 
+Both take the MLP ``route`` of the forward they differentiate (by default
+:func:`render_kernel.mlp_route`): ``"tc"`` launches the kernel's tensor-core
+instantiation (``render_bwd.cu`` with ``TC``: its marches warp-masked on the
+tensor-core MLP, so they give the tensor-core forward's positions bit for
+bit, and the MLP's VJP and matrix sink on ``mma.sync``), with the backward
+kernel's tensor-core buffer (:func:`render_kernel.tc_buffer` with
+``backward``) prepared per launch.
+
 The plain version (:func:`reference_backward`) is the kernel's own algorithm
 written with tensors: one VJP of the tail, then the reverse sweep over the
 steps from the history, one ``torch.autograd.grad`` of the step per step,
@@ -42,9 +50,12 @@ LANES = rk.LANES
 
 #: Launches of the backward kernel by :func:`fused_backward` so far (the
 #: wrapper adds one per launch, nowhere else), and of its march-only
-#: instantiation by :func:`march_backward`.
+#: instantiation by :func:`march_backward`; those of them on the tensor-core
+#: instantiation.
 LAUNCHES = 0
 MARCH_LAUNCHES = 0
+TC_LAUNCHES = 0
+MARCH_TC_LAUNCHES = 0
 #: The two-level backward keeps every ``CKPT_INTERVAL``-th march position and
 #: marches each segment again when the sweep reaches it (defined once, in
 #: ``render_kernel``, which also hands it to the kernel's build).
@@ -113,14 +124,15 @@ def partial_cols(program: SdfProgram) -> int:
     return len(program.scalar_offsets) + program.mat_size
 
 
-def _launch(program, params_flat, rays7, call, mats):
+def _launch(program, params_flat, rays7, call, mats, route):
     """Allocate the outputs, run ``call(lib, packed, out, partials,
     n_blocks, n_cols, n, stream)`` (one kernel launch, returning its
     cudaError) and assemble ``(params_flat cotangent, matrix cotangents,
     rays7 cotangent)``: the rows of partials summed over the blocks in
-    their order."""
+    their order. ``packed`` is the matrix buffer of the MLP ``route``."""
     lib = rk._load(program)
-    packed = rk._packed(mats)
+    packed = (rk.tc_buffer(program, mats, backward=True) if route == "tc"
+              else rk._packed(mats))
     dev, dtype = rays7.device, rays7.dtype
     n = rays7.shape[1] * LANES
     n_blocks = -(-n // lib.rm_render_bwd_block())
@@ -151,7 +163,8 @@ def _contiguous_cuda(rays7, tensors):
 
 def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                    normals_eps, track_min=False, hist=None, minf=None,
-                   amin=None, nlive=None, two_level=False, mats=()):
+                   amin=None, nlive=None, two_level=False, mats=(),
+                   route=None):
     """Backward of ``fused_march_normals`` (``track_min``: of ``_cov``).
 
     ``g`` holds the cotangents of the 8 (or 9) output planes. ``hist``
@@ -166,13 +179,17 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     sweep; it runs where :func:`two_level_engages` allows and ignores a
     history, otherwise the ordinary path runs. All three give bitwise the
     same result. :data:`LAST_PATH` records which one ran. ``mats`` are the
-    scene's matrix parameters (``split_params_padded``).
+    scene's matrix parameters (``split_params_padded``). ``route`` is the
+    MLP route of the forward that made the history (see the module doc).
 
     Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
     rays7 cotangent (7, rows, 128))``; the validity plane's cotangent is
     zero."""
     _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
            nlive, mats=mats)
+    if route is None:
+        route = rk.mlp_route(program, rays7.dtype)
+    rk._check_route(program, rays7, route)
     two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
     if two_level:
         hist = minf = amin = nlive = None
@@ -199,9 +216,13 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     consts = rk._host_consts(dtype, tau, normals_eps)
 
     def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
-        global LAUNCHES
-        fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
-              else lib.rm_render_bwd_f64)
+        global LAUNCHES, TC_LAUNCHES
+        if route == "tc":
+            fn = lib.rm_render_bwd_tc_f32
+            TC_LAUNCHES += 1
+        else:
+            fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
+                  else lib.rm_render_bwd_f64)
         LAUNCHES += 1
         return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
                   g.data_ptr(), int(track_min), rk._ptr(hist),
@@ -210,21 +231,25 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                   out.data_ptr(), partials.data_ptr(), n_blocks, n_cols, n,
                   int(steps), consts.ctypes.data_as(ctypes.c_void_p), stream)
 
-    return _launch(program, params_flat, rays7, call, mats)
+    return _launch(program, params_flat, rays7, call, mats, route)
 
 
 def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
-                   mats=()):
+                   mats=(), route=None):
     """Backward of :func:`march_kernel.march_planes`: ``g`` holds the
     cotangents of its 4 output planes (x y z d). The kernel marches again
     into a scratch history allocated here, seeds the terminal position with
     the position cotangent plus one SDF VJP weighted by the distance's, and
     runs the reverse sweep: the backward kernel without its normals tail.
+    ``route`` as in :func:`fused_backward`.
 
     Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
     rays7 cotangent (7, rows, 128))``."""
     _check(program, params_flat, rays7, g, steps, False, None, None, None,
            None, n_g=4, mats=mats)
+    if route is None:
+        route = rk.mlp_route(program, rays7.dtype)
+    rk._check_route(program, rays7, route)
     if rays7.device.type == "cpu":
         return reference_backward(program, params_flat, rays7, g, steps, tau,
                                   None, march_only=True, mats=mats)
@@ -234,16 +259,20 @@ def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                        dtype=dtype, device=rays7.device)
 
     def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
-        global MARCH_LAUNCHES
-        fn = (lib.rm_march_bwd_f32 if dtype == torch.float32
-              else lib.rm_march_bwd_f64)
+        global MARCH_LAUNCHES, MARCH_TC_LAUNCHES
+        if route == "tc":
+            fn = lib.rm_march_bwd_tc_f32
+            MARCH_TC_LAUNCHES += 1
+        else:
+            fn = (lib.rm_march_bwd_f32 if dtype == torch.float32
+                  else lib.rm_march_bwd_f64)
         MARCH_LAUNCHES += 1
         return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
                   g.data_ptr(), hist.data_ptr(), out.data_ptr(),
                   partials.data_ptr(), n_blocks, n_cols, n, int(steps),
                   float(tau), stream)
 
-    return _launch(program, params_flat, rays7, call, mats)
+    return _launch(program, params_flat, rays7, call, mats, route)
 
 
 def _two_level_positions(sdf, params, start, dirs, steps):

@@ -26,9 +26,9 @@
 // leaf, SCENE_TC) is the same march on neural.cuh's rm_mlp_tc: warp-masked
 // (march_loop.cuh), an invalid slot evaluating at its unmoved position with
 // its distance stored as 0; its 4 planes equal planes 0-3 of render_fwd.cu's
-// render_fwd_tc_kernel bit for bit. The wrapper takes the per-thread kernel
-// when the march is differentiated: its backward marches again per thread
-// (render_bwd.cu), and differentiates those positions.
+// render_fwd_tc_kernel bit for bit. A differentiated march takes the same
+// entry: its backward (render_bwd.cu's TC march-only instantiation) marches
+// again on the tensor cores and differentiates those positions.
 // The TPU kernel's row tiles, its tile-wide while_loop
 // and its VMEM budgets are not carried over. Built with --fmad=false and
 // IEEE sqrt and division, like the other kernels, for op-for-op parity with

@@ -15,8 +15,10 @@
 // frozen). The test is !(|d| >= tau), so a NaN distance freezes the ray as
 // jnp.abs(d) >= tau does. Returns the number of steps the ray moved.
 //
-// TC (the serving forward and the march of a scene with a tensor-core MLP
-// leaf, SCENE_TC in the generated header): the SDF is scene_sdf<T, true>,
+// TC (the tensor-core entries of a scene with a tensor-core MLP leaf,
+// SCENE_TC in the generated header: both forwards, the march and the
+// backward's recompute, checkpoints and replays): the SDF is
+// scene_sdf<T, true>,
 // whose MLP needs every lane of the warp. The loop is then warp-masked: a
 // lane that is frozen, or not live from the start (an invalid slot), keeps
 // evaluating at its own unchanged position with its observer and its moves

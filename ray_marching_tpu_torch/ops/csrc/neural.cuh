@@ -1,6 +1,7 @@
 // The MLP of a NeuralSDF leaf, evaluated inside the kernels: one thread per
-// ray, as scene_sdf runs everywhere else; and, for the serving forward and
-// the march, warp-cooperative on the tensor cores (rm_mlp_tc, below).
+// ray, as scene_sdf runs everywhere else; and, in the tensor-core entries
+// of every kernel, warp-cooperative on the tensor cores (rm_mlp_tc and its
+// VJP rm_mlp_tc_vjp, below).
 //
 // Replaces: ray_marching_tpu/scene/neural.py::neural_sdf_matmul (and
 // ::neural_sdf_componentwise), which the JAX package traces into the bodies
@@ -30,7 +31,7 @@
 // into the output layer's dot product, so a leaf with two hidden layers keeps
 // one hidden vector. There are no barriers, so the kernels keep their
 // per-thread early exits (pad slots, the tau > 0 break). The tensor-core
-// evaluation below replaces it in the serving forward and the march.
+// evaluation below replaces it in the tensor-core entries (f32).
 //
 // Parity with the plain version (scene/neural.py), kept deliberately:
 //  - matmul impl: the products summed over i from 0, then the bias, then the
@@ -109,6 +110,39 @@ __device__ __forceinline__ T rm_act(T v) {
                           : amax + rm_log1p(rm_exp(-rm_abs(delta)));
   } else {
     return rm_tanh(v);
+  }
+}
+
+// The activation's slope at v, as its autograd backward forms it.
+template <typename T, int ACT>
+__device__ __forceinline__ T rm_act_slope(T v) {
+  if constexpr (ACT == RM_ACT_SINE) {
+    return rm_cos(v);
+  } else if constexpr (ACT == RM_ACT_SINE_FAST) {
+    const T k = rm_rint(v * static_cast<T>(RM_INV_TWO_PI));
+    const T r = (v - k * static_cast<T>(RM_TWO_PI_HI)) -
+                k * static_cast<T>(RM_TWO_PI_LO);
+    const T r2 = r * r;
+    T p = r2 * static_cast<T>(RM_SIN_C5) + static_cast<T>(RM_SIN_C4);
+    p = p * r2 + static_cast<T>(RM_SIN_C3);
+    p = p * r2 + static_cast<T>(RM_SIN_C2);
+    p = p * r2 + static_cast<T>(RM_SIN_C1);
+    p = p * r2 + static_cast<T>(RM_SIN_C0);
+    T dp = r2 * static_cast<T>(5.0 * RM_SIN_C5) +
+           static_cast<T>(4.0 * RM_SIN_C4);
+    dp = dp * r2 + static_cast<T>(3.0 * RM_SIN_C3);
+    dp = dp * r2 + static_cast<T>(2.0 * RM_SIN_C2);
+    dp = dp * r2 + static_cast<T>(RM_SIN_C1);
+    return p + static_cast<T>(2) * r2 * dp;
+  } else if constexpr (ACT == RM_ACT_SOFTPLUS) {
+    const T zero = static_cast<T>(0);
+    const T e = rm_exp(-rm_abs(v));
+    const T hinge = v > zero ? static_cast<T>(1)
+                             : (v == zero ? static_cast<T>(0.5) : zero);
+    return hinge + (-(e / (e + static_cast<T>(1)))) * rm_sign(v);
+  } else {
+    const T y = rm_tanh(v);
+    return static_cast<T>(1) - y * y;
   }
 }
 
@@ -253,15 +287,18 @@ __device__ __forceinline__ T rm_mlp_last(const T* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core evaluation, for the serving forward and the march only
-// (render_fwd.cu render_fwd_tc_kernel, march.cu march_tc_kernel), f32.
+// The tensor-core evaluation, for the tensor-core entries (f32): the
+// serving and training forwards (render_fwd.cu render_fwd_tc_kernel,
+// render_fwd_train_tc_kernel), the march (march.cu march_tc_kernel) and the
+// backward kernel's TC instantiation (its marches, and with KEEP its VJPs'
+// primal evaluations), which all evaluate it with the same bits (with bf16
+// operands, the primal's sums differ; see FRESH).
 //
-// Replaces, inside those two kernels, the per-thread evaluation above for a
+// Replaces, inside those kernels, the per-thread evaluation above for a
 // matmul-impl leaf 3 -> N1 -> N2 -> 1 with N1 a multiple of 16 and N2 a
 // multiple of 8 up to 256 (scene/codegen.py tc_leaf; the w256 field's
 // 256 -> 256 layer is 65,536 of its 66,560 multiply-adds). Every other
-// leaf, f64, the training forward and the backward kernel keep the
-// per-thread evaluation, whose bits their bitwise equalities rest on.
+// leaf and f64 keep the per-thread evaluation.
 //
 // Bound on an H100: the hidden layer's multiply-adds on the tensor cores
 // (495 TFLOP/s TF32, three passes for f32 accuracy; 989 TFLOP/s bf16), the
@@ -344,19 +381,26 @@ __host__ __device__ constexpr int rm_tc_cols(int n) {
   return c;
 }
 
-// One unit of layer 0 at the point p, as rm_mlp_layer computes it (matmul
-// impl): the products from 0 in input order, the bias, the scale, the
-// activation. w = the unit's column of W0 and its bias.
-template <int ACT, bool BF16, bool SCALE>
-__device__ __forceinline__ float rm_tc_unit0(const float (&w)[4], float w0,
-                                             const float (&p)[3]) {
+// One unit of layer 0 at the point p before its activation, as rm_mlp_layer
+// computes it (matmul impl): the products from 0 in input order, the bias,
+// the scale. w = the unit's column of W0 and its bias.
+template <bool BF16, bool SCALE>
+__device__ __forceinline__ float rm_tc_pre0(const float (&w)[4], float w0,
+                                            const float (&p)[3]) {
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     acc = acc + rm_operand<float, BF16>(p[i]) * rm_operand<float, BF16>(w[i]);
   }
   acc = acc + w[3];
-  return rm_act<float, ACT>(SCALE ? acc * w0 : acc);
+  return SCALE ? acc * w0 : acc;
+}
+
+// The unit's output: its activation.
+template <int ACT, bool BF16, bool SCALE>
+__device__ __forceinline__ float rm_tc_unit0(const float (&w)[4], float w0,
+                                             const float (&p)[3]) {
+  return rm_act<float, ACT>(rm_tc_pre0<BF16, SCALE>(w, w0, p));
 }
 
 template <int N1>
@@ -369,21 +413,38 @@ __device__ __forceinline__ void rm_tc_col0(const float* __restrict__ b0,
   w[3] = __ldg(b0 + u);
 }
 
+// Index of the value a lane holds at (n-tile nt, m-tile mt, entry e) of a
+// warp's (32 rays x N) matrix in the m16n8 C layout, in a lane's array of N.
+__device__ __forceinline__ int rm_tc_ci(int nt, int mt, int e) {
+  return (nt * 2 + mt) * 4 + e;
+}
+
 // The MLP 3 -> N1 -> N2 -> 1 of the 32 rays at the lanes' (x, y, z); returns
 // this lane's. b0/W0, b1, b2/W2: biases and matrices as the per-thread
 // evaluation reads them; F1 the prepared fragments of W1. SCALE: layer 0
-// scaled by w0. Every lane of the warp must call.
-template <int N1, int N2, int ACT, bool BF16, bool SCALE>
+// scaled by w0. Every lane of the warp must call. KEEP (the backward's
+// primal evaluation): the lane's values of the last hidden layer before its
+// activation go to keep[0, N2), at rm_tc_ci (keep 16-byte aligned); in
+// f32 the returned distance has the same bits either way, with bf16
+// operands only up to the mma's own accumulation (FRESH).
+template <int N1, int N2, int ACT, bool BF16, bool SCALE, bool KEEP = false>
 __device__ __forceinline__ float rm_mlp_tc(
     const float* __restrict__ b0, const float* __restrict__ W0,
     const float* __restrict__ b1, const float* __restrict__ F1,
     const float* __restrict__ b2, const float* __restrict__ W2, float w0,
-    float x, float y, float z) {
+    float x, float y, float z, float* keep = nullptr) {
   static_assert(N1 % 16 == 0 && N2 % 8 == 0 && N2 <= 256, "layer sizes");
   constexpr int KS = BF16 ? 16 : 8;          // k per mma
   constexpr int NC = rm_tc_cols(N2);         // columns per pass
   constexpr int NT = NC / 8;                 // n-tiles per pass
   constexpr int G = NT % 4 == 0 ? 4 : (NT % 2 == 0 ? 2 : 1);
+  // bf16: each k-step's products into fresh accumulators, then added in f32
+  // (round to nearest), rather than into the mma's running sum, whose own
+  // accumulation truncates. The backward's primal (KEEP) needs it: there a
+  // running sum drifts from the f32 sums of the plain version far enough to
+  // flip the bf16 rounding of h2. Serving does not (it meets TOL_BF16
+  // either way) and keeps the running sum, 15 % faster (PERF.md, PR 9).
+  constexpr bool FRESH = KEEP;
   __syncwarp();
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
@@ -449,7 +510,16 @@ __device__ __forceinline__ float rm_mlp_tc(
           for (int j = 0; j < G; ++j) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_bf16(acc[mt][g + j], a[mt], b[j].x, b[j].y);
+              if constexpr (FRESH) {
+                float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                rm_mma_bf16(t, a[mt], b[j].x, b[j].y);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  acc[mt][g + j][e] = acc[mt][g + j][e] + t[e];
+                }
+              } else {
+                rm_mma_bf16(acc[mt][g + j], a[mt], b[j].x, b[j].y);
+              }
             }
           }
         }
@@ -512,14 +582,21 @@ __device__ __forceinline__ float rm_mlp_tc(
       const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + col));
       const float wo[2] = {rm_operand<float, BF16>(__ldg(W2 + col)),
                            rm_operand<float, BF16>(__ldg(W2 + col + 1))};
+      float kv[8];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float a = rm_act<float, ACT>(acc[mt][nt][e] +
-                                             (e & 1 ? bb.y : bb.x));
+          const float v = acc[mt][nt][e] + (e & 1 ? bb.y : bb.x);
+          const float a = rm_act<float, ACT>(v);
+          kv[mt * 4 + e] = v;
           o[mt][e >> 1] = o[mt][e >> 1] + rm_operand<float, BF16>(a) * wo[e & 1];
         }
+      }
+      if constexpr (KEEP) {  // rm_tc_ci order: two 16-byte stores
+        float4* const k4 = reinterpret_cast<float4*>(keep) + 2 * (np * NT + nt);
+        k4[0] = make_float4(kv[0], kv[1], kv[2], kv[3]);
+        k4[1] = make_float4(kv[4], kv[5], kv[6], kv[7]);
       }
     }
   }
@@ -550,6 +627,8 @@ __device__ __forceinline__ float rm_mlp_tc(
 // pallas_backward.py::_bwd_kernel and ::_bwd_kernel_2l trace into their
 // bodies, with the per-tile matrix cotangents of their loop carry.
 //
+// The per-thread route (f64, a leaf outside tc_leaf's shape, and f32 on
+// route "thread"); the tensor-core one is rm_mlp_tc_vjp at the end.
 // Per thread, as the forward, in two calls: the SDF VJP's primal evaluation
 // runs the forward once, keeping every hidden layer's output and its
 // activation's slope in local memory (rm_mlp_layer_keep, rm_mlp_out, the
@@ -608,6 +687,7 @@ struct RmSink {
   T* sa;
   T* sd;
   bool active;
+  T* tc;  // the tensor-core VJP's shared memory (rm_mlp_tc_vjp), or null
 };
 
 // Adds Σ_r A_r[i0 + ii] · D_r[jj] to w[(i0 + ii) * ld + j0 + jj] for ii < ni
@@ -675,39 +755,6 @@ __device__ __forceinline__ void rm_sink_rows(const RmSink<T>& s, const A& a,
   for (int i0 = 0; i0 < NIN; i0 += SW) {
     rm_sink_tile<T, NJ, BF16>(s, a, i0, NIN - i0 < SW ? NIN - i0 : SW, d, w,
                               ld, j0, b);
-  }
-}
-
-// The activation's slope at v, as its autograd backward forms it.
-template <typename T, int ACT>
-__device__ __forceinline__ T rm_act_slope(T v) {
-  if constexpr (ACT == RM_ACT_SINE) {
-    return rm_cos(v);
-  } else if constexpr (ACT == RM_ACT_SINE_FAST) {
-    const T k = rm_rint(v * static_cast<T>(RM_INV_TWO_PI));
-    const T r = (v - k * static_cast<T>(RM_TWO_PI_HI)) -
-                k * static_cast<T>(RM_TWO_PI_LO);
-    const T r2 = r * r;
-    T p = r2 * static_cast<T>(RM_SIN_C5) + static_cast<T>(RM_SIN_C4);
-    p = p * r2 + static_cast<T>(RM_SIN_C3);
-    p = p * r2 + static_cast<T>(RM_SIN_C2);
-    p = p * r2 + static_cast<T>(RM_SIN_C1);
-    p = p * r2 + static_cast<T>(RM_SIN_C0);
-    T dp = r2 * static_cast<T>(5.0 * RM_SIN_C5) +
-           static_cast<T>(4.0 * RM_SIN_C4);
-    dp = dp * r2 + static_cast<T>(3.0 * RM_SIN_C3);
-    dp = dp * r2 + static_cast<T>(2.0 * RM_SIN_C2);
-    dp = dp * r2 + static_cast<T>(RM_SIN_C1);
-    return p + static_cast<T>(2) * r2 * dp;
-  } else if constexpr (ACT == RM_ACT_SOFTPLUS) {
-    const T zero = static_cast<T>(0);
-    const T e = rm_exp(-rm_abs(v));
-    const T hinge = v > zero ? static_cast<T>(1)
-                             : (v == zero ? static_cast<T>(0.5) : zero);
-    return hinge + (-(e / (e + static_cast<T>(1)))) * rm_sign(v);
-  } else {
-    const T y = rm_tanh(v);
-    return static_cast<T>(1) - y * y;
   }
 }
 
@@ -821,4 +868,530 @@ __device__ __forceinline__ void rm_mlp_delta(const T* g, T* slope, T w0) {
     const T dz = g[j] * slope[j];
     slope[j] = SCALE ? dz * w0 : dz;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The MLP's VJP on the tensor cores, for the backward kernel's tensor-core
+// instantiations (render_bwd.cu, TC: a scene with a tensor-core leaf, f32).
+//
+// Replaces, inside those instantiations, the per-thread VJP and the scalar
+// tile sink above for a leaf of codegen.py's tc_leaf shape. The backward's
+// primal evaluation is rm_mlp_tc with KEEP (in f32 the same bits as the
+// forward's evaluation), which leaves each lane's values of the last hidden layer's
+// pre-activation in the m16n8 C layout (rm_tc_ci; N2 floats a lane: a
+// third of a block's resident lanes' keep arrays, 35 MB at 2 blocks an SM,
+// fits the H100's L2, where h2 and s2 both did not). Once the cotangent g
+// of the MLP's output is known, one call, made by every thread of the block
+// in the same order (the block's 4 warps, 128 rays), does:
+//  1. h2 and its slope s2 again from the kept pre-activation (the same
+//     bits), δ2 = op(op(Wo)·g)·s2 kept in its place and h2·g, zeroed by a
+//     select (not a product) for an inactive lane, whose values may be NaN;
+//  2. db1 = Σ δ2, dW2 = Σ op(h2)·g, db2 = Σ g over the block's rays: each
+//     column staged in shared memory and summed by one thread in ray order;
+//  3. the point's cotangent: W1·δ2 on mma.sync, δ2 as the A operand straight
+//     from its C layout (its columns 2 tig, 2 tig + 1 sit where A wants
+//     columns tig, tig + 4; the wrapper prepares Wᵀ in that k order,
+//     ops/params.py tc_bwd_fragments), 128 columns of N1 per pass; then, per
+//     column, δ1 = (op(W1·δ2)·s1)·w0 with layer 0 evaluated again at the
+//     lane's rays (rm_tc_pre0: the primal's bits), the lane's part of
+//     W0·δ1, and δ1 staged for db0 = Σ δ1 and dW0 = Σ op(x) ⊗ δ1 (summed as
+//     in 2);
+//  4. the sink: dW1 += h1ᵀ·δ2, a product whose K dimension is the block's
+//     128 rays, on mma.sync. h1 (layer 0 again, op-rounded, zeroed for an
+//     inactive ray) is staged RM_TC_IC units and δ2 RM_TC_JC columns at a
+//     time; each output tile belongs to one warp (m-tiles warp, warp + 4 of
+//     a chunk), which adds it to the block's row: no atomics, and the
+//     hardware's fixed order inside an mma, so the bits repeat;
+//  5. the quad's sum of the point's cotangent, handed to each ray's lane
+//     (rounded to bf16 for bf16 operands).
+// Precision: every product with δ runs in TF32 with δ split as hi + lo
+// (cvt.rna), so δ is never rounded to TF32 or bf16: f32 takes lo·hi + hi·lo +
+// hi·hi (3xTF32, as the primal); bf16 operands (exact in TF32) take op·lo +
+// op·hi, which keeps the bf16 rule (scene/neural.py): a and W rounded to
+// bf16, δ and the a ⊗ δ sums f32, the input cotangents rounded.
+// Bound on an H100: the three 256 x 256 products per evaluation on the
+// tensor cores (495/3 TFLOP/s), the rest at the f32 SIMT rate.
+
+// The staging of the block's sink, in floats: bufH (RM_SINK_THREADS rays x
+// RM_TC_LDH: h1's chunk, or a pass of δ1, or δ2 and h2·g side by side), bufD
+// (RM_SINK_THREADS x RM_TC_LDD: δ2's chunk) and the rays (x y z, their
+// operands, g and whether active). Row strides of 8 mod 32 floats keep the
+// fragment reads (rows tig, columns gid) free of bank conflicts.
+constexpr int RM_TC_IC = 128;
+constexpr int RM_TC_JC = 32;
+constexpr int RM_TC_LDH = RM_TC_IC + 8;
+constexpr int RM_TC_LDD = RM_TC_JC + 8;
+constexpr int RM_TC_RAY = 8;
+constexpr int RM_TC_SMEM_FLOATS =
+    RM_SINK_THREADS * (RM_TC_LDH + RM_TC_LDD + RM_TC_RAY);
+static_assert(2 * RM_SINK_THREADS * (rm_sink_width<float>() + 1) <=
+                  RM_SINK_THREADS * RM_TC_LDH,
+              "the scalar sink's staging fits in bufH");
+
+// *dst += Σ over the block's rays of buf[r * ld + c], r in order.
+__device__ __forceinline__ void rm_tc_col_add(const float* buf, int ld,
+                                              int c, float* dst) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int r = 0; r < RM_SINK_THREADS; ++r) s = s + buf[r * ld + c];
+  *dst = *dst + s;
+}
+
+// A lane's 8 kept values of n-tile nt (both m-tiles): two 16-byte loads
+// (kept is 16-byte aligned, scene_sdf_vjp's keep array).
+__device__ __forceinline__ void rm_tc_load8(const float* __restrict__ kept,
+                                            int nt, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(kept)[2 * nt];
+  const float4 b = reinterpret_cast<const float4*>(kept)[2 * nt + 1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// This lane's values of n-tiles nt0 .. nt0 + cnt of its warp's (32 x N)
+// matrix, kept at rm_tc_ci, into buf's rows of the warp's rays at columns
+// col0 + (nt - nt0) * 8 + (the entry's column in its tile). Up to 4
+// n-tiles are loaded before any is stored, so the loads overlap.
+__device__ __forceinline__ void rm_tc_stage(const float* __restrict__ kept,
+                                            int nt0, int cnt,
+                                            float* __restrict__ buf, int ld,
+                                            int col0) {
+  const int lane = threadIdx.x & 31;
+  float* const base = buf + ((threadIdx.x >> 5) * 32 + (lane >> 2)) * ld +
+                      col0 + 2 * (lane & 3);
+#pragma unroll 1
+  for (int q0 = 0; q0 < cnt; q0 += 4) {
+    float v[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q0 + q < cnt) rm_tc_load8(kept, nt0 + q0 + q, v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q0 + q >= cnt) continue;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int mt = k >> 2, e = k & 3;
+        base[(mt * 16 + 8 * (e >> 1)) * ld + (q0 + q) * 8 + (e & 1)] =
+            v[q][k];
+      }
+    }
+  }
+}
+
+// v as TF32 hi + lo.
+__device__ __forceinline__ void rm_tf32_split(float v, float& hi, float& lo) {
+  hi = rm_tf32(v);
+  lo = rm_tf32(v - hi);
+}
+
+// The VJP of the MLP 3 -> N1 -> N2 -> 1 at this lane's (x, y, z) for the
+// cotangent g of its output, after rm_mlp_tc<..., KEEP> filled keep (N2):
+// returns the point's cotangent and adds the block's matrix and bias
+// cotangents to dW0 .. db2 in its row. B1: W1ᵀ's fragments (ops/params.py
+// tc_bwd_fragments). Every thread of the block must call, in the same order.
+template <int N1, int N2, int ACT, bool BF16, bool SCALE>
+__device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
+    const float* __restrict__ b0, const float* __restrict__ W0,
+    const float* __restrict__ B1, const float* __restrict__ W2, float w0,
+    float x, float y, float z, float g, float* keep,
+    const RmSink<float>& s, float* dW0, float* db0, float* dW1, float* db1,
+    float* dW2, float* db2) {
+  static_assert(N1 % 16 == 0 && N2 % 8 == 0 && N2 <= 256, "layer sizes");
+  constexpr int NC = rm_tc_cols(N1);  // columns of δ1 per pass
+  constexpr int NT = NC / 8;
+  constexpr int G = NT % 4 == 0 ? 4 : (NT % 2 == 0 ? 2 : 1);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int t = threadIdx.x;
+  float* const bufH = s.tc;
+  float* const bufD = bufH + RM_SINK_THREADS * RM_TC_LDH;
+  float* const rays = bufD + RM_SINK_THREADS * RM_TC_LDD;
+
+  __syncthreads();  // whoever used the staging before is done
+  {
+    float* const r = rays + t * RM_TC_RAY;
+    const bool a = s.active;
+    r[0] = x;
+    r[1] = y;
+    r[2] = z;
+    r[3] = a ? rm_operand<float, BF16>(x) : 0.0f;
+    r[4] = a ? rm_operand<float, BF16>(y) : 0.0f;
+    r[5] = a ? rm_operand<float, BF16>(z) : 0.0f;
+    r[6] = a ? g : 0.0f;
+    r[7] = a ? 1.0f : 0.0f;
+  }
+  // The cotangent and activity of this lane's rows (gid, gid + 8 of each
+  // m-tile).
+  float gr[2][2];
+  bool ar[2][2];
+  {
+    const float gs = s.active ? g : 0.0f;
+    const int as = s.active ? 1 : 0;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int src = mt * 16 + gid + 8 * h;
+        gr[mt][h] = __shfl_sync(RM_FULL_WARP, gs, src);
+        ar[mt][h] = __shfl_sync(RM_FULL_WARP, as, src) != 0;
+      }
+    }
+  }
+  __syncthreads();  // the rays are staged
+  // ---- 1-2. Per 64 columns: h2 and s2 again from the kept pre-activation
+  // v, δ2 (kept in v's place) and h2·g, both staged side by side for db1
+  // and dW2; db2 ----
+#pragma unroll 1
+  for (int c0 = 0; c0 < N2; c0 += 64) {
+    const int cw = N2 - c0 < 64 ? N2 - c0 : 64;
+    float* const base = bufH + (warp * 32 + gid) * RM_TC_LDH + 2 * tig;
+#pragma unroll 1
+    for (int q0 = 0; q0 < cw / 8; q0 += 2) {
+      float vv[2][8];  // 2 n-tiles loaded before any store
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q0 + q < cw / 8) rm_tc_load8(keep, c0 / 8 + q0 + q, vv[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q0 + q >= cw / 8) continue;
+        const int nt = c0 / 8 + q0 + q;
+        const int col = nt * 8 + 2 * tig;
+        const float wo[2] = {rm_operand<float, BF16>(__ldg(W2 + col)),
+                             rm_operand<float, BF16>(__ldg(W2 + col + 1))};
+        float dv[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int mt = k >> 2, h = (k & 3) >> 1;
+          const float v = vv[q][k];
+          const float ga = rm_operand<float, BF16>(wo[k & 1] * gr[mt][h]);
+          const float hg =
+              rm_operand<float, BF16>(rm_act<float, ACT>(v)) * gr[mt][h];
+          dv[k] = ar[mt][h] ? ga * rm_act_slope<float, ACT>(v) : 0.0f;
+          float* const e = base + (mt * 16 + 8 * h) * RM_TC_LDH +
+                           (q0 + q) * 8 + (k & 1);
+          e[0] = dv[k];
+          e[64] = ar[mt][h] ? hg : 0.0f;
+        }
+        float4* const kd = reinterpret_cast<float4*>(keep) + 2 * nt;
+        kd[0] = make_float4(dv[0], dv[1], dv[2], dv[3]);
+        kd[1] = make_float4(dv[4], dv[5], dv[6], dv[7]);
+      }
+    }
+    __syncthreads();
+    if (t < cw) {
+      rm_tc_col_add(bufH, RM_TC_LDH, t, db1 + c0 + t);
+    } else if (t >= 64 && t - 64 < cw) {
+      rm_tc_col_add(bufH, RM_TC_LDH, t, dW2 + c0 + t - 64);
+    }
+    if (c0 == 0 && t == RM_SINK_THREADS - 1) {
+      rm_tc_col_add(rays, RM_TC_RAY, 6, db2);
+    }
+    __syncthreads();
+  }
+  // ---- 3. W1·δ2 on the tensor cores, δ1, W0·δ1, db0 and dW0 ----
+  float p[2][2][3];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* r = rays + (warp * 32 + mt * 16 + gid + 8 * h) * RM_TC_RAY;
+      p[mt][h][0] = r[0];
+      p[mt][h][1] = r[1];
+      p[mt][h][2] = r[2];
+    }
+  }
+  float gin[2][2][3];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) gin[mt][h][i] = 0.0f;
+    }
+  }
+#pragma unroll 1
+  for (int np = 0; np < N1 / NC; ++np) {
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      }
+    }
+    float next[8];  // δ2's n-tile kt, loaded one k-step ahead
+    rm_tc_load8(keep, 0, next);
+#pragma unroll 1
+    for (int kt = 0; kt < N2 / 8; ++kt) {
+      // A: δ2's n-tile kt, its C entries 0 2 1 3 as A's rows gid / gid + 8
+      // at columns tig / tig + 4.
+      float ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = (r & 1) * 2 + (r >> 1);
+          rm_tf32_split(next[mt * 4 + e], ahi[mt][r], alo[mt][r]);
+        }
+      }
+      if (kt + 1 < N2 / 8) rm_tc_load8(keep, kt + 1, next);
+      const long long frag = (long long)kt * (N1 / 8) + np * NT;
+#pragma unroll
+      for (int g0 = 0; g0 < NT; g0 += G) {
+        if constexpr (BF16) {
+          float2 b[G];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            b[j] = __ldg(reinterpret_cast<const float2*>(B1) +
+                         (frag + g0 + j) * 32 + lane);
+          }
+          // As the primal's bf16 layer: each k-step in fresh accumulators,
+          // added in f32, since W1·δ2 is rounded to bf16 next.
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              rm_mma_tf32(t, alo[mt], b[j].x, b[j].y);
+              rm_mma_tf32(t, ahi[mt], b[j].x, b[j].y);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                acc[mt][g0 + j][e] = acc[mt][g0 + j][e] + t[e];
+              }
+            }
+          }
+        } else {
+          float4 b[G];  // hi of k rows 2 tig, 2 tig + 1; lo of the same
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            b[j] = __ldg(reinterpret_cast<const float4*>(B1) +
+                         (frag + g0 + j) * 32 + lane);
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_tf32(acc[mt][g0 + j], alo[mt], b[j].x, b[j].y);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_tf32(acc[mt][g0 + j], ahi[mt], b[j].z, b[j].w);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              rm_mma_tf32(acc[mt][g0 + j], ahi[mt], b[j].x, b[j].y);
+            }
+          }
+        }
+      }
+    }
+    // δ1 per column, the lane's part of W0·δ1, and δ1 staged.
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int u = np * NC + nt * 8 + 2 * tig + c;
+        float w[4];
+        rm_tc_col0<N1>(b0, W0, u, w);
+        const float wi[3] = {rm_operand<float, BF16>(w[0]),
+                             rm_operand<float, BF16>(w[1]),
+                             rm_operand<float, BF16>(w[2])};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float gh = rm_operand<float, BF16>(acc[mt][nt][2 * h + c]);
+            const float v = rm_tc_pre0<BF16, SCALE>(w, w0, p[mt][h]);
+            const float dz = gh * rm_act_slope<float, ACT>(v);
+            const float d1 = ar[mt][h] ? (SCALE ? dz * w0 : dz) : 0.0f;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              gin[mt][h][i] = gin[mt][h][i] + wi[i] * d1;
+            }
+            bufH[(warp * 32 + mt * 16 + gid + 8 * h) * RM_TC_LDH + nt * 8 +
+                 2 * tig + c] = d1;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (t < NC) {
+      const int u = np * NC + t;
+      float sb = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 4
+      for (int r = 0; r < RM_SINK_THREADS; ++r) {
+        const float d = bufH[r * RM_TC_LDH + t];
+        const float* q = rays + r * RM_TC_RAY;
+        sb = sb + d;
+        s0 = s0 + q[3] * d;
+        s1 = s1 + q[4] * d;
+        s2 = s2 + q[5] * d;
+      }
+      db0[u] = db0[u] + sb;
+      dW0[u] = dW0[u] + s0;
+      dW0[N1 + u] = dW0[N1 + u] + s1;
+      dW0[2 * N1 + u] = dW0[2 * N1 + u] + s2;
+    }
+    __syncthreads();
+  }
+  // ---- 4. the sink: dW1 += h1ᵀ·δ2, K = the block's rays ----
+#pragma unroll 1
+  for (int i0 = 0; i0 < N1; i0 += RM_TC_IC) {
+    const int iw = N1 - i0 < RM_TC_IC ? N1 - i0 : RM_TC_IC;
+    // h1 of the warp's rays at units i0 .. i0 + iw, one unit per lane.
+#pragma unroll 1
+    for (int uu = lane; uu < iw; uu += 32) {
+      float w[4];
+      rm_tc_col0<N1>(b0, W0, i0 + uu, w);
+#pragma unroll 4
+      for (int r = 0; r < 32; ++r) {
+        const float* q = rays + (warp * 32 + r) * RM_TC_RAY;
+        const float pp[3] = {q[0], q[1], q[2]};
+        const float h = rm_operand<float, BF16>(
+            rm_tc_unit0<ACT, BF16, SCALE>(w, w0, pp));
+        bufH[(warp * 32 + r) * RM_TC_LDH + uu] = q[7] != 0.0f ? h : 0.0f;
+      }
+    }
+    const int mts = iw / 16;
+#pragma unroll 1
+    for (int j0 = 0; j0 < N2; j0 += RM_TC_JC) {
+      const int jw = N2 - j0 < RM_TC_JC ? N2 - j0 : RM_TC_JC;
+      const int nts = jw / 8;
+      rm_tc_stage(keep, j0 / 8, nts, bufD, RM_TC_LDD, 0);
+      __syncthreads();
+      float acc[2][RM_TC_JC / 8][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][nt][e] = 0.0f;
+        }
+      }
+#pragma unroll 1
+      for (int kt = 0; kt < RM_SINK_THREADS / 8; ++kt) {
+        const float* h0 = bufH + (kt * 8 + tig) * RM_TC_LDH;
+        const float* h1 = h0 + 4 * RM_TC_LDH;
+        const float* d0 = bufD + (kt * 8 + tig) * RM_TC_LDD;
+        const float* d1 = d0 + 4 * RM_TC_LDD;
+        // B: δ2 at rays (k) tig / tig + 4, column (n) gid of each n-tile.
+        float bhi[RM_TC_JC / 8][2], blo[RM_TC_JC / 8][2];
+#pragma unroll
+        for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+          if (nt < nts) {
+            rm_tf32_split(d0[nt * 8 + gid], bhi[nt][0], blo[nt][0]);
+            rm_tf32_split(d1[nt * 8 + gid], bhi[nt][1], blo[nt][1]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int mt = warp + 4 * q;
+          if (mt >= mts) continue;
+          // A: h1ᵀ, units (m) gid / gid + 8 at rays (k) tig / tig + 4.
+          const float a[4] = {h0[mt * 16 + gid], h0[mt * 16 + gid + 8],
+                              h1[mt * 16 + gid], h1[mt * 16 + gid + 8]};
+          // Each pass over the independent tiles before the next.
+          if constexpr (BF16) {
+#pragma unroll
+            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+              if (nt < nts) {
+                rm_mma_tf32(acc[q][nt], a, blo[nt][0], blo[nt][1]);
+              }
+            }
+#pragma unroll
+            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+              if (nt < nts) {
+                rm_mma_tf32(acc[q][nt], a, bhi[nt][0], bhi[nt][1]);
+              }
+            }
+          } else {
+            float ahi[4], alo[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) rm_tf32_split(a[r], ahi[r], alo[r]);
+#pragma unroll
+            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+              if (nt < nts) {
+                rm_mma_tf32(acc[q][nt], alo, bhi[nt][0], bhi[nt][1]);
+              }
+            }
+#pragma unroll
+            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+              if (nt < nts) {
+                rm_mma_tf32(acc[q][nt], ahi, blo[nt][0], blo[nt][1]);
+              }
+            }
+#pragma unroll
+            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+              if (nt < nts) {
+                rm_mma_tf32(acc[q][nt], ahi, bhi[nt][0], bhi[nt][1]);
+              }
+            }
+          }
+        }
+      }
+      // Every old value of the warp's tiles is loaded before any store.
+      float old[2][RM_TC_JC / 8][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int mt = warp + 4 * q;
+#pragma unroll
+        for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (mt < mts && nt < nts) {
+              old[q][nt][e] = dW1[(long long)(i0 + mt * 16 + gid +
+                                              8 * (e >> 1)) * N2 +
+                                  j0 + nt * 8 + 2 * tig + (e & 1)];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int mt = warp + 4 * q;
+#pragma unroll
+        for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (mt < mts && nt < nts) {
+              dW1[(long long)(i0 + mt * 16 + gid + 8 * (e >> 1)) * N2 + j0 +
+                  nt * 8 + 2 * tig + (e & 1)] = old[q][nt][e] + acc[q][nt][e];
+            }
+          }
+        }
+      }
+      __syncthreads();  // bufD (and, last, bufH) free again
+    }
+  }
+  // ---- 5. the point's cotangent: the quad's sum, to each ray's lane ----
+  RmVec3<float> out;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float mine = 0.0f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float sv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sv[h] = gin[mt][h][i] + __shfl_xor_sync(RM_FULL_WARP, gin[mt][h][i], 1);
+        sv[h] = sv[h] + __shfl_xor_sync(RM_FULL_WARP, sv[h], 2);
+      }
+      const int r = lane & 15;
+      const float lo = __shfl_sync(RM_FULL_WARP, sv[0], 4 * (r & 7));
+      const float hi = __shfl_sync(RM_FULL_WARP, sv[1], 4 * (r & 7));
+      if ((lane >> 4) == mt) mine = r < 8 ? lo : hi;
+    }
+    out.v[i] = rm_operand<float, BF16>(mine);
+  }
+  return out;
 }

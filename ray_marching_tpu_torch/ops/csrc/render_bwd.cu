@@ -73,6 +73,19 @@
 // sequence is the same whichever way the positions are obtained, so the
 // three ways stay bitwise equal. Bound on an H100: operations, the MLP's
 // VJP (scene/codegen.py counts it: one forward, the slopes, W·δ, a ⊗ δ).
+//
+// TC (f32, a scene with a tensor-core MLP leaf, SCENE_TC): the same kernel
+// with the MLP on the tensor cores (neural.cuh): every march (the
+// recompute, the two-level checkpoints and segment replays) is the
+// warp-masked one of march_loop.cuh on rm_mlp_tc, so its positions are the
+// tensor-core forwards' (render_fwd_train_tc_kernel, march_tc_kernel) bit
+// for bit, and an invalid lane marches masked where it stands; every SDF
+// evaluation of the tail and the min_f ties takes the same MLP; every VJP
+// is rm_mlp_tc_vjp, whose matrix sink (h1ᵀ·δ2 over the block's rays) runs
+// on mma.sync out of RM_TC_SMEM_FLOATS of dynamic shared memory, which the
+// scalar sink of any per-thread leaf shares. Every lane of the block
+// takes part in every evaluation and VJP. Bound on an H100: the VJP's
+// three 256 x 256 products per evaluation on the tensor cores.
 #include <cuda_runtime.h>
 
 #include <limits>
@@ -144,22 +157,28 @@ struct ReplayObserver {
 
 // The SDF VJP of a scene with neural leaves, out of line: its call sites
 // then share one frame for the hidden layers the MLP keeps (scene_sdf.cuh).
-template <typename T>
+// TC: the tensor-core MLP and its VJP (every thread of the block calls).
+template <typename T, bool TC>
 __device__ __noinline__ T sdf_vjp_sync(const T* __restrict__ P,
                                        const T* __restrict__ M, T x, T y, T z,
                                        T g, T& gx, T& gy, T& gz, T* gP,
                                        const RmSink<T>& sink) {
+#ifdef SCENE_TC
+  return scene_sdf_vjp<T, TC>(P, M, x, y, z, g, gx, gy, gz, gP, sink);
+#else
+  static_assert(!TC, "the scene has no tensor-core MLP leaf");
   return scene_sdf_vjp<T>(P, M, x, y, z, g, gx, gy, gz, gP, sink);
+#endif
 }
 
 // The scene's SDF VJP; with neural leaves it also feeds the block's sink.
-template <typename T>
+template <typename T, bool TC>
 __device__ __forceinline__ T sdf_vjp(const T* __restrict__ P,
                                      const T* __restrict__ M, T x, T y, T z,
                                      T g, T& gx, T& gy, T& gz, T* gP,
                                      const RmSink<T>& sink) {
   if constexpr (SYNC) {
-    return sdf_vjp_sync<T>(P, M, x, y, z, g, gx, gy, gz, gP, sink);
+    return sdf_vjp_sync<T, TC>(P, M, x, y, z, g, gx, gy, gz, gP, sink);
   } else {
     return scene_sdf_vjp<T>(P, M, x, y, z, g, gx, gy, gz, gP);
   }
@@ -180,14 +199,14 @@ __device__ __forceinline__ int block_max(int v) {
 // the cotangent of the position after the step on entry and before it on
 // return. A frozen step (live == false) moves nothing and only carries gd.
 // An inactive thread (sink) changes nothing.
-template <typename T>
+template <typename T, bool TC>
 __device__ __forceinline__ void sweep_step(const T* __restrict__ P,
                                            const T* __restrict__ M, T px, T py,
                                            T pz, T gd, bool live, T& gx, T& gy,
                                            T& gz, T& gvx, T& gvy, T& gvz,
                                            T* gP, const RmSink<T>& sink) {
   T sx, sy, sz;
-  const T d = sdf_vjp<T>(P, M, px, py, pz, gd, sx, sy, sz, gP, sink);
+  const T d = sdf_vjp<T, TC>(P, M, px, py, pz, gd, sx, sy, sz, gP, sink);
   if constexpr (SYNC) {
     if (!sink.active) return;
   }
@@ -201,7 +220,7 @@ __device__ __forceinline__ void sweep_step(const T* __restrict__ P,
   gz = gz + sz;
 }
 
-template <typename T, bool TRACK_MIN, bool TWO_LEVEL, bool MARCH_ONLY>
+template <typename T, bool TRACK_MIN, bool TWO_LEVEL, bool MARCH_ONLY, bool TC>
 __global__ void __launch_bounds__(BWD_BLOCK)
 render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
   const long long plane = a.plane;
@@ -217,14 +236,24 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
   }
   // The block's matrix sink (SYNC only; otherwise every thread that runs a
   // VJP is active and nothing reads the rest).
-  RmSink<T> sink = {nullptr, nullptr, nullptr, true};
+  RmSink<T> sink = {nullptr, nullptr, nullptr, true, nullptr};
   if constexpr (SYNC) {
     constexpr int SW = rm_sink_width<T>() + 1;
-    __shared__ T sa[RM_SINK_THREADS * SW];
-    __shared__ T sd[RM_SINK_THREADS * SW];
+    if constexpr (TC) {
+      // The tensor-core VJP's staging, dynamic (RM_TC_SMEM_FLOATS); the
+      // scalar sink of any per-thread leaf stages at its start.
+      extern __shared__ __align__(16) unsigned char rm_tc_smem[];
+      T* const dyn = reinterpret_cast<T*>(rm_tc_smem);
+      sink.sa = dyn;
+      sink.sd = dyn + RM_SINK_THREADS * SW;
+      sink.tc = dyn;
+    } else {
+      __shared__ T sa[RM_SINK_THREADS * SW];
+      __shared__ T sd[RM_SINK_THREADS * SW];
+      sink.sa = sa;
+      sink.sd = sd;
+    }
     sink.row = a.partials + (long long)blockIdx.x * ROW;
-    sink.sa = sa;
-    sink.sd = sd;
     // Ordered before the first addition by the sink's first barrier.
     for (long long k = threadIdx.x; k < ROW; k += BWD_BLOCK) {
       sink.row[k] = zero;
@@ -249,18 +278,28 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       CheckpointObserver<T> keep = {a.ckpt, plane, i};
-      nlive = skip ? 0
-                   : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, zero,
-                                  keep);
+      if constexpr (TC) {
+        nlive = march_ray<T, CheckpointObserver<T>, true>(
+            a.P, a.M, x, y, z, vx, vy, vz, steps, zero, keep, !skip);
+      } else {
+        nlive = skip ? 0
+                     : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps,
+                                    zero, keep);
+      }
     } else if (a.recompute) {
       x = a.rays[i];
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       HistoryObserver<T, TRACK_MIN> seen = {a.hist, plane, i, big, -1,
                                             x,      y,     z};
-      nlive = skip ? 0
-                   : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau,
-                                  seen);
+      if constexpr (TC) {
+        nlive = march_ray<T, HistoryObserver<T, TRACK_MIN>, true>(
+            a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau, seen, !skip);
+      } else {
+        nlive = skip ? 0
+                     : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps,
+                                    c.tau, seen);
+      }
       minf = seen.minf;
       amin = seen.amin;
       hend[i] = x;
@@ -284,8 +323,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
     if (MARCH_ONLY) {
       // ---- the terminal distance's cotangent into the position ----
       T sx, sy, sz;
-      sdf_vjp<T>(a.P, a.M, x, y, z, a.g[3 * plane + i], sx, sy, sz, gP,
-                 sink);
+      sdf_vjp<T, TC>(a.P, a.M, x, y, z, a.g[3 * plane + i], sx, sy, sz, gP,
+                     sink);
       gx = gx + sx;
       gy = gy + sy;
       gz = gz + sz;
@@ -298,8 +337,15 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         ox[k] = c.off[k][0];
         oy[k] = c.off[k][1];
         oz[k] = c.off[k][2];
-        f[k] = skip ? zero
-                    : scene_sdf<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k]);
+        if constexpr (TC) {
+          const T v = march_sdf<T, true>(a.P, a.M, x + ox[k], y + oy[k],
+                                         z + oz[k]);
+          f[k] = skip ? zero : v;
+        } else {
+          f[k] = skip ? zero
+                      : scene_sdf<T>(a.P, a.M, x + ox[k], y + oy[k],
+                                     z + oz[k]);
+        }
       }
       ox[4] = zero;
       oy[4] = zero;
@@ -335,8 +381,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
 #pragma unroll 1
       for (int k = 0; k < 5; ++k) {
         T sx, sy, sz;
-        sdf_vjp<T>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k], gf[k], sx, sy,
-                   sz, gP, sink);
+        sdf_vjp<T, TC>(a.P, a.M, x + ox[k], y + oy[k], z + oz[k], gf[k], sx,
+                       sy, sz, gP, sink);
         gx = gx + sx;
         gy = gy + sy;
         gz = gz + sz;
@@ -356,7 +402,11 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         // The segment's last step is not marched: the sweep needs the
         // position before it, not after.
         ReplayObserver<T> replay = {rx, ry, rz};
-        if (!skip) {
+        if constexpr (TC) {
+          march_ray<T, ReplayObserver<T>, true>(a.P, a.M, px, py, pz, vx, vy,
+                                                vz, CKPT_INTERVAL - 1, zero,
+                                                replay, !skip);
+        } else if (!skip) {
           march_ray<T>(a.P, a.M, px, py, pz, vx, vy, vz, CKPT_INTERVAL - 1,
                        zero, replay);
         }
@@ -366,9 +416,9 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
 #pragma unroll 1
         for (int j = CKPT_INTERVAL - 1; j >= 0; --j) {
           const T gd = gx * vx + gy * vy + gz * vz;
-          sweep_step<T>(a.P, a.M, skip ? zero : rx[j], skip ? zero : ry[j],
-                        skip ? zero : rz[j], gd, true, gx, gy, gz, gvx, gvy,
-                        gvz, gP, sink);
+          sweep_step<T, TC>(a.P, a.M, skip ? zero : rx[j],
+                            skip ? zero : ry[j], skip ? zero : rz[j], gd,
+                            true, gx, gy, gz, gvx, gvy, gvz, gP, sink);
         }
       }
     } else {
@@ -386,16 +436,21 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         const T pz = h[2 * plane + i];
         T gd = live ? gx * vx + gy * vy + gz * vz : zero;
         if (TRACK_MIN) {
-          const T d = (!SYNC || sink.active)
-                          ? scene_sdf<T>(a.P, a.M, px, py, pz)
-                          : zero;
+          T d;
+          if constexpr (TC) {
+            const T v = march_sdf<T, true>(a.P, a.M, px, py, pz);
+            d = sink.active ? v : zero;
+          } else {
+            d = (!SYNC || sink.active) ? scene_sdf<T>(a.P, a.M, px, py, pz)
+                                       : zero;
+          }
           const bool first = amin == s;
           const bool tie = d == minf && !first;
           gd = gd + (first ? carry : (tie ? half * carry : zero));
           carry = first ? zero : (tie ? half * carry : carry);
         }
-        sweep_step<T>(a.P, a.M, px, py, pz, gd, live, gx, gy, gz, gvx, gvy,
-                      gvz, gP, sink);
+        sweep_step<T, TC>(a.P, a.M, px, py, pz, gd, live, gx, gy, gz, gvx,
+                          gvy, gvz, gP, sink);
       }
     }
     if (!skip) {
@@ -434,7 +489,25 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
 
 enum BwdMode { BWD_FULL = 0, BWD_TWO_LEVEL = 1, BWD_MARCH_ONLY = 2 };
 
-template <typename T>
+// One instantiation's launch; TC ones take the dynamic shared memory of the
+// tensor-core VJP.
+template <typename T, bool TRACK_MIN, bool TWO_LEVEL, bool MARCH_ONLY, bool TC>
+static void launch_one(unsigned int grid, BwdArgs<T> a,
+                       const RenderConsts<T>& c, T big, cudaStream_t st) {
+  auto* kernel = render_bwd_kernel<T, TRACK_MIN, TWO_LEVEL, MARCH_ONLY, TC>;
+  size_t smem = 0;
+#ifdef SCENE_TC
+  if constexpr (TC) {
+    smem = RM_TC_SMEM_FLOATS * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return;  // cudaGetLastError reports it
+  }
+#endif
+  kernel<<<grid, BWD_BLOCK, smem, st>>>(a, c, big);
+}
+
+template <typename T, bool TC>
 static int launch(BwdArgs<T> a, int mode, int track_min, long long n_blocks,
                   long long n_cols, const RenderConsts<T>& c, void* stream) {
   const long long grid = (a.plane + BWD_BLOCK - 1) / BWD_BLOCK;
@@ -449,21 +522,20 @@ static int launch(BwdArgs<T> a, int mode, int track_min, long long n_blocks,
       (c.tau != static_cast<T>(0) || a.steps % CKPT_INTERVAL != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (TC && a.plane % BWD_BLOCK != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const T big = std::numeric_limits<T>::max();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned int g = (unsigned int)grid;
   if (mode == BWD_TWO_LEVEL) {
-    render_bwd_kernel<T, false, true, false><<<g, BWD_BLOCK, 0, st>>>(a, c,
-                                                                      big);
+    launch_one<T, false, true, false, TC>(g, a, c, big, st);
   } else if (mode == BWD_MARCH_ONLY) {
-    render_bwd_kernel<T, false, false, true><<<g, BWD_BLOCK, 0, st>>>(a, c,
-                                                                      big);
+    launch_one<T, false, false, true, TC>(g, a, c, big, st);
   } else if (track_min) {
-    render_bwd_kernel<T, true, false, false><<<g, BWD_BLOCK, 0, st>>>(a, c,
-                                                                      big);
+    launch_one<T, true, false, false, TC>(g, a, c, big, st);
   } else {
-    render_bwd_kernel<T, false, false, false><<<g, BWD_BLOCK, 0, st>>>(a, c,
-                                                                       big);
+    launch_one<T, false, false, false, TC>(g, a, c, big, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -475,6 +547,12 @@ static int launch(BwdArgs<T> a, int mode, int track_min, long long n_blocks,
 // returns cudaErrorInvalidValue. Every entry returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
+#ifdef SCENE_TC
+// Dynamic shared memory of the tensor-core instantiations, bytes per block.
+extern "C" int rm_render_bwd_tc_smem() {
+  return RM_TC_SMEM_FLOATS * (int)sizeof(float);
+}
+#endif
 
 // Backward of render_fwd.cu. g has 9 planes when track_min is set, else 8.
 // hist is the forward's history (recompute = 0; then nlive and, with
@@ -483,7 +561,7 @@ extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
 // two_level set, hist and the three are null and ckpt is an uninitialised
 // scratch (steps / RM_CKPT_INTERVAL, 3, plane). host_consts as
 // in render_fwd.cu.
-#define RM_BWD_ENTRY(NAME, T)                                                \
+#define RM_BWD_ENTRY(NAME, T, TC)                                            \
   extern "C" int NAME(const T* P, const T* M, const T* rays, const T* g,     \
                       int track_min, T* hist, int recompute, T* ckpt,        \
                       int two_level, const T* minf, const int* amin,         \
@@ -505,19 +583,25 @@ extern "C" int rm_render_bwd_block() { return BWD_BLOCK; }
     a.plane = plane;                                                         \
     a.steps = steps;                                                         \
     a.recompute = recompute;                                                 \
-    return launch<T>(a, two_level ? BWD_TWO_LEVEL : BWD_FULL, track_min,     \
-                     n_blocks, n_cols, unpack_consts<T>(host_consts),        \
-                     stream);                                                \
+    return launch<T, TC>(a, two_level ? BWD_TWO_LEVEL : BWD_FULL,            \
+                         track_min, n_blocks, n_cols,                        \
+                         unpack_consts<T>(host_consts), stream);             \
   }
 
-RM_BWD_ENTRY(rm_render_bwd_f32, float)
-RM_BWD_ENTRY(rm_render_bwd_f64, double)
+RM_BWD_ENTRY(rm_render_bwd_f32, float, false)
+RM_BWD_ENTRY(rm_render_bwd_f64, double, false)
+#ifdef SCENE_TC
+// The same on the tensor cores (f32): M is the packed matrix buffer followed
+// by the forward's and the backward's tensor-core fragments (ops/params.py
+// pack_tc with backward); plane a multiple of 128.
+RM_BWD_ENTRY(rm_render_bwd_tc_f32, float, true)
+#endif
 
 // Backward of march.cu: g has 4 planes (x y z d); hist is an uninitialised
 // scratch (steps + 1, 3, plane) the kernel fills with its own recompute of
 // the march. tau arrives as a double and is rounded to T here, as march.cu
 // rounds it.
-#define RM_MARCH_BWD_ENTRY(NAME, T)                                          \
+#define RM_MARCH_BWD_ENTRY(NAME, T, TC)                                      \
   extern "C" int NAME(const T* P, const T* M, const T* rays, const T* g,     \
                       T* hist, T* out, T* partials, long long n_blocks,      \
                       long long n_cols, long long plane, int steps,          \
@@ -535,8 +619,11 @@ RM_BWD_ENTRY(rm_render_bwd_f64, double)
     a.recompute = 1;                                                         \
     RenderConsts<T> c = {};                                                  \
     c.tau = static_cast<T>(tau);                                             \
-    return launch<T>(a, BWD_MARCH_ONLY, 0, n_blocks, n_cols, c, stream);     \
+    return launch<T, TC>(a, BWD_MARCH_ONLY, 0, n_blocks, n_cols, c, stream); \
   }
 
-RM_MARCH_BWD_ENTRY(rm_march_bwd_f32, float)
-RM_MARCH_BWD_ENTRY(rm_march_bwd_f64, double)
+RM_MARCH_BWD_ENTRY(rm_march_bwd_f32, float, false)
+RM_MARCH_BWD_ENTRY(rm_march_bwd_f64, double, false)
+#ifdef SCENE_TC
+RM_MARCH_BWD_ENTRY(rm_march_bwd_tc_f32, float, true)
+#endif

@@ -54,9 +54,11 @@
 // position with its stores masked (its outputs are the per-thread kernel's:
 // the position, zeros), and the normals tail runs on every lane. Its planes
 // are within the f32 tolerance of the per-thread kernel, not equal to it;
-// march.cu's march_tc_kernel gives its planes 0-3 bit for bit. The training
-// kernel keeps the per-thread MLP (its history must equal the backward's
-// recompute bit for bit).
+// march.cu's march_tc_kernel gives its planes 0-3 bit for bit.
+// render_fwd_train_tc_kernel is the training configuration on the same
+// march and tail: its 8 planes equal render_fwd_tc_kernel's, and its history
+// the positions render_bwd.cu's TC instantiation recomputes and replays, bit
+// for bit.
 //
 // Parity traps, kept deliberately:
 //  - min/max/clamp/relu are selects (sdf_prims.cuh), not fminf/fmaxf;
@@ -232,6 +234,48 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ M,
   store_hit<T>(P, M, out, plane, i, x, y, z, c);
 }
 
+#ifdef SCENE_TC
+// The training configuration on the tensor cores: render_fwd_tc_kernel's
+// march and tail (the same planes, bit for bit) with the training outputs
+// of render_fwd_train_kernel. An invalid slot never goes live, so its
+// outputs are the per-thread kernel's: min_f the largest finite float,
+// arg-min -1, its start as arg-min position and terminal history entry, no
+// live step.
+__global__ void __launch_bounds__(128)
+render_fwd_train_tc_kernel(const float* __restrict__ P,
+                           const float* __restrict__ M,
+                           const float* __restrict__ rays,
+                           float* __restrict__ out, long long plane,
+                           int steps, RenderConsts<float> c, float big,
+                           TrainOuts<float> t) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  float x = rays[i];
+  float y = rays[plane + i];
+  float z = rays[2 * plane + i];
+  const bool valid = rays[6 * plane + i] > 0.5f;
+  HistoryObserver<float, true> seen = {t.hist, plane, i, big, -1, x, y, z};
+  const int s = march_ray<float, HistoryObserver<float, true>, true>(
+      P, M, x, y, z, rays[3 * plane + i], rays[4 * plane + i],
+      rays[5 * plane + i], steps, c.tau, seen, valid);
+  if (t.minf) t.minf[i] = seen.minf;
+  if (t.amin) t.amin[i] = seen.amin;
+  if (t.argpos) {
+    t.argpos[i] = seen.ax;
+    t.argpos[plane + i] = seen.ay;
+    t.argpos[2 * plane + i] = seen.az;
+  }
+  if (t.hist) {
+    float* h = t.hist + (long long)steps * (3 * plane);
+    h[i] = x;
+    h[plane + i] = y;
+    h[2 * plane + i] = z;
+  }
+  if (t.nlive) t.nlive[i] = s;
+  store_hit<float, true>(P, M, out, plane, i, x, y, z, c, valid);
+}
+#endif
+
 template <typename T>
 static int launch(const T* P, const T* M, const T* rays, T* out,
                   long long plane, int steps, const T* host_consts,
@@ -245,7 +289,7 @@ static int launch(const T* P, const T* M, const T* rays, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool TC = false>
 static int launch_train(const T* P, const T* M, const T* rays, T* out,
                         long long plane, int steps, const T* host_consts,
                         int track_min,
@@ -258,11 +302,21 @@ static int launch_train(const T* P, const T* M, const T* rays, T* out,
   t.argpos = argpos;
   t.hist = hist;
   t.nlive = nlive;
+  const T big = std::numeric_limits<T>::max();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef SCENE_TC
+  if constexpr (TC) {
+    const int block = 128;
+    render_fwd_train_tc_kernel<<<(unsigned int)(plane / block), block, 0,
+                                 st>>>(P, M, rays, out, plane, steps, c, big,
+                                       t);
+    return static_cast<int>(cudaGetLastError());
+  }
+#endif
   const int block = 256;
   const long long grid = (plane + block - 1) / block;
-  render_fwd_train_kernel<T><<<(unsigned int)grid, block, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      P, M, rays, out, plane, steps, c, std::numeric_limits<T>::max(), t);
+  render_fwd_train_kernel<T><<<(unsigned int)grid, block, 0, st>>>(
+      P, M, rays, out, plane, steps, c, big, t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,5 +383,20 @@ extern "C" int rm_render_fwd_tc_f32(const float* P, const float* M,
                                     long long plane, int steps,
                                     const float* host_consts, void* stream) {
   return launch_tc(P, M, rays, out, plane, steps, host_consts, stream);
+}
+
+// The training configuration on the tensor cores, f32: arguments as
+// rm_render_fwd_train_f32, M as rm_render_fwd_tc_f32, plane a multiple of
+// 128.
+extern "C" int rm_render_fwd_train_tc_f32(const float* P, const float* M,
+                                          const float* rays, float* out,
+                                          long long plane, int steps,
+                                          const float* host_consts,
+                                          int track_min, int* amin,
+                                          float* argpos, float* hist,
+                                          int* nlive, void* stream) {
+  return launch_train<float, true>(P, M, rays, out, plane, steps,
+                                   host_consts, track_min, amin, argpos, hist,
+                                   nlive, stream);
 }
 #endif

@@ -17,10 +17,10 @@ the plain versions only for tensors on the CPU. For CUDA tensors they launch
 the kernels or raise; they never fall back. A scene with ``NeuralSDF``
 leaves passes its matrix parameters as ``mats``; the MLP runs inside the
 kernel and its VJP inside the backward kernel, which returns the matrices'
-cotangents too. A march without a gradient on a scene with a tensor-core
-leaf in f32 launches the tensor-core entry (``march_tc_kernel``); a
-differentiated one the per-thread entry, whose positions the backward
-marches again.
+cotangents too. A march on a scene with a tensor-core leaf in f32 launches
+the tensor-core entry (``march_tc_kernel``), with or without a gradient: its
+backward marches again on the same route and gets its positions bit for
+bit.
 """
 
 from __future__ import annotations
@@ -85,33 +85,35 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
 
 class _March(torch.autograd.Function):
     """Forward: the march kernel; backward: the backward kernel without its
-    normals tail (counterpart of the ``custom_vjp`` pair ``_core_fwd`` /
-    ``_core_bwd`` of the JAX package)."""
+    normals tail, on the same MLP route (counterpart of the ``custom_vjp``
+    pair ``_core_fwd`` / ``_core_bwd`` of the JAX package)."""
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, *mats):
-        ctx.cfg = (program, steps, tau)
+        route = rk.mlp_route(program, rays7.dtype)
+        ctx.cfg = (program, steps, tau, route)
         ctx.save_for_backward(params_flat, rays7, *mats)
         return march_forward(program, params_flat, rays7, steps, tau, mats,
-                             route="thread")
+                             route=route)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         from ray_marching_tpu_torch.ops.backward_kernel import march_backward
 
-        program, steps, tau = ctx.cfg
+        program, steps, tau, route = ctx.cfg
         params_flat, rays7, *mats = ctx.saved_tensors
         gflat, gmats, grays = march_backward(program, params_flat, rays7,
-                                             g.contiguous(), steps, tau, mats)
+                                             g.contiguous(), steps, tau, mats,
+                                             route=route)
         return (gflat, grays, None, None, None, *gmats)
 
 
 def march_planes(program: SdfProgram, params_flat, rays7, steps, tau=0.0,
                  mats=()):
     """rays7 (7, rows, 128) → (4, rows, 128): x y z d, the first four planes
-    of :func:`render_kernel.fused_march_normals` bit for bit (under a
-    gradient: of its training configuration, the per-thread route of both).
+    of :func:`render_kernel.fused_march_normals` bit for bit (with or without
+    a gradient: both take :func:`render_kernel.mlp_route`).
     Differentiable in ``params_flat``, ``rays7`` and ``mats``."""
     if rk._requires_grad(params_flat, rays7, *mats):
         return _March.apply(params_flat, rays7, program, steps, tau, *mats)

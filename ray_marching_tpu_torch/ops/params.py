@@ -13,10 +13,12 @@ the generated SDF, while the values stay a runtime pointer.
 The CUDA kernels take the matrices as one packed buffer (:func:`pack_mats`):
 each matrix row-major in its own 128-aligned segment, at the offsets
 :func:`mat_specs` gives, which the generated SDF bakes in likewise. The
-tensor-core entries (the serving forward and the march, f32) take the same
-buffer followed by each tensor-core layer's weights in the fragment order of
-``mma.sync`` (:func:`pack_tc`, :func:`tc_fragments`), prepared on the
-device at every call.
+tensor-core entries (f32) take the same buffer followed by each tensor-core
+layer's weights in the fragment order of ``mma.sync`` (:func:`pack_tc`,
+:func:`tc_fragments`) and, for the backward kernel, by each layer's ``Wᵀ``
+in the order of the VJP's product (:func:`tc_bwd_fragments`), prepared on
+the device at every call and detached: the matrix cotangents reach the
+matrices through the backward's rows of partials.
 """
 
 from __future__ import annotations
@@ -150,14 +152,67 @@ def tc_weights(frags, nin: int, nout: int, bf16=False):
     return hi, lo
 
 
-def pack_tc(packed, mats, layers):
+def tc_bwd_segment(nin: int, nout: int, bf16: bool) -> int:
+    """Floats of one layer's backward fragments in :func:`pack_tc`'s buffer
+    (128-aligned)."""
+    return _segment(nin * nout if bf16 else 2 * nin * nout)
+
+
+def tc_bwd_fragments(w, bf16=False):
+    """W (nin, nout) of a tensor-core layer as ``neural.cuh``'s
+    ``rm_mlp_tc_vjp`` loads it for ``W·δ`` (the product ``δ·Wᵀ``, K = nout),
+    a 1-D float32 tensor (plain torch).
+
+    δ enters as the A operand straight from the primal's C layout, where
+    lane ``t`` holds columns ``2t`` and ``2t + 1`` of an 8-wide tile; A wants
+    them at k ``t`` and ``t + 4``, so Wᵀ's k rows come in that order. Lane
+    ``l`` (``g = l // 4``, ``t = l % 4``) reads, for k-step ``kt`` (over
+    nout / 8) and n-tile ``nt`` (over nin / 8), entry ``(kt·(nin/8) +
+    nt)·32 + l``:
+
+    - f32 (3xTF32): 4 floats, ``hi`` of ``W[nt·8 + g, kt·8 + 2t]`` and of
+      ``W[nt·8 + g, kt·8 + 2t + 1]``, then their ``lo``, as in
+      :func:`tc_fragments`;
+    - bf16 operands: 2 floats, the same two entries rounded to bf16 (exact
+      in TF32, so the product with δ split as hi + lo keeps δ f32).
+    """
+    nin, nout = w.shape
+    # [nt, g, kt, t, e] -> [kt, nt, g, t, e]
+    v = w.to(torch.float32).reshape(nin // 8, 8, nout // 8, 4, 2).permute(
+        2, 0, 1, 3, 4)
+    if bf16:
+        return v.to(torch.bfloat16).to(torch.float32).contiguous().reshape(-1)
+    hi = tf32(v)
+    lo = tf32(v - hi)
+    return torch.stack([hi, lo], dim=-2).contiguous().reshape(-1)
+
+
+def tc_bwd_weights(frags, nin: int, nout: int, bf16=False):
+    """:func:`tc_bwd_fragments` read back as (nin, nout) float32 matrices:
+    ``(hi, lo)``, or for bf16 the rounded matrix."""
+    if bf16:
+        w = frags[:nin * nout].reshape(nout // 8, nin // 8, 8, 4, 2)
+        return w.permute(1, 2, 0, 3, 4).reshape(nin, nout)
+    w = frags[:2 * nin * nout].reshape(nout // 8, nin // 8, 8, 4, 2, 2)
+    hi, lo = w.permute(4, 1, 2, 0, 3, 5).reshape(2, nin, nout)
+    return hi, lo
+
+
+def pack_tc(packed, mats, layers, backward=False):
     """The buffer the tensor-core entries take: ``packed`` (:func:`pack_mats`)
     followed by the fragments of each ``(matrix index, bf16)`` of
-    ``layers`` (``SdfProgram.tc_mats``), each in a 128-aligned segment."""
+    ``layers`` (``SdfProgram.tc_mats``), each in a 128-aligned segment; with
+    ``backward`` (the backward kernel's buffer) then each layer's
+    :func:`tc_bwd_fragments` likewise."""
     segs = [packed]
     for index, bf16 in layers:
         frag = tc_fragments(mats[index], bf16)
         nin, nout = mats[index].shape
         segs.append(torch.nn.functional.pad(
             frag, (0, tc_segment(nin, nout, bf16) - frag.numel())))
+    for index, bf16 in layers if backward else ():
+        frag = tc_bwd_fragments(mats[index], bf16)
+        nin, nout = mats[index].shape
+        segs.append(torch.nn.functional.pad(
+            frag, (0, tc_bwd_segment(nin, nout, bf16) - frag.numel())))
     return torch.cat(segs)

@@ -33,13 +33,16 @@ the plain versions only for tensors on the CPU. For CUDA tensors they launch the
 kernels or raise; they never fall back.
 
 Two MLP routes (:func:`mlp_route`): a scene with a tensor-core leaf
-(``SdfProgram.tc``) served in f32 without a gradient launches the
-tensor-core entry (``render_fwd_tc_kernel``: the MLP on ``mma.sync``, 3xTF32
-or bf16 operands, within the f32 tolerance of the plain version rather than
-equal to the per-thread kernel); every differentiated call, f64 and every
-other scene take the per-thread entries, whose history, recompute and
-two-level backward stay bitwise equal. The tensor-core entry takes the
-packed matrices followed by the fragments of :func:`ops.params.pack_tc`.
+(``SdfProgram.tc``) in f32 launches the tensor-core entries, served
+(``render_fwd_tc_kernel``) or differentiated (``render_fwd_train_tc_kernel``,
+whose backward is the backward kernel's tensor-core instantiation): the MLP
+on ``mma.sync``, 3xTF32 or bf16 operands, within the f32 tolerance of the
+plain version rather than equal to the per-thread kernel. f64 and every
+other scene take the per-thread entries. On either route the training
+forward's planes equal the serving forward's, and its history equals the
+backward's recompute and two-level replay, bit for bit. The tensor-core
+entries take the packed matrices followed by the fragments of
+:func:`ops.params.pack_tc`.
 """
 
 from __future__ import annotations
@@ -227,9 +230,23 @@ def _load(program: SdfProgram):
             lib.rm_render_fwd_tc_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
                                                  ptr, ptr]
             lib.rm_render_fwd_tc_f32.restype = i32
+            lib.rm_render_fwd_train_tc_f32.argtypes = [
+                ptr, ptr, ptr, ptr, i64, i32, ptr, i32, ptr, ptr, ptr, ptr,
+                ptr]
+            lib.rm_render_fwd_train_tc_f32.restype = i32
             lib.rm_march_tc_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f64,
                                             ptr]
             lib.rm_march_tc_f32.restype = i32
+            lib.rm_render_bwd_tc_f32.argtypes = [
+                ptr, ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr, ptr, ptr,
+                ptr, ptr, i64, i64, i64, i32, ptr, ptr]
+            lib.rm_render_bwd_tc_f32.restype = i32
+            lib.rm_march_bwd_tc_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                                ptr, i64, i64, i64, i32, f64,
+                                                ptr]
+            lib.rm_march_bwd_tc_f32.restype = i32
+            lib.rm_render_bwd_tc_smem.argtypes = []
+            lib.rm_render_bwd_tc_smem.restype = i32
         _LIBS[key] = lib
     _BOUND[program] = lib
     return lib
@@ -293,20 +310,23 @@ def _packed(mats):
 
 
 def mlp_route(program: SdfProgram, dtype) -> str:
-    """The MLP evaluation a serving launch of the forward or the march
-    takes: ``"tc"`` (the tensor-core entries) for a scene with a tensor-core
-    leaf in float32, ``"thread"`` (one thread per ray) otherwise. A
-    differentiated march takes ``"thread"`` whatever this says: its backward
-    marches again per thread."""
+    """The MLP evaluation the forward, the march and their backward take by
+    default: ``"tc"`` (the tensor-core entries) for a scene with a
+    tensor-core leaf in float32, ``"thread"`` (one thread per ray)
+    otherwise. A differentiated forward or march hands its route to its
+    backward, whose marches then give the forward's positions bit for
+    bit."""
     return "tc" if program.tc and dtype == torch.float32 else "thread"
 
 
-def tc_buffer(program: SdfProgram, mats):
+def tc_buffer(program: SdfProgram, mats, backward=False):
     """The matrix buffer of the tensor-core entries: the packed matrices,
-    then each tensor-core layer's fragments (:func:`ops.params.pack_tc`),
-    prepared from ``mats`` on their device."""
+    then each tensor-core layer's fragments and, with ``backward`` (the
+    backward kernel's buffer), its backward fragments
+    (:func:`ops.params.pack_tc`), prepared from ``mats`` on their device,
+    detached."""
     with torch.no_grad():
-        return pack_tc(_packed(mats), mats, program.tc_mats)
+        return pack_tc(_packed(mats), mats, program.tc_mats, backward)
 
 
 def _check_route(program, rays7, route, tc_mats=None):
@@ -336,19 +356,15 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     arg-min step, with ``track_min`` and ``log_hist``), ``argpos``
     (3, rows, 128), ``hist`` (steps + 1, 3, rows, 128) and ``nlive`` (int32
     live-step count). With none of the options this is the serving
-    configuration of the kernel, on the MLP ``route`` (:func:`mlp_route`;
-    by default the serving one), which ``tc_mats`` may hand a prepared
-    buffer (:func:`tc_buffer`); the training outputs take the per-thread
-    route. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    configuration of the kernel, else its training configuration, on the
+    MLP ``route`` (by default :func:`mlp_route`), which ``tc_mats`` may hand
+    a prepared buffer (:func:`tc_buffer`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     global LAUNCHES, TC_LAUNCHES
     _check(program, params_flat, rays7, steps, mats)
-    training = track_min or log_hist or track_argpos
     if route is None:
-        route = "thread" if training else mlp_route(program, rays7.dtype)
+        route = mlp_route(program, rays7.dtype)
     _check_route(program, rays7, route, tc_mats)
-    if training and route == "tc":
-        raise ValueError("the training outputs take the per-thread route")
     if rays7.device.type == "cpu":
         return _reference_march(program, params_flat, rays7, steps, tau,
                                 normals_eps, track_min, log_hist,
@@ -387,12 +403,16 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
         LAUNCHES += 1
         if route == "tc":
             TC_LAUNCHES += 1
+        if route == "tc" and not (track_min or extras):
             err = lib.rm_render_fwd_tc_f32(
                 params_flat.data_ptr(), packed.data_ptr(), rays7.data_ptr(),
                 out.data_ptr(), n, int(steps), consts_p, stream)
         elif track_min or extras:
-            fn = (lib.rm_render_fwd_train_f32 if f32
-                  else lib.rm_render_fwd_train_f64)
+            if route == "tc":
+                fn = lib.rm_render_fwd_train_tc_f32
+            else:
+                fn = (lib.rm_render_fwd_train_f32 if f32
+                      else lib.rm_render_fwd_train_f64)
             err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
                      out.data_ptr(), n, int(steps), consts_p, int(track_min),
                      _ptr(extras.get("amin")), _ptr(extras.get("argpos")),
@@ -409,19 +429,19 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
 
 class _FusedMarch(torch.autograd.Function):
     """Forward: the kernel's training configuration; backward: the backward
-    kernel (counterpart of the ``custom_vjp`` pairs ``_fwd``/``_bwd`` and
-    ``_fwd_cov``/``_bwd_cov`` of the JAX package). The scene's matrices come
-    last, so that autograd sees them."""
+    kernel on the same MLP route (counterpart of the ``custom_vjp`` pairs
+    ``_fwd``/``_bwd`` and ``_fwd_cov``/``_bwd_cov`` of the JAX package). The
+    scene's matrices come last, so that autograd sees them."""
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
                 track_min, log_hist, two_level, *mats):
+        route = mlp_route(program, rays7.dtype)
         out, extras = march_forward(
             program, params_flat, rays7, steps, tau, normals_eps,
-            track_min=track_min, log_hist=log_hist, mats=mats,
-            route="thread")
+            track_min=track_min, log_hist=log_hist, mats=mats, route=route)
         ctx.cfg = (program, steps, tau, normals_eps, track_min, log_hist,
-                   two_level)
+                   two_level, route)
         saved = [params_flat, rays7, *mats]
         if log_hist:
             saved += [extras["hist"], extras["nlive"]]
@@ -436,7 +456,7 @@ class _FusedMarch(torch.autograd.Function):
         from ray_marching_tpu_torch.ops.backward_kernel import fused_backward
 
         (program, steps, tau, normals_eps, track_min, log_hist,
-         two_level) = ctx.cfg
+         two_level, route) = ctx.cfg
         params_flat, rays7, *rest = ctx.saved_tensors
         mats, rest = rest[:program.n_mats], rest[program.n_mats:]
         handoff = {}
@@ -447,7 +467,7 @@ class _FusedMarch(torch.autograd.Function):
         gflat, gmats, grays = fused_backward(
             program, params_flat, rays7, g.contiguous(), steps, tau,
             normals_eps, track_min=track_min, two_level=two_level, mats=mats,
-            **handoff)
+            route=route, **handoff)
         return (gflat, grays, None, None, None, None, None, None, None,
                 *gmats)
 
@@ -510,10 +530,9 @@ class _FusedMarchIFT(torch.autograd.Function):
     (counterpart of ``fused_march_normals_ift`` / ``_cov_ift`` of the JAX
     package, whose backward is tensor code outside any kernel too): no
     reverse sweep. Exact on converged rays; silhouette gradients differ
-    from the unrolled backward. Without ``track_min`` the forward is the
-    serving configuration on its serving route, the tensor-core entry for a
-    scene with a tensor-core leaf in f32: the backward differentiates that
-    endpoint with plain torch."""
+    from the unrolled backward. The forward takes :func:`mlp_route`, the
+    tensor-core entries for a scene with a tensor-core leaf in f32: the
+    backward differentiates that endpoint with plain torch."""
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
@@ -608,10 +627,9 @@ def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,
     """:func:`fused_march_normals` (``track_min``: ``_cov``) with the
     implicit-function-theorem backward: the forward kernel, then plain
     PyTorch at the endpoint; with ``track_min`` the ``min_f`` gradient takes
-    the arg-min position (a further kernel output) as fixed. Without
-    ``track_min`` the forward takes the serving route even under a gradient
-    (:class:`_FusedMarchIFT`): on a scene with a tensor-core leaf in f32 the
-    gradient is that of the tensor-core endpoint."""
+    the arg-min position (a further kernel output) as fixed. On a scene
+    with a tensor-core leaf in f32 the gradient is that of the tensor-core
+    endpoint (:class:`_FusedMarchIFT`)."""
     if _requires_grad(params_flat, rays7, *mats):
         return _FusedMarchIFT.apply(params_flat, rays7, program, steps, tau,
                                     normals_eps, track_min, hit_threshold,

@@ -57,11 +57,16 @@ tensor-core evaluation of neural.cuh (``rm_mlp_tc``), whose hidden layer
 reads the fragments that :func:`ray_marching_tpu_torch.ops.params.tc_fragments`
 prepares, after the packed matrices (:attr:`SdfProgram.tc_mats`). The
 header then defines ``SCENE_TC`` and ``scene_sdf`` takes a compile-time
-switch, ``scene_sdf<T, true>`` calling the tensor-core function: the serving
-forward and the march kernel take it (f32), every other kernel keeps
-``scene_sdf<T>``. A scene without such a leaf generates the source it did
-before the tensor-core evaluation existed, byte for byte. The tensor
-evaluator and the op counts do not change.
+switch, ``scene_sdf<T, true>`` calling the tensor-core function: the
+tensor-core entries take it (f32), the per-thread ones keep
+``scene_sdf<T>``. ``scene_sdf_vjp`` takes the same switch: with it, the
+leaf's primal evaluation keeps the last hidden layer on the tensor cores
+(``neural_leaf_keep_tc_<k>``) and its VJP is neural.cuh's warp-cooperative,
+block-synchronous ``rm_mlp_tc_vjp`` (``neural_leaf_vjp_tc_<k>``), which reads
+``Wᵀ``'s fragments after the forward's (:attr:`SdfProgram.tc_bwd`); without
+it, the per-thread VJP as before. A scene without such a leaf generates the
+source it did before the tensor-core evaluation existed, byte for byte. The
+tensor evaluator and the op counts do not change.
 
 Custom nodes other than ``NeuralSDF`` enter through
 :func:`register_lowering`: a function that emits the node with the
@@ -506,6 +511,7 @@ class SdfProgram:
         from ray_marching_tpu_torch.ops.params import (
             mat_specs,
             split_params_padded,
+            tc_bwd_segment,
             tc_segment,
         )
 
@@ -557,6 +563,17 @@ class SdfProgram:
         #: Length of the tensor-core entries' buffer: the packed matrices,
         #: then the fragments (ops/params.py pack_tc).
         self.tc_size = self.mat_size + off
+        #: The backward's tensor-core fragments (Wᵀ of each tensor-core
+        #: layer, ops/params.py tc_bwd_fragments): ``{leaf index: offset
+        #: after the packed matrices}``, behind the forward's fragments.
+        self.tc_bwd = {}
+        for k, (_, bf16, _) in self.tc.items():
+            self.tc_bwd[k] = off
+            sizes = self.mlps[k].sizes
+            off += tc_bwd_segment(sizes[1], sizes[2], bf16)
+        #: Length of the backward kernel's tensor-core buffer (pack_tc with
+        #: ``backward``).
+        self.tc_bwd_size = self.mat_size + off
 
     @property
     def tc_mats(self):
@@ -704,6 +721,18 @@ class SdfProgram:
                 expr = f"P[{args[0]}]"
             elif kind == "const":
                 expr = _c_literal(args[0])
+            elif kind == "mlp" and vjp and args[0] in self.tc:
+                lines += [
+                    f"  T {names[i]};",
+                    "  if constexpr (TC) {",
+                    f"    {names[i]} = neural_leaf_keep_tc_{args[0]}(P, M, "
+                    f"{xyz}, keep{args[0]});",
+                    "  } else {",
+                    f"    {names[i]} = sink.active ? neural_leaf_keep_{args[0]}"
+                    f"<T>(P, M, {xyz}, keep{args[0]}) : static_cast<T>(0);",
+                    "  }",
+                ]
+                continue
             elif kind == "mlp" and vjp and self._keeps(args[0]):
                 expr = (f"sink.active ? neural_leaf_keep_{args[0]}<T>(P, M, "
                         f"{xyz}, keep{args[0]}) : static_cast<T>(0)")
@@ -721,6 +750,18 @@ class SdfProgram:
                 expr = f"neural_leaf_{args[0]}<T>(P, M, {xyz})"
                 if vjp:
                     expr = f"sink.active ? {expr} : static_cast<T>(0)"
+            elif kind == "mlp_vjp" and args[0] in self.tc:
+                call = (f"(P, M, {xyz}, {names[args[4]]}, keep{args[0]}, "
+                        "sink);")
+                lines += [
+                    f"  RmVec3<T> {names[i]};",
+                    "  if constexpr (TC) {",
+                    f"    {names[i]} = neural_leaf_vjp_tc_{args[0]}{call}",
+                    "  } else {",
+                    f"    {names[i]} = neural_leaf_vjp_{args[0]}<T>{call}",
+                    "  }",
+                ]
+                continue
             elif kind == "mlp_vjp":
                 ctype = "RmVec3<T>"
                 keep = (f"keep{args[0]}" if self._keeps(args[0])
@@ -796,25 +837,48 @@ class SdfProgram:
         return lines + ["}", ""]
 
     def _mlp_tc_source(self, k: int, leaf: MlpLeaf) -> List[str]:
-        """The tensor-core device function of neural leaf ``k`` (f32): the
+        """The tensor-core device functions of neural leaf ``k`` (f32): the
         warp-cooperative rm_mlp_tc of neural.cuh, its hidden layer's
-        fragments after the packed matrices."""
+        fragments after the packed matrices; the backward's primal
+        evaluation of it, which keeps the last hidden layer (``keep_tc``);
+        and its VJP, rm_mlp_tc_vjp, whose cotangents go to the block's row
+        (``vjp_tc``)."""
         node, sizes = leaf.node, leaf.sizes
         _, bf16, frag = self.tc[k]
         act = _ACT.get(node.activation, "RM_ACT_TANH")
         scale = str(node.activation.startswith("sine")).lower()
+        flags = f"{sizes[1]}, {sizes[2]}, {act}, {str(bf16).lower()}, {scale}"
+        w0 = f"static_cast<float>({float(node.w0).hex()})"
+        args = (f"P + {leaf.bias[0]}, M + {leaf.mats[0]}, P + {leaf.bias[1]}, "
+                f"M + {self.mat_size + frag}, P + {leaf.bias[2]}, "
+                f"M + {leaf.mats[2]}, {w0}, x, y, z")
+        head = ("(const float* __restrict__ P, const float* __restrict__ M, "
+                "float x, float y, float z")
+        mats = [f"mats + {o}" for o in leaf.mats]
+        rows = [f"row + {self._compact[o]}" for o in leaf.bias]
         return [
             f"// {leaf.prefix or 'scene'}: the same MLP on the tensor cores; "
             "every lane of the warp calls",
-            f"static __device__ __noinline__ float neural_leaf_tc_{k}(const "
-            "float* __restrict__ P, const float* __restrict__ M, float x, "
-            "float y, float z) {",
-            f"  return rm_mlp_tc<{sizes[1]}, {sizes[2]}, {act}, "
-            f"{str(bf16).lower()}, {scale}>(P + {leaf.bias[0]}, "
-            f"M + {leaf.mats[0]}, P + {leaf.bias[1]}, "
-            f"M + {self.mat_size + frag}, P + {leaf.bias[2]}, "
-            f"M + {leaf.mats[2]}, static_cast<float>({float(node.w0).hex()}), "
-            "x, y, z);",
+            f"static __device__ __noinline__ float neural_leaf_tc_{k}{head}) {{",
+            f"  return rm_mlp_tc<{flags}>({args});",
+            "}",
+            "",
+            "// Its backward: the primal keeping the last hidden layer, and the",
+            "// VJP; every thread of the block calls",
+            f"static __device__ __noinline__ float neural_leaf_keep_tc_{k}"
+            f"{head}, float* keep) {{",
+            f"  return rm_mlp_tc<{flags}, true>({args}, keep);",
+            "}",
+            "",
+            f"static __device__ __noinline__ RmVec3<float> "
+            f"neural_leaf_vjp_tc_{k}{head}, float g, float* keep, const "
+            "RmSink<float>& sink) {",
+            "  float* const row = sink.row;",
+            "  float* const mats = sink.row + SCENE_N_SCALARS;",
+            f"  return rm_mlp_tc_vjp<{flags}>(P + {leaf.bias[0]}, "
+            f"M + {leaf.mats[0]}, M + {self.mat_size + self.tc_bwd[k]}, "
+            f"M + {leaf.mats[2]}, {w0}, x, y, z, g, keep, sink, {mats[0]}, "
+            f"{rows[0]}, {mats[1]}, {rows[1]}, {mats[2]}, {rows[2]});",
             "}",
             "",
         ]
@@ -971,7 +1035,8 @@ class SdfProgram:
             "// Vector-Jacobian product: returns d, writes the cotangent of",
             "// (x, y, z) for the cotangent g of d, and adds the parameter",
             "// cotangents to gP (SCENE_N_ACC values, layout order).",
-            "template <typename T>",
+            ("template <typename T, bool TC = false>" if self.tc
+             else "template <typename T>"),
             "__device__ __forceinline__ T scene_sdf_vjp(const T* __restrict__"
             " P, const T* __restrict__ M, T x, T y, T z, T g, T& gx, T& gy,"
             " T& gz, T* gP" + (", const RmSink<T>& sink" if self.mlps else "")
@@ -982,7 +1047,10 @@ class SdfProgram:
                  + [f"a{i}" for i in range(n + 1, n_all)])
         vjp = bool(self.mlps)
         for k, leaf in enumerate(self.mlps):
-            if self._keeps(k):
+            if k in self.tc:
+                lines.append(f"  alignas(16) T keep{k}[TC ? {leaf.sizes[2]}"
+                             f" : {self._keep_offsets(leaf)[-1]}];")
+            elif self._keeps(k):
                 lines.append(f"  T keep{k}[{self._keep_offsets(leaf)[-1]}];")
         lines += (self._emit(names, 3, n, vjp)
                   + self._emit(names, n + 1, n_all, vjp))

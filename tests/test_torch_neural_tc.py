@@ -17,6 +17,8 @@ is 2e-7 from f64). bf16 operands: ``TOL_BF16``'s distance plane, 1e-3.
 """
 
 import hashlib
+import re
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ import torch
 
 from ray_marching_tpu.scene import neural as jneural
 from ray_marching_tpu_torch.io.checkpoint import load_pytree
+from ray_marching_tpu_torch.ops import backward_kernel as bk
 from ray_marching_tpu_torch.ops import march_kernel as mk
 from ray_marching_tpu_torch.ops import render_kernel as rk
 from ray_marching_tpu_torch.ops.params import (
@@ -282,22 +285,39 @@ def test_tc_leaf_generated_and_called_from_the_switch_only(name):
 
 def test_kernels_take_the_switch_in_the_serving_and_march_entries_only():
     """``scene_sdf<…, true>`` (through march_sdf and the masked march_ray)
-    is instantiated by render_fwd_tc_kernel and march_tc_kernel alone; the
-    training forward and the backward kernel never name the switch."""
+    is instantiated by the tensor-core entries alone: render_fwd_tc_kernel,
+    render_fwd_train_tc_kernel, march_tc_kernel and the backward kernel's
+    ``TC`` instantiation (its marches, tail and min_f evaluations, and
+    ``scene_sdf_vjp<T, TC>``); the per-thread forward, training forward and
+    march never name the switch."""
     fwd = (CSRC / "render_fwd.cu").read_text()
     march = (CSRC / "march.cu").read_text()
-    assert "SCENE_TC" not in (CSRC / "render_bwd.cu").read_text()
-    for text, kernel in ((fwd, "render_fwd_tc_kernel"),
-                         (march, "march_tc_kernel")):
+    bwd = (CSRC / "render_bwd.cu").read_text()
+    for text, kernel, observer in (
+            (fwd, "render_fwd_tc_kernel", "NoObserver"),
+            (fwd, "render_fwd_train_tc_kernel", "HistoryObserver<float, true>"),
+            (march, "march_tc_kernel", "NoObserver")):
         start = text.index(f"{kernel}(const float*")
         body = text[start:text.index("\n}\n", start)]
-        assert "march_ray<float, NoObserver, true>" in body
+        assert f"march_ray<float, {observer}, true>" in body
         rest = text[:start] + text[text.index("\n}\n", start):]
-        assert "NoObserver, true>" not in rest
-    train = fwd[fwd.index("render_fwd_train_kernel(const T*"):]
-    train = train[:train.index("\n}\n")]
-    assert "march_ray<T>(" in train and "store_hit<T>(" in train
-    assert "march_sdf" not in train and "scene_sdf<" not in train
+        assert f"{observer}, true>" not in rest
+    for kernel in ("render_fwd_train_kernel(const T*",
+                   "render_fwd_kernel(const T*"):
+        body = fwd[fwd.index(kernel):]
+        body = body[:body.index("\n}\n")]
+        assert "march_ray<T>(" in body and "store_hit<T>(" in body
+        assert "march_sdf" not in body and "scene_sdf<" not in body
+    kernel = bwd[bwd.index("render_bwd_kernel(BwdArgs<T> a"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    # Every march and evaluation of the kernel has its TC form beside the
+    # per-thread one.
+    assert len(re.findall(r"march_ray<T, [^(]*, true>\(", kernel)) == 3
+    assert kernel.count("march_sdf<T, true>") == 2
+    assert kernel.count("march_ray<T>(") == 3
+    assert "scene_sdf_vjp<T, TC>" in bwd
+    assert "RM_BWD_ENTRY(rm_render_bwd_tc_f32, float, true)" in bwd
+    assert "RM_MARCH_BWD_ENTRY(rm_march_bwd_tc_f32, float, true)" in bwd
 
 
 @pytest.mark.parametrize("name", sorted(PER_THREAD_SOURCES))
@@ -358,7 +378,9 @@ def _routes(monkeypatch):
     check = rk._check_route
 
     def spy(program, rays7, route, tc_mats=None):
-        seen.append(route)
+        caller = sys._getframe(1).f_code.co_name
+        seen.append(route + (" backward" if caller.endswith("_backward")
+                             else ""))
         return check(program, rays7, route, tc_mats)
 
     monkeypatch.setattr(rk, "_check_route", spy)
@@ -366,33 +388,42 @@ def _routes(monkeypatch):
 
 
 def test_wrappers_route_by_gradient(demo_rays, monkeypatch):
-    """march_planes and fused_march_normals: the tensor-core entry without a
-    gradient, the per-thread entry under one; the implicit backward's
-    forward keeps the serving route; the training outputs the per-thread
-    one."""
+    """march_planes and fused_march_normals take the tensor-core route with
+    or without a gradient, the training outputs too, and a backward takes
+    its forward's route; f64 takes the per-thread route throughout."""
     program, flat, mats, rays7 = demo_rays
     seen = _routes(monkeypatch)
     mk.march_planes(program, flat, rays7, 2, 0.0, mats)
     rk.fused_march_normals(program, flat, rays7, 2, 0.0, 5e-2, mats=mats)
     rk.fused_march_normals_cov(program, flat, rays7, 2, 0.0, 5e-2,
                                mats=mats)
-    assert seen == ["tc", "tc", "thread"]
+    assert seen == ["tc", "tc", "tc"]
     seen.clear()
     grad = flat.clone().requires_grad_(True)
-    mk.march_planes(program, grad, rays7, 2, 0.0, mats)
+    mk.march_planes(program, grad, rays7, 2, 0.0, mats).sum().backward()
     for bwd_hist in (True, False):
         rk.fused_march_normals(program, grad, rays7, 2, 0.0, 5e-2,
-                               bwd_hist=bwd_hist, mats=mats)
+                               bwd_hist=bwd_hist, mats=mats).sum().backward()
     rk.fused_march_normals_ift(program, grad, rays7, 2, 0.0, 5e-2,
                                mats=mats)
-    assert seen == ["thread", "thread", "thread", "tc"]
+    assert seen == ["tc", "tc backward"] * 3 + ["tc"]
+    seen.clear()
+    grad64 = flat.double().requires_grad_(True)
+    rk.fused_march_normals(program, grad64, rays7.double(), 2, 0.0, 5e-2,
+                           mats=tuple(m.double() for m in mats)
+                           ).sum().backward()
+    assert seen == ["thread", "thread backward"]
 
 
 def test_route_errors(demo_rays):
     program, flat, mats, rays7 = demo_rays
-    with pytest.raises(ValueError, match="training outputs"):
-        rk.march_forward(program, flat, rays7, 2, 0.0, 5e-2, log_hist=True,
-                         mats=mats, route="tc")
+    # The training outputs take the tensor-core route too (on the CPU: the
+    # plain version, the same outputs as on the per-thread route).
+    for route in ("tc", "thread"):
+        out, ex = rk.march_forward(program, flat, rays7, 2, 0.0, 5e-2,
+                                   log_hist=True, track_min=True, mats=mats,
+                                   route=route)
+        assert out.shape == (9, 1, 128) and ex["hist"].shape == (3, 3, 1, 128)
     with pytest.raises(ValueError, match="tensor-core route"):
         rk.march_forward(program, flat.double(), rays7.double(), 2, 0.0,
                          5e-2, mats=tuple(m.double() for m in mats),
@@ -412,6 +443,15 @@ def test_route_errors(demo_rays):
         with pytest.raises(ValueError, match="tc_mats must be"):
             rk.march_forward(program, flat, rays7, 2, 0.0, 5e-2, mats=mats,
                              route=route, tc_mats=bad)
+    # The backward's buffer holds the backward fragments after the
+    # forward's.
+    bwd_buf = rk.tc_buffer(program, mats, backward=True)
+    assert bwd_buf.shape == (program.tc_bwd_size,)
+    assert torch.equal(bwd_buf[:program.tc_size], buf)
+    g = torch.zeros((8, 1, 128))
+    with pytest.raises(ValueError, match="tensor-core route"):
+        bk.march_backward(program, flat.double(), rays7.double(), g[:4].double(),
+                          2, 0.0, tuple(m.double() for m in mats), route="tc")
 
 
 # -- on the card ---------------------------------------------------------------
@@ -474,7 +514,9 @@ def test_cuda_tc_kernels_match_plain_and_each_other(cuda, tau):
     control, _ = rk.march_forward(program, flat, rays7, 24, tau, 5e-2,
                                   mats=mats, tc_mats=buf)
     torch.cuda.synchronize()
-    assert (rk.TC_LAUNCHES, mk.TC_LAUNCHES) == (2, 1)
+    # The serving forward, the training forward and the control; the march
+    # with and without a gradient.
+    assert (rk.TC_LAUNCHES, mk.TC_LAUNCHES) == (3, 2)
     conv = (rays7[6] > 0.5) & (want[3].abs() < 1e-3)
     assert int(conv.sum()) > 1000
     assert _outside(got, want, TOL_PLANES_F32, conv) <= 1e-3
