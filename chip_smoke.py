@@ -42,6 +42,7 @@ import dataclasses
 import hashlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -110,7 +111,8 @@ LONG_STEPS = 128
 ROOT = Path(__file__).resolve().parent
 #: sha256 of the generated SDF sources of the scenes without a tensor-core
 #: MLP leaf, as the generator wrote them before the tensor-core evaluation
-#: existed: their libraries run the same code as before.
+#: existed (the bulb's: since its loop was rolled): their libraries run the
+#: same code as before.
 PER_THREAD_SOURCES = {
     "test_scene2":
         "01995bdb88b485bee773c22c8a51a6079fd70d4f52d88e5ee44821a37bdee8c1",
@@ -118,9 +120,23 @@ PER_THREAD_SOURCES = {
         "93b989af7cc5b0632446ee26c0a42e1a204cd9e35660b86950dbda5e1219d52f",
     "distillation target":
         "0466ffd3fbef4bd33176bed621273cc3944d97a9954559c47c81f8ee651adff0",
+    # The bulb's iterations as one rolled loop (scene/fractals.py).
     "mandelbulb":
-        "29bf4ad2bce69c7b83c765287b8cd1caa0cfe05a9a181efa06b8a4c74b32c04d",
+        "ff94cfc7e5ac20f0c23b3420e8613eeed0e251f98c2dab6a17527a9978c21228",
 }
+#: sha256 of the Mandelbulb's f32 serving-forward planes (64 steps, tau =
+#: 1e-4 and 0) and march planes at 1440×900 (bulb_planes_digest), as the
+#: port computed them on an NVIDIA H100 80GB HBM3 before the rolled SDF and
+#: the lane-refill forward existed (commit af163ff;
+#: tools/torch_simt_variants.py digest): the new kernels must give the same
+#: bits.
+BULB_PLANES_DIGEST = (
+    "eec4e103f469de8e30b8c2405025c4b92770a86faeb38f65709edb72ffa24173")
+#: sha256 of the bulb's f32 backward cotangents (bulb_backward_digest) as
+#: the same commit computed them: the rolled, checkpointed VJP sums in the
+#: unrolled one's order, so the backward keeps its bits too.
+BULB_BACKWARD_DIGEST = (
+    "b98e864b7f37c3fceaea02825cb4516bbf90079fea5ba02c81585544d76ce6c7")
 #: sha256 of the f64 neural training forward's history and the backward's
 #: cotangents at 128² (neural_f64_digest), as the port computed them on an
 #: NVIDIA H100 80GB HBM3 before the tensor-core backward existed (commit
@@ -2757,9 +2773,265 @@ def bulb_ptxas(log):
     return out
 
 
-def bulb_slice(card, out_dir: Path):
+#: SASS opcode (its name before the first dot) -> class, for sass_classes.
+SASS_CLASSES = {
+    **dict.fromkeys(("FADD", "FMUL", "FFMA", "FMNMX", "FADD32I", "FMUL32I",
+                     "FFMA32I", "FRND", "DADD", "DMUL", "DFMA", "DMNMX"),
+                    "fp"),
+    "MUFU": "mufu",
+    **dict.fromkeys(("FSETP", "FSEL", "SEL", "ISETP", "FCHK", "PLOP3", "DSETP",
+                     "FSET", "ISET", "P2R", "R2P"), "select/compare"),
+    **dict.fromkeys(("LDG", "STG", "LDL", "STL", "LDS", "STS", "LD", "ST",
+                     "LDC", "ULDC", "ATOM", "ATOMG", "ATOMS", "RED", "REDG"),
+                    "memory"),
+    **dict.fromkeys(("BRA", "CALL", "RET", "EXIT", "BSSY", "BSYNC", "BAR",
+                     "WARPSYNC", "BREAK", "BMOV", "JMP", "VOTE", "VOTEU"),
+                    "control"),
+}
+#: Bytes of one SASS instruction on sm_90.
+SASS_BYTES = 16
+#: The probe kernels of sass_probe: one SDF evaluation and one SDF VJP per
+#: thread, at inputs and outputs in global memory.
+SASS_PROBE = """#include <cuda_runtime.h>
+#include "sdf_prims.cuh"
+#include "scene_sdf.cuh"
+template <typename T>
+__global__ void probe_sdf(const T* __restrict__ P, T* __restrict__ io, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  io[i] = scene_sdf<T>(P, nullptr, io[i], io[n + i], io[2 * n + i]);
+}
+template <typename T>
+__global__ void probe_vjp(const T* __restrict__ P, T* __restrict__ io, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  T gP[SCENE_N_ACC > 0 ? SCENE_N_ACC : 1] = {};
+  T gx, gy, gz;
+  io[i] = scene_sdf_vjp<T>(P, nullptr, io[i], io[n + i], io[2 * n + i],
+                           io[3 * n + i], gx, gy, gz, gP);
+  io[n + i] = gx;
+  io[2 * n + i] = gy;
+  io[3 * n + i] = gz;
+  for (int k = 0; k < SCENE_N_ACC; ++k) io[(4 + k) * n + i] = gP[k];
+}
+template __global__ void probe_sdf<float>(const float*, float*, int);
+template __global__ void probe_vjp<float>(const float*, float*, int);
+"""
+
+
+def sass_functions(path):
+    """{mangled kernel name: [(address, opcode, text)]} of the SASS that
+    ``cuobjdump -sass`` prints for a library or cubin, with every label's
+    address under the key ``(name, "labels")``."""
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    tool = Path(rk._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True, timeout=600).stdout
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name], labels[name], pending = [], {}, []
+            continue
+        if name is None:
+            continue
+        lab = re.match(r"\s*(\S+):\s*$", line)
+        if lab and not line.strip().startswith("/*"):
+            pending.append(lab.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            for lab_name in pending:
+                labels[name][lab_name] = addr
+            pending = []
+            body = ins.group(2)
+            words = body.split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            funcs[name].append((addr, op, body))
+    return {k: (v, labels[k]) for k, v in funcs.items()}
+
+
+def sass_summary(instrs, labels, trips=None):
+    """What one kernel's SASS holds: instructions and code bytes of the main
+    code (the subroutines it calls, the IEEE square root's and division's
+    slow paths, counted apart), its instructions by class
+    (:data:`SASS_CLASSES`), its loops' code bytes (each backward branch:
+    its span), and, where ``trips`` gives each loop's trip count in address
+    order, the instructions one call runs outside the slow paths."""
+
+    def target(body):
+        m = re.search(r"`\(([^)]+)\)", body)
+        if m:
+            return labels.get(m.group(1))
+        m = re.search(r"(0x[0-9a-f]+)\s*$", body)
+        return int(m.group(1), 16) if m else None
+
+    calls = {}
+    for addr, op, body in instrs:
+        if op.startswith("CALL"):
+            to = target(body)
+            calls[to] = calls.get(to, 0) + 1
+    sub, slow = set(), {}
+    for start, n in calls.items():
+        ops = []
+        for addr, op, _ in instrs:
+            if start is not None and addr >= start:
+                sub.add(addr)
+                ops.append(op)
+                if op.startswith("RET"):
+                    break
+        kind = ("sqrt" if "MUFU.RSQ" in ops else
+                "division" if "MUFU.RCP" in ops or "FCHK" in ops else "other")
+        slow[kind] = {"calls": n, "instructions": len(ops)}
+    main = [(a, op, b) for a, op, b in instrs if a not in sub and op != "NOP"]
+    classes = {}
+    for _, op, _ in main:
+        c = SASS_CLASSES.get(op.split(".")[0], "other")
+        classes[c] = classes.get(c, 0) + 1
+    loops = []
+    for addr, op, body in main:
+        start = target(body) if op.startswith("BRA") else None
+        if start is not None and start < addr:
+            loops.append((start, addr, sum(1 for a, _, _ in main
+                                           if start <= a <= addr)))
+    loops.sort()
+    out = {"instructions": len(main), "code_bytes": len(main) * SASS_BYTES,
+           "classes": classes, "slow_paths": slow,
+           "loop_bytes": [(b - a + SASS_BYTES) for a, b, _ in loops],
+           "local_memory": sum(1 for _, op, _ in main
+                               if op.split(".")[0] in ("LDL", "STL"))}
+    if trips is not None:
+        out["dynamic"] = (len(main) + sum((t - 1) * n for t, (_, _, n)
+                                          in zip(trips, loops))
+                          if len(trips) == len(loops) else None)
+    return out
+
+
+def start_sass_probes(programs):
+    """Start one nvcc per scene without neural leaves: the probe kernels of
+    :data:`SASS_PROBE` on the scene's generated SDF, into a cubin under the
+    build directory. Returns {label: (cubin path, process)}."""
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    out = {}
+    for label, prog in programs.items():
+        if prog.mlps:
+            continue
+        d = rk.BUILD_DIR / "sass_probe" / rk.kernel_key(prog)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "scene_sdf.cuh").write_text(prog.cuda_source())
+        (d / "probe.cu").write_text(SASS_PROBE)
+        cubin = d / "probe.cubin"
+        flags = [f for f in rk.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+        out[label] = (cubin, subprocess.Popen(
+            [rk._nvcc(), *flags, "-cubin", "-I", str(rk.CSRC), "-I", str(d),
+             "-o", str(cubin), str(d / "probe.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return out
+
+
+def sass_report(label, prog, probe):
+    """SASS of one scene (sass_summary): per SDF evaluation and per SDF
+    VJP from the probe kernels (``probe``: start_sass_probes' entry; the
+    probe's own loads and stores included), and the f32 per-thread serving
+    forwards (one thread per ray, and lane refill) and backward (history
+    mode) of the scene's library, with their loops' code bytes. Prints it
+    and returns it."""
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    cubin, proc = probe
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"{label}: SASS probe build failed:\n{log}")
+    # A package from before the rolled loops has none.
+    trips = list(getattr(prog, "loop_trips", ()))
+    report = {}
+    for name, (instrs, labels) in sass_functions(cubin).items():
+        kind = "sdf" if "probe_sdf" in name else "vjp"
+        # The VJP runs each loop forward (its tape) and then in reverse.
+        report[kind] = sass_summary(
+            instrs, labels, trips if kind == "sdf" else trips + trips[::-1])
+    lib = sass_functions(rk._lib_path(rk.kernel_key(prog)))
+    for kind, pattern in (("forward", r"_Z\d+render_fwd_kernelIfE"),
+                          ("refill", r"_Z\d+render_fwd_refill_kernelIfE"),
+                          ("backward", r"_Z\d+render_bwd_kernelIfLb0ELb0E"
+                                       r"Lb0ELb0EE")):
+        # A package from before the lane-refill forward has no refill.
+        name = next((n for n in lib if re.match(pattern, n)), None)
+        if name is not None:
+            report[kind] = sass_summary(*lib[name])
+    print(f"SASS ({label}, f32): " + "; ".join(
+        f"{k}: {v['instructions']} instructions ({v.get('dynamic')} run per "
+        f"call), {v['code_bytes']} code bytes, classes {v['classes']}, "
+        f"slow paths {v['slow_paths']}, loops (bytes) "
+        f"{v['loop_bytes']}, local loads/stores {v['local_memory']}"
+        for k, v in report.items()))
+    return report
+
+
+def lane_efficiency(nlive, valid, steps, tail=5):
+    """Share of a warp's SDF evaluations that its lanes use when each warp
+    of 32 consecutive slots runs until its slowest ray stops: Σ evaluations
+    over Σ 32 × the warp's largest (a ray evaluates once per live step and
+    once more where it froze; an invalid slot not at all); then the same
+    with the ``tail`` evaluations every valid ray adds after its march."""
+    import torch
+
+    n = nlive.reshape(-1).long()
+    v = valid.reshape(-1)
+    e = torch.where(v, torch.where(n < steps, n + 1, n), 0).reshape(-1, 32)
+    w = e.max(dim=1).values
+    t = tail * v.reshape(-1, 32).any(dim=1).long()
+    return (float(e.sum()) / float(32 * w.sum()),
+            float(e.sum() + tail * v.sum()) / float(32 * (w + t).sum()))
+
+
+def bulb_backward_digest(prog, flat, rays7):
+    """sha256 of the bulb's f32 backward (with the forward's history, 24
+    steps, tau = 0, at the fit's start, the scale at BULB_SCALE0): the flat
+    parameter cotangent and the ray cotangents for a cotangent drawn from
+    seed 67 (BULB_BACKWARD_DIGEST). ``flat`` holds the start's
+    parameters."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    _, ex = rk.march_forward(prog, flat, rays7, BULB_TRAIN_MARCH, 0.0, 5e-2,
+                             log_hist=True)
+    g = torch.as_tensor(np.random.default_rng(67).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=torch.float32).to(rays7.device)
+    run = bk.fused_backward(prog, flat, rays7, g, BULB_TRAIN_MARCH, 0.0, 5e-2,
+                            hist=ex["hist"], nlive=ex["nlive"])
+    digest = hashlib.sha256()
+    for t in (run[0], run[2]):
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def bulb_planes_digest(prog, flat, rays7, m_flat, m_rays7):
+    """sha256 of the bulb's f32 serving-forward planes (64 steps, tau = 1e-4
+    and 0) and march planes (tau = 1e-4) at the main path's inputs
+    (BULB_PLANES_DIGEST)."""
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    digest = hashlib.sha256()
+    for tau in (BULB_TAU, 0.0):
+        out, _ = rk.march_forward(prog, flat, rays7, BULB_STEPS, tau, 5e-2)
+        digest.update(out.contiguous().cpu().numpy().tobytes())
+    planes = mk.march_planes(prog, m_flat, m_rays7, BULB_STEPS, BULB_TAU)
+    digest.update(planes.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def bulb_slice(card, out_dir: Path, sass):
     """The Mandelbulb slice on the card: the bulb's library (registers,
-    stack), every kernel against its plain version (forward at tau = 1e-4
+    stack; no spill store in its f32 per-thread backward), the SASS of
+    ``sass`` (sass_report of the bulb and test_scene2), the serving
+    forward's and march's planes against the parent commit's digest, the
+    lane efficiency of the serving march, every kernel against its plain
+    version (forward at tau = 1e-4
     and 0 with the agreement limit and its control, the training outputs,
     the backward with history and recompute, the march and its backward,
     the two-level backward; each backward mode ray by ray and leaf by leaf
@@ -2785,9 +3057,16 @@ def bulb_slice(card, out_dir: Path):
     key = rk.kernel_key(prog)
     entries = bulb_ptxas(rk.BUILD_LOG.get(key, ""))
     print(f"bulb library {key}: {prog.ops_per_eval} ops per SDF evaluation, "
-          f"{prog.vjp_ops_per_eval} per SDF VJP; ptxas (registers, stack "
+          f"{prog.vjp_ops_per_eval} per SDF VJP (+{prog.vjp_recompute_ops} "
+          "recomputed in its reverse loop); ptxas (registers, stack "
           "bytes, spill store bytes): "
           + "; ".join(f"{e[:40]} {r} {f} {sp}" for e, r, f, sp in entries))
+    simt_bwd = [(e, sp) for e, r, f, sp in entries if re.match(
+        r"_Z\d+render_bwd_kernelIfLb\dELb\dELb\dELb0EE", e)]
+    check(len(simt_bwd) == 4, f"bulb: no ptxas report of the four f32 "
+          f"per-thread backward instantiations ({len(simt_bwd)} found)")
+    check(all(sp == 0 for _, sp in simt_bwd),
+          f"bulb: spill stores in the f32 per-thread backward: {simt_bwd}")
     errs = {}
 
     # 1. Kernels vs plain versions, f32 at the main paths' planes: the
@@ -2800,6 +3079,18 @@ def bulb_slice(card, out_dir: Path):
     control_flat, _, _ = split_params_padded(
         with_scale(main.init_params, BULB_CONTROL_SCALE), torch.float32,
         main.device)
+    digest = bulb_planes_digest(prog, flat, rays7, m_flat, m_rays7)
+    print(f"bulb planes digest (serving forward at tau = {BULB_TAU:g} and 0, "
+          f"march): {digest}, the parent commit's {BULB_PLANES_DIGEST}")
+    check(digest == BULB_PLANES_DIGEST,
+          "bulb: the forward's or the march's planes moved")
+    bwd_digest = bulb_backward_digest(prog, split_params_padded(
+        with_scale(main.init_params, BULB_SCALE0), torch.float32,
+        main.device)[0], rays7)
+    print(f"bulb backward digest: {bwd_digest}, the parent commit's "
+          f"{BULB_BACKWARD_DIGEST}")
+    check(bwd_digest == BULB_BACKWARD_DIGEST,
+          "bulb: the backward's cotangents moved")
     label = f"f32 {BULB_W}x{BULB_H} mandelbulb"
     for tau in (BULB_TAU, 0.0):
         errs[("fwd", tau)] = compare(f"{label} tau={tau:g}", prog, flat,
@@ -3009,7 +3300,7 @@ def bulb_slice(card, out_dir: Path):
     frame_prof = profile_frames(
         lambda: main.render(params, BENCH_Q, BENCH_T, mode=BULB_MODE,
                             degree=2), frame_ms, frames=3,
-        expect={"void render_fwd_kernel<float>": (ms, 1)})
+        expect={"void render_fwd_refill_kernel<float>": (ms, 1)})
     print(f"bulb timing on {card} ({BULB_W}x{BULB_H}, f32): serving "
           f"({BULB_STEPS} steps, tau {BULB_TAU:g}): forward kernel "
           f"{ms:.4f} ms ({ms_tau0:.4f} at tau 0), plain {plain_ms:.3f} ms; "
@@ -3028,6 +3319,13 @@ def bulb_slice(card, out_dir: Path):
     # and the partial rows, each read or written once.
     n_valid = int((rays7[6] > 0.5).sum())
     live_sum, n_frozen = live_steps(prog, flat, rays7, BULB_STEPS, BULB_TAU)
+    _, ex_l = rk.march_forward(prog, flat, rays7, BULB_STEPS, BULB_TAU, 5e-2,
+                               log_hist=True)
+    lanes = lane_efficiency(ex_l["nlive"], rays7[6] > 0.5, BULB_STEPS)
+    del ex_l
+    print(f"bulb lane efficiency of one thread per ray (warps of 32 slots, "
+          f"serving): march {lanes[0]:.4f}, with the tail {lanes[1]:.4f}; "
+          "the refill kernel's warps evaluate on every lane")
     m_valid = int((m_rays7[6] > 0.5).sum())
     m_live, m_frozen = live_steps(prog, m_flat, m_rays7, BULB_STEPS,
                                   BULB_TAU)
@@ -3082,12 +3380,19 @@ def bulb_slice(card, out_dir: Path):
              "march-only", ("render_bwd_kernel", "IfLb0ELb0ELb1ELb0EE"),
              errs[("march-only", s2, 0.0, False)]))]
     rows[0].update(ms_tau_0=ms_tau0, frame_ms=frame_ms,
+                   lane_efficiency_one_thread_per_ray=lanes[0],
+                   lane_efficiency_with_tail=lanes[1],
+                   sass_per_eval=sass["mandelbulb"]["sdf"]["dynamic"],
+                   sass_classes_per_eval=sass["mandelbulb"]["sdf"]["classes"],
+                   sass_loop_bytes=sass["mandelbulb"]["refill"]["loop_bytes"],
+                   code_bytes=sass["mandelbulb"]["refill"]["code_bytes"],
                    agree_share=errs["agree"][0],
                    disagreeing_rays=errs["agree"][1],
                    agree_share_control=errs["agree"][2],
                    profiler_kernel_ms=next(
                        (v for k_, v in frame_prof.items()
-                        if k_.startswith("void render_fwd_kernel<float>")),
+                        if k_.startswith(
+                            "void render_fwd_refill_kernel<float>")),
                        None))
     rows[1].update(frame_ms=mod_ms)
     serving = {mode: errs[(mode, BULB_STEPS, BULB_TAU, False)]
@@ -3097,7 +3402,13 @@ def bulb_slice(card, out_dir: Path):
             r["ray_share_within"] for r in f64_runs),
             f64_max_rel_err_leaves=max(
                 r["max_rel_err_leaves"] for r in f64_runs))
-    rows[2].update(ms_recompute=times["recompute"],
+    rows[2].update(sass_per_vjp=sass["mandelbulb"]["vjp"]["dynamic"],
+                   sass_classes_per_vjp=sass["mandelbulb"]["vjp"]["classes"],
+                   sass_loop_bytes=sass["mandelbulb"]["backward"][
+                       "loop_bytes"],
+                   code_bytes=sass["mandelbulb"]["backward"]["code_bytes"],
+                   vjp_recompute_ops=prog.vjp_recompute_ops,
+                   ms_recompute=times["recompute"],
                    bound_ms_recompute=bounds["recompute"][0],
                    ms_serving_configuration=bwd_serving_ms,
                    forward_with_history_ms=times["forward with history"],
@@ -3152,9 +3463,17 @@ def run(out_dir: Path):
         "mandelbulb": SdfProgram(registry.make_scene("mandelbulb")),
     })
     t0 = time.perf_counter()
+    # The bulb's spill check reads this run's ptxas report: a library left by
+    # an earlier run is built again.
+    shutil.rmtree(rk.BUILD_DIR / rk.kernel_key(programs["mandelbulb"]),
+                  ignore_errors=True)
+    probes = start_sass_probes({s: programs[s] for s in ("test_scene2",
+                                                         "mandelbulb")})
     rk.build_kernels(programs.values())
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(programs)} "
           "scene libraries")
+    sass = {s: sass_report(s, programs[s], probe)
+            for s, probe in probes.items()}
     for s, p in programs.items():
         key = rk.kernel_key(p)
         print(f"ptxas report ({s}, {key}, units "
@@ -3680,7 +3999,7 @@ def run(out_dir: Path):
     # 7. Neural training: the MLP's VJP in the backward kernel.
     kernels["kernels"] += neural_training(card, out_dir)
     # 8. The Mandelbulb: a custom node lowered into all three kernels.
-    kernels["kernels"] += bulb_slice(card, out_dir)
+    kernels["kernels"] += bulb_slice(card, out_dir, sass)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)

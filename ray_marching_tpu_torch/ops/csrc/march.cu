@@ -32,9 +32,12 @@
 // The TPU kernel's row tiles, its tile-wide while_loop
 // and its VMEM budgets are not carried over. Built with --fmad=false and
 // IEEE sqrt and division, like the other kernels, for op-for-op parity with
-// the plain PyTorch version.
+// the plain PyTorch version. A counted loop of the scene's SDF (the bulb's
+// iterations) is unrolled by 5 here: rolled (1) this kernel measured 3.3 %
+// slower than with the parent's unrolled SDF, by 5 0.6 % faster (PERF.md).
 #include <cuda_runtime.h>
 
+#define RM_SDF_LOOP_UNROLL 5
 #include "march_loop.cuh"
 
 template <typename T>

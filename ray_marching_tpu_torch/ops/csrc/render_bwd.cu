@@ -58,7 +58,17 @@
 // fixed order and writes one row of partials, so the result is the same from
 // run to run and whichever way the positions were obtained (no atomics).
 // The TPU kernels' tiles, VMEM history, VMEM checkpoint and replay scratch
-// and unrolled sweep are not carried over.
+// and unrolled sweep are not carried over. Per-thread instantiations: the
+// launch bounds fit the registers to BWD_MIN_BLOCKS blocks an SM; the sweep
+// loads the next step's history position before the current step's VJP;
+// the tail's offsets and cotangents stay in small local arrays indexed by
+// its loop (80 B of stack; selects in their place measured no faster and
+// the two-level mode 1.8 % slower, PERF.md). A scene
+// whose SDF holds a rolled loop (the bulb's iterations) brings a
+// checkpointed VJP (scene/codegen.py): a 10 x 5-value tape per thread and
+// one copy of the body's recompute and adjoint, where the unrolled VJP held
+// every primal value of ten iterations live at once (255 registers and
+// ~1.7 KB of spill stores a thread before).
 //
 // Scenes with neural leaves (SCENE_N_MLP > 0, chosen at compile time) run
 // the block-synchronous variant: a matrix cotangent cannot live in a thread,
@@ -95,6 +105,17 @@
 #include "render_consts.cuh"
 
 constexpr int BWD_BLOCK = 128;
+// Blocks of BWD_BLOCK threads an SM must hold for the per-thread (neither
+// SYNC nor TC) instantiations: ptxas fits their registers to it, 128 at
+// most, which the bulb's checkpointed VJP (its body's recompute and adjoint
+// live at once) needs to run without a spill; the analytic scenes stay at
+// 93-99. Five blocks (96 registers) spill and measured slower on both
+// (PERF.md). The SYNC and TC ones leave it to ptxas.
+constexpr int BWD_MIN_BLOCKS = 4;
+// Whether the per-thread instantiations' reverse sweep loads the next step's
+// history position before the current step's VJP (a register double buffer;
+// the same bits).
+constexpr bool BWD_PREFETCH = true;
 #ifndef RM_CKPT_INTERVAL
 #error "build with -DRM_CKPT_INTERVAL=<steps between checkpoints>"
 #endif
@@ -221,7 +242,8 @@ __device__ __forceinline__ void sweep_step(const T* __restrict__ P,
 }
 
 template <typename T, bool TRACK_MIN, bool TWO_LEVEL, bool MARCH_ONLY, bool TC>
-__global__ void __launch_bounds__(BWD_BLOCK)
+__global__ void __launch_bounds__(BWD_BLOCK,
+                                  (SYNC || TC) ? 1 : BWD_MIN_BLOCKS)
 render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
   const long long plane = a.plane;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -426,14 +448,33 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       const int n = TRACK_MIN ? (skip ? 0 : steps) : nlive;
       int n_sweep = n;
       if constexpr (SYNC) n_sweep = block_max(n);
+      // The position before step s: the history's, or the terminal one for
+      // a step after the ray froze.
+      auto at = [&](int s) { return s < nlive ? a.hist + s * p3 : hend; };
+      constexpr bool PREFETCH = BWD_PREFETCH && !SYNC && !TC;
+      T px = zero, py = zero, pz = zero;
+      if (PREFETCH && n_sweep > 0) {
+        const T* h = at(n_sweep - 1);
+        px = h[i];
+        py = h[plane + i];
+        pz = h[2 * plane + i];
+      }
 #pragma unroll 1
       for (int s = n_sweep - 1; s >= 0; --s) {
         sink.active = !skip && s < n;
         const bool live = s < nlive;
-        const T* h = live ? a.hist + s * p3 : hend;
-        const T px = h[i];
-        const T py = h[plane + i];
-        const T pz = h[2 * plane + i];
+        T qx, qy, qz;  // the next step's position, loaded ahead of this VJP
+        {
+          const T* h = at(PREFETCH ? (s > 0 ? s - 1 : 0) : s);
+          qx = h[i];
+          qy = h[plane + i];
+          qz = h[2 * plane + i];
+        }
+        if (!PREFETCH) {
+          px = qx;
+          py = qy;
+          pz = qz;
+        }
         T gd = live ? gx * vx + gy * vy + gz * vz : zero;
         if (TRACK_MIN) {
           T d;
@@ -451,6 +492,9 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         }
         sweep_step<T, TC>(a.P, a.M, px, py, pz, gd, live, gx, gy, gz, gvx,
                           gvy, gvz, gP, sink);
+        px = qx;
+        py = qy;
+        pz = qz;
       }
     }
     if (!skip) {

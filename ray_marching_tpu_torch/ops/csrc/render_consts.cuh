@@ -20,3 +20,11 @@ static RenderConsts<T> unpack_consts(const T* host_consts) {
   c.tau = host_consts[22];
   return c;
 }
+
+// The k-th of five values by selects: a per-lane choice among registers (an
+// array indexed by a loop variable or a lane's state would live in local
+// memory).
+template <typename T>
+__device__ __forceinline__ T rm_pick5(int k, T a0, T a1, T a2, T a3, T a4) {
+  return k == 0 ? a0 : (k == 1 ? a1 : (k == 2 ? a2 : (k == 3 ? a3 : a4)));
+}

@@ -3,10 +3,13 @@
 //
 // Replaces: ray_marching_tpu/ops/pallas_render.py::_render_kernel, launched
 // there by _call_render_kernel for fused_march_normals (and _cov, _ift,
-// _cov_ift). Two kernels: render_fwd_kernel is the serving configuration
-// (track_min=False, log_hist=False); render_fwd_train_kernel adds the
-// outputs a differentiated forward hands to the backward kernel
-// (render_bwd.cu). The dual branch is not carried over.
+// _cov_ift). render_fwd_kernel is the serving configuration
+// (track_min=False, log_hist=False), and render_fwd_refill_kernel the same
+// at tau > 0 with lane refill, for an SDF expensive enough that a warp's
+// idle lanes cost more than the refill's bookkeeping (the caller decides);
+// render_fwd_train_kernel adds the outputs a differentiated forward hands
+// to the backward kernel (render_bwd.cu). The dual branch is not carried
+// over.
 //
 // Contract: P the flat parameters, M the packed matrices of the scene's
 // neural leaves (null for an analytic scene; neural.cuh evaluates them);
@@ -99,6 +102,32 @@ __device__ __forceinline__ void store_pad(T* __restrict__ out,
   for (int k = 3; k < 8; ++k) out[k * plane + i] = static_cast<T>(0);
 }
 
+// Planes 0..7 of out from the terminal position, the distance there and at
+// its four tetrahedral offsets: the normals and the Laplacian.
+template <typename T>
+__device__ __forceinline__ void store_planes(T* __restrict__ out,
+                                             long long plane, long long i, T x,
+                                             T y, T z, T d_centre,
+                                             const T (&f)[4],
+                                             const RenderConsts<T>& c) {
+  const T d1 = f[1] - f[0];
+  const T d2 = f[2] - f[0];
+  const T d3 = f[3] - f[0];
+  const T nx = c.inv[0][0] * d1 + c.inv[0][1] * d2 + c.inv[0][2] * d3;
+  const T ny = c.inv[1][0] * d1 + c.inv[1][1] * d2 + c.inv[1][2] * d3;
+  const T nz = c.inv[2][0] * d1 + c.inv[2][1] * d2 + c.inv[2][2] * d3;
+  const T norm = rm_sqrt(nx * nx + ny * ny + nz * nz);
+  const T mean4 = (f[0] + f[1] + f[2] + f[3]) * static_cast<T>(0.25);
+  out[i] = x;
+  out[plane + i] = y;
+  out[2 * plane + i] = z;
+  out[3 * plane + i] = d_centre;
+  out[4 * plane + i] = nx / norm;
+  out[5 * plane + i] = ny / norm;
+  out[6 * plane + i] = nz / norm;
+  out[7 * plane + i] = (d_centre - mean4) * c.lap_scale;
+}
+
 // Terminal distance, tetrahedral normals and Laplacian at (x, y, z):
 // planes 0..7 of out. TC: every lane evaluates, an invalid one stores the
 // pad outputs.
@@ -120,22 +149,7 @@ __device__ __forceinline__ void store_hit(const T* __restrict__ P,
     store_pad<T>(out, plane, i, x, y, z);
     return;
   }
-  const T d1 = f[1] - f[0];
-  const T d2 = f[2] - f[0];
-  const T d3 = f[3] - f[0];
-  const T nx = c.inv[0][0] * d1 + c.inv[0][1] * d2 + c.inv[0][2] * d3;
-  const T ny = c.inv[1][0] * d1 + c.inv[1][1] * d2 + c.inv[1][2] * d3;
-  const T nz = c.inv[2][0] * d1 + c.inv[2][1] * d2 + c.inv[2][2] * d3;
-  const T norm = rm_sqrt(nx * nx + ny * ny + nz * nz);
-  const T mean4 = (f[0] + f[1] + f[2] + f[3]) * static_cast<T>(0.25);
-  out[i] = x;
-  out[plane + i] = y;
-  out[2 * plane + i] = z;
-  out[3 * plane + i] = d_centre;
-  out[4 * plane + i] = nx / norm;
-  out[5 * plane + i] = ny / norm;
-  out[6 * plane + i] = nz / norm;
-  out[7 * plane + i] = (d_centre - mean4) * c.lap_scale;
+  store_planes<T>(out, plane, i, x, y, z, d_centre, f, c);
 }
 
 template <typename T>
@@ -159,6 +173,106 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ M,
   NoObserver none;
   march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, none);
   store_hit<T>(P, M, out, plane, i, x, y, z, c);
+}
+
+// The serving configuration at tau > 0 with lane refill. With one thread per
+// ray a warp marches until its slowest ray stops, and the lanes of rays that
+// froze early idle (on the bulb at 1440x900, 64 steps, tau = 1e-4, warps of
+// 32 slots use 74 % of their lanes' evaluations; PERF.md). Here persistent
+// warps take ray slots from a global counter (next, one warp-aggregated
+// atomicAdd per refill) and each lane holds one state: march step k of its
+// ray, or tail evaluation j (0 the centre, 1..4 the offsets). Every pass of
+// the loop evaluates the SDF once on every lane, at the point its state
+// names, so the SDF call is uniform across the warp and only the
+// bookkeeping diverges. A lane that ends its tail stores the 8 planes
+// (store_planes, store_hit's arithmetic) and takes the next slot; a pad slot
+// is stored at once. Each ray sees march_ray's and store_hit's op sequence,
+// so the planes are render_fwd_kernel's bit for bit.
+constexpr int REFILL_BLOCK = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(REFILL_BLOCK)
+render_fwd_refill_kernel(const T* __restrict__ P, const T* __restrict__ M,
+                         const T* __restrict__ rays, T* __restrict__ out,
+                         long long plane, int steps, RenderConsts<T> c,
+                         unsigned int* __restrict__ next) {
+  const unsigned full = 0xffffffffu;
+  const unsigned lane = threadIdx.x & 31;
+  long long i = -1;   // the lane's ray slot; -1: it needs one
+  bool done = false;  // no slot is left for the lane
+  T x = static_cast<T>(0), y = x, z = x, dx = x, dy = x, dz = x;
+  T dc = x, f0 = x, f1 = x, f2 = x;
+  int k = 0;   // march step
+  int j = -1;  // tail evaluation, -1 while marching
+  for (;;) {
+    // Lanes without a ray take the next slots; a pad slot is stored at once
+    // and its lane asks again.
+    for (;;) {
+      const bool want = i < 0 && !done;
+      const unsigned need = __ballot_sync(full, want);
+      if (!need) break;
+      const int leader = __ffs(need) - 1;
+      unsigned int base = 0;
+      if (lane == leader) base = atomicAdd(next, __popc(need));
+      base = __shfl_sync(full, base, leader);
+      if (want) {
+        const long long s =
+            (long long)base + __popc(need & ((1u << lane) - 1u));
+        if (s >= plane) {
+          done = true;
+        } else {
+          x = rays[s];
+          y = rays[plane + s];
+          z = rays[2 * plane + s];
+          if (rays[6 * plane + s] > static_cast<T>(0.5)) {
+            i = s;
+            dx = rays[3 * plane + s];
+            dy = rays[4 * plane + s];
+            dz = rays[5 * plane + s];
+            k = 0;
+            j = steps > 0 ? -1 : 0;
+          } else {
+            store_pad<T>(out, plane, s, x, y, z);
+          }
+        }
+      }
+    }
+    if (__all_sync(full, done)) break;
+    // The point of the lane's state: the position, or an offset of it.
+    const T o = static_cast<T>(0);
+    const T px = j > 0 ? x + rm_pick5(j - 1, c.off[0][0], c.off[1][0],
+                                      c.off[2][0], c.off[3][0], o)
+                       : x;
+    const T py = j > 0 ? y + rm_pick5(j - 1, c.off[0][1], c.off[1][1],
+                                      c.off[2][1], c.off[3][1], o)
+                       : y;
+    const T pz = j > 0 ? z + rm_pick5(j - 1, c.off[0][2], c.off[1][2],
+                                      c.off[2][2], c.off[3][2], o)
+                       : z;
+    const T d = march_sdf<T, false>(P, M, px, py, pz);
+    if (done) continue;
+    if (j < 0) {
+      // march_ray's step at tau > 0: freeze without moving, or move.
+      if (!(rm_abs(d) >= c.tau)) {
+        j = 0;
+      } else {
+        x = x + d * dx;
+        y = y + d * dy;
+        z = z + d * dz;
+        if (++k == steps) j = 0;
+      }
+    } else if (j < 4) {
+      dc = j == 0 ? d : dc;
+      f0 = j == 1 ? d : f0;
+      f1 = j == 2 ? d : f1;
+      f2 = j == 3 ? d : f2;
+      ++j;
+    } else {
+      const T f[4] = {f0, f1, f2, d};
+      store_planes<T>(out, plane, i, x, y, z, dc, f, c);
+      i = -1;
+    }
+  }
 }
 
 #ifdef SCENE_TC
@@ -276,15 +390,35 @@ render_fwd_train_tc_kernel(const float* __restrict__ P,
 }
 #endif
 
+// The serving configuration: lane refill at tau > 0 when the caller hands
+// a zeroed counter (next; ops/render_kernel.py does for an SDF that is
+// expensive enough), else one thread per ray slot. At tau = 0 every ray
+// marches every step and the bookkeeping would only cost time.
 template <typename T>
 static int launch(const T* P, const T* M, const T* rays, T* out,
                   long long plane, int steps, const T* host_consts,
-                  void* stream) {
+                  unsigned int* next, void* stream) {
   const RenderConsts<T> c = unpack_consts<T>(host_consts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c.tau != static_cast<T>(0) && next != nullptr) {
+    // Persistent blocks: as many as the SMs hold at the kernel's occupancy,
+    // and no more than the slots need.
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, render_fwd_refill_kernel<T>, REFILL_BLOCK, 0);
+    long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    const long long need = (plane + REFILL_BLOCK - 1) / REFILL_BLOCK;
+    if (grid > need) grid = need;
+    if (grid < 1) grid = 1;
+    render_fwd_refill_kernel<T><<<(unsigned int)grid, REFILL_BLOCK, 0, st>>>(
+        P, M, rays, out, plane, steps, c, next);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int block = 256;
   const long long grid = (plane + block - 1) / block;
-  render_fwd_kernel<T><<<(unsigned int)grid, block, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  render_fwd_kernel<T><<<(unsigned int)grid, block, 0, st>>>(
       P, M, rays, out, plane, steps, c);
   return static_cast<int>(cudaGetLastError());
 }
@@ -336,21 +470,27 @@ static int launch_tc(const float* P, const float* M, const float* rays,
 // Plain C interface (bound with ctypes). M is the packed matrix buffer, null
 // for a scene without neural leaves. host_consts: 23 values of T on the
 // host: offsets (4x3, row-major), inverse (3x3), 6/eps^2, tau. Returns the
-// cudaError_t of the launch (0 on success). The training entry points take
-// out with 9 planes when track_min is set, and a null pointer for each extra
-// output that is not wanted.
+// cudaError_t of the launch (0 on success). The serving entry points take
+// next, a zeroed 4-byte counter of the caller's, for lane refill at tau > 0
+// (null: one thread per ray). The training entry points take out with 9
+// planes when track_min is set, and a null pointer for each extra output
+// that is not wanted.
 extern "C" int rm_render_fwd_f32(const float* P, const float* M,
                                  const float* rays, float* out,
                                  long long plane, int steps,
-                                 const float* host_consts, void* stream) {
-  return launch<float>(P, M, rays, out, plane, steps, host_consts, stream);
+                                 const float* host_consts, unsigned int* next,
+                                 void* stream) {
+  return launch<float>(P, M, rays, out, plane, steps, host_consts, next,
+                       stream);
 }
 
 extern "C" int rm_render_fwd_f64(const double* P, const double* M,
                                  const double* rays, double* out,
                                  long long plane, int steps,
-                                 const double* host_consts, void* stream) {
-  return launch<double>(P, M, rays, out, plane, steps, host_consts, stream);
+                                 const double* host_consts, unsigned int* next,
+                                 void* stream) {
+  return launch<double>(P, M, rays, out, plane, steps, host_consts, next,
+                        stream);
 }
 
 extern "C" int rm_render_fwd_train_f32(const float* P, const float* M,

@@ -13,6 +13,15 @@
 
 #include <cuda_runtime.h>
 
+// Unroll factor of the generated scene_sdf's counted loops, chosen per
+// kernel source (march.cu defines RM_SDF_LOOP_UNROLL before its includes;
+// PERF.md has the measured choice). The VJP's forward and reverse loops stay
+// rolled: their tape is indexed by the trip.
+#ifndef RM_SDF_LOOP_UNROLL
+#define RM_SDF_LOOP_UNROLL 1
+#endif
+constexpr int rm_sdf_loop_unroll = RM_SDF_LOOP_UNROLL;
+
 __device__ __forceinline__ float rm_sqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ double rm_sqrt(double a) { return sqrt(a); }
 __device__ __forceinline__ float rm_exp(float a) { return expf(a); }

@@ -104,6 +104,13 @@ BWD_HIST = True
 #: ``backward_kernel.two_level_engages`` allows it; the forward then logs no
 #: history. Otherwise :data:`BWD_HIST` decides as before.
 BWD_TWO_LEVEL = False
+#: The serving forward refills lanes (``render_fwd_refill_kernel``) at
+#: tau > 0 for a scene whose SDF costs at least this many operations per
+#: evaluation; a cheaper one keeps one thread per ray, whose march the
+#: refill bookkeeping and its per-pass tail would slow down (test_scene2, 65
+#: ops, measured 1.76x slower with refill; the bulb, 875, 1.8x faster;
+#: PERF.md §6).
+REFILL_MIN_OPS = 400
 #: nvcc/ptxas output of each build, keyed by build hash.
 BUILD_LOG: dict = {}
 
@@ -203,7 +210,7 @@ def _load(program: SdfProgram):
         f64 = ctypes.c_double
         for name in ("rm_render_fwd_f32", "rm_render_fwd_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr, ptr, ptr]
             fn.restype = i32
         for name in ("rm_render_fwd_train_f32", "rm_render_fwd_train_f64"):
             fn = getattr(lib, name)
@@ -419,9 +426,15 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
                      _ptr(extras.get("hist")), _ptr(extras.get("nlive")),
                      stream)
         else:
+            # The lane-refill kernel's slot counter: without one the kernel
+            # marches one thread per ray.
+            nxt = (torch.zeros(1, dtype=torch.int32, device=dev)
+                   if consts[22] != 0
+                   and program.ops_per_eval >= REFILL_MIN_OPS else None)
             fn = lib.rm_render_fwd_f32 if f32 else lib.rm_render_fwd_f64
             err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
-                     out.data_ptr(), n, int(steps), consts_p, stream)
+                     out.data_ptr(), n, int(steps), consts_p, _ptr(nxt),
+                     stream)
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: cudaError {err}")
     return out, extras

@@ -70,11 +70,17 @@ tensor evaluator and the op counts do not change.
 
 Custom nodes other than ``NeuralSDF`` enter through
 :func:`register_lowering`: a function that emits the node with the
-builder's scalar ops, as ``scene/fractals.py`` does for the Mandelbulb.
+builder's scalar ops, as ``scene/fractals.py`` does for the Mandelbulb. An
+iteration is one counted loop (:meth:`_Builder.loop`): emitted once as a
+rolled C++ loop, its adjoint a checkpointed reverse loop
+(:func:`_loop_adjoint`: the trips' start states on a per-thread tape, each
+trip recomputed from it, every sum in the unrolled adjoint's order), and
+run as a Python loop on tensors.
 Without one, a registered custom node raises ``NotImplementedError`` here
 (``Renderer`` without ``use_pallas`` still runs it through its torch SDF).
 
-Op count convention (:meth:`SdfProgram.op_counts`): one per add, sub, mul,
+Op count convention (:meth:`SdfProgram.op_counts`, over the program with
+its loops written out): one per add, sub, mul,
 div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
 the query point. Parameter loads and arithmetic on parameters alone are not
 counted (they do not depend on the ray and may be hoisted out of the march).
@@ -217,20 +223,107 @@ def _mlp_vjp_op_count(leaf: MlpLeaf) -> int:
     return slopes + back + 2 * weights + sum(sizes[1:])
 
 
+class _Loop:
+    """A counted loop of the op list (:meth:`_Builder.loop`): ``n`` trips
+    over the body ops between the ``carry`` ops and ``end``, which turn the
+    state ``init`` into ``new`` each trip; ``out`` holds the final state.
+
+    :func:`_loop_adjoint` fills in its reverse: ``seeds``, the cotangents of
+    ``out`` that start the state's cotangent; ``inputs``, the values from
+    before the loop that get cotangents from it (what the body reads, and
+    the initial state), each with a running cotangent ``h`` that starts at
+    ``input_seeds``; per reverse trip (``trips``: the rolled trips n-1..1,
+    then trip 0 peeled) the ``rcarry_g`` ops that read the state's
+    cotangent, the ids of the carries' cotangents at the trip's start
+    (``next``, rolled trips only) and of each input's running cotangent at
+    the trip's end (``input_end``: {input index: id}), and the markers that
+    close it; ``input_out`` holds the inputs' cotangents after the loop."""
+
+    def __init__(self, index, n, init, begin, carry, end, new, out):
+        self.index, self.n, self.init = index, n, init
+        self.begin, self.carry, self.end = begin, carry, end
+        self.new, self.out = new, out
+        self.seeds = self.next = None
+        self.inputs, self.input_seeds, self.input_out = [], None, None
+        self.trips = []  # (rcarry_g ids, input_end, closing marker id)
+
+    @property
+    def body(self) -> range:
+        """The ids of the body's ops (the carries excluded)."""
+        return range(self.carry[-1] + 1, self.end)
+
+
 class _Builder:
-    """Appends SSA ops; value ids index the op list. Ids 0-2 are x, y, z."""
+    """Appends SSA ops; value ids index the op list. Ids 0-2 are x, y, z.
+    ``unroll``: :meth:`loop` writes its body out ``n`` times instead of
+    emitting a loop (the op counts are taken from such a twin)."""
 
     def __init__(self, offsets: Dict[str, int],
-                 mat_offsets: Dict[str, int] = None):
+                 mat_offsets: Dict[str, int] = None, unroll: bool = False):
         self.offsets = offsets
         self.mat_offsets = mat_offsets or {}
+        self.unroll = unroll
         self.ops: List[Tuple] = [("x",), ("y",), ("z",)]
         self.dep: List[bool] = [True, True, True]
         self.mlps: List[MlpLeaf] = []
+        self.loops: List[_Loop] = []
         self._memo: Dict[Tuple, int] = {}
+        self._in_body = False
+        self._closed: List[range] = []  # the finished loop bodies
+
+    def loop(self, n: int, state, body):
+        """A counted loop with carried state: ``body(builder, *state) ->
+        state'`` emits one trip over the builder's ops, ``n`` trips run, and
+        the final state's ids come back. The body reads the values of the
+        ops before the loop as loop-invariant inputs; its constants and
+        parameters are emitted ahead of the loop. It may not hold an ``mlp``
+        op or another loop, and nothing after the loop may read its values
+        but the returned state."""
+        n, state = int(n), tuple(state)
+        if self.unroll or n == 0:
+            for _ in range(n):
+                state = tuple(body(self, *state))
+            return state
+        if self._in_body:
+            raise ValueError("loops do not nest")
+        # A trial trip on a copy finds the body's constants and parameters.
+        trial = _Builder(self.offsets, self.mat_offsets)
+        trial.ops, trial.dep = list(self.ops), list(self.dep)
+        trial._memo, trial._in_body = dict(self._memo), True
+        body(trial, *state)
+        if any(op[0] == "mlp" for op in trial.ops[len(self.ops):]):
+            raise ValueError("a loop body may not hold an mlp op")
+        for key in trial._memo:
+            if key not in self._memo:
+                self._memo[key] = self._push(key, False)
+        index = len(self.loops)
+        begin = self._push(("loop", index), True)
+        carry = tuple(self._push(("carry", index, k), True)
+                      for k in range(len(state)))
+        self._in_body = True
+        try:
+            new = tuple(body(self, *carry))
+        finally:
+            self._in_body = False
+        if len(new) != len(state):
+            raise ValueError(f"the loop body returned {len(new)} values for "
+                             f"a state of {len(state)}")
+        end = self._push(("loop_end", index), True)
+        self._closed.append(range(begin, end))
+        out = tuple(self._push(("loop_out", index, k), True)
+                    for k in range(len(state)))
+        self.loops.append(_Loop(index, n, state, begin, carry, end, new, out))
+        return out
+
+    def _check_scope(self, args):
+        for a in args:
+            if any(a in r for r in self._closed):
+                raise ValueError("a value of a loop body is read after the "
+                                 "loop")
 
     def mlp(self, node: NeuralSDF, prefix: str, x: int, y: int, z: int):
         """The structural op of a neural leaf at (x, y, z)."""
+        self._check_scope((x, y, z))
         n_layers = len(node.hidden) + 1
         self.mlps.append(MlpLeaf(
             node=node, prefix=prefix, sizes=(3,) + tuple(node.hidden) + (1,),
@@ -277,6 +370,7 @@ class _Builder:
 
         def emit(*args):
             assert len(args) == _OPS[kind][0], kind
+            self._check_scope(args)
             return self._push((kind,) + args, any(self.dep[a] for a in args))
 
         return emit
@@ -402,7 +496,22 @@ def register_lowering(node_type, lower_fn) -> None:
     SDF (the one :func:`graph.register_custom_node` was given) in its order:
     the tests hold :meth:`SdfProgram.evaluate` to it bit for bit, and the
     kernels' parity with their plain versions rests on that. The adjoint
-    comes from the same ops. ``node_type`` must subclass ``graph.Node``;
+    comes from the same ops.
+
+    An iteration goes through ``builder.loop(n, state, body)``: ``body(
+    builder, *state) -> state'`` emits one trip with the same ops (read the
+    values from before the loop freely: they are its loop-invariant inputs;
+    its constants and parameters are emitted ahead of it), ``n`` trips run,
+    and the final state's ids come back; only those may be read after the
+    loop. The kernels then hold one copy of the body: ``scene_sdf`` loops
+    over it, ``scene_sdf_vjp`` keeps each trip's start state on a
+    per-thread tape and runs the body's adjoint in a reverse loop that
+    recomputes the trip from it and sums every cotangent in the order of
+    the loop written out (the adjoint's bits are the unrolled one's).
+    Write the torch SDF's iteration as a plain
+    Python loop of the same ops (``scene/fractals.py`` writes both from one
+    function over an arithmetic). A loop body may not hold an ``mlp`` op or
+    another loop. ``node_type`` must subclass ``graph.Node``;
     the most-derived registered base of a node's type gives its lowering,
     as for ``graph.register_custom_node``."""
     if not (isinstance(node_type, type) and issubclass(node_type, Node)):
@@ -431,15 +540,122 @@ def _rotate(b, qw, qx, qy, qz, x, y, z):
                  for c, t, v in ((cx, tx, x), (cy, ty, y), (cz, tz, z)))
 
 
+def _adjoint_rule(b, i, gi, acc):
+    """Append the reverse-mode ops of op ``i`` for its cotangent ``gi``,
+    handing each input's contribution to ``acc``. An op kind without a rule
+    raises."""
+    kind, args = b.ops[i][0], b.ops[i][1:]
+    if kind == "add":
+        acc(args[0], gi)
+        acc(args[1], gi)
+    elif kind == "sub":
+        acc(args[0], gi)
+        acc(args[1], b.neg(gi))
+    elif kind == "mul":
+        acc(args[0], b.mul(gi, args[1]))
+        acc(args[1], b.mul(gi, args[0]))
+    elif kind == "div":
+        acc(args[0], b.div(gi, args[1]))
+        acc(args[1], b.neg(b.mul(gi, b.div(i, args[1]))))
+    elif kind == "neg":
+        acc(args[0], b.neg(gi))
+    elif kind == "abs":
+        acc(args[0], b.mul(gi, b.sign(args[0])))
+    elif kind == "sqrt":
+        acc(args[0], b.div(gi, b.mul(b.const(2.0), i)))
+    elif kind == "exp":
+        acc(args[0], b.mul(gi, i))
+    elif kind == "log":
+        acc(args[0], b.div(gi, args[0]))
+    elif kind == "max":
+        zero, half = b.const(0.0), b.mul(gi, b.const(0.5))
+        p, q = args
+        acc(p, b.sel_gt(p, q, gi, b.sel_eq(p, q, half, zero)))
+        acc(q, b.sel_gt(q, p, gi, b.sel_eq(p, q, half, zero)))
+    elif kind in ("sel_lt", "sel_gt", "sel_le"):  # chosen branch only
+        zero = b.const(0.0)
+        sel = getattr(b, kind)
+        acc(args[2], sel(args[0], args[1], gi, zero))
+        acc(args[3], sel(args[0], args[1], zero, gi))
+    elif kind == "mlp":
+        vjp = b.mlp_vjp(args[0], args[1], args[2], args[3], gi)
+        for c in range(3):
+            acc(args[1 + c], b.pick(vjp, c))
+    else:
+        raise ValueError(f"no adjoint rule for op kind {kind!r}")
+
+
+def _loop_adjoint(b, lp: _Loop, adj):
+    """The reverse of loop ``lp``: trips n-1 .. 1 as a loop, last first,
+    then trip 0 peeled. Each trip reads its start state from the forward
+    loop's tape, recomputes the body from it and appends the body's adjoint
+    once. The state's cotangent is carried from trip to trip (seeded by the
+    cotangents of ``out``). Every value from before the loop that the loop
+    gives a cotangent (an input the body reads, the initial state) has a
+    running cotangent, started from the cotangent it already holds, which
+    each contribution extends in turn; in trip 0 a carry's contributions are
+    its initial value's. So every sum is taken in the order of the loop
+    written out, and the reverse gives the unrolled adjoint's bits. After
+    the loop the running cotangents are the inputs'."""
+    for value in (0.0, 0.5, 2.0):  # the rules' constants, outside the loop
+        b.const(value)
+    L = lp.index
+    lp.seeds = tuple(adj.get(o) for o in lp.out)
+    where = {}  # input id -> its index in lp.inputs
+    init_of = dict(zip(lp.carry, lp.init))
+
+    def trip(peel, marker):
+        b._push((marker, L), True)
+        rg = tuple(b._push(("rcarry_g", L, k), True)
+                   for k in range(len(lp.carry)))
+        local, ends = {}, {}
+
+        def lacc(arg, val):
+            if peel and arg in init_of:
+                arg = init_of[arg]
+            if b.ops[arg][0] == "const":
+                return
+            if lp.begin < arg < lp.end:
+                local[arg] = val if arg not in local else b.add(local[arg],
+                                                                  val)
+                return
+            if arg not in where:
+                where[arg] = len(lp.inputs)
+                lp.inputs.append(arg)
+            j = where[arg]
+            if j not in ends:
+                ends[j] = b._push(("rin_g", L, j), True)
+            ends[j] = b.add(ends[j], val)
+
+        for new, g in zip(lp.new, rg):
+            lacc(new, g)
+        for i in reversed(lp.body):
+            if i in local and b.ops[i][0] not in ("param", "const"):
+                _adjoint_rule(b, i, local[i], lacc)
+        return rg, local, ends
+
+    rg, local, ends = trip(False, "rloop")
+    lp.next = tuple(local.get(c) for c in lp.carry)
+    lp.trips.append((rg, ends, b._push(("rloop_end", L), True)))
+    rg, _, ends = trip(True, "rpeel")
+    lp.trips.append((rg, ends, b._push(("rpeel_end", L), True)))
+    lp.input_seeds = tuple(adj.get(v) for v in lp.inputs)
+    lp.input_out = tuple(b._push(("rloop_in", L, j), True)
+                         for j in range(len(lp.inputs)))
+    for v, r in zip(lp.inputs, lp.input_out):
+        adj[v] = r
+
+
 def _append_adjoint(b, out):
     """Append the reverse-mode ops of the primal list behind it.
 
     Returns ``(g, adj)``: the id of the cotangent input and a dict from a
     primal value id to the id that holds its cotangent (absent: no path
     from the output). Contributions to one value are summed in reverse op
-    order, the first one without an add. An op kind without a rule
-    raises."""
+    order, the first one without an add. A loop's adjoint is a reverse loop
+    (:func:`_loop_adjoint`). An op kind without a rule raises."""
     n_primal = len(b.ops)
+    b._closed = []  # the reverse loops read their bodies' values
     g = b.leaf("g")
     adj = {out: g}
 
@@ -447,49 +663,17 @@ def _append_adjoint(b, out):
         if b.ops[arg][0] != "const":
             adj[arg] = val if arg not in adj else b.add(adj[arg], val)
 
-    for i in range(n_primal - 1, 2, -1):
-        kind, args = b.ops[i][0], b.ops[i][1:]
-        if i not in adj or kind in ("param", "const"):
+    loop_ends = {lp.out[-1]: lp for lp in b.loops}
+    i = n_primal - 1
+    while i > 2:
+        if i in loop_ends:
+            lp = loop_ends[i]
+            _loop_adjoint(b, lp, adj)
+            i = lp.begin - 1
             continue
-        gi = adj[i]
-        if kind == "add":
-            acc(args[0], gi)
-            acc(args[1], gi)
-        elif kind == "sub":
-            acc(args[0], gi)
-            acc(args[1], b.neg(gi))
-        elif kind == "mul":
-            acc(args[0], b.mul(gi, args[1]))
-            acc(args[1], b.mul(gi, args[0]))
-        elif kind == "div":
-            acc(args[0], b.div(gi, args[1]))
-            acc(args[1], b.neg(b.mul(gi, b.div(i, args[1]))))
-        elif kind == "neg":
-            acc(args[0], b.neg(gi))
-        elif kind == "abs":
-            acc(args[0], b.mul(gi, b.sign(args[0])))
-        elif kind == "sqrt":
-            acc(args[0], b.div(gi, b.mul(b.const(2.0), i)))
-        elif kind == "exp":
-            acc(args[0], b.mul(gi, i))
-        elif kind == "log":
-            acc(args[0], b.div(gi, args[0]))
-        elif kind == "max":
-            zero, half = b.const(0.0), b.mul(gi, b.const(0.5))
-            p, q = args
-            acc(p, b.sel_gt(p, q, gi, b.sel_eq(p, q, half, zero)))
-            acc(q, b.sel_gt(q, p, gi, b.sel_eq(p, q, half, zero)))
-        elif kind in ("sel_lt", "sel_gt", "sel_le"):  # chosen branch only
-            zero = b.const(0.0)
-            sel = getattr(b, kind)
-            acc(args[2], sel(args[0], args[1], gi, zero))
-            acc(args[3], sel(args[0], args[1], zero, gi))
-        elif kind == "mlp":
-            vjp = b.mlp_vjp(args[0], args[1], args[2], args[3], gi)
-            for c in range(3):
-                acc(args[1 + c], b.pick(vjp, c))
-        else:
-            raise ValueError(f"no adjoint rule for op kind {kind!r}")
+        if i in adj and b.ops[i][0] not in ("param", "const"):
+            _adjoint_rule(b, i, adj[i], acc)
+        i -= 1
     return g, adj
 
 
@@ -498,7 +682,8 @@ def _c_literal(value: float) -> str:
 
 
 class SdfProgram:
-    """A scene lowered to SSA ops, with its parameter layout.
+    """A scene lowered to SSA ops, with its parameter layout; ``unroll``
+    writes every loop of the lowering out (:meth:`_Builder.loop`).
 
     ``specs`` is the flat-vector layout of
     :func:`ray_marching_tpu_torch.ops.params.split_params_padded` and
@@ -507,7 +692,7 @@ class SdfProgram:
     ``sdf_c``/:meth:`rebuild` give the plain SDF over the same inputs (the
     kernels' plain versions use them)."""
 
-    def __init__(self, node: Node):
+    def __init__(self, node: Node, unroll: bool = False):
         from ray_marching_tpu_torch.ops.params import (
             mat_specs,
             split_params_padded,
@@ -523,7 +708,7 @@ class SdfProgram:
         self.n_flat = flat.shape[0]
         self.sdf_c = compile_node(node)
         b = _Builder({s.path: s.offset for s in specs},
-                     {s.path: s.offset for s in self.mat_specs})
+                     {s.path: s.offset for s in self.mat_specs}, unroll)
         self.out = _lower(node, b, "", 0, 1, 2)
         self.n_primal = len(b.ops)
         #: The program's neural leaves, indexed by the ``mlp`` ops.
@@ -549,6 +734,14 @@ class SdfProgram:
                             list(range(len(self.scalar_offsets))))
         self.ops = b.ops
         self.ray_dependent = b.dep
+        #: The program's counted loops (:meth:`_Builder.loop`).
+        self.loops = tuple(b.loops)
+        # The op counts are those of the same scene with its loops written
+        # out (``unroll``: the program the generator gave before it rolled
+        # loops): the work itself, whatever the emitted code repeats.
+        self._flat = (self.ops, self.ray_dependent, self.n_primal)
+        if self.loops:
+            self._flat = SdfProgram(node, unroll=True)._flat
         #: Tensor-core leaves: ``{leaf index: (index of the hidden layer's
         #: matrix in mat_specs, bf16 operands, fragment offset after the
         #: packed matrices)}``.
@@ -619,13 +812,31 @@ class SdfProgram:
             params = params[key]
         return params
 
-    def _run(self, flat, vals, start, stop, mats=(), sink=None):
-        """Run ops[start:stop] on tensors, appending to ``vals``; an MLP's
-        VJP appends ``(leaf index, its parameter cotangents)`` to ``sink``."""
-        for op in self.ops[start:stop]:
-            kind, args = op[0], op[1:]
+    @property
+    def loop_trips(self) -> Tuple[int, ...]:
+        """The trip count of each loop, in program order."""
+        return tuple(lp.n for lp in self.loops)
+
+    def _run(self, flat, vals, start, stop, mats=(), sink=None, tapes=None):
+        """Run ops[start:stop] on tensors into ``vals`` (a list indexed by
+        op id); an MLP's VJP appends ``(leaf index, its parameter
+        cotangents)`` to ``sink``; a forward loop keeps each trip's start
+        state in ``tapes`` (by loop index) for its reverse loop."""
+        i = start
+        while i < stop:
+            kind, args = self.ops[i][0], self.ops[i][1:]
+            if kind == "loop":
+                i = self._run_loop(flat, vals, self.loops[args[0]], mats,
+                                   tapes)
+                continue
+            if kind == "rloop":
+                i = self._run_rloop(flat, vals, self.loops[args[0]], mats,
+                                    tapes)
+                continue
             if kind == "param":
                 v = flat[args[0]]
+            elif kind == "rin_g":
+                v = tapes[("h", args[0])][args[1]]
             elif kind == "const":
                 v = torch.tensor(args[0], dtype=flat.dtype, device=flat.device)
             elif kind == "mlp":
@@ -672,12 +883,58 @@ class SdfProgram:
                     v = torch.where(a[0] <= a[1], a[2], a[3])
                 else:  # sel_eq
                     v = torch.where(a[0] == a[1], a[2], a[3])
-            vals.append(v)
+            vals[i] = v
+            i += 1
+        return vals
+
+    def _run_loop(self, flat, vals, lp, mats, tapes):
+        """Loop ``lp`` on tensors; returns the id after its ``out`` ops."""
+        state = [vals[a] for a in lp.init]
+        tape = []
+        for _ in range(lp.n):
+            tape.append(state)
+            for c, v in zip(lp.carry, state):
+                vals[c] = v
+            self._run(flat, vals, lp.body.start, lp.body.stop, mats)
+            state = [vals[a] for a in lp.new]
+        if tapes is not None:
+            tapes[lp.index] = tape
+        for o, v in zip(lp.out, state):
+            vals[o] = v
+        return lp.out[-1] + 1
+
+    def _run_rloop(self, flat, vals, lp, mats, tapes):
+        """The reverse of ``lp`` on tensors (the C++ of
+        :meth:`_rloop_source`); returns the id after its output ops."""
+        zero = torch.full_like(vals[self.g], -0.0)  # see _rloop_source
+        gc = [zero if a is None else vals[a] for a in lp.seeds]
+        h = tapes[("h", lp.index)] = [zero if a is None else vals[a]
+                                      for a in lp.input_seeds]
+        for trip in reversed(range(lp.n)):
+            rg, ends, stop = lp.trips[trip == 0]
+            for c, v in zip(lp.carry, tapes[lp.index][trip]):
+                vals[c] = v
+            self._run(flat, vals, lp.body.start, lp.body.stop, mats)
+            for r, v in zip(rg, gc):
+                vals[r] = v
+            self._run(flat, vals, rg[-1] + 1, stop, mats, tapes=tapes)
+            for j, e in ends.items():
+                h[j] = vals[e]
+            if trip:
+                gc = [zero if a is None else vals[a] for a in lp.next]
+        for r, v in zip(lp.input_out, h):
+            vals[r] = v
+        return lp.input_out[-1] + 1 if lp.input_out else lp.trips[1][2] + 1
+
+    def _values(self, x, y, z):
+        vals = [None] * len(self.ops)
+        vals[:3] = x, y, z
         return vals
 
     def evaluate(self, flat, x, y, z, mats=()):
         """Backend (b): run the primal op list on tensors."""
-        return self._run(flat, [x, y, z], 3, self.n_primal, mats)[self.out]
+        return self._run(flat, self._values(x, y, z), 3, self.n_primal,
+                         mats)[self.out]
 
     def evaluate_vjp(self, flat, x, y, z, g, mats=()):
         """Backend (b) of the adjoint: ``(d, gx, gy, gz, gp)`` for the
@@ -687,10 +944,13 @@ class SdfProgram:
         biases included); their sums over the rays are the gradient of the
         flat vector. Then, for a scene with neural leaves, one cotangent per
         matrix (:attr:`mat_specs` order), already summed over the rays."""
-        vals = self._run(flat, [x, y, z], 3, self.n_primal, mats)
-        vals.append(g)
+        tapes = {}
+        vals = self._run(flat, self._values(x, y, z), 3, self.n_primal, mats,
+                         tapes=tapes)
+        vals[self.g] = g
         sink = []
-        self._run(flat, vals, self.n_primal + 1, len(self.ops), mats, sink)
+        self._run(flat, vals, self.n_primal + 1, len(self.ops), mats, sink,
+                  tapes)
         d = vals[self.out]
         gxyz = [torch.zeros_like(g) if a is None else vals[a]
                 for a in self.adj_xyz]
@@ -708,13 +968,90 @@ class SdfProgram:
                     grads[f"w{layer}"]
         return (d, *gxyz, gp)
 
-    def _emit(self, names, start, stop, vjp=False):
+    def _loop_source(self, names, lp: _Loop, vjp, tape) -> List[str]:
+        """C++ of loop ``lp``: the state in variables ``c<L>_<k>``, the
+        body once, unrolled by ``rm_sdf_loop_unroll`` (sdf_prims.cuh); with
+        ``tape`` (the VJP) rolled, each trip's start state going to the
+        arrays ``t<L>_<k>`` for the reverse loop."""
+        L, it = lp.index, f"i{lp.index}"
+        lines = [f"  T c{L}_{k} = {names[a]};" for k, a in enumerate(lp.init)]
+        if tape:
+            lines += [f"  T t{L}_{k}[{lp.n}];" for k in range(len(lp.init))]
+        lines += ["#pragma unroll 1" if tape
+                  else "#pragma unroll (rm_sdf_loop_unroll)",
+                  f"  for (int {it} = 0; {it} < {lp.n}; ++{it}) {{"]
+        if tape:
+            lines += [f"    t{L}_{k}[{it}] = c{L}_{k};"
+                      for k in range(len(lp.init))]
+        lines += [f"    const T {names[c]} = c{L}_{k};"
+                  for k, c in enumerate(lp.carry)]
+        lines += ["  " + ln for ln in self._emit(names, lp.body.start,
+                                                  lp.body.stop, vjp)]
+        lines += [f"    c{L}_{k} = {names[a]};" for k, a in enumerate(lp.new)]
+        return lines + ["  }"] + [f"  const T {names[o]} = c{L}_{k};"
+                                  for k, o in enumerate(lp.out)]
+
+    def _rloop_source(self, names, lp: _Loop, vjp) -> List[str]:
+        """C++ of the reverse of ``lp``: the state's cotangent in
+        ``g<L>_<k>``, each input's running cotangent in ``h<L>_<j>``; trips
+        n-1 .. 1 as a rolled loop, then trip 0 in a block of its own. Each
+        trip reads its start state from the tape, recomputes the body and
+        runs the body's adjoint."""
+        # A sum without a term yet starts at -0, which adds no rounding and
+        # keeps the first term's sign: the unrolled adjoint's "first term
+        # without an add".
+        L, zero = lp.index, "static_cast<T>(-0.0)"
+        lines = [f"  T g{L}_{k} = {zero if a is None else names[a]};"
+                 for k, a in enumerate(lp.seeds)]
+        lines += [f"  T h{L}_{j} = {zero if a is None else names[a]};"
+                  for j, a in enumerate(lp.input_seeds)]
+
+        def trip(index, rg, ends, stop):
+            out = [f"    const T {names[c]} = t{L}_{k}[{index}];"
+                   for k, c in enumerate(lp.carry)]
+            out += ["  " + ln for ln in self._emit(names, lp.body.start,
+                                                    lp.body.stop, vjp)]
+            out += [f"    const T {names[r]} = g{L}_{k};"
+                    for k, r in enumerate(rg)]
+            out += ["  " + ln for ln in self._emit(names, rg[-1] + 1, stop,
+                                                    vjp)]
+            return out + [f"    h{L}_{j} = {names[e]};"
+                          for j, e in sorted(ends.items())]
+
+        if lp.n > 1:
+            it = f"i{L}"
+            lines += ["#pragma unroll 1",
+                      f"  for (int {it} = {lp.n - 1}; {it} >= 1; --{it}) {{"]
+            lines += trip(it, *lp.trips[0])
+            lines += [f"    g{L}_{k} = {zero if a is None else names[a]};"
+                      for k, a in enumerate(lp.next)]
+            lines.append("  }")
+        lines += ["  {"] + trip(0, *lp.trips[1]) + ["  }"]
+        return lines + [f"  const T {names[r]} = h{L}_{j};"
+                        for j, r in enumerate(lp.input_out)]
+
+    def _emit(self, names, start, stop, vjp=False, tape=False):
         """C++ of ops[start:stop]; ``vjp``: inside ``scene_sdf_vjp``, where
         an MLP's forward keeps its hidden layers for its VJP (``keep<k>``)
-        and an inactive thread skips it."""
+        and an inactive thread skips it; ``tape``: the forward loops keep
+        their trips' start states for the reverse loops."""
         lines = []
-        for i in range(start, stop):
+        nxt = start
+        while nxt < stop:
+            i = nxt
             kind, args = self.ops[i][0], self.ops[i][1:]
+            if kind == "loop":
+                lp = self.loops[args[0]]
+                lines += self._loop_source(names, lp, vjp, tape)
+                nxt = lp.out[-1] + 1
+                continue
+            if kind == "rloop":
+                lp = self.loops[args[0]]
+                lines += self._rloop_source(names, lp, vjp)
+                nxt = (lp.input_out[-1] if lp.input_out
+                       else lp.trips[1][2]) + 1
+                continue
+            nxt = i + 1
             ctype = "T"
             xyz = ", ".join(names[a] for a in args[1:4])
             if kind == "param":
@@ -770,6 +1107,8 @@ class SdfProgram:
                         f"{names[args[4]]}, {keep}, sink)")
             elif kind == "pick":
                 expr = f"{names[args[0]]}.v[{args[1]}]"
+            elif kind == "rin_g":
+                expr = f"h{args[0]}_{args[1]}"
             else:
                 expr = _OPS[kind][1].format(*(names[a] for a in args))
             lines.append(f"  const {ctype} {names[i]} = {expr};")
@@ -1052,7 +1391,7 @@ class SdfProgram:
                              f" : {self._keep_offsets(leaf)[-1]}];")
             elif self._keeps(k):
                 lines.append(f"  T keep{k}[{self._keep_offsets(leaf)[-1]}];")
-        lines += (self._emit(names, 3, n, vjp)
+        lines += (self._emit(names, 3, n, vjp, tape=True)
                   + self._emit(names, n + 1, n_all, vjp))
         for out, a in zip(("gx", "gy", "gz"), self.adj_xyz):
             lines.append(f"  {out} = "
@@ -1064,10 +1403,11 @@ class SdfProgram:
         return "\n".join(lines)
 
     def op_counts(self) -> Dict[str, int]:
-        """Ray-dependent ops of one SDF evaluation, by class."""
+        """Ray-dependent ops of one SDF evaluation, by class (a loop's body
+        counted once per trip)."""
+        ops, dep_of, n_primal = self._flat
         counts = dict.fromkeys(COUNT_CLASSES, 0)
-        for op, dep in zip(self.ops[3:self.n_primal],
-                           self.ray_dependent[3:self.n_primal]):
+        for op, dep in zip(ops[3:n_primal], dep_of[3:n_primal]):
             if op[0] == "mlp":
                 for k, v in _mlp_op_counts(self.mlps[op[1]]).items():
                     counts[k] += v
@@ -1082,11 +1422,21 @@ class SdfProgram:
     @property
     def vjp_ops_per_eval(self) -> int:
         """Ops of one ``scene_sdf_vjp``: the primal evaluation, every
-        adjoint op (an MLP's VJP by :func:`_mlp_vjp_op_count`), and one add
-        per parameter scalar it accumulates."""
-        adjoint = sum(1 for op in self.ops[self.n_primal + 1:]
-                      if op[0] in _OPS)
+        adjoint op (an MLP's VJP by :func:`_mlp_vjp_op_count`; a loop's
+        adjoint once per trip), and one add per parameter scalar it
+        accumulates. The recompute of a loop's body in its reverse loop is
+        not counted (:attr:`vjp_recompute_ops`)."""
+        ops, _, n_primal = self._flat
+        adjoint = sum(1 for op in ops[n_primal + 1:] if op[0] in _OPS)
         adjoint += sum(_mlp_vjp_op_count(self.mlps[op[1]])
-                       for op in self.ops[self.n_primal + 1:]
-                       if op[0] == "mlp_vjp")
+                       for op in ops[n_primal + 1:] if op[0] == "mlp_vjp")
         return self.ops_per_eval + adjoint + len(self.adj_params)
+
+    @property
+    def vjp_recompute_ops(self) -> int:
+        """Ray-dependent ops that ``scene_sdf_vjp`` runs beyond
+        :attr:`vjp_ops_per_eval`: each loop's body once more per trip, in
+        its reverse loop."""
+        return sum(lp.n * sum(1 for i in lp.body if self.ray_dependent[i]
+                              and self.ops[i][0] in _OPS)
+                   for lp in self.loops)

@@ -11,8 +11,9 @@ binary exponentiation of the unit complex number ``(cos a, sin a)``; every
 division and square root guarded by a select *before* the root, so the
 backward stays finite on the axis and at the origin (the guards are
 ``utils.clamp``-style selects, CLAUDE.md). ``scale`` is the one learnable
-leaf (``f(p) = s·mandelbulb(p/s)``); the power and the iteration count are
-static and unrolled.
+leaf (``f(p) = s·mandelbulb(p/s)``); the power is static and unrolled, the
+iterations are one counted loop of the arithmetic (``o.loop``), which the
+kernels' generated code keeps rolled.
 
 The SDF is written once, :func:`_bulb`, over an arithmetic: torch tensors
 for the plain SDF (:func:`mandelbulb_sdf`, registered with
@@ -79,6 +80,12 @@ class _Torch:
     def sel_le(a, b, t, f):
         return torch.where(a <= b, t, f)
 
+    @staticmethod
+    def loop(n, state, body):
+        for _ in range(n):
+            state = tuple(body(_Torch, *state))
+        return state
+
 
 def _unit_complex_ipow(o, c, s, n: int):
     """(cos a, sin a) -> (cos n·a, sin n·a), de Moivre by binary
@@ -128,7 +135,8 @@ def _bulb(o, node: Mandelbulb, x, y, z, s):
     dr = one
     r2 = o.add(o.add(o.mul(zx, zx), o.mul(zy, zy)), o.mul(zz, zz))
     r0 = o.sqrt(o.sel_lt(r2, eps, eps, r2))
-    for _ in range(int(node.iterations)):
+
+    def iteration(o, zx, zy, zz, dr, r2):
         rg = o.sqrt(o.sel_lt(r2, eps, eps, r2))
         rxy2 = o.add(o.mul(zx, zx), o.mul(zy, zy))
         rxyg = o.sqrt(o.sel_lt(rxy2, eps, eps, rxy2))
@@ -148,6 +156,12 @@ def _bulb(o, node: Mandelbulb, x, y, z, s):
         zz = o.sel_le(r2, o.const(bail2), o.add(o.mul(rn, ctn), cz), zz)
         dr = o.sel_le(r2, o.const(bail2), dr_new, dr)
         r2 = o.add(o.add(o.mul(zx, zx), o.mul(zy, zy)), o.mul(zz, zz))
+        return zx, zy, zz, dr, r2
+
+    # The iterations as one counted loop: the kernels' code holds one body
+    # (codegen's _Builder.loop), the plain SDF runs it as a Python loop.
+    zx, zy, zz, dr, r2 = o.loop(int(node.iterations), (zx, zy, zz, dr, r2),
+                                iteration)
     rg = o.sqrt(o.sel_lt(r2, eps, eps, r2))
     de = o.div(o.mul(o.mul(o.const(0.5), o.log(rg)), rg), dr)
     # Far field: the estimate overshoots beyond r ~ 4.8 for points that
