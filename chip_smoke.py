@@ -20,7 +20,8 @@ the plain version, the per-thread route and a 1xTF32 control), and
 trained by ``optimize`` through the backward kernel with the MLP's VJP; the
 Mandelbulb slice: the ``mandelbulb`` scene, a custom node lowered through
 ``codegen.register_lowering``, served by the README's command at 1440×900
-and trained on its scale by ``optimize``),
+and by the modular pipeline through the lane-refill march, and trained on
+its scale by ``optimize``),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -587,6 +588,48 @@ def compare_march(label, program, flat, rays7, tau, f64, backward,
     check(not bool(a[1][:, ~valid].any()),
           f"march backward {label}: pad slots got a cotangent")
     return max(diffs), (e_rays, e_flat)
+
+
+def march_entries(label, program, flat, rays7, steps, tau, mats=(),
+                  plain_bits=True):
+    """The march's two per-thread entries on the same inputs, the refill
+    threshold forced each way: lane refill (march_refill_kernel, which the
+    default dispatch must take here) and one thread per ray (march_kernel,
+    whose frozen rays keep their freezing evaluation). Both must equal
+    planes 0-3 of the fused kernel and each other bit for bit, and with
+    ``plain_bits`` the plain version too (not for an MLP, whose plain
+    version sums in another order: compare_march holds it to a
+    tolerance)."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    check(rk.uses_refill(program, rays7.dtype, tau, "thread"),
+          f"march entries {label}: the dispatch does not refill")
+    saved, outs, counts = rk.REFILL_MIN_OPS, [], []
+    try:
+        for threshold in (0, 1 << 30):
+            rk.REFILL_MIN_OPS = threshold
+            before = mk.REFILL_LAUNCHES
+            outs.append(mk.march_forward(program, flat, rays7, steps, tau,
+                                         mats, route="thread"))
+            counts.append(mk.REFILL_LAUNCHES - before)
+    finally:
+        rk.REFILL_MIN_OPS = saved
+    full = rk.fused_march_normals(program, flat, rays7, steps, tau, 5e-2,
+                                  mats=mats)
+    want = (mk.reference_march(program, flat, rays7, steps, tau, mats)
+            if plain_bits else outs[1])
+    torch.cuda.synchronize()
+    same = [bool(same_bits(outs[0], other).all())
+            for other in (outs[1], full[:4], want)]
+    print(f"march entries {label}: refill launches {counts}; lane refill "
+          f"== one thread per ray {same[0]}, == fused planes 0-3 {same[1]}"
+          + (f", == plain {same[2]}" if plain_bits else "")
+          + " (bit for bit)")
+    check(counts == [1, 0] and all(same),
+          f"march entries {label}: the two entries differ")
 
 
 def compare_two_level(label, program, flat, rays7, f64, seed, steps=STEPS):
@@ -1378,6 +1421,11 @@ def neural_slice(card, out_dir: Path):
             f_mats)
     compare_march(label, r64.program, f_flat, f_rays, 0.0, True,
                   backward=False, steps=NEURAL_STEPS, mats=f_mats)
+    # At tau > 0 the per-thread MLP's march refills lanes.
+    compare_march(f"{label} tau=1e-3", r64.program, f_flat, f_rays, 1e-3,
+                  True, backward=False, steps=NEURAL_STEPS, mats=f_mats)
+    march_entries(f"{label} tau=1e-3", r64.program, f_flat, f_rays,
+                  NEURAL_STEPS, 1e-3, f_mats, plain_bits=False)
     rbf, pbf = neural_renderer(NEURAL_F64_RES, torch.float32,
                                scene=neural_scene("bfloat16"))
     bf_flat, bf_mats, bf_rays = neural_rays(rbf, pbf)
@@ -1567,7 +1615,7 @@ def neural_slice(card, out_dir: Path):
         ("forward, tensor cores", "render_fwd_tc_kernel", "PKf"),
         ("march, tensor cores", "march_tc_kernel", "PKf"),
         ("forward, per thread", "render_fwd_kernel", "IfE"),
-        ("march, per thread", "march_kernel", "IfE"))}
+        ("march, per thread", "march_kernel", "IfLb0EE"))}
     print(f"neural bounds: forward {ops} ops ({prog.ops_per_eval} per SDF "
           f"evaluation) -> {t_ops:.4f} ms at the f32 SIMT rate, "
           f"{t_tc:.4f} ms with the hidden layer on the tensor cores "
@@ -2935,9 +2983,9 @@ def sass_report(label, prog, probe):
     """SASS of one scene (sass_summary): per SDF evaluation and per SDF
     VJP from the probe kernels (``probe``: start_sass_probes' entry; the
     probe's own loads and stores included), and the f32 per-thread serving
-    forwards (one thread per ray, and lane refill) and backward (history
-    mode) of the scene's library, with their loops' code bytes. Prints it
-    and returns it."""
+    forwards (one thread per ray, and lane refill), marches (the same two)
+    and backward (history mode) of the scene's library, with their loops'
+    code bytes. Prints it and returns it."""
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
     cubin, proc = probe
@@ -2954,9 +3002,12 @@ def sass_report(label, prog, probe):
     lib = sass_functions(rk._lib_path(rk.kernel_key(prog)))
     for kind, pattern in (("forward", r"_Z\d+render_fwd_kernelIfE"),
                           ("refill", r"_Z\d+render_fwd_refill_kernelIfE"),
+                          ("march", r"_Z\d+march_kernelIfLb1EE"),
+                          ("march_refill", r"_Z\d+march_refill_kernelIfE"),
                           ("backward", r"_Z\d+render_bwd_kernelIfLb0ELb0E"
                                        r"Lb0ELb0EE")):
-        # A package from before the lane-refill forward has no refill.
+        # A package from before the lane-refill forward (march) has no
+        # refill (march_refill).
         name = next((n for n in lib if re.match(pattern, n)), None)
         if name is not None:
             report[kind] = sass_summary(*lib[name])
@@ -3030,14 +3081,16 @@ def bulb_slice(card, out_dir: Path, sass):
     stack; no spill store in its f32 per-thread backward), the SASS of
     ``sass`` (sass_report of the bulb and test_scene2), the serving
     forward's and march's planes against the parent commit's digest, the
-    lane efficiency of the serving march, every kernel against its plain
-    version (forward at tau = 1e-4
+    lane efficiency of the serving march and of the march with one thread
+    per ray, every kernel against its plain version (forward at tau = 1e-4
     and 0 with the agreement limit and its control, the training outputs,
     the backward with history and recompute, the march and its backward,
-    the two-level backward; each backward mode ray by ray and leaf by leaf
-    with its controls; f32 at 1440×900, f64 at 256×160), then the main
+    the march's lane-refill and one-thread-per-ray entries against each
+    other, the two-level backward; each backward mode ray by ray and leaf by
+    leaf with its controls; f32 at 1440×900, f64 at 256×160), then the main
     paths, counted: the README's serving command, 20 FastRenderer frames and
-    20 Renderer(use_pallas=True) frames, 3 optimize() steps on the scale
+    20 Renderer(use_pallas=True) frames (one lane-refill march each), 3
+    optimize() steps on the scale
     leaf, one two-level step, one modular gradient and the CLI's optimize;
     timings, profiles and bounds. Returns its rows of the kernels line."""
     import torch
@@ -3107,6 +3160,8 @@ def bulb_slice(card, out_dir: Path, sass):
     errs["march"], _ = compare_march(
         f"{label} tau={BULB_TAU:g}", prog, m_flat, m_rays7, BULB_TAU, False,
         backward=True, steps=BULB_STEPS)
+    march_entries(f"{label} tau={BULB_TAU:g}", prog, m_flat, m_rays7,
+                  BULB_STEPS, BULB_TAU)
     compare_two_level(f"{label} tau=0 {BULB_TRAIN_MARCH} steps", prog, flat,
                       rays7, False, 62, steps=BULB_TRAIN_MARCH)
 
@@ -3163,6 +3218,8 @@ def bulb_slice(card, out_dir: Path, sass):
         check(not masked, f"{lab}: plain backward non-finite")
         compare_march(lab, prog, mf_flat, mf_rays, tau, True, backward=True,
                       steps=BULB_STEPS)
+    march_entries(f"{label64} tau={BULB_TAU:g}", prog, mf_flat, mf_rays,
+                  BULB_STEPS, BULB_TAU)
     compare_two_level(f"{label64} tau=0", prog, f_flat, f_rays, True, 65,
                       steps=BULB_STEPS)
     by_ray(label64, f_flat, f_rays, mf_flat, mf_rays, f_control, True,
@@ -3190,7 +3247,7 @@ def bulb_slice(card, out_dir: Path, sass):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
-        counter.LAUNCHES = 0
+        counter.LAUNCHES = mk.REFILL_LAUNCHES = 0
         with torch.no_grad(), PlainMarchCalls() as plain:
             start.record()
             for _ in range(BULB_FRAMES):
@@ -3198,19 +3255,22 @@ def bulb_slice(card, out_dir: Path, sass):
                                       mode=BULB_MODE, degree=2)
             stop.record()
             torch.cuda.synchronize()
-        return (img, counter.LAUNCHES, plain.n,
+        return (img, counter.LAUNCHES, mk.REFILL_LAUNCHES, plain.n,
                 start.elapsed_time(stop) / BULB_FRAMES)
 
-    frame, launches, n_plain, frame_ms = frames(main, rk)
-    mod_frame, mod_launches, m_plain, mod_ms = frames(modular, mk)
+    frame, launches, _, n_plain, frame_ms = frames(main, rk)
+    mod_frame, mod_launches, mod_refill, m_plain, mod_ms = frames(modular,
+                                                                  mk)
     print(f"bulb serving ({BULB_W}x{BULB_H}, {BULB_STEPS} steps, tau "
           f"{BULB_TAU:g}, mode normal): cli render 1 launch; FastRenderer "
           f"{BULB_FRAMES} frames, forward launches {launches}, plain marches "
           f"{n_plain}, {frame_ms:.4f} ms per frame; Renderer(use_pallas="
-          f"True) {BULB_FRAMES} frames, march launches {mod_launches}, plain "
-          f"marches {m_plain}, {mod_ms:.4f} ms per frame (CUDA events)")
-    check((launches, n_plain, mod_launches, m_plain)
-          == (BULB_FRAMES, 0, BULB_FRAMES, 0), "bulb serving: launches")
+          f"True) {BULB_FRAMES} frames, march launches {mod_launches} (lane "
+          f"refill {mod_refill}), plain marches {m_plain}, {mod_ms:.4f} ms "
+          "per frame (CUDA events)")
+    check((launches, n_plain, mod_launches, mod_refill, m_plain)
+          == (BULB_FRAMES, 0, BULB_FRAMES, BULB_FRAMES, 0),
+          "bulb serving: launches")
     shape = (1, BULB_H, BULB_W, 3)
     for name, img in (("mandelbulb_normal", frame),
                       ("mandelbulb_modular_normal", mod_frame)):
@@ -3301,6 +3361,16 @@ def bulb_slice(card, out_dir: Path, sass):
         lambda: main.render(params, BENCH_Q, BENCH_T, mode=BULB_MODE,
                             degree=2), frame_ms, frames=3,
         expect={"void render_fwd_refill_kernel<float>": (ms, 1)})
+
+    def modular_frame():
+        with torch.no_grad():
+            modular.render(params, BENCH_Q, BENCH_T, mode=BULB_MODE, degree=2)
+
+    mod_prof = profile_frames(
+        modular_frame, mod_ms, frames=3,
+        expect={"void march_refill_kernel<float>": (march_ms, 1)})
+    march_prof_ms = next((v for k_, v in mod_prof.items() if k_.startswith(
+        "void march_refill_kernel<float>")), None)
     print(f"bulb timing on {card} ({BULB_W}x{BULB_H}, f32): serving "
           f"({BULB_STEPS} steps, tau {BULB_TAU:g}): forward kernel "
           f"{ms:.4f} ms ({ms_tau0:.4f} at tau 0), plain {plain_ms:.3f} ms; "
@@ -3312,7 +3382,9 @@ def bulb_slice(card, out_dir: Path, sass):
           f"{bwd_serving_ms:.4f} ms; training step {step_ev_ms:.4f} ms (CUDA "
           f"events), device busy {sum(step_prof.values()):.4f} ms "
           f"(profiler); serving frame {frame_ms:.4f} ms, busy "
-          f"{sum(frame_prof.values()):.4f} ms")
+          f"{sum(frame_prof.values()):.4f} ms; modular frame {mod_ms:.4f} "
+          f"ms, busy {sum(mod_prof.values()):.4f} ms, of which the march "
+          f"{march_prof_ms:.4f} ms (profiler)")
 
     # 5. Bounds from this run's inputs: operations from the op counts and
     # the steps the rays really took, bytes from the planes, the history
@@ -3323,21 +3395,28 @@ def bulb_slice(card, out_dir: Path, sass):
                                log_hist=True)
     lanes = lane_efficiency(ex_l["nlive"], rays7[6] > 0.5, BULB_STEPS)
     del ex_l
+    # The march's own: the modular rays, one terminal evaluation a ray.
+    _, ex_m = rk.march_forward(prog, m_flat, m_rays7, BULB_STEPS, BULB_TAU,
+                               5e-2, log_hist=True)
+    m_lanes = lane_efficiency(ex_m["nlive"], m_rays7[6] > 0.5, BULB_STEPS,
+                              tail=1)
+    del ex_m
     print(f"bulb lane efficiency of one thread per ray (warps of 32 slots, "
-          f"serving): march {lanes[0]:.4f}, with the tail {lanes[1]:.4f}; "
-          "the refill kernel's warps evaluate on every lane")
+          f"serving): forward {lanes[0]:.4f}, with its 5 tail evaluations "
+          f"{lanes[1]:.4f}; march (modular rays) {m_lanes[0]:.4f}, with its "
+          f"terminal evaluation {m_lanes[1]:.4f}; the refill kernels' warps "
+          "evaluate on every lane")
     m_valid = int((m_rays7[6] > 0.5).sum())
-    m_live, m_frozen = live_steps(prog, m_flat, m_rays7, BULB_STEPS,
-                                  BULB_TAU)
+    m_live, _ = live_steps(prog, m_flat, m_rays7, BULB_STEPS, BULB_TAU)
     plane = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
     m_plane = m_rays7.shape[1] * m_rays7.shape[2] * m_rays7.element_size()
     work, _ = backward_work(prog, rays7, s2, m_rays7)
     work.update({
         "forward": (forward_ops_live(prog, n_valid, live_sum, n_frozen),
                     15 * plane),
-        # A march evaluates once per live step, once where it froze and
-        # once at its end.
-        "march": ((m_live + m_frozen + m_valid) * prog.ops_per_eval
+        # A march evaluates once per live step and once more: where it
+        # froze (that evaluation is its terminal distance) or at its end.
+        "march": ((m_live + m_valid) * prog.ops_per_eval
                   + m_live * rk.OPS_PER_STEP, 11 * m_plane),
     })
     bounds = bounds_of(work)
@@ -3364,7 +3443,8 @@ def bulb_slice(card, out_dir: Path, sass):
              ("render_fwd_kernel", "IfE"),
              {"max_abs_err": errs[("fwd", BULB_TAU)]}),
             ("march_bulb", "march.cu", "pallas_march.py:173", mod_launches,
-             march_ms, march_plain_ms, "march", ("march_kernel", "IfE"),
+             march_ms, march_plain_ms, "march", ("march_refill_kernel",
+                                                 "IfE"),
              {"max_abs_err": errs["march"]}),
             ("render_bwd_bulb", "render_bwd.cu", "pallas_backward.py:119",
              train_launches, times["history"], times["plain"], "history",
@@ -3394,7 +3474,14 @@ def bulb_slice(card, out_dir: Path, sass):
                         if k_.startswith(
                             "void render_fwd_refill_kernel<float>")),
                        None))
-    rows[1].update(frame_ms=mod_ms)
+    rows[1].update(frame_ms=mod_ms, refill_launches=mod_refill,
+                   lane_efficiency_one_thread_per_ray=m_lanes[0],
+                   lane_efficiency_with_terminal=m_lanes[1],
+                   sass_loop_bytes=sass["mandelbulb"]["march_refill"][
+                       "loop_bytes"],
+                   code_bytes=sass["mandelbulb"]["march_refill"][
+                       "code_bytes"],
+                   profiler_kernel_ms=march_prof_ms)
     serving = {mode: errs[(mode, BULB_STEPS, BULB_TAU, False)]
                for mode in ("history", "march-only")}
     for row in rows[2:]:
@@ -3837,9 +3924,10 @@ def run(out_dir: Path):
           f"{card}: {modular_ms:.4f} ms; with one reflection bounce "
           f"{bounce_ms:.4f} ms")
     mod_prof = profile_frames(modular_frame, modular_ms, expect={
-        "void march_kernel<float>": (march_ms, 1)})
+        "void march_kernel<float, false>": (march_ms, 1)})
     march_dev_ms = next((v for k_, v in mod_prof.items()
-                         if k_.startswith("void march_kernel<float>")), None)
+                         if k_.startswith("void march_kernel<float, false>")),
+                        None)
     if march_dev_ms is not None:
         busy = sum(mod_prof.values())
         print(f"modular frame: march kernel {march_dev_ms:.4f} ms of "

@@ -1,8 +1,9 @@
-// The sphere-trace loop x' = x + d(x) * v, written once for every kernel that
-// marches (render_fwd.cu, march.cu, and the position recompute and segment
-// replay of render_bwd.cu), so that their trajectories cannot drift apart:
-// the backward's bitwise equality with the forward's history rests on all of
-// them running this one op sequence.
+// The sphere-trace step x' = x + d(x) * v and its loop, written once for
+// every kernel that marches (render_fwd.cu, march.cu, and the position
+// recompute and segment replay of render_bwd.cu), so that their trajectories
+// cannot drift apart: the backward's bitwise equality with the forward's
+// history rests on all of them running this one op sequence. The lane-refill
+// kernels (render_fwd.cu, march.cu) run march_step outside march_ray.
 //
 // An observer sees every step before the ray moves: (step index, position,
 // distance there). Observers only store; none changes the arithmetic.
@@ -78,6 +79,37 @@ struct HistoryObserver {
   }
 };
 
+// One march step from (x, y, z) with the distance d there, in two halves:
+// the freeze test at tau > 0 (|d| not >= tau, so a NaN distance freezes the
+// ray as jnp.abs(d) >= tau does) and the move x + d * v. march_ray runs the
+// halves in its own loop shape (observe, test and break, move): written
+// through march_step, the compiled loop changed and the bulb's training
+// forward took 2.1 % longer (PERF.md). The lane-refill kernels
+// (render_fwd.cu, march.cu) take march_step: freeze without moving (false),
+// or move (true).
+template <typename T>
+__device__ __forceinline__ bool march_freezes(const T d, const T tau) {
+  return !(rm_abs(d) >= tau);
+}
+
+template <typename T>
+__device__ __forceinline__ void march_move(T& x, T& y, T& z, const T vx,
+                                           const T vy, const T vz,
+                                           const T d) {
+  x = x + d * vx;
+  y = y + d * vy;
+  z = z + d * vz;
+}
+
+template <typename T>
+__device__ __forceinline__ bool march_step(T& x, T& y, T& z, const T vx,
+                                           const T vy, const T vz, const T d,
+                                           const T tau) {
+  if (march_freezes(d, tau)) return false;
+  march_move(x, y, z, vx, vy, vz, d);
+  return true;
+}
+
 template <typename T, typename Observer, bool TC = false>
 __device__ __forceinline__ int march_ray(const T* __restrict__ P,
                                          const T* __restrict__ M, T& x, T& y,
@@ -94,7 +126,7 @@ __device__ __forceinline__ int march_ray(const T* __restrict__ P,
     const T d = march_sdf<T, TC>(P, M, x, y, z);
     if (live) {
       observe(k, x, y, z, d);
-      if (freeze && !(rm_abs(d) >= tau)) live = false;
+      if (freeze && march_freezes(d, tau)) live = false;
     }
     if (!live) {
       if constexpr (TC) {
@@ -103,9 +135,7 @@ __device__ __forceinline__ int march_ray(const T* __restrict__ P,
         break;
       }
     }
-    x = x + d * vx;
-    y = y + d * vy;
-    z = z + d * vz;
+    march_move(x, y, z, vx, vy, vz, d);
     s = k + 1;
   }
   return s;

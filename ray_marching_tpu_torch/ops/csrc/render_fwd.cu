@@ -253,13 +253,10 @@ render_fwd_refill_kernel(const T* __restrict__ P, const T* __restrict__ M,
     if (done) continue;
     if (j < 0) {
       // march_ray's step at tau > 0: freeze without moving, or move.
-      if (!(rm_abs(d) >= c.tau)) {
+      if (!march_step(x, y, z, dx, dy, dz, d, c.tau)) {
         j = 0;
-      } else {
-        x = x + d * dx;
-        y = y + d * dy;
-        z = z + d * dz;
-        if (++k == steps) j = 0;
+      } else if (++k == steps) {
+        j = 0;
       }
     } else if (j < 4) {
       dc = j == 0 ? d : dc;

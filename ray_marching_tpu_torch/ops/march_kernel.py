@@ -20,7 +20,10 @@ kernel and its VJP inside the backward kernel, which returns the matrices'
 cotangents too. A march on a scene with a tensor-core leaf in f32 launches
 the tensor-core entry (``march_tc_kernel``), with or without a gradient: its
 backward marches again on the same route and gets its positions bit for
-bit.
+bit. Where :func:`render_kernel.uses_refill` says so (the per-thread
+route at tau > 0, an expensive SDF) the march refills lanes from a global
+counter (``march_refill_kernel``); the others run one thread per ray
+(``march_kernel``). Both give the same bits.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ LANES = rk.LANES
 LAUNCHES = 0
 #: Those of them that launched the tensor-core entry (march_tc_kernel).
 TC_LAUNCHES = 0
+#: Those of them that launched the lane-refill entry (march_refill_kernel).
+REFILL_LAUNCHES = 0
 
 
 def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
@@ -48,8 +53,9 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     ``route`` (by default the serving one, :func:`render_kernel.mlp_route`),
     which ``tc_mats`` may hand a prepared buffer
     (:func:`render_kernel.tc_buffer`). CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    global LAUNCHES, TC_LAUNCHES
+    CUDA tensors launch the kernel: the lane-refill entry where
+    :func:`render_kernel.uses_refill` says so."""
+    global LAUNCHES, TC_LAUNCHES, REFILL_LAUNCHES
     rk._check(program, params_flat, rays7, steps, mats)
     if route is None:
         route = rk.mlp_route(program, rays7.dtype)
@@ -70,14 +76,25 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     fn = getattr(rk._load(program), lib_fn)
     out = torch.empty((4,) + tuple(rays7.shape[1:]), dtype=rays7.dtype,
                       device=rays7.device)
+    # The lane-refill entry's slot counter: without one the kernel marches
+    # one thread per ray.
+    refill = rk.uses_refill(program, rays7.dtype, tau, route)
     with torch.cuda.device(rays7.device):
         stream = torch.cuda.current_stream(rays7.device).cuda_stream
+        nxt = (torch.zeros(1, dtype=torch.int32, device=rays7.device)
+               if refill else None)
         LAUNCHES += 1
         if route == "tc":
             TC_LAUNCHES += 1
-        err = fn(params_flat.data_ptr(), rk._ptr(packed), rays7.data_ptr(),
-                 out.data_ptr(), rays7.shape[1] * LANES, int(steps),
-                 float(tau), stream)
+            err = fn(params_flat.data_ptr(), packed.data_ptr(),
+                     rays7.data_ptr(), out.data_ptr(), rays7.shape[1] * LANES,
+                     int(steps), float(tau), stream)
+        else:
+            if refill:
+                REFILL_LAUNCHES += 1
+            err = fn(params_flat.data_ptr(), rk._ptr(packed),
+                     rays7.data_ptr(), out.data_ptr(), rays7.shape[1] * LANES,
+                     int(steps), float(tau), rk._ptr(nxt), stream)
     if err != 0:
         raise RuntimeError(f"march kernel launch failed: cudaError {err}")
     return out

@@ -109,7 +109,9 @@ BWD_TWO_LEVEL = False
 #: evaluation; a cheaper one keeps one thread per ray, whose march the
 #: refill bookkeeping and its per-pass tail would slow down (test_scene2, 65
 #: ops, measured 1.76x slower with refill; the bulb, 875, 1.8x faster;
-#: PERF.md §6).
+#: PERF.md §6). The per-thread march takes the same threshold
+#: (:func:`uses_refill` decides for both): with refill test_scene2's
+#: measured 1.56x slower at tau = 1e-3, the bulb's 1.17x faster.
 REFILL_MIN_OPS = 400
 #: nvcc/ptxas output of each build, keyed by build hash.
 BUILD_LOG: dict = {}
@@ -219,7 +221,7 @@ def _load(program: SdfProgram):
             fn.restype = i32
         for name in ("rm_march_f32", "rm_march_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f64, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f64, ptr, ptr]
             fn.restype = i32
         for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
             fn = getattr(lib, name)
@@ -326,6 +328,16 @@ def mlp_route(program: SdfProgram, dtype) -> str:
     return "tc" if program.tc and dtype == torch.float32 else "thread"
 
 
+def uses_refill(program: SdfProgram, dtype, tau, route) -> bool:
+    """Whether the serving forward or the march takes its lane-refill entry
+    on the card: on the per-thread route, at tau > 0 as the kernels round it
+    to ``dtype``, for an SDF of at least :data:`REFILL_MIN_OPS`
+    operations."""
+    return bool(route == "thread"
+                and np.asarray(tau, _np_dtype(dtype)) != 0
+                and program.ops_per_eval >= REFILL_MIN_OPS)
+
+
 def tc_buffer(program: SdfProgram, mats, backward=False):
     """The matrix buffer of the tensor-core entries: the packed matrices,
     then each tensor-core layer's fragments and, with ``backward`` (the
@@ -429,8 +441,7 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
             # The lane-refill kernel's slot counter: without one the kernel
             # marches one thread per ray.
             nxt = (torch.zeros(1, dtype=torch.int32, device=dev)
-                   if consts[22] != 0
-                   and program.ops_per_eval >= REFILL_MIN_OPS else None)
+                   if uses_refill(program, dtype, tau, route) else None)
             fn = lib.rm_render_fwd_f32 if f32 else lib.rm_render_fwd_f64
             err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
                      out.data_ptr(), n, int(steps), consts_p, _ptr(nxt),

@@ -97,6 +97,7 @@ primal evaluation holds, each hidden unit's activation slope and δ,
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Tuple
 
 import torch
@@ -1415,8 +1416,11 @@ class SdfProgram:
                 counts[_OPS[op[0]][2]] += 1
         return counts
 
-    @property
+    @functools.cached_property
     def ops_per_eval(self) -> int:
+        """Ray-dependent ops of one SDF evaluation (cached: the kernel
+        wrappers read it at every launch, ``render_kernel.uses_refill``,
+        and counting walks the unrolled program)."""
         return sum(self.op_counts().values())
 
     @property

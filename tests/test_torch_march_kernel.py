@@ -281,30 +281,48 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tau", [0.0, 1e-3])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_march_matches_plain(cuda, dtype, tau):
+@pytest.mark.parametrize("scene,tau,dtype", [
+    ("test_scene2", 0.0, torch.float32), ("test_scene2", 0.0, torch.float64),
+    ("test_scene2", 1e-3, torch.float32), ("test_scene2", 1e-3, torch.float64),
+    ("mandelbulb", 1e-4, torch.float32), ("neural_demo", 1e-3, torch.float64),
+])
+def test_cuda_march_matches_plain(cuda, scene, tau, dtype):
     """The CUDA march kernel equals its plain version and planes 0-3 of the
     fused kernel bit for bit on the card, and its backward (the march-only
     mode of the backward kernel) the plain backward up to the order of its
     sums (f32: 1e-4 relative to the largest cotangent; f64: 1e-11), on rays
-    that converge."""
-    program, flat, rays = _plane_inputs(dtype, rows=64)
-    flat, rays = flat.to(cuda), rays.to(cuda)
-    first = rk.reference_march_normals(program, flat, rays, 12, tau, 5e-2)
+    that converge. The bulb and the per-thread MLP of neural_demo (f64) at
+    tau > 0 take the lane-refill entry; the MLP's plain version sums in
+    another order, so there the kernel is held to 1e-12 of the plain
+    planes' largest entry."""
+    program, _, rays = _plane_inputs(dtype, rows=64, scene=scene)
+    flat, mats, _ = split_params_padded(
+        tgraph.init_params(program.node, dtype, cuda), dtype, cuda)
+    rays = rays.to(cuda)
+    first = rk.reference_march_normals(program, flat, rays, 12, tau, 5e-2,
+                                       mats)
     rays[6] = ((first[3].abs() < 1e-3) & (rays[6] > 0.5)).to(dtype)
-    before = (mk.LAUNCHES, bk.MARCH_LAUNCHES)
-    got = mk.march_planes(program, flat, rays, 12, tau)
-    want = mk.reference_march(program, flat, rays, 12, tau)
-    full = rk.fused_march_normals(program, flat, rays, 12, tau, 5e-2)
+    refill = scene != "test_scene2"
+    assert rk.uses_refill(program, dtype, tau, "thread") == refill
+    before = (mk.LAUNCHES, mk.REFILL_LAUNCHES, bk.MARCH_LAUNCHES)
+    got = mk.march_planes(program, flat, rays, 12, tau, mats)
+    want = mk.reference_march(program, flat, rays, 12, tau, mats)
+    full = rk.fused_march_normals(program, flat, rays, 12, tau, 5e-2,
+                                  mats=mats)
     g = torch.as_tensor(np.random.default_rng(7).normal(size=(4, 64, 128)),
                         dtype=dtype, device=cuda)
-    a = bk.march_backward(program, flat, rays, g, 12, tau)
-    assert (mk.LAUNCHES, bk.MARCH_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    a = bk.march_backward(program, flat, rays, g, 12, tau, mats)
+    assert (mk.LAUNCHES, mk.REFILL_LAUNCHES, bk.MARCH_LAUNCHES) == (
+        before[0] + 1, before[1] + refill, before[2] + 1)
     b = bk.reference_backward(program, flat, rays, g, 12, tau, None,
-                              march_only=True)
+                              march_only=True, mats=mats)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(got, full[:4])
+    assert torch.equal(got, full[:4])
+    if program.n_mats:
+        assert float((got - want).abs().max()) <= 1e-12 * float(
+            want.abs().max())
+    else:
+        assert torch.equal(got, want)
     rel = 1e-4 if dtype == torch.float32 else 1e-11
     for x, ref in zip(a[::2], b[::2]):
         assert float((x - ref).abs().max()) <= rel * float(ref.abs().max())

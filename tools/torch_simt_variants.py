@@ -4,17 +4,20 @@ checkout's, built side by side and timed in turns.
 
     python tools/torch_simt_variants.py sass [--package-root DIR]
     python tools/torch_simt_variants.py digest [--package-root DIR]
-    python tools/torch_simt_variants.py variants --parent DIR
+    python tools/torch_simt_variants.py host [--package-root DIR]
+    python tools/torch_simt_variants.py variants --parent DIR \
+        [--rows ROW,...] [--builds BUILD,...] [--rounds N]
 
 ``sass`` builds the libraries of test_scene2 and the Mandelbulb and the SASS
 probes of ``chip_smoke.py`` (one SDF evaluation, one SDF VJP per thread) and
 prints, per scene, ``chip_smoke.sass_report`` (SASS instructions per
-evaluation and per VJP by class, code bytes of the serving forward's march
-loop and of the history backward's sweep, the slow-path calls of the IEEE
-division and square root, local-memory accesses), every f32 and f64
-kernel's ptxas report (registers, stack, spill stores), and the bulb's lane
-efficiency at its serving configuration (``chip_smoke.lane_efficiency``,
-from the training forward's live-step plane).
+evaluation and per VJP by class, code bytes of the serving forward's and
+the march's loops and of the history backward's sweep, the slow-path calls
+of the IEEE division and square root, local-memory accesses), every f32 and
+f64 kernel's ptxas report (registers, stack, spill stores), and the bulb's
+lane efficiency at its serving configuration with one thread per ray
+(``chip_smoke.lane_efficiency``, from the training forward's live-step
+plane), for the forward's rays and for the march's.
 
 ``digest`` prints ``chip_smoke.bulb_planes_digest`` (the bulb's f32 serving
 forward and march planes at 1440×900) and ``bulb_backward_digest`` (its f32
@@ -25,18 +28,34 @@ checked against another commit unpacked there (``git archive <commit>
 ray_marching_tpu_torch | tar -x -C DIR``, in a directory ``.gitignore``
 lists, such as ``_archive/``).
 
+``host`` reads the host's share of the bulb's modular frame in a process
+that holds nothing but its renderer: per march call on one row of the
+frame's rays, the host's time (:func:`host_ms`), the device's
+(``chip_smoke.kernel_ms``) and the latency of a call waited for; the host's
+time of the library entry alone (one thread per ray; with a used slot
+counter, which ends the refill kernel at once) and of the counter's
+allocation; the frame by CUDA events and by the host clock, with Python's
+garbage collector on and off, and the collections per frame. Run it for the parent's package and this one in
+turns (``--package-root``).
+
 ``variants`` times the per-thread rows of PERF.md §6 for the package under
 ``--parent`` (the parent commit) and for this checkout with each build of
 :data:`VARIANTS` (its own sources as they are, ``--fmad=true`` in place of
-``--fmad=false``, and patched copies that undo one design choice each). All
+``--fmad=false``, and patched copies that undo one design choice each; a
+variant may time only the rows it changes; ``--builds`` and ``--rows``
+narrow both). All
 builds are made first, one process each, all started together. Then four
 processes time every row, in turns: the parent; this checkout's builds
-there and back; the same again; the parent. The rows: the analytic serving
+there and back; the same again; the parent (``--rounds`` times). The rows:
+the analytic serving
 forward (1; at tau = 0 and 1e-3), with history, its backward with history
-and recompute (2), the march-only backward, two levels (3), the march (4),
-and the bulb's serving forward (1b; at tau = 1e-4 and 0), serving frame,
-forward with history, backward with history and recompute (2b),
-march-only (2b′), two levels (3b), march (4b) and training step. The fmad
+and recompute (2), the march-only backward, two levels (3), the march (4;
+at tau = 0 and 1e-3), and the bulb's serving forward (1b; at tau = 1e-4
+and 0), serving frame, forward with history, backward with history and
+recompute (2b), march-only (2b′), two levels (3b), march (4b; serving, and
+the training configuration at tau = 0; the host's time per march call),
+modular frame and training step; the w256 field's per-thread march at tau
+= 1e-3 in f32 and f64 (4n). The fmad
 build also gives its parity cost against the plain version: the share of
 converged rays outside ``TOL_F32`` and the largest error of the forward
 planes, and of the backward's ray cotangents (the share outside
@@ -60,9 +79,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 #: The nvcc flag of the fmad build, in place of --fmad=false.
 FMAD_FLAGS = "--fmad=true"
+#: The march rows, which the march's variants time: the analytic and bulb
+#: marches, the w256 field's per-thread march at tau = 1e-3 (f32 on the
+#: per-thread route, f64) and the host's time per march call.
+MARCH_ROWS = ("4 march", "4 march tau 1e-3", "4b march", "4b march tau 0",
+              "4n march f32 thread tau 1e-3", "4n march f64 tau 1e-3",
+              "4b march wrapper host")
 #: This checkout's builds beside its own: name -> (replacements (exact
 #: text, new text, count of matches) per kernel source, FMA contraction,
-#: attributes of ops/render_kernel.py to set).
+#: attributes of ops/render_kernel.py to set, the rows to time (all when
+#: absent)).
 VARIANTS = {
     "change": ({}, False),
     "fmad": ({}, True),
@@ -77,10 +103,23 @@ VARIANTS = {
     "min-blocks-5": ({"render_bwd.cu": [(
         "constexpr int BWD_MIN_BLOCKS = 4;",
         "constexpr int BWD_MIN_BLOCKS = 5;", 1)]}, False),
-    # The march kernel's SDF loop rolled.
-    "march-unroll-1": ({"march.cu": [(
+    # The march kernels' SDF loop rolled (both kernels share the define).
+    "march-refill-unroll-1": ({"march.cu": [(
         "#define RM_SDF_LOOP_UNROLL 5", "#define RM_SDF_LOOP_UNROLL 1",
-        1)]}, False),
+        1)]}, False, {}, MARCH_ROWS),
+    # The march with one thread per ray everywhere (no lane refill).
+    "march-no-refill": ({}, False, {"REFILL_MIN_OPS": 1 << 30}, MARCH_ROWS),
+    # Lane refill for every SDF at tau > 0 (the analytic march too).
+    "march-refill-all": ({}, False, {"REFILL_MIN_OPS": 0}, MARCH_ROWS),
+    # A frozen ray evaluates its terminal distance once more (the parent's
+    # loop kernel; the refill kernel's frozen rays take a terminal pass).
+    "march-no-freeze-reuse": ({"march.cu": [
+        ("    } else {\n      store_march<T>(out, plane, i, x, y, z, d);\n"
+         "      i = -1;\n    }\n", "    } else {\n      k = steps;\n    }\n",
+         1),
+        ("  if (t != static_cast<T>(0)) {\n    march_kernel<T, true>",
+         "  if (false) {\n    march_kernel<T, true>", 1)]}, False, {},
+        MARCH_ROWS),
     # The backward's tail with its offsets and cotangents chosen by selects
     # (registers) in place of the local arrays (its stack frame).
     "tail-selects": ({"render_bwd.cu": [
@@ -128,7 +167,9 @@ VARIANTS = {
          "sy, sz, gP,\n"
          "                       sink);\n", 1)]}, False),
 }
-#: The rows: name -> (scene, repetitions).
+#: The rows: name -> (scene, repetitions). "4b march wrapper host" is the
+#: host's time per call of the march's wrapper on one row of the bulb's
+#: modular rays (host clock, the launches queued, not waited for).
 ROWS = {
     "1 forward": ("analytic", 30),
     "1 forward tau 1e-3": ("analytic", 30),
@@ -138,6 +179,7 @@ ROWS = {
     "2 march-only": ("analytic", 10),
     "3 two-level": ("analytic", 10),
     "4 march": ("analytic", 30),
+    "4 march tau 1e-3": ("analytic", 30),
     "1b forward": ("bulb", 10),
     "1b forward tau 0": ("bulb", 5),
     "1b serving frame": ("bulb", 10),
@@ -147,6 +189,11 @@ ROWS = {
     "2b' march-only": ("bulb", 3),
     "3b two-level": ("bulb", 3),
     "4b march": ("bulb", 10),
+    "4b march tau 0": ("bulb", 10),
+    "4n march f32 thread tau 1e-3": ("neural", 3),
+    "4n march f64 tau 1e-3": ("neural", 2),
+    "4b march wrapper host": ("bulb", 200),
+    "bulb modular frame": ("bulb", 20),
     "bulb training step": ("bulb", 5),
 }
 
@@ -228,6 +275,16 @@ def run_sass() -> dict:
           flush=True)
     out["mandelbulb"]["lane_efficiency"] = eff
     out["mandelbulb"]["mean_live_steps"] = mean
+    m_flat, m_rays7 = cs.modular_rays(r["bulb modular"], cs.BENCH_Q,
+                                      cs.BENCH_T)
+    _, ex = rk.march_forward(progs["mandelbulb"], m_flat, m_rays7,
+                             cs.BULB_STEPS, cs.BULB_TAU, 5e-2, log_hist=True)
+    eff = cs.lane_efficiency(ex["nlive"], m_rays7[6] > 0.5, cs.BULB_STEPS,
+                             tail=1)
+    print(f"bulb march lane efficiency (modular rays, one thread per ray): "
+          f"{eff[0]:.4f}, with the terminal evaluation {eff[1]:.4f}",
+          flush=True)
+    out["mandelbulb"]["march_lane_efficiency"] = eff
     return out
 
 
@@ -257,6 +314,86 @@ def run_digest() -> dict:
             "card": cs.card_line()}
 
 
+def run_host(readings=5, calls=200) -> dict:
+    import gc
+
+    import torch
+
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+
+    cs = load_smoke()
+    r = cs.bulb_renderer(Renderer, cs.BULB_W, cs.BULB_H, torch.float32,
+                         use_pallas=True)
+    flat, rays7 = cs.modular_rays(r, cs.BENCH_Q, cs.BENCH_T)
+    one_row = rays7[:, :1].contiguous()
+    lib_fn = rk._load(r.program).rm_march_f32
+    dst = torch.empty((4, 1, rk.LANES), device=one_row.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=one_row.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def march_call():
+        mk.march_planes(r.program, flat, one_row, cs.BULB_STEPS, cs.BULB_TAU)
+
+    def launch(nxt):
+        # The library entry alone, as the wrapper calls it (the parent's
+        # takes no counter); a used counter ends the refill kernel at once.
+        args = [flat.data_ptr(), None, one_row.data_ptr(), dst.data_ptr(),
+                rk.LANES, cs.BULB_STEPS, cs.BULB_TAU]
+        if len(lib_fn.argtypes) == 9:
+            args.append(nxt)
+        return lambda: lib_fn(*args, stream)
+
+    def latency(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    def frame():
+        with torch.no_grad():
+            r.render(r.init_params, cs.BENCH_Q, cs.BENCH_T, mode=cs.BULB_MODE,
+                     degree=2)
+
+    out = {"card": cs.card_line(),
+           "package": str(Path(mk.__file__).resolve().parents[2])}
+    for collector in ("gc on", "gc off"):
+        (gc.enable if collector == "gc on" else gc.disable)()
+        res = out[collector] = {
+            "march call host ms": [], "march call device ms": [],
+            "march call latency ms": [], "launch host ms": [],
+            "launch used counter host ms": [], "zeros host ms": [],
+            "frame ms": [], "frame host ms": [],
+            "collections per frame": []}
+        for _ in range(readings):
+            res["march call host ms"].append(host_ms(march_call, calls))
+            res["march call device ms"].append(cs.kernel_ms(march_call,
+                                                            calls))
+            res["march call latency ms"].append(latency(march_call))
+            res["launch host ms"].append(host_ms(launch(None), calls))
+            res["launch used counter host ms"].append(
+                host_ms(launch(counter.data_ptr()), calls))
+            res["zeros host ms"].append(host_ms(
+                lambda: torch.zeros(1, dtype=torch.int32,
+                                    device=one_row.device), calls))
+            res["frame ms"].append(cs.cuda_ms(frame, cs.BULB_FRAMES))
+            before = [s["collections"] for s in gc.get_stats()]
+            res["frame host ms"].append(host_ms(frame, cs.BULB_FRAMES))
+            res["collections per frame"].append(
+                [(s["collections"] - b) / (cs.BULB_FRAMES + 1)
+                 for s, b in zip(gc.get_stats(), before)])
+        print(f"{out['package']} {collector}: " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.4f}" if isinstance(v, float) else
+                                str(v) for v in vals)
+            for k, vals in res.items()), flush=True)
+    gc.enable()
+    return out
+
+
 def variant_dir(name: str) -> Path:
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
@@ -278,11 +415,32 @@ def use_variant(name: str):
         setattr(rk, key, value)
     if name == "parent":
         return
-    _, fmad, *attrs = VARIANTS[name]
+    _, fmad, *rest = VARIANTS[name]
     rk.CSRC = variant_dir(name)
     set_fmad(rk, fmad)
-    for key, value in (attrs[0] if attrs else {}).items():
+    for key, value in (rest[0] if rest else {}).items():
         setattr(rk, key, value)
+
+
+#: The rows and builds ``--rows`` and ``--builds`` select (None: all).
+SELECTED: dict = {"rows": None, "builds": None}
+
+
+def variant_rows(name: str):
+    """The rows ``name`` times (the parent and the change: all), within
+    ``--rows``."""
+    rest = VARIANTS.get(name, ())[2:]
+    rows = rest[1] if len(rest) > 1 else tuple(ROWS)
+    chosen = SELECTED["rows"]
+    return tuple(r for r in rows if chosen is None or r in chosen)
+
+
+def builds():
+    """This checkout's builds to time: :data:`VARIANTS`, within
+    ``--builds`` ("change" always)."""
+    chosen = SELECTED["builds"]
+    return [n for n in VARIANTS
+            if chosen is None or n == "change" or n in chosen]
 
 
 def write_variant(name: str) -> None:
@@ -304,23 +462,45 @@ def write_variant(name: str) -> None:
 
 
 def build_one(name: str) -> None:
-    """Build the libraries of the two scenes for ``name`` (a process of its
-    own; the parent's under its --package-root)."""
+    """Build the libraries of the scenes ``name``'s rows use (a process of
+    its own; the parent's under its --package-root)."""
+    import torch
+
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
     cs = load_smoke()
     use_variant(name)
     r = scenes(cs)
+    labels = ["analytic", "bulb"]
     progs = [r["analytic"].program, r["bulb"].program]
+    if any(ROWS[row][0] == "neural" for row in variant_rows(name)):
+        labels.append("neural")
+        progs.append(cs.neural_renderer(cs.NEURAL_RES,
+                                        torch.float32)[0].program)
     rk.build_kernels(progs)
     out = {}
-    for label, prog in zip(("analytic", "bulb"), progs):
+    for label, prog in zip(labels, progs):
         out[label] = [e for e in cs.bulb_ptxas(rk.BUILD_LOG.get(
             rk.kernel_key(prog), "")) if "render_bwd" in e[0]
             or "render_fwd" in e[0] or "march" in e[0]]
     path = rk.BUILD_DIR / "simt_variants" / f"{name}.ptxas.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out))
+
+
+def host_ms(fn, reps):
+    """The host's time per call over ``reps`` calls, their launches queued
+    and waited for only after the clock stops."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 class Rows:
@@ -358,6 +538,16 @@ class Rows:
             self.target = r["bulb training"].render(
                 r["bulb"].init_params, cs.BENCH_Q, cs.BENCH_T, mode=0,
                 degree=2)
+        self._neural = {}
+
+    def neural(self, dtype):
+        """The w256 field's program, flat parameters, matrices and planes
+        at its main configuration (512², the demo's pose), in ``dtype``."""
+        if dtype not in self._neural:
+            r, params = self.cs.neural_renderer(self.cs.NEURAL_RES, dtype)
+            self._neural[dtype] = (r.program, *self.cs.neural_rays(r,
+                                                                   params))
+        return self._neural[dtype]
 
     def calls(self):
         """{row: (a call, repetitions, events around calls (True) or
@@ -394,11 +584,19 @@ class Rows:
                         - self.target) ** 2).backward()
             opt.step()
 
-        def frame():
+        def frame(name="bulb"):
             with torch.no_grad():
-                r["bulb"].render(r["bulb"].init_params, cs.BENCH_Q,
-                                 cs.BENCH_T, mode=cs.BULB_MODE, degree=2)
+                r[name].render(r[name].init_params, cs.BENCH_Q, cs.BENCH_T,
+                               mode=cs.BULB_MODE, degree=2)
 
+        def neural_march(dtype):
+            def run():
+                prog, flat, mats, rays = self.neural(dtype)
+                return mk.march_forward(prog, flat, rays, cs.NEURAL_STEPS,
+                                        1e-3, mats, route="thread")
+            return run
+
+        one_row = self.bm_rays7[:, :1].contiguous()
         f, a, b = self.flat, self.rays7, self.b_rays7
         return {
             "1 forward": lambda: rk.fused_march_normals(ap, f, a, steps, 0.0,
@@ -414,6 +612,8 @@ class Rows:
             "3 two-level": bwd(ap, f, a, self.g8, steps, two_level=True),
             "4 march": lambda: mk.march_planes(ap, self.m_flat, self.m_rays7,
                                                steps, 0.0),
+            "4 march tau 1e-3": lambda: mk.march_planes(
+                ap, self.m_flat, self.m_rays7, steps, 1e-3),
             "1b forward": lambda: rk.fused_march_normals(
                 bp, self.b_flat, b, bsteps, cs.BULB_TAU, 5e-2),
             "1b forward tau 0": lambda: rk.fused_march_normals(
@@ -432,16 +632,30 @@ class Rows:
             "4b march": lambda: mk.march_planes(bp, self.bm_flat,
                                                 self.bm_rays7, bsteps,
                                                 cs.BULB_TAU),
+            "4b march tau 0": lambda: mk.march_planes(
+                bp, self.t_flat, self.bm_rays7, tsteps, 0.0),
+            "4n march f32 thread tau 1e-3": neural_march(torch.float32),
+            "4n march f64 tau 1e-3": neural_march(torch.float64),
+            "4b march wrapper host": lambda: mk.march_planes(
+                bp, self.bm_flat, one_row, bsteps, cs.BULB_TAU),
+            "bulb modular frame": lambda: frame("bulb modular"),
             "bulb training step": train_step,
         }
 
-    def time_all(self, label):
+    def time_all(self, label, rows):
         out = {}
-        events = ("1b serving frame", "bulb training step")
+        events = ("1b serving frame", "bulb modular frame",
+                  "bulb training step")
         for name, fn in self.calls().items():
+            if name not in rows:
+                continue
             reps = ROWS[name][1]
-            ms = (self.cs.cuda_ms(fn, reps) if name in events
-                  else self.cs.kernel_ms(fn, reps))
+            if name == "4b march wrapper host":
+                ms = host_ms(fn, reps)
+            elif name in events:
+                ms = self.cs.cuda_ms(fn, reps)
+            else:
+                ms = self.cs.kernel_ms(fn, reps)
             out[name] = ms
             print(f"{label}: {name} {ms:.4f} ms", flush=True)
         return out
@@ -509,24 +723,27 @@ def run_turn(names, label) -> dict:
     for k, name in enumerate(order):
         use_variant(name)
         result["times"].setdefault(name, []).append(
-            rows[name].time_all(f"{label} {name} ({k})"))
+            rows[name].time_all(f"{label} {name} ({k})", variant_rows(name)))
     if "fmad" in names:
         result["fmad_parity"] = parity(cs, rows["fmad"])
     return result
 
 
-def run_variants(parent: Path, out: Path) -> dict:
-    """Build every build together, then time: parent, this checkout's
-    builds (there and back), this checkout's again, parent."""
+def run_variants(parent: Path, out: Path, rounds: int = 1) -> dict:
+    """Build every build together, then time, ``rounds`` times: parent,
+    this checkout's builds (there and back), this checkout's again,
+    parent."""
     cs = load_smoke()
     card = cs.card_line()
     print(card, flush=True)
     out.mkdir(parents=True, exist_ok=True)
-    for name in VARIANTS:
+    for name in builds():
         write_variant(name)
-    me = [sys.executable, __file__]
+    me = [sys.executable, __file__] + [
+        a for key in ("rows", "builds") if SELECTED[key] is not None
+        for a in (f"--{key}", ",".join(SELECTED[key]))]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(me + ["build", name]) for name in VARIANTS]
+    procs = [subprocess.Popen(me + ["build", name]) for name in builds()]
     procs.append(subprocess.Popen(me + ["build", "parent", "--package-root",
                                         str(parent)]))
     try:
@@ -550,8 +767,9 @@ def run_variants(parent: Path, out: Path) -> dict:
                 f"{e[:48]} {r}/{f}/{sp}" for e, r, f, sp in entries),
                 flush=True)
     turns = []
-    for k, (who, root) in enumerate((("parent", parent), ("change", ROOT),
-                                     ("change", ROOT), ("parent", parent))):
+    order = (("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)) * rounds
+    for k, (who, root) in enumerate(order):
         path = out / f"turn{k}.json"
         cmd = me + ["turn", who, "--package-root", str(root), "--json",
                     str(path)]
@@ -562,32 +780,52 @@ def run_variants(parent: Path, out: Path) -> dict:
     for t in turns:
         for name, runs in t["times"].items():
             times.setdefault(name, []).extend(runs)
-    summary = {}
+    summary, spread = {}, {}
     for name, runs in times.items():
         summary[name] = {row: sum(r[row] for r in runs) / len(runs)
-                         for row in ROWS}
-    for row in ROWS:
+                         for row in variant_rows(name)}
+        spread[name] = {row: (min(r[row] for r in runs),
+                              max(r[row] for r in runs))
+                        for row in variant_rows(name)}
+    for row in variant_rows("change"):
         print(f"{row}: " + ", ".join(
-            f"{n} {summary[n][row]:.4f}" for n in summary) + " ms "
-            f"(change / parent {summary['change'][row] / summary['parent'][row]:.4f})",
+            f"{n} {summary[n][row]:.4f} [{spread[n][row][0]:.4f} … "
+            f"{spread[n][row][1]:.4f}]" for n in summary
+            if row in summary[n]) + " ms (change / parent "
+            f"{summary['change'][row] / summary['parent'][row]:.4f})",
             flush=True)
-    return {"card": card, "mean_ms": summary, "ptxas": ptxas, "turns": turns}
+    return {"card": card, "mean_ms": summary, "min_max_ms": spread,
+            "ptxas": ptxas, "turns": turns}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("sass", "digest", "variants",
-                                         "build", "turn"))
+    parser.add_argument("mode", choices=("sass", "digest", "host",
+                                         "variants", "build", "turn"))
     parser.add_argument("name", nargs="?",
                         help="build: the build; turn: parent or change")
     parser.add_argument("--package-root", default=str(ROOT),
                         help="the checkout whose ray_marching_tpu_torch runs")
     parser.add_argument("--parent", help="variants: the parent's checkout")
     parser.add_argument("--json", help="turn: where its readings go")
+    parser.add_argument("--rows", help="comma-separated rows to time "
+                        "(default: all)")
+    parser.add_argument("--builds", help="comma-separated builds of "
+                        "VARIANTS to time besides change (default: all)")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="variants: times to repeat the four turns")
     parser.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                              "simt_variants"),
                         help="variants: where the turns' readings go")
     args = parser.parse_args(argv)
+    for key in ("rows", "builds"):
+        value = getattr(args, key)
+        if value is not None:
+            SELECTED[key] = value.split(",")
+            unknown = set(SELECTED[key]) - set(ROWS if key == "rows"
+                                               else VARIANTS)
+            if unknown:
+                parser.error(f"unknown {key}: {sorted(unknown)}")
     sys.path.insert(0, str(Path(args.package_root).resolve()))
     import torch
 
@@ -598,13 +836,15 @@ def main(argv=None) -> int:
         build_one(args.name)
         return 0
     if args.mode == "turn":
-        names = ["parent"] if args.name == "parent" else list(VARIANTS)
+        names = ["parent"] if args.name == "parent" else builds()
         Path(args.json).write_text(json.dumps(run_turn(names, args.name)))
         return 0
     if args.mode == "variants":
-        result = run_variants(Path(args.parent).resolve(), Path(args.out))
+        result = run_variants(Path(args.parent).resolve(), Path(args.out),
+                              args.rounds)
     else:
-        result = {"sass": run_sass, "digest": run_digest}[args.mode]()
+        result = {"sass": run_sass, "digest": run_digest,
+                  "host": run_host}[args.mode]()
     print(json.dumps(result))
     return 0
 
