@@ -21,7 +21,11 @@ trained by ``optimize`` through the backward kernel with the MLP's VJP; the
 Mandelbulb slice: the ``mandelbulb`` scene, a custom node lowered through
 ``codegen.register_lowering``, served by the README's command at 1440×900
 and by the modular pipeline through the lane-refill march, and trained on
-its scale by ``optimize``),
+its scale by ``optimize``; the lighting modes, the Fourier colourmap, the
+tiled renderer and the XLA route's backwards through the same kernels:
+``occlusion`` and ``shaded`` frames and gradients at 1080p on both
+renderers, tiled 8K frames and a tiled 4K gradient against one pass, and
+the XLA route's training step against the kernel pair),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -272,6 +276,57 @@ BULB_RAY_SHARE = 0.999
 BULB_LEAF_RTOL = {"f32": 2e-3, "f64": 1e-9}
 BULB_WILD = 1e3
 BULB_CONTROL_G = 1e-3
+#: The lighting, tiling and XLA-route phase (lighting_tiled_xla). Lighting
+#: frames: the main path's configuration (test_scene2 1080p, 32 steps, f32)
+#: through FastRenderer and Renderer(use_pallas=True), LIGHT_FRAMES each;
+#: the bulb's shaded frame at its serving size. Every lighting image is held
+#: against the same renderer on the plain march (FastRenderer
+#: march_impl='xla', Renderer without use_pallas) on converged pixels: the
+#: intensity takes the kernel's f32 normals (TOL_F32's 1e-3) through the
+#: diffuse term and its positions (1e-4) through the probes and the shadow
+#: ray, so LIGHT_ATOL, at most MAX_SHARE_OUT_F32 of the pixels outside.
+LIGHT_FRAMES = 20
+LIGHT_ATOL = 1e-3
+#: The shaded gradient, FastRenderer against Renderer(use_pallas=True):
+#: TOL_BWD["f32"] (grads_agreement). The two take their normals by
+#: different operation orders, their second derivatives through the
+#: backward kernel and through autograd, and sum 2 M pixels in different
+#: orders: the backward kernel against its plain version's tolerance.
+SHADED_GRAD_RTOL = 1e-4
+#: Tiled frames at 8K in STRIP-row strips (9 strips) and the tiled gradient
+#: at 4K (5 strips), against one pass through FastRenderer. Frames: TOL_F32
+#: on converged pixels (the strips' ray planes are the one-pass grid's, so
+#: bit-for-bit equality is expected and reported). The 4K gradient: the
+#: loss within TILED_LOSS_RTOL, each leaf within TOL_BWD["f32"] of its
+#: largest entry: every ray's cotangents are the one pass's, and the kernel
+#: sums them in the same 128-ray blocks (a 512-row strip is whole blocks);
+#: only the sum over the blocks is grouped by strip, an f32 reassociation.
+TILED_8K, TILED_4K, STRIP = (7680, 4320), (3840, 2160), 512
+TILED_MODES = (0, 1, "shaded")
+TILED_LOSS_RTOL = 1e-5
+#: The XLA route's training step (render, pixel MSE, backward, Adam) against
+#: the kernel pair: the w256 field at 512² (24 steps) and the analytic main
+#: path at 1080p. Its frame is held to the kernel's within LIGHT_ATOL (mode
+#: 0 is a clamped dot with the normals) and its gradient of the frame's mean
+#: square (JAX's parity loss) on converged pixels within XLA_GRAD_RTOL
+#: (grads_agreement).
+#: Analytic: TOL_BWD["f32"] (the backward kernel's adjoints against
+#: autograd, f32 sums in other orders). w256: TOL_NEURAL_BWD_LOOSE (the
+#: tensor-core MLP, 3xTF32, against plain f32 matmuls, forward and
+#: backward). Beyond converged pixels the routes are held against the
+#: plain march in f64 instead (W256_TRAIN_GRAD_RTOL).
+XLA_STEPS = 3
+XLA_GRAD_RTOL = {"analytic": 1e-4, "w256": 1e-2}
+#: Where the w256 f32 gradients depart from the plain march in f64
+#: (w256_witness), each leaf against its largest f64 entry. The kernel pair
+#: in f64 against the plain march in f64, on every pixel and the training
+#: loss, within TOL_NEURAL_BWD["f64"]: the same math (6.2e-11 and 9.7e-12
+#: on the card). The training loss's f32 gradient, over every pixel
+#: whether its ray converged or not: per thread within
+#: W256_TRAIN_GRAD_RTOL["thread"] (4.2e-3 on the card, plain f32 4.0e-3);
+#: on the tensor cores within ["tc"] (5.7e-2, an open defect of the
+#: tensor-core pair, ROADMAP.md §3, held so that it cannot grow unseen).
+W256_TRAIN_GRAD_RTOL = {"thread": 1e-2, "tc": 0.1}
 
 
 class SmokeFailure(RuntimeError):
@@ -1241,11 +1296,10 @@ class PlainMarchCalls:
     def __enter__(self):
         from ray_marching_tpu_torch.ops import march_kernel as mk
         from ray_marching_tpu_torch.ops import render_kernel as rk
-        from ray_marching_tpu_torch.render import fast
 
         self.n = 0
-        self._saved = [(rk, "_reference_march"), (fast, "_reference_march"),
-                       (mk, "reference_march")]
+        # The XLA route (ops/xla_render.py) calls rk._reference_march too.
+        self._saved = [(rk, "_reference_march"), (mk, "reference_march")]
         self._saved = [(m, a, getattr(m, a)) for m, a in self._saved]
         for mod, attr, fn in self._saved:
             setattr(mod, attr, self._counted(fn))
@@ -3513,6 +3567,680 @@ def bulb_slice(card, out_dir: Path, sass):
     return rows
 
 
+class WithoutRemat:
+    """The XLA route as it was before its per-step remat: the same plain
+    march differentiated without checkpoints (``remat=False`` forced on
+    ``render_kernel._reference_march`` while active)."""
+
+    def __enter__(self):
+        from ray_marching_tpu_torch.ops import render_kernel as rk
+
+        self.rk, self.fn = rk, rk._reference_march
+        rk._reference_march = lambda *a, **k: self.fn(*a, **dict(k,
+                                                                remat=False))
+        return self
+
+    def __exit__(self, *exc):
+        self.rk._reference_march = self.fn
+
+
+class PerThreadRoute:
+    """The kernels' per-thread MLP route forced on a scene with a
+    tensor-core leaf (``render_kernel.mlp_route`` answers ``"thread"``
+    while active; the backward takes its forward's route)."""
+
+    def __enter__(self):
+        from ray_marching_tpu_torch.ops import render_kernel as rk
+
+        self.rk, self.fn = rk, rk.mlp_route
+        rk.mlp_route = lambda program, dtype: "thread"
+        return self
+
+    def __exit__(self, *exc):
+        self.rk.mlp_route = self.fn
+
+
+def host_strip_planes(tiled, s):
+    """``TiledRenderer._strip_planes`` with the strip's ray planes built on
+    the host: numpy's one-pass grid formula (``camera._pixel_center_grid``)
+    over the strip's rows, copied to the card by ``bake_ray_planes``."""
+    import torch
+
+    from ray_marching_tpu_torch.camera import _sensor_axes
+    from ray_marching_tpu_torch.render.fast import LANES, bake_ray_planes
+
+    cam, gd, fast = tiled.config.camera_config, tiled.grid_dtype, tiled.fast
+    r0 = s * tiled.strip_height
+    px, py = _sensor_axes(cam, gd, (r0, r0 + tiled.strip_height))
+    pos = np.zeros((len(py), len(px), 3), dtype=gd)
+    pos[:, :, 0] = px[None, :]
+    pos[:, :, 1] = py[:, None]
+    rel = pos - np.asarray([0.0, 0.0, -cam.focal_length], dtype=gd)
+    dirs = rel / np.linalg.norm(rel, axis=-1, keepdims=True)
+    pos0, dir0 = bake_ray_planes(pos.transpose(2, 0, 1),
+                                 dirs.transpose(2, 0, 1), fast.rows_per_cam,
+                                 tiled.dtype, tiled.device)
+    rows_real = min(tiled.strip_height, cam.px_height - r0)
+    slot = torch.arange(fast.rows_per_cam * LANES, device=tiled.device)
+    valid = (slot < rows_real * cam.px_width).to(tiled.dtype)
+    return pos0, dir0, valid.reshape(fast.rows_per_cam, LANES), rows_real
+
+
+def measured(fn, reps=1):
+    """``fn()`` after one warm-up call: (host ms per call, each call ending in
+    a synchronise; peak device bytes a call allocates above what was
+    allocated before it; the last result). An out-of-memory error gives
+    (None, None, None)."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        return ms, torch.cuda.max_memory_allocated() - base, out
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None, None, None
+
+
+def image_agreement(label, got, want, conv, atol):
+    """Images (N, H, W, C) on the pixels ``conv`` (N, H, W) marks: the share
+    outside ``atol`` (or NaN in one only) at most MAX_SHARE_OUT_F32; returns
+    (max abs difference, bitwise-equal share)."""
+    import torch
+
+    got, want = got.to(want.device), want
+    m = conv[..., None].expand_as(want)
+    diff = (got - want).abs()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    bad = ((diff > atol) | (torch.isnan(got) != torch.isnan(want))) & m
+    share = float(bad.sum()) / max(int(m.sum()), 1)
+    same = float((((got == want) | both_nan) & m).sum()) / max(int(m.sum()),
+                                                                1)
+    worst = float(torch.where(m & ~both_nan, diff, 0.0).max())
+    print(f"  {label}: {int(conv.sum())} converged pixels, max abs diff "
+          f"{worst:.3e}, share outside {atol:g} {share:.3e}, bitwise-equal "
+          f"share {same:.6f}")
+    check(share <= MAX_SHARE_OUT_F32, f"{label}: {share:.3e} of the converged "
+                                      f"pixels outside {atol:g}")
+    return worst, same
+
+
+def converged_pixels(renderer, params, q, t, steps=STEPS):
+    """(N, H, W) bool: the pixels whose plain march ends within CONVERGED."""
+    import torch
+
+    with torch.no_grad():
+        qq, tt = renderer._pose(q, t)
+        hit, _ = renderer._march_planes(params, *renderer._pose_planes(qq, tt),
+                                        steps)
+        return renderer._assemble([(hit[3].abs() < CONVERGED).to(
+            renderer.dtype)])[..., 0] > 0.5
+
+
+def _leaf_scales(tree):
+    """Per leaf, the scale a difference is measured against: the largest
+    entry among the scalar leaves (the flat parameter cotangent, as the
+    kernel-vs-plain checks hold it), a matrix leaf's own largest entry."""
+    flat = max((float(w.abs().max()) for w in tree.values() if w.dim() < 2),
+               default=0.0)
+    return {k: (float(w.abs().max()) if w.dim() >= 2 else flat) or 1.0
+            for k, w in tree.items()}
+
+
+def _leaf_dist(a, b):
+    return float((a.to(b.device, b.dtype) - b).abs().max())
+
+
+def grads_agreement(label, got, want, rtol, ref=None):
+    """Gradient trees as ``{path: tensor}``: ``got`` against ``want`` on
+    :func:`_leaf_scales`, every leaf printed (with ``ref``, an f64
+    gradient of the same loss, both trees' distances from it too, a report
+    its caller does not check). Returns whether every entry is finite and
+    every leaf within ``rtol``."""
+    import torch
+
+    scales = _leaf_scales(want if ref is None else ref)
+    ok = all(bool(torch.isfinite(got[k]).all() and torch.isfinite(w).all())
+             for k, w in want.items())
+    worst = 0.0
+    for k, w in want.items():
+        rel = _leaf_dist(got[k], w) / scales[k]
+        worst = max(worst, rel)
+        line = f"    {k}: {rel:.3e} apart"
+        if ref is not None:
+            line += (f"; from f64 {_leaf_dist(got[k], ref[k]) / scales[k]:.3e}"
+                     f" and {_leaf_dist(w, ref[k]) / scales[k]:.3e}")
+        print(line)
+    ok = ok and worst <= rtol
+    verdict = (" (reported, not checked)" if ref is not None
+               else "" if ok else ": outside the limit")
+    print(f"  {label}: {len(want)} leaves, largest difference {worst:.3e} "
+          f"(scalar leaves against the largest scalar entry, matrices "
+          f"against their own; limit {rtol:g}){verdict}")
+    return ok
+
+
+def w256_witness(routes, p0, conv_w, target, gradient, figures):
+    """Where the w256 kernel pair's f32 gradient departs from the plain
+    march in f64: three losses (the frame's mean square on converged pixels
+    and on every pixel, and the training loss, the frame against the frame
+    of weights 1.02x) through the tensor-core kernel pair, the per-thread
+    kernel pair (PerThreadRoute), the plain march in f32, and the kernel
+    pair in f64 (per thread) against the plain march in f64, checked as
+    W256_TRAIN_GRAD_RTOL says. Then a few Adam steps of the training loss
+    on each f32 route: the losses they reach, reported."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    def launches():
+        return rk.LAUNCHES, bk.LAUNCHES, rk.TC_LAUNCHES, bk.TC_LAUNCHES
+
+    r64, p64 = neural_renderer(NEURAL_RES, torch.float64, march_impl="xla")
+    k64, _ = neural_renderer(NEURAL_RES, torch.float64)
+    names = {"fused": "tensor cores", "thread": "per thread",
+             "xla": "plain f32"}
+    for name, w_, tgt in (("converged pixels", conv_w, None),
+                          ("every pixel", 1.0, None),
+                          ("training loss", 1.0, target)):
+        w64 = w_ if isinstance(w_, float) else w_.double()
+        t64 = None if tgt is None else tgt.double()
+        g64 = gradient(r64, p64, w64, t64)
+        g32 = {k: gradient(routes[k], p0, w_, tgt) for k in ("fused", "xla")}
+        before = launches()
+        with PerThreadRoute():
+            g32["thread"] = gradient(routes["fused"], p0, w_, tgt)
+        check(tuple(b - a for a, b in zip(before, launches()))
+              == (1, 1, 0, 0), "w256 witness: the per-thread kernel pair "
+                               "did not run as one forward and one backward")
+        gk64 = gradient(k64, p64, w64, t64)
+        for a in ("fused", "thread"):
+            grads_agreement(f"w256 gradient ({name}), {names[a]} vs plain "
+                            "f32, with f64", g32[a], g32["xla"],
+                            XLA_GRAD_RTOL["w256"], ref=g64)
+        scales = _leaf_scales(g64)
+        far = {k: max(_leaf_dist(g[n], g64[n]) / scales[n] for n in g64)
+               for k, g in g32.items()}
+        far["kernel_f64"] = max(_leaf_dist(gk64[n], g64[n]) / scales[n]
+                                for n in g64)
+        key = name.replace(" ", "_")
+        figures.update({f"w256_grad_{key}_from_f64_{k}": v
+                        for k, v in far.items()})
+        print(f"  w256 gradient ({name}), largest leaf distance from the "
+              "plain march in f64: "
+              + ", ".join(f"{names[k]} {far[k]:.3e}" for k in names)
+              + f"; the kernel pair in f64 {far['kernel_f64']:.3e}")
+        finite = all(bool(torch.isfinite(v).all())
+                     for g in (*g32.values(), gk64) for v in g.values())
+        check(finite, f"w256 gradient ({name}): non-finite")
+        if name != "converged pixels":
+            check(far["kernel_f64"] <= TOL_NEURAL_BWD["f64"],
+                  f"w256 gradient ({name}): the kernel pair in f64 against "
+                  "the plain march in f64")
+    # ``far`` is the training loss's, the loop's last.
+    check(far["thread"] <= W256_TRAIN_GRAD_RTOL["thread"]
+          and far["fused"] <= W256_TRAIN_GRAD_RTOL["tc"],
+          "w256 training loss's gradient: a kernel pair in f32 too far from "
+          "the plain march in f64")
+    del r64, p64, k64, g64, g32, gk64
+
+    def adam_losses(r, steps=4):
+        p = leaf_params(p0)
+        opt = torch.optim.Adam(list(param_paths(p).values()), lr=1e-4)
+        losses = []
+        for _ in range(steps + 1):
+            opt.zero_grad(set_to_none=True)
+            img = r.render(p, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+            loss = torch.mean((torch.nan_to_num(img) - target) ** 2)
+            losses.append(float(loss))
+            loss.backward()
+            opt.step()
+        return losses
+
+    losses = {"fused": adam_losses(routes["fused"]),
+              "xla": adam_losses(routes["xla"])}
+    with PerThreadRoute():
+        losses["thread"] = adam_losses(routes["fused"])
+    figures.update({f"w256_adam_losses_{k}": v for k, v in losses.items()})
+    print("  w256 training loss over 4 Adam steps (lr 1e-4): "
+          + "; ".join(f"{names[k]} " + " ".join(f"{v:.9e}" for v in losses[k])
+                      for k in names))
+
+
+def lighting_tiled_xla(card, out_dir: Path):
+    """The lighting modes, the Fourier colourmap, the tiled renderer and the
+    XLA route's backwards on the card, each path counted (the counters set
+    to 0 just before it and read just after) and held against its
+    reference; returns the launch counts and figures for the kernels line."""
+    import torch
+
+    from ray_marching_tpu_torch.cli import main as cli_main
+    from ray_marching_tpu_torch.io.image import write_png
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.lighting import EXTRA_MODES
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+    from ray_marching_tpu_torch.render.shaders import MODES
+    from ray_marching_tpu_torch.render.tiled import (
+        TWO_PASS_MODES,
+        TiledRenderer,
+    )
+    from ray_marching_tpu_torch.scene import registry
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    t_phase = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    q, t = BENCH_Q, BENCH_T
+    scene2 = registry.make_scene("test_scene2")
+    cfg = config(1920, 1080)
+    fast = FastRenderer(scene2, cfg, dtype=torch.float32)
+    params = fast.init_params
+    plain_fast = FastRenderer(scene2, cfg, dtype=torch.float32,
+                              march_impl="xla")
+    modular = Renderer(scene2, dataclasses.replace(cfg, use_pallas=True),
+                       dtype=torch.float32)
+    plain_modular = Renderer(scene2, cfg, dtype=torch.float32)
+    conv = converged_pixels(plain_fast, params, q, t)
+    counts, figures = {}, {}
+
+    # 1. The lighting modes, counted: one march-kernel launch a frame, the
+    # image against the plain march's; then every mode with the extras from
+    # one launch, the lighting images bit for bit the single-mode ones.
+    print(f"lighting modes (test_scene2 1920x1080, {STEPS} steps, f32) on "
+          f"{card}:")
+    singles = {}
+    for name, r, plain_r, counter in (
+            ("fast", fast, plain_fast, rk),
+            ("modular", modular, plain_modular, mk)):
+        for mode in EXTRA_MODES:
+            with torch.no_grad():
+                counter.LAUNCHES = 0
+                img = r.render(params, q, t, mode=mode, degree=2)
+                torch.cuda.synchronize()
+                n = counter.LAUNCHES
+                want = plain_r.render(params, q, t, mode=mode, degree=2)
+            check(n == 1, f"{name} {mode}: {n} kernel launches for a frame")
+            counts[f"{name}_{mode}"] = n
+            image_agreement(f"{name} {mode} vs the plain march", img, want,
+                            conv, LIGHT_ATOL)
+            check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                  f"{name} {mode}: outside [0, 1]")
+            singles[name, mode] = img
+            write_png(out_dir / f"test_scene2_{name}_{mode}.png", img)
+        counter.LAUNCHES = 0
+        with torch.no_grad():
+            images = r.render_all_modes(params, q, t, degree=2, extras=True)
+        torch.cuda.synchronize()
+        check(counter.LAUNCHES == 1 and set(images)
+              == set(MODES) | set(EXTRA_MODES),
+              f"{name} extras: {counter.LAUNCHES} launches, {sorted(images)}")
+        counts[f"{name}_extras"] = counter.LAUNCHES
+        for mode in EXTRA_MODES:
+            check(torch.equal(images[mode], singles[name, mode]),
+                  f"{name} extras: {mode} differs from its single render")
+        print(f"  {name} render_all_modes(extras=True): 10 images from 1 "
+              "launch, the lighting images bitwise the single renders")
+        del images
+    with torch.no_grad():
+        fourier = FastRenderer(scene2, dataclasses.replace(
+            cfg, cmap_fourier=True), dtype=torch.float32)
+        spin_f = fourier.render(params, q, t, mode=7, degree=2)
+        spin_g = fast.render(params, q, t, mode=7, degree=2)
+        spin_m = Renderer(scene2, dataclasses.replace(
+            cfg, cmap_fourier=True, use_pallas=True),
+            dtype=torch.float32).render(params, q, t, mode=7, degree=2)
+    image_agreement("spin, Fourier colourmap vs the gather", spin_f, spin_g,
+                    conv, 0.02)
+    image_agreement("spin, Fourier colourmap, fast vs modular", spin_f,
+                    spin_m, conv, MODULAR_VS_FAST_ATOL)
+    write_png(out_dir / "test_scene2_spin_fourier.png", spin_f)
+    del fourier, spin_f, spin_g, spin_m
+
+    # Times: frames by CUDA events, and the profiler's split between the
+    # kernel and the plain-torch SDF queries.
+    flat, rays7 = main_rays(fast, q, t)
+    fwd_ms = kernel_ms(lambda: rk.fused_march_normals(
+        fast.program, flat, rays7, STEPS, 0.0, 5e-2), 20)
+    m_flat, m_rays7 = modular_rays(modular, q, t)
+    march_ms = kernel_ms(lambda: mk.march_planes(
+        modular.program, m_flat, m_rays7, STEPS, 0.0), 20)
+    del flat, rays7, m_flat, m_rays7
+    for name, r, kernel, k_ms in (
+            ("fast", fast, "void render_fwd_kernel<float>", fwd_ms),
+            ("modular", modular, "void march_kernel<float, false>",
+             march_ms)):
+        for mode in (0,) + EXTRA_MODES:
+            def frame():
+                with torch.no_grad():
+                    return r.render(params, q, t, mode=mode, degree=2)
+
+            ms = cuda_ms(frame, LIGHT_FRAMES)
+            prof = profile_frames(frame, ms, frames=3,
+                                  expect={kernel: (k_ms, 1)})
+            busy = sum(prof.values())
+            k_dev = sum(v for k, v in prof.items() if k.startswith(kernel))
+            figures[f"{name}_{mode}_frame_ms"] = ms
+            figures[f"{name}_{mode}_busy_ms"] = busy
+            figures[f"{name}_{mode}_kernel_ms"] = k_dev
+            print(f"lighting frame {name} mode {mode}: {ms:.4f} ms per frame "
+                  f"(CUDA events, {LIGHT_FRAMES} frames); device busy "
+                  f"{busy:.4f} ms ({busy / ms:.3f} of the frame): the kernel "
+                  f"{k_dev:.4f} ms, plain torch (posing, SDF queries, "
+                  f"shading) {busy - k_dev:.4f} ms ({(busy - k_dev) / busy:.3f}"
+                  " of busy)")
+
+    # 2. The shaded gradient, counted: one forward and one backward launch
+    # through FastRenderer, the march and its backward through the modular
+    # renderer; fast against modular.
+    with torch.no_grad():
+        target = fast.render(perturbed(params, "c1/c0/radius", 1.2), q, t,
+                             mode="shaded", degree=2)
+
+    def shaded_grad(r):
+        p = leaf_params(params)
+        img = r.render(p, q, t, mode="shaded", degree=2)
+        loss = torch.mean((torch.nan_to_num(img) - target) ** 2)
+        loss.backward()
+        return ({k: v.grad for k, v in param_paths(p).items()},
+                float(loss.detach()))
+
+    rk.LAUNCHES = bk.LAUNCHES = 0
+    g_fast, l_fast = shaded_grad(fast)
+    torch.cuda.synchronize()
+    counts["fast_shaded_grad"] = (rk.LAUNCHES, bk.LAUNCHES)
+    mk.LAUNCHES = bk.MARCH_LAUNCHES = 0
+    g_mod, l_mod = shaded_grad(modular)
+    torch.cuda.synchronize()
+    counts["modular_shaded_grad"] = (mk.LAUNCHES, bk.MARCH_LAUNCHES)
+    print(f"shaded gradient (1080p, MSE against the frame with c1/c0/radius "
+          f"x1.2): FastRenderer loss {l_fast:.6e}, forward/backward launches "
+          f"{counts['fast_shaded_grad']}; Renderer(use_pallas=True) loss "
+          f"{l_mod:.6e}, march/march-backward launches "
+          f"{counts['modular_shaded_grad']}")
+    check(counts["fast_shaded_grad"] == (1, 1)
+          and counts["modular_shaded_grad"] == (1, 1),
+          "shaded gradient: launches")
+    check(l_fast > 0 and abs(l_fast - l_mod) <= 1e-3 * l_fast,
+          f"shaded gradient: losses {l_fast} and {l_mod}")
+    check(grads_agreement("shaded gradient, fast vs modular", g_fast, g_mod,
+                          SHADED_GRAD_RTOL), "shaded gradient: fast vs modular")
+    del g_fast, g_mod, target
+
+    # The bulb's shaded frame at its serving size (875 ops a query).
+    bulb = bulb_renderer(FastRenderer, BULB_W, BULB_H, torch.float32)
+
+    def bulb_frame():
+        with torch.no_grad():
+            return bulb.render(bulb.init_params, q, t, mode="shaded", degree=2)
+
+    rk.LAUNCHES = 0
+    img = bulb_frame()
+    torch.cuda.synchronize()
+    counts["bulb_shaded"] = rk.LAUNCHES
+    check(rk.LAUNCHES == 1 and bool(torch.isfinite(img).all()),
+          "bulb shaded frame: launches or non-finite")
+    write_png(out_dir / "mandelbulb_shaded.png", img)
+    ms = cuda_ms(bulb_frame, 5)
+    prof = profile_frames(bulb_frame, ms, frames=2)
+    busy = sum(prof.values())
+    k_dev = sum(v for k, v in prof.items() if k.startswith("void render_fwd"))
+    figures.update(bulb_shaded_frame_ms=ms, bulb_shaded_busy_ms=busy,
+                   bulb_shaded_kernel_ms=k_dev)
+    print(f"bulb shaded frame ({BULB_W}x{BULB_H}, {BULB_STEPS} steps, tau "
+          f"{BULB_TAU:g}): {ms:.4f} ms, busy {busy:.4f} ms, the kernel "
+          f"{k_dev:.4f} ms, the SDF queries and shading {busy - k_dev:.4f} ms")
+    del bulb, img
+
+    # 3. Tiled frames at 8K against one pass.
+    big = config(*TILED_8K)
+    tiled = TiledRenderer(scene2, big, strip_height=STRIP,
+                          dtype=torch.float32)
+    one = FastRenderer(scene2, big, dtype=torch.float32)
+    conv8k = converged_pixels(one, params, q, t).cpu()
+    print(f"tiled 8K ({TILED_8K[0]}x{TILED_8K[1]}, {tiled.num_strips} strips "
+          f"of {STRIP} rows, {STEPS} steps, f32) on {card}:")
+    for mode in TILED_MODES:
+        two = (mode if isinstance(mode, str) else MODES[mode]) \
+            in TWO_PASS_MODES
+
+        def tiled_frame():
+            rk.LAUNCHES = 0
+            return tiled.render(params, q, t, mode=mode, degree=2)
+
+        def one_frame():
+            with torch.no_grad():
+                return one.render(params, q, t, mode=mode, degree=2)
+
+        t_ms, t_peak, img_t = measured(tiled_frame, 2)
+        t_launches = rk.LAUNCHES
+        o_ms, o_peak, img_o = measured(one_frame, 2)
+        check(t_ms is not None and o_ms is not None,
+              f"tiled 8K mode {mode}: out of memory")
+        check(t_launches == tiled.num_strips * (2 if two else 1),
+              f"tiled 8K mode {mode}: {t_launches} forward launches")
+        counts[f"tiled_8k_{mode}"] = t_launches
+        img_o = img_o.cpu()
+        worst, same = image_agreement(f"tiled vs one pass, mode {mode}",
+                                      img_t, img_o, conv8k, TOL_F32[4])
+        figures.update({f"tiled_8k_{mode}_ms": t_ms,
+                        f"tiled_8k_{mode}_peak_bytes": t_peak,
+                        f"one_pass_8k_{mode}_ms": o_ms,
+                        f"one_pass_8k_{mode}_peak_bytes": o_peak,
+                        f"tiled_8k_{mode}_bitwise_share": same})
+        print(f"  mode {mode}: tiled {t_ms:.1f} ms ({t_launches} forward "
+              f"launches, peak {t_peak / 2**30:.3f} GiB above the baseline, "
+              f"the frame copied to the host), one pass {o_ms:.1f} ms (1 "
+              f"launch, peak {o_peak / 2**30:.3f} GiB, the frame on the "
+              "card)")
+        if mode == "shaded":
+            write_png(out_dir / "test_scene2_8k_tiled_shaded.png", img_t)
+        del img_t, img_o
+    # The strips' planes built on the host (host_strip_planes) against the
+    # device builder the renderer takes (camera.pixel_center_rows): the
+    # same bits, and the mode-0 frame's time with each, in turns.
+    same_planes = all(
+        all(torch.equal(a, b) for a, b in zip(
+            sum(host_strip_planes(tiled, s)[:2], ()),
+            sum(tiled._strip_planes(s)[:2], ())))
+        for s in range(tiled.num_strips))
+    check(same_planes, "tiled 8K: host-built and device-built strip planes "
+                       "differ")
+
+    def frame0():
+        return tiled.render(params, q, t, mode=0, degree=2)
+
+    turns = {"device": [], "host": []}
+    for _ in range(2):
+        for how in turns:
+            if how == "host":
+                tiled._strip_planes = lambda s: host_strip_planes(tiled, s)
+            turns[how].append(measured(frame0, 2)[0])
+            tiled.__dict__.pop("_strip_planes", None)
+    figures.update(tiled_8k_0_ms_device_planes=turns["device"],
+                   tiled_8k_0_ms_host_planes=turns["host"])
+    print("  mode 0, strip planes built on the card / on the host (numpy, "
+          "copied), in turns: "
+          + " / ".join(" ".join(f"{v:.1f}" for v in turns[h])
+                       for h in ("device", "host"))
+          + " ms; the planes bitwise equal")
+    del tiled, one, conv8k
+    torch.cuda.empty_cache()
+
+    # 4. The tiled gradient at 4K against one pass.
+    cfg4 = config(*TILED_4K)
+    tiled4 = TiledRenderer(scene2, cfg4, strip_height=STRIP,
+                           dtype=torch.float32)
+    one4 = FastRenderer(scene2, cfg4, dtype=torch.float32)
+    with torch.no_grad():
+        target = one4.render(perturbed(params, "c1/c0/radius", 1.2), q, t,
+                             mode=0, degree=2)
+
+    def tiled_grad():
+        rk.LAUNCHES = bk.LAUNCHES = 0
+        return tiled4.loss_and_grad(params, q, t, target, mode=0, degree=2)
+
+    def one_grad():
+        rk.LAUNCHES = bk.LAUNCHES = 0
+        p = leaf_params(params)
+        img = one4.render(p, q, t, mode=0, degree=2)
+        loss = torch.mean((torch.nan_to_num(img) - target) ** 2)
+        loss.backward()
+        return loss.detach(), {k: v.grad for k, v in param_paths(p).items()}
+
+    t_ms, t_peak, (loss_t, g_t) = measured(tiled_grad, 2)
+    t_launches = (rk.LAUNCHES, bk.LAUNCHES)
+    o_ms, o_peak, (loss_o, g_o) = measured(one_grad, 2)
+    o_launches = (rk.LAUNCHES, bk.LAUNCHES)
+    counts["tiled_4k_grad"], counts["one_pass_4k_grad"] = t_launches, o_launches
+    print(f"tiled gradient at 4K ({TILED_4K[0]}x{TILED_4K[1]}, "
+          f"{tiled4.num_strips} strips, mode 0, pixel MSE): loss_and_grad "
+          f"{t_ms:.1f} ms, forward/backward launches {t_launches}, peak "
+          f"{t_peak / 2**30:.3f} GiB; one pass render + MSE + backward() "
+          f"{o_ms:.1f} ms, launches {o_launches}, peak "
+          f"{o_peak / 2**30:.3f} GiB; losses {float(loss_t):.8e} and "
+          f"{float(loss_o):.8e}")
+    check(t_launches == (tiled4.num_strips,) * 2 and o_launches == (1, 1),
+          "tiled 4K gradient: launches")
+    check(abs(float(loss_t) - float(loss_o)) <= TILED_LOSS_RTOL
+          * abs(float(loss_o)), "tiled 4K gradient: loss")
+    check(grads_agreement("tiled 4K gradient vs one pass", param_paths(g_t),
+                          g_o, TOL_BWD["f32"]), "tiled 4K gradient")
+    figures.update(tiled_4k_grad_ms=t_ms, tiled_4k_grad_peak_bytes=t_peak,
+                   one_pass_4k_grad_ms=o_ms, one_pass_4k_grad_peak_bytes=o_peak)
+    del tiled4, one4, target, g_t, g_o
+    torch.cuda.empty_cache()
+
+    # 5. The XLA route's training step against the kernel pair.
+    w256, w256_params = neural_renderer(NEURAL_RES, torch.float32)
+    for label, scene, r_cfg, p0, q_, t_, degree in (
+            ("analytic", scene2, cfg, params, q, t, 2),
+            ("w256", neural_scene(), w256.config, w256_params, NEURAL_Q,
+             NEURAL_T, 1)):
+        routes = {
+            "fused": FastRenderer(scene, r_cfg, dtype=torch.float32),
+            "xla": FastRenderer(scene, r_cfg, dtype=torch.float32,
+                                march_impl="xla"),
+            "fused_implicit": FastRenderer(scene, dataclasses.replace(
+                r_cfg, backward="implicit"), dtype=torch.float32),
+            "xla_implicit": FastRenderer(scene, dataclasses.replace(
+                r_cfg, backward="implicit"), dtype=torch.float32,
+                march_impl="xla"),
+        }
+        with torch.no_grad():
+            frames = {k: r.render(p0, q_, t_, mode=0, degree=degree)
+                      for k, r in routes.items() if k in ("fused", "xla")}
+            target = routes["fused"].render(
+                _scaled_tree(p0, 1.02), q_, t_, mode=0, degree=degree)
+        conv_ = converged_pixels(routes["xla"], p0, q_, t_,
+                                 r_cfg.marching_steps)
+        print(f"XLA route ({label}, {r_cfg.px_width}x{r_cfg.px_height}, "
+              f"{r_cfg.marching_steps} steps, f32) on {card}:")
+        image_agreement(f"{label} frame, xla vs fused", frames["xla"],
+                        frames["fused"], conv_, LIGHT_ATOL)
+        def gradient(r, p0_, weight, target_=None):
+            p = leaf_params(p0_)
+            img = torch.nan_to_num(r.render(p, q_, t_, mode=0, degree=degree))
+            err = img if target_ is None else img - target_
+            torch.mean((err * weight) ** 2).backward()
+            return {n: v.grad for n, v in param_paths(p).items()}
+
+        # The routes against each other on JAX's parity loss, the mean
+        # square of the frame (tests/test_xla_march.py), weighted to the
+        # converged pixels: a ray that has not converged carries a
+        # derivative that its march's rounding moves at will.
+        conv_w = conv_[..., None].to(torch.float32)
+        grads = {k: gradient(r, p0, conv_w) for k, r in routes.items()}
+        agree = [grads_agreement(f"{label} gradient, {b} vs {a}", grads[b],
+                                 grads[a], XLA_GRAD_RTOL[label])
+                 for a, b in (("xla", "fused"),
+                              ("xla_implicit", "fused_implicit"))]
+        if label == "w256":
+            w256_witness(routes, p0, conv_w, target, gradient, figures)
+        check(all(agree), f"{label}: the XLA route's gradient against the "
+                          "kernel route's")
+        del grads
+        def step_fn(r):
+            p = leaf_params(p0)
+            leaves = list(param_paths(p).values())
+            opt = torch.optim.Adam(leaves, lr=1e-4)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                img = r.render(p, q_, t_, mode=0, degree=degree)
+                loss = torch.mean((torch.nan_to_num(img) - target) ** 2)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            return step
+
+        runs = {k: step_fn(r) for k, r in routes.items()}
+        for k, step in runs.items():
+            rk.LAUNCHES = bk.LAUNCHES = 0
+            with PlainMarchCalls() as plain:
+                ms, peak, _ = measured(step, XLA_STEPS)
+            launches = (rk.LAUNCHES, bk.LAUNCHES, plain.n)
+            counts[f"{label}_{k}_step"] = launches
+            kernel_route = k.startswith("fused")
+            check(ms is not None, f"{label} {k} step: out of memory")
+            calls = XLA_STEPS + 1  # measured() warms up with one more
+            check(launches == ((calls, calls if k == "fused" else 0, 0)
+                               if kernel_route else (0, 0, calls)),
+                  f"{label} {k} step: launches (forward, backward, plain "
+                  f"marches) {launches}")
+            figures[f"{label}_{k}_step_ms"] = ms
+            figures[f"{label}_{k}_step_peak_bytes"] = peak
+            print(f"  {k} step: {ms:.3f} ms (host clock, {XLA_STEPS} steps), "
+                  f"peak {peak / 2**30:.3f} GiB, forward/backward launches "
+                  f"and plain marches {launches}")
+        with WithoutRemat():
+            ms, peak, _ = measured(step_fn(routes["xla"]), XLA_STEPS)
+        figures[f"{label}_xla_no_remat_step_ms"] = ms
+        figures[f"{label}_xla_no_remat_step_peak_bytes"] = peak
+        print("  xla step without the per-step remat (the route before it): "
+              + ("does not fit the card (out of memory)" if ms is None else
+                 f"{ms:.3f} ms, peak {peak / 2**30:.3f} GiB"))
+        del routes, runs, frames, target
+        torch.cuda.empty_cache()
+    del w256, w256_params
+
+    # 6. The CLI: a shaded frame in strips, and the gallery.
+    rk.LAUNCHES = 0
+    cli_main(["render", "--scene", "test_scene2", "--mode", "shaded",
+              "--width", "1920", "--height", "1080", "--strip-height", "256",
+              "-o", str(out_dir / "cli_shaded_strips.png")])
+    cli_main(["gallery", "--scene", "test_scene2", "--width", "960",
+              "--height", "540", "--fast", "--cmap-fourier",
+              "-o", str(out_dir / "gallery")])
+    torch.cuda.synchronize()
+    counts["cli"] = rk.LAUNCHES
+    check(rk.LAUNCHES == 5 + 1 and len(list(
+        (out_dir / "gallery").glob("*.png"))) == 10,
+          f"cli: {rk.LAUNCHES} launches, gallery PNGs")
+    print(f"cli render --mode shaded --strip-height 256 (5 strips) and cli "
+          f"gallery --fast: {rk.LAUNCHES} forward launches, 10 PNGs")
+    print(f"lighting_tiled_xla: {time.perf_counter() - t_phase:.1f} s")
+    return counts, figures
+
+
+def _scaled_tree(tree, factor):
+    """Every leaf of ``tree`` times ``factor``."""
+    return {k: _scaled_tree(v, factor) if isinstance(v, dict) else v * factor
+            for k, v in tree.items()}
+
+
 def run(out_dir: Path):
     import torch
 
@@ -4088,6 +4816,27 @@ def run(out_dir: Path):
     kernels["kernels"] += neural_training(card, out_dir)
     # 8. The Mandelbulb: a custom node lowered into all three kernels.
     kernels["kernels"] += bulb_slice(card, out_dir, sass)
+    # 9. The lighting modes, the tiled renderer and the XLA route's
+    # backwards, through the same kernels.
+    counts, figures = lighting_tiled_xla(card, out_dir)
+    rows = {row["name"]: row for row in kernels["kernels"]}
+    rows["render_fwd"].update(
+        launches_lighting=sum(v for k, v in counts.items()
+                              if isinstance(v, int) and k.startswith("fast")),
+        launches_tiled_8k={k[9:]: v for k, v in counts.items()
+                           if k.startswith("tiled_8k")},
+        launches_tiled_4k_grad=counts["tiled_4k_grad"][0])
+    rows["render_bwd"].update(
+        launches_shaded_grad=counts["fast_shaded_grad"][1],
+        launches_tiled_4k_grad=counts["tiled_4k_grad"][1])
+    rows["march"].update(
+        launches_lighting=sum(v for k, v in counts.items()
+                              if isinstance(v, int)
+                              and k.startswith("modular")))
+    # The phase's own figures (plain-torch paths among them) and launch
+    # counts, apart from the kernel rows.
+    print("lighting_tiled_xla figures: " + json.dumps(
+        {"counts": counts, "figures": figures}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)

@@ -48,22 +48,56 @@ class CameraConfig:
         )
 
 
+def _sensor_axes(cfg: CameraConfig, grid_dtype, row_range=None):
+    """The sensor-plane x of every pixel column and y of every pixel row
+    (``row_range=(r0, r1)``: only those rows of the full-image grid, the
+    same formula over the full height; rows past the image extrapolate it),
+    as 1-D numpy arrays in ``grid_dtype``."""
+    w, h = cfg.px_width, cfg.px_height
+    xs = (2.0 * np.arange(w, dtype=grid_dtype) + 1.0) / w - 1.0
+    rows = (np.arange(h, dtype=grid_dtype) if row_range is None
+            else np.arange(row_range[0], row_range[1], dtype=grid_dtype))
+    ys = (2.0 * rows + 1.0) / h - 1.0
+    px = np.asarray(cfg.sensor_width / 2.0, dtype=grid_dtype) * xs
+    py = np.asarray(-cfg.sensor_height / 2.0, dtype=grid_dtype) * ys
+    return px, py
+
+
 def _pixel_center_grid(cfg: CameraConfig, grid_dtype
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Sensor-plane pixel positions and unit ray directions, shape (H, W, 3),
     as numpy arrays in ``grid_dtype``."""
-    w, h = cfg.px_width, cfg.px_height
-    xs = (2.0 * np.arange(w, dtype=grid_dtype) + 1.0) / w - 1.0
-    ys = (2.0 * np.arange(h, dtype=grid_dtype) + 1.0) / h - 1.0
-    px = np.asarray(cfg.sensor_width / 2.0, dtype=grid_dtype) * xs
-    py = np.asarray(-cfg.sensor_height / 2.0, dtype=grid_dtype) * ys
-    positions = np.zeros((h, w, 3), dtype=grid_dtype)
+    px, py = _sensor_axes(cfg, grid_dtype)
+    positions = np.zeros((cfg.px_height, cfg.px_width, 3), dtype=grid_dtype)
     positions[:, :, 0] = px[None, :]
     positions[:, :, 1] = py[:, None]
     focus = np.asarray([0.0, 0.0, -cfg.focal_length], dtype=grid_dtype)
     rel = positions - focus
     directions = rel / np.linalg.norm(rel, axis=-1, keepdims=True)
     return positions, directions
+
+
+def pixel_center_rows(cfg: CameraConfig, grid_dtype, row_range, device):
+    """:func:`_pixel_center_grid`'s rows ``row_range`` computed on
+    ``device`` from the 1-D sensor axes, the same IEEE operations in the same
+    order (numpy's norm over three components sums ``(x² + y²) + z²``), so
+    the same values: ``((px, py, pz), (dx, dy, dz))``, each (rows, W) in
+    ``grid_dtype``. The tiled renderer builds its strips this way instead of
+    generating and copying whole grids from the host."""
+    px, py = _sensor_axes(cfg, grid_dtype, row_range)
+    dt = torch.from_numpy(np.zeros((), grid_dtype)).dtype
+    x = torch.as_tensor(px, device=device)[None, :].expand(len(py), len(px))
+    y = torch.as_tensor(py, device=device)[:, None].expand(len(py), len(px))
+    # rel = position − focus: (x − 0, y − 0, 0 + focal_length), all exact.
+    z = torch.as_tensor(np.asarray(cfg.focal_length, dtype=grid_dtype),
+                        device=device)
+    sq = (x * x + y * y) + z * z
+    # The card's sqrt is correctly rounded, as numpy's is; torch's on the
+    # CPU is not always (its vectorized sqrt is off by an ulp at times).
+    norm = (torch.sqrt(sq) if sq.is_cuda
+            else torch.from_numpy(np.sqrt(sq.numpy())))
+    zeros = torch.zeros(x.shape, dtype=dt, device=device)
+    return (x, y, zeros), (x / norm, y / norm, z / norm)
 
 
 class Camera:

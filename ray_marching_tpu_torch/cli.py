@@ -1,8 +1,11 @@
-"""Command-line entry point of the PyTorch port (``render``, ``optimize``).
+"""Command-line entry point of the PyTorch port (``render``, ``gallery``,
+``optimize``).
 
 ``render`` builds the modular ``Renderer`` (``--pallas``: with the CUDA march
-kernel) and, with ``--fast``, the plane-native ``FastRenderer``, as the JAX
-package's CLI does; ``optimize`` always runs on the ``FastRenderer``.
+kernel), with ``--fast`` the plane-native ``FastRenderer`` and with
+``--strip-height`` the ``TiledRenderer``, as the JAX package's CLI does;
+``gallery`` writes every shader mode (the 8 and the lighting modes) as one
+PNG each; ``optimize`` always runs on the ``FastRenderer``.
 
   python -m ray_marching_tpu_torch.cli render --scene test_scene2 -o out.png
   python -m ray_marching_tpu_torch.cli render --pallas --bounces 1 -o out.png
@@ -10,6 +13,9 @@ package's CLI does; ``optimize`` always runs on the ``FastRenderer``.
       --height 64 --mode normal -o small.png
   python -m ray_marching_tpu_torch.cli render --fast \
       --scene-file docs/examples/neural_demo.json -o neural.png
+  python -m ray_marching_tpu_torch.cli render --mode shaded --width 7680 \
+      --height 4320 --strip-height 512 -o poster.png
+  python -m ray_marching_tpu_torch.cli gallery -o gallery_out
   python -m ray_marching_tpu_torch.cli optimize --target selftest \
       --trainable c1/c0/radius --opt-steps 50
 """
@@ -26,14 +32,19 @@ from ray_marching_tpu_torch.io.checkpoint import load_pytree, save_pytree
 from ray_marching_tpu_torch.io.image import write_png
 from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
 from ray_marching_tpu_torch.render.fast import FastRenderer
+from ray_marching_tpu_torch.render.lighting import EXTRA_MODES
 from ray_marching_tpu_torch.render.pipeline import RenderConfig, Renderer
 from ray_marching_tpu_torch.render.shaders import MODES
+from ray_marching_tpu_torch.render.tiled import TiledRenderer
 from ray_marching_tpu_torch.scene import registry
 from ray_marching_tpu_torch.scene.serialize import load_scene
 
 
 def _parse_mode(spec):
-    """Shader mode from a name ('spin') or an index string ('7')."""
+    """Shader mode from a name ('spin'), a lighting mode's name ('occlusion',
+    'shaded'), or an index string ('7')."""
+    if spec in EXTRA_MODES:
+        return spec
     return MODES.index(spec) if spec in MODES else int(spec)
 
 
@@ -60,6 +71,7 @@ def _build_renderer(args, fast):
         reflection_bounces=args.bounces,
         use_pallas=args.pallas,
         backward=args.backward,
+        cmap_fourier=args.cmap_fourier,
     )
     if args.scene_file:
         if not Path(args.scene_file).exists():
@@ -67,9 +79,12 @@ def _build_renderer(args, fast):
         scene = load_scene(args.scene_file)
     else:
         scene = registry.make_scene(args.scene)
+    dtype = getattr(torch, args.dtype)
+    if getattr(args, "strip_height", None):
+        return TiledRenderer(scene, cfg, strip_height=args.strip_height,
+                             dtype=dtype, device=args.device)
     cls = FastRenderer if fast else Renderer
-    return cls(scene, cfg, dtype=getattr(torch, args.dtype),
-               device=args.device)
+    return cls(scene, cfg, dtype=dtype, device=args.device)
 
 
 def _initial_params(args, renderer):
@@ -90,6 +105,17 @@ def cmd_render(args):
                                 mode=_parse_mode(args.mode),
                                 degree=args.degree)
     print(f"wrote {write_png(args.out, image)}")
+
+
+def cmd_gallery(args):
+    renderer = _build_renderer(args, fast=args.fast)
+    q, t = _parse_pose(args.pose)
+    with torch.no_grad():
+        images = renderer.render_all_modes(
+            _initial_params(args, renderer), q, t, degree=args.degree,
+            extras=not args.no_extras)
+    for name, image in images.items():
+        print(f"wrote {write_png(Path(args.out) / f'{name}.png', image)}")
 
 
 def _scale_leaves(params, wanted, factor, prefix=""):
@@ -174,6 +200,9 @@ def _add_render_args(p):
                         "PyTorch versions of the kernels)")
     p.add_argument("--params", default=None,
                    help="scene parameters saved by --save-params")
+    p.add_argument("--cmap-fourier", action="store_true",
+                   help="tangent/spin hue from the colourmap's Fourier fit "
+                        "instead of the table gather")
 
 
 def main(argv=None):
@@ -182,9 +211,25 @@ def main(argv=None):
     p = sub.add_parser("render", help="render one frame to PNG")
     _add_render_args(p)
     p.add_argument("--mode", default="lambertian",
-                   help=f"shader: one of {', '.join(MODES)} or an index")
+                   help=f"shader: one of {', '.join(MODES + EXTRA_MODES)} "
+                        "or an index")
     p.add_argument("-o", "--out", default="render.png")
+    p.add_argument("--strip-height", type=int, default=None, metavar="ROWS",
+                   help="render in horizontal strips of this many pixel rows "
+                        "(two passes for the normalized modes): frames "
+                        "bigger than one device pass")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("gallery", help="render every shader mode (the 8 "
+                                       "and occlusion/shaded) to PNGs")
+    _add_render_args(p)
+    p.add_argument("--no-extras", action="store_true",
+                   help="only the 8 geometric modes")
+    p.add_argument("-o", "--out", default="gallery_out",
+                   help="directory for <mode>.png")
+    p.add_argument("--strip-height", type=int, default=None, metavar="ROWS",
+                   help="render each mode in horizontal strips")
+    p.set_defaults(fn=cmd_gallery)
 
     p = sub.add_parser("optimize", help="inverse rendering against a target")
     _add_render_args(p)

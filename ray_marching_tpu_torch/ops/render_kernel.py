@@ -58,6 +58,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_marching_tpu_torch.ops.params import pack_mats, pack_tc
 from ray_marching_tpu_torch.render.normals import make_offsets
@@ -549,21 +550,24 @@ def fused_march_normals_cov(program: SdfProgram, params_flat, rays7, steps,
                   bwd_hist, bwd_two_level, mats)
 
 
-class _FusedMarchIFT(torch.autograd.Function):
-    """Same forward kernel, O(1) backward by the implicit function theorem
-    (counterpart of ``fused_march_normals_ift`` / ``_cov_ift`` of the JAX
-    package, whose backward is tensor code outside any kernel too): no
-    reverse sweep. Exact on converged rays; silhouette gradients differ
-    from the unrolled backward. The forward takes :func:`mlp_route`, the
-    tensor-core entries for a scene with a tensor-core leaf in f32: the
+class _MarchIFT(torch.autograd.Function):
+    """A forward march, then an O(1) backward by the implicit function
+    theorem (counterpart of ``fused_march_normals_ift`` / ``_cov_ift`` and
+    of ``xla_march_normals_ift`` / ``_cov_ift`` of the JAX package, whose
+    backward is tensor code outside any kernel too): no reverse sweep.
+    Exact on converged rays; silhouette gradients differ from the unrolled
+    backward. ``plain`` marches with :func:`_reference_march` (the XLA
+    route, :mod:`.xla_render`), else with the kernel on :func:`mlp_route`,
+    the tensor-core entries for a scene with a tensor-core leaf in f32: the
     backward differentiates that endpoint with plain torch."""
 
     @staticmethod
     def forward(ctx, params_flat, rays7, program, steps, tau, normals_eps,
-                track_min, hit_threshold, denom_eps, *mats):
-        out, extras = march_forward(program, params_flat, rays7, steps, tau,
-                                    normals_eps, track_min=track_min,
-                                    track_argpos=track_min, mats=mats)
+                track_min, hit_threshold, denom_eps, plain, *mats):
+        march = _reference_march if plain else march_forward
+        out, extras = march(program, params_flat, rays7, steps, tau,
+                            normals_eps, track_min=track_min,
+                            track_argpos=track_min, mats=mats)
         ctx.cfg = (program, tau, normals_eps, hit_threshold, denom_eps)
         ctx.save_for_backward(params_flat, rays7, out.clone(), *mats,
                               *([extras["argpos"]] if track_min else []))
@@ -578,7 +582,7 @@ class _FusedMarchIFT(torch.autograd.Function):
         gflat, gmats, grays = _ift_backward(
             *ctx.cfg, params_flat, rays7, out, g,
             argpos[0] if argpos else None, mats)
-        return (gflat, grays, None, None, None, None, None, None, None,
+        return (gflat, grays, None, None, None, None, None, None, None, None,
                 *gmats)
 
 
@@ -645,6 +649,19 @@ def _ift_backward(program, tau, normals_eps, hit_threshold, denom_eps,
             grays.reshape(rays7.shape))
 
 
+def march_ift(program: SdfProgram, params_flat, rays7, steps, tau,
+              normals_eps, hit_threshold, denom_eps, track_min, mats, plain):
+    """The march of :class:`_MarchIFT`, differentiable when an input
+    requires grad; ``plain`` takes :func:`_reference_march` for the kernel."""
+    if _requires_grad(params_flat, rays7, *mats):
+        return _MarchIFT.apply(params_flat, rays7, program, steps, tau,
+                               normals_eps, track_min, hit_threshold,
+                               denom_eps, plain, *mats)
+    march = _reference_march if plain else march_forward
+    return march(program, params_flat, rays7, steps, tau, normals_eps,
+                 track_min=track_min, mats=mats)[0]
+
+
 def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,
                             tau, normals_eps, hit_threshold=0.05,
                             denom_eps=1e-6, track_min=False, mats=()):
@@ -653,13 +670,9 @@ def fused_march_normals_ift(program: SdfProgram, params_flat, rays7, steps,
     PyTorch at the endpoint; with ``track_min`` the ``min_f`` gradient takes
     the arg-min position (a further kernel output) as fixed. On a scene
     with a tensor-core leaf in f32 the gradient is that of the tensor-core
-    endpoint (:class:`_FusedMarchIFT`)."""
-    if _requires_grad(params_flat, rays7, *mats):
-        return _FusedMarchIFT.apply(params_flat, rays7, program, steps, tau,
-                                    normals_eps, track_min, hit_threshold,
-                                    denom_eps, *mats)
-    return march_forward(program, params_flat, rays7, steps, tau,
-                         normals_eps, track_min=track_min, mats=mats)[0]
+    endpoint (:class:`_MarchIFT`)."""
+    return march_ift(program, params_flat, rays7, steps, tau, normals_eps,
+                     hit_threshold, denom_eps, track_min, mats, plain=False)
 
 
 def _tail_planes(sdf, params, x, y, z, offsets, inverse, lap_scale):
@@ -688,38 +701,50 @@ def _plain_consts(dtype, tau, normals_eps):
 
 def _reference_march(program, params_flat, rays7, steps, tau, normals_eps,
                      track_min=False, log_hist=False, track_argpos=False,
-                     mats=()):
+                     mats=(), remat=False):
     """The plain PyTorch version of :func:`march_forward`: plane-wise march
     + normals with the semantics of ``pallas_render._reference_fn``, and the
     training outputs as the kernel defines them (strict ``<`` updates of
-    ``min_f``, so the first attaining step wins)."""
+    ``min_f``, so the first attaining step wins). ``remat`` runs each step
+    under ``torch.utils.checkpoint``: autograd keeps each step's inputs (the
+    position history) and recomputes the step's activations in the
+    backward, with the same values and gradients (the XLA route,
+    :mod:`.xla_render`)."""
     sdf = program.sdf_c
     params = program.rebuild(params_flat, mats)
-    x, y, z, dx, dy, dz = (rays7[i] for i in range(6))
+    dx, dy, dz = (rays7[i] for i in range(3, 6))
     valid = rays7[6] > 0.5
     off, inv, lap_scale, tau_t = _plain_consts(rays7.dtype, tau, normals_eps)
     big = torch.finfo(rays7.dtype).max
-    minf = torch.full_like(x, big)
-    amin = torch.full(x.shape, -1, dtype=torch.int32, device=x.device)
-    argpos = (x, y, z)
-    nlive = torch.zeros_like(amin)
-    hist = []
-    for s in range(int(steps)):
-        if log_hist:
-            hist.append(torch.stack((x, y, z)))
+
+    def step(s, x, y, z, minf, amin, xm, ym, zm, nlive):
         d = sdf(params, x, y, z)
         if track_min:
             take = (d < minf) & valid
             minf = torch.where(take, d, minf)
             amin = torch.where(take, s, amin)
             if track_argpos:
-                argpos = tuple(torch.where(take, c, a)
-                               for c, a in zip((x, y, z), argpos))
+                xm, ym, zm = (torch.where(take, c, a)
+                              for c, a in zip((x, y, z), (xm, ym, zm)))
         live = valid if tau_t == 0.0 else (torch.abs(d) >= tau_t) & valid
-        nlive = nlive + live.to(torch.int32)
-        x = torch.where(live, x + d * dx, x)
-        y = torch.where(live, y + d * dy, y)
-        z = torch.where(live, z + d * dz, z)
+        return (torch.where(live, x + d * dx, x),
+                torch.where(live, y + d * dy, y),
+                torch.where(live, z + d * dz, z),
+                minf, amin, xm, ym, zm, nlive + live.to(torch.int32))
+
+    if remat:
+        step = functools.partial(checkpoint, step, use_reentrant=False)
+
+    x, y, z = (rays7[i] for i in range(3))
+    amin = torch.full(x.shape, -1, dtype=torch.int32, device=x.device)
+    carry = (x, y, z, torch.full_like(x, big), amin, x, y, z,
+             torch.zeros_like(amin))
+    hist = []
+    for s in range(int(steps)):
+        if log_hist:
+            hist.append(torch.stack(carry[:3]))
+        carry = step(s, *carry)
+    x, y, z, minf, amin, xm, ym, zm, nlive = carry
     d_centre, nx, ny, nz, lap = _tail_planes(sdf, params, x, y, z, off, inv,
                                              lap_scale)
     planes = [x, y, z] + [torch.where(valid, v, 0.0)
@@ -730,7 +755,7 @@ def _reference_march(program, params_flat, rays7, steps, tau, normals_eps,
     if track_min and log_hist:
         extras["amin"] = amin
     if track_min and track_argpos:
-        extras["argpos"] = torch.stack(argpos)
+        extras["argpos"] = torch.stack((xm, ym, zm))
     if log_hist:
         extras["hist"] = torch.stack(hist + [torch.stack((x, y, z))])
         extras["nlive"] = nlive

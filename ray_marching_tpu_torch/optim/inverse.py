@@ -30,7 +30,7 @@ import torch
 
 from ray_marching_tpu_torch.io.checkpoint import load_pytree, save_pytree
 from ray_marching_tpu_torch.render.silhouette import composite
-from ray_marching_tpu_torch.scene.graph import param_paths
+from ray_marching_tpu_torch.scene.graph import map_params, param_paths
 
 ADAMW_WEIGHT_DECAY = 1e-4
 
@@ -70,12 +70,6 @@ def _make_optimizer(cfg: InverseConfig, leaves):
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(leaves, lr=lr)
     raise KeyError(cfg.optimizer)
-
-
-def _leaf_tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _leaf_tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _opt_state_tree(optimizer, named):
@@ -124,7 +118,7 @@ def optimize(renderer, target, orientation, translation,
     def fresh(leaf):
         return tensor(leaf).detach().clone().requires_grad_(True)
 
-    params = _leaf_tree(
+    params = map_params(
         renderer.init_params if init_params is None else init_params, fresh)
     state = {
         "params": params,
@@ -144,7 +138,7 @@ def optimize(renderer, target, orientation, translation,
     optimizer = _make_optimizer(config, list(named.values()))
     start_step = 0
     if resume_from:
-        template = (_leaf_tree(state, torch.Tensor.detach),
+        template = (map_params(state, torch.Tensor.detach),
                     _opt_state_tree(optimizer, named))
         (loaded, opt_state), extra = load_pytree(resume_from, template,
                                                  with_extra=True)
@@ -235,14 +229,14 @@ def optimize(renderer, target, orientation, translation,
                     and (step + 1) % config.checkpoint_every == 0):
                 save_pytree(
                     Path(config.checkpoint_dir) / f"ckpt_{step + 1:06d}.npz",
-                    (_leaf_tree(state, torch.Tensor.detach),
+                    (map_params(state, torch.Tensor.detach),
                      _opt_state_tree(optimizer, named)),
                     extra={"step": step + 1})
     finally:
         if metrics_file:
             metrics_file.close()
 
-    final = _leaf_tree(state, torch.Tensor.detach)
+    final = map_params(state, torch.Tensor.detach)
     return {
         "params": final["params"],
         "orientation": final["orientation"],

@@ -15,19 +15,27 @@ parameters and the camera pose: the march is a ``torch.autograd.Function``
 whose backward is the backward kernel, posing and shading are plain torch.
 ``RenderConfig.backward="implicit"`` swaps the backward kernel for the
 implicit-function-theorem backward (plain torch at the endpoint). Both reach
-the matrices of ``NeuralSDF`` leaves. Not ported yet (they raise
-``NotImplementedError``): the extra lighting modes (``occlusion``,
-``shaded``), ``cmap_fourier``.
+the matrices of ``NeuralSDF`` leaves. The named lighting modes (``occlusion``,
+``shaded``; :mod:`.lighting`) shade the hit planes with further plain-torch
+SDF queries; ``RenderConfig.cmap_fourier`` swaps the colourmap gather of the
+tangent and spin modes for its Fourier fit.
 
 ``march_impl`` chooses the march as in the JAX package: ``'fused'`` is the
-kernel, ``'xla'`` the counterpart of ``ops/xla_render.py``, the kernel's plain
-PyTorch version on whatever device the renderer is on, which the caller asks
-for by name (differentiable through autograd, which keeps every step's
-activations: the JAX package rematerializes them instead).
+kernel, ``'xla'`` the counterpart of ``ops/xla_render.py``
+(:mod:`ray_marching_tpu_torch.ops.xla_render`): the kernel's plain PyTorch
+version on whatever device the renderer is on, which the caller asks for by
+name, differentiated by autograd with every step rematerialized, or with
+``backward="implicit"`` by the kernel route's IFT backward.
+
+The tiled renderer (:mod:`.tiled`) drives one of these per strip through
+the hooks :func:`bake_ray_planes`, :func:`pose_plane_group`,
+``_march_planes(valid=)``, :meth:`FastRenderer.norm_bounds` and
+``_shade(valid_b=, norm_bounds=)``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -37,19 +45,23 @@ from ray_marching_tpu_torch import quat
 from ray_marching_tpu_torch.camera import _pixel_center_grid
 from ray_marching_tpu_torch.ops.params import split_params_padded
 from ray_marching_tpu_torch.ops.render_kernel import (
-    _reference_march,
     fused_march_normals,
     fused_march_normals_cov,
     fused_march_normals_ift,
 )
-from ray_marching_tpu_torch.render import shaders
-from ray_marching_tpu_torch.render.pipeline import EXTRA_MODES, RenderConfig
+from ray_marching_tpu_torch.ops.xla_render import (
+    xla_march_normals,
+    xla_march_normals_cov,
+    xla_march_normals_cov_ift,
+    xla_march_normals_ift,
+)
+from ray_marching_tpu_torch.render import lighting, shaders
+from ray_marching_tpu_torch.render.pipeline import RenderConfig
 from ray_marching_tpu_torch.render.silhouette import soft_coverage
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 from ray_marching_tpu_torch.scene.graph import Node, compile_scene
 from ray_marching_tpu_torch.scene.neural import NeuralSDF, resolve_impl
 from ray_marching_tpu_torch.utils import clamp, resolve_device, rmax, rmin
-from ray_marching_tpu_torch.utils import not_ported as _not_ported
 
 LANES = 128
 ROWS_PER_TILE = 256
@@ -88,10 +100,34 @@ def max_matmul_neural_width(node) -> int:
                default=0)
 
 
-def _to_planes(flat: np.ndarray, rows: int) -> np.ndarray:
-    out = np.zeros((rows, LANES), flat.dtype)
-    out.reshape(-1)[: flat.shape[0]] = flat
-    return out
+def bake_ray_planes(positions, directions, rows, dtype, device):
+    """Two triples of (H, W) pixel-grid components (numpy arrays or
+    tensors) → two triples of (rows, 128) planes in ``dtype`` on ``device``,
+    pad slots zero."""
+    def plane(c):
+        c = torch.as_tensor(c, device=device).reshape(-1).to(dtype)
+        out = torch.zeros(rows * LANES, dtype=dtype, device=device)
+        out[: c.shape[0]] = c
+        return out.reshape(rows, LANES)
+
+    return (tuple(plane(c) for c in positions),
+            tuple(plane(c) for c in directions))
+
+
+def _travel(origin, hit):
+    """Each ray's travel distance from its origin to its hit point."""
+    ex, ey, ez = (o - h for o, h in zip(origin, hit[:3]))
+    return torch.sqrt(ex * ex + ey * ey + ez * ez)
+
+
+def pose_plane_group(q, t, pos0, dir0):
+    """World-pose one camera's baked planes: rotate by the (1, 4) unit
+    quaternion row, translate positions by the (1, 3) row. Returns
+    ``(origin, dirs)`` triples (the plain and tiled paths share it)."""
+    qw, qx, qy, qz = (q[0, i] for i in range(4))
+    px, py, pz = quat.rotate_c(qw, qx, qy, qz, *pos0)
+    origin = (px + t[0, 0], py + t[0, 1], pz + t[0, 2])
+    return origin, quat.rotate_c(qw, qx, qy, qz, *dir0)
 
 
 class FastRenderer:
@@ -108,13 +144,9 @@ class FastRenderer:
         if config.backward not in ("unroll", "implicit"):
             raise ValueError(f"backward must be unroll|implicit, got "
                              f"{config.backward!r}")
-        if config.cmap_fourier:
-            raise _not_ported("cmap_fourier")
         if march_impl not in ("auto", "fused", "xla"):
             raise ValueError(f"march_impl must be auto|fused|xla, "
                              f"got {march_impl!r}")
-        if march_impl == "xla" and config.backward == "implicit":
-            raise _not_ported("march_impl='xla' with backward='implicit'")
         # 'auto' takes the kernel for every scene. The JAX package sends
         # narrow matmul scenes to its XLA march by thresholds measured on a
         # TPU v5e (NEURAL_MARCH_FUSED_MIN_WIDTH*), which do not carry over.
@@ -129,6 +161,8 @@ class FastRenderer:
         _, self.sdf_c, self.init_params = compile_scene(scene, dtype,
                                                         self.device)
         self.cyclic_cmap = shaders.load_cyclic_cmap(dtype, self.device)
+        self.cmap_coeffs = (shaders.fourier_cmap_coeffs()
+                            if config.cmap_fourier else None)
 
         h, w = config.px_height, config.px_width
         self.num_cameras = config.num_cameras
@@ -139,12 +173,10 @@ class FastRenderer:
 
         positions, directions = _pixel_center_grid(config.camera_config,
                                                    grid_dtype)
-        self._pos0, self._dir0 = (
-            tuple(self._tensor(_to_planes(a[..., i].reshape(-1),
-                                          self.rows_per_cam))
-                  for i in range(3))
-            for a in (positions, directions)
-        )
+        self._pos0, self._dir0 = bake_ray_planes(
+            [positions[..., i] for i in range(3)],
+            [directions[..., i] for i in range(3)], self.rows_per_cam, dtype,
+            self.device)
         valid = np.zeros((self.rows_per_cam * LANES,), np.float32)
         valid[: self.total] = 1.0
         valid = valid.reshape(self.rows_per_cam, LANES)
@@ -161,11 +193,11 @@ class FastRenderer:
         """World-space position/direction planes, cameras stacked row-wise."""
         pos, dirs = [], []
         for n in range(self.num_cameras):
-            qw, qx, qy, qz = (orientation[n, i] for i in range(4))
-            tx, ty, tz = (translation[n, i] for i in range(3))
-            px, py, pz = quat.rotate_c(qw, qx, qy, qz, *self._pos0)
-            pos.append((px + tx, py + ty, pz + tz))
-            dirs.append(quat.rotate_c(qw, qx, qy, qz, *self._dir0))
+            o, d = pose_plane_group(orientation[n:n + 1],
+                                    translation[n:n + 1], self._pos0,
+                                    self._dir0)
+            pos.append(o)
+            dirs.append(d)
         if self.num_cameras == 1:
             return pos[0], dirs[0]
         return (
@@ -185,39 +217,75 @@ class FastRenderer:
                                 for group in plane_groups]))
         return [torch.cat([o[c] for o in outs], dim=0) for c in range(3)]
 
-    def _masked_min(self, v):
+    def _masked_min(self, v, valid_b=None):
+        """Whole-batch min over the valid slots (``valid_b`` overrides the
+        renderer's own mask: a tiled strip's)."""
+        valid_b = self._valid_b if valid_b is None else valid_b
         big = float(np.finfo(np.float32).max)
-        return rmin(torch.where(self._valid_b, v, big))
+        return rmin(torch.where(valid_b, v, big))
 
-    def _masked_max(self, v):
+    def _masked_max(self, v, valid_b=None):
+        valid_b = self._valid_b if valid_b is None else valid_b
         big = float(np.finfo(np.float32).max)
-        return rmax(torch.where(self._valid_b, v, -big))
+        return rmax(torch.where(valid_b, v, -big))
 
-    def _log_minmax_norm(self, dists):
+    def _log_minmax_norm(self, dists, valid_b=None, bounds=None):
         log_d = torch.log(clamp(dists, 1e-2))
-        lo = self._masked_min(log_d)
-        hi = self._masked_max(log_d)
+        if bounds is not None:  # precomputed whole-image bounds (tiled)
+            lo, hi = bounds
+        else:
+            lo = self._masked_min(log_d, valid_b)
+            hi = self._masked_max(log_d, valid_b)
         return ((log_d - lo) / (hi - lo)) ** _GAMMA
 
-    def _shade(self, mode, degree, orientation, origin, dirs, hit):
-        """Componentwise shaders on planes; returns [r, g, b] planes."""
-        x, y, z, d, nx, ny, nz, lap = hit
-        dx, dy, dz = dirs
-        if isinstance(mode, str) and mode in EXTRA_MODES:
-            raise _not_ported(f"lighting mode {mode!r}")
+    def norm_bounds(self, mode, origin, hit, valid_b=None):
+        """``(lo, hi)`` of ``mode``'s whole-image normalization statistic over
+        this renderer's valid rays: pass 1 of the tiled renderer's two
+        passes, where the whole-image min/max must span every strip before
+        any strip can shade. The formulas of the matching :meth:`_shade`
+        branches; modes without a normalization give ``(0, 1)``."""
         name = mode if isinstance(mode, str) \
             else shaders.MODES[mode % len(shaders.MODES)]
+        if name == "distance":
+            raw = torch.log(clamp(_travel(origin, hit), 1e-2))
+        elif name == "proximity":
+            raw = torch.log(clamp(hit[3], 1e-2))
+        elif name == "laplacian":
+            raw = torch.abs(hit[7])
+        else:
+            zero = torch.zeros((), dtype=hit[0].dtype, device=hit[0].device)
+            return zero, zero + 1.0
+        return (self._masked_min(raw, valid_b),
+                self._masked_max(raw, valid_b))
+
+    def _shade(self, mode, degree, orientation, origin, dirs, hit,
+               valid_b=None, norm_bounds=None, params=None):
+        """Componentwise shaders on planes; returns [r, g, b] planes.
+
+        ``valid_b`` overrides the mask of the whole-batch normalizations and
+        ``norm_bounds`` replaces them with precomputed whole-image bounds
+        (:meth:`norm_bounds`; the tiled renderer's pass 2). ``params`` is
+        needed by the lighting modes only (they query the SDF again)."""
+        x, y, z, d, nx, ny, nz, lap = hit
+        dx, dy, dz = dirs
+        name = mode if isinstance(mode, str) \
+            else shaders.MODES[mode % len(shaders.MODES)]
+        if name in lighting.EXTRA_MODES:
+            if params is None:
+                raise ValueError(f"mode {name!r} needs scene params (extra "
+                                 "SDF queries)")
+            v = lighting.shade_extra(name, self.sdf_c, params, (x, y, z),
+                                     (nx, ny, nz), self.config)
+            return [v, v, v]
         if name == "lambertian":
             v = clamp(-(dx * nx + dy * ny + dz * nz), 0.0, 1.0)
             return [v, v, v]
         if name == "distance":
-            ox, oy, oz = origin
-            ex, ey, ez = ox - x, oy - y, oz - z
-            dist = torch.sqrt(ex * ex + ey * ey + ez * ez)
-            v = self._log_minmax_norm(dist)
+            v = self._log_minmax_norm(_travel(origin, hit), valid_b,
+                                      norm_bounds)
             return [v, v, v]
         if name == "proximity":
-            v = self._log_minmax_norm(d)
+            v = self._log_minmax_norm(d, valid_b, norm_bounds)
             return [v, v, v]
         if name == "vignette":
             def vignette_cam(n, dirs_n):
@@ -233,7 +301,8 @@ class FastRenderer:
         if name == "normal":
             return [clamp(torch.abs(c), 0.0, 1.0) for c in (nx, ny, nz)]
         if name == "laplacian":
-            hi = self._masked_max(torch.abs(lap))
+            hi = (norm_bounds[1] if norm_bounds is not None
+                  else self._masked_max(torch.abs(lap), valid_b))
             v = clamp((1.0 - lap / hi) / 2.0, 0.0, 1.0) ** _GAMMA
             return [v, v, v]
         if name == "tangent":
@@ -248,7 +317,7 @@ class FastRenderer:
                 )
                 prx, pry, _ = quat.rotate_c(*qc, tx_, ty_, tz_)
                 return shaders.domain_colouring(prx, pry, self.cyclic_cmap,
-                                                degree)
+                                                degree, self.cmap_coeffs)
             return self._per_camera(tangent_cam, [dx, dy, dz], [nx, ny, nz])
         if name != "spin":
             raise ValueError(f"unknown shader mode {mode!r}")
@@ -264,34 +333,40 @@ class FastRenderer:
             real_part = a * a - b2
             imag_part = torch.sqrt(b2) * a * 2.0
             return shaders.domain_colouring(imag_part, real_part,
-                                            self.cyclic_cmap, degree)
+                                            self.cyclic_cmap, degree,
+                                            self.cmap_coeffs)
         return self._per_camera(spin_cam, [nx, ny, nz])
 
     # -- public API --------------------------------------------------------
 
-    def _march_planes(self, params, origin, dirs, steps, with_closest=False):
+    def _march_planes(self, params, origin, dirs, steps, valid=None,
+                      with_closest=False):
         """Fused march (+ reflection bounces, mirror formula of the JAX
         renderer); returns the 8 hit planes and the final direction planes.
+        ``valid`` overrides the renderer's validity plane (a tiled strip's).
         ``with_closest`` also returns the closest-approach plane ``min_f``
         (primary visibility only: no reflection bounces)."""
         cfg = self.config
+        valid = self._valid if valid is None else valid
         flat, mats, _ = split_params_padded(params, self.dtype, self.device)
-        march = fused_march_normals_cov if with_closest else fused_march_normals
+        if self.march_impl == "xla":
+            plain, cov = xla_march_normals, xla_march_normals_cov
+            ift, cov_ift = xla_march_normals_ift, xla_march_normals_cov_ift
+        else:
+            plain, cov = fused_march_normals, fused_march_normals_cov
+            ift = fused_march_normals_ift
+            cov_ift = partial(fused_march_normals_ift, track_min=True)
+        if cfg.backward == "implicit":
+            march = partial(cov_ift if with_closest else ift,
+                            hit_threshold=cfg.ift_hit_threshold,
+                            denom_eps=cfg.ift_denom_eps)
+        else:
+            march = cov if with_closest else plain
 
         def run(origin, dirs):
-            rays7 = torch.stack(list(origin) + list(dirs) + [self._valid], 0)
-            if self.march_impl == "xla":
-                out = _reference_march(self.program, flat, rays7, steps,
-                                       cfg.tau, cfg.normals_eps,
-                                       track_min=with_closest, mats=mats)[0]
-            elif cfg.backward == "implicit":
-                out = fused_march_normals_ift(
-                    self.program, flat, rays7, steps, cfg.tau,
-                    cfg.normals_eps, cfg.ift_hit_threshold,
-                    cfg.ift_denom_eps, track_min=with_closest, mats=mats)
-            else:
-                out = march(self.program, flat, rays7, steps, cfg.tau,
-                            cfg.normals_eps, mats=mats)
+            rays7 = torch.stack(list(origin) + list(dirs) + [valid], 0)
+            out = march(self.program, flat, rays7, steps, cfg.tau,
+                        cfg.normals_eps, mats=mats)
             return list(out.unbind(0))
 
         hit = run(origin, dirs)
@@ -323,7 +398,7 @@ class FastRenderer:
         origin, dirs = self._pose_planes(orientation, translation)
         hit, final_dirs = self._march_planes(params, origin, dirs, steps)
         channels = self._shade(mode, degree, orientation, origin, final_dirs,
-                               hit)
+                               hit, params=params)
         return self._assemble(channels)
 
     def render_with_alpha(self, params, orientation, translation, *,
@@ -346,7 +421,7 @@ class FastRenderer:
         hit, final_dirs, minf = self._march_planes(params, origin, dirs, steps,
                                                    with_closest=True)
         channels = self._shade(mode, degree, orientation, origin, final_dirs,
-                               hit)
+                               hit, params=params)
         return (self._assemble(channels),
                 self._assemble([soft_coverage(minf, beta)]))
 
@@ -380,19 +455,28 @@ class FastRenderer:
     def render_all_modes(self, params, orientation, translation, *,
                          degree: int = 1, marching_steps: Optional[int] = None,
                          extras: bool = False):
-        """All 8 geometric shader modes from ONE fused march+normals pass."""
-        if extras:
-            raise _not_ported("render_all_modes(extras=True)")
+        """All 8 geometric shader modes from ONE fused march+normals pass;
+        ``extras=True`` adds the named lighting modes, shaded from the same
+        hit planes."""
         cfg = self.config
         steps = cfg.marching_steps if marching_steps is None else marching_steps
         orientation, translation = self._pose(orientation, translation)
         origin, dirs = self._pose_planes(orientation, translation)
         hit, final_dirs = self._march_planes(params, origin, dirs, steps)
+        modes = list(enumerate(shaders.MODES))
+        if extras:
+            modes += [(name, name) for name in lighting.EXTRA_MODES]
         return {
             name: self._assemble(self._shade(mode, degree, orientation, origin,
-                                             final_dirs, hit))
-            for mode, name in enumerate(shaders.MODES)
+                                             final_dirs, hit, params=params))
+            for mode, name in modes
         }
+
+    def jitted(self, **render_kwargs):
+        """``f(params, orientation, translation) -> image`` with
+        ``render_kwargs`` bound; nothing is compiled (the name is the JAX
+        package's)."""
+        return partial(self.render, **render_kwargs)
 
     def default_pose(self):
         n = self.num_cameras
@@ -400,4 +484,3 @@ class FastRenderer:
             self._tensor([[1.0, 0.0, 0.0, 0.0]] * n),
             self._tensor([[0.0, 0.0, 1.0]] * n),
         )
-

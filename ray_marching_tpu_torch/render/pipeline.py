@@ -12,7 +12,9 @@ configuration reads the same in both packages) and selects the hand-written
 CUDA march kernel (:mod:`ray_marching_tpu_torch.ops.march_kernel`; its plain
 version for CPU tensors). ``RenderConfig`` has the same fields and defaults
 as the JAX one; options this port does not run yet are rejected by the
-renderer that reads them.
+renderer that reads them. The named lighting modes (``mode="occlusion"`` /
+``"shaded"``, :mod:`.lighting`) shade the marched points with further SDF
+queries, on the same componentwise core as the plane-native renderer.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ray_marching_tpu_torch.camera import Camera, CameraConfig
+from ray_marching_tpu_torch.render import lighting
 from ray_marching_tpu_torch.render import march as march_mod
 from ray_marching_tpu_torch.render import shaders
 from ray_marching_tpu_torch.render.normals import (
@@ -32,9 +35,7 @@ from ray_marching_tpu_torch.render.normals import (
     autodiff_normals,
 )
 from ray_marching_tpu_torch.scene.graph import Node, compile_scene
-from ray_marching_tpu_torch.utils import not_ported, resolve_device
-
-EXTRA_MODES = ("occlusion", "shaded")
+from ray_marching_tpu_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -87,8 +88,6 @@ class Renderer:
         if config.backward not in ("unroll", "implicit"):
             raise ValueError(f"backward must be unroll|implicit, got "
                              f"{config.backward!r}")
-        if config.cmap_fourier:
-            raise not_ported("cmap_fourier")
         self.device = resolve_device(device)
         self.config = config
         self.dtype = dtype
@@ -105,7 +104,8 @@ class Renderer:
         self.normals = NormalsEstimator(config.normals_eps, dtype=dtype,
                                         device=self.device)
         self.cyclic_cmap = shaders.load_cyclic_cmap(dtype, self.device)
-        self.cmap_coeffs = None
+        self.cmap_coeffs = (shaders.fourier_cmap_coeffs()
+                            if config.cmap_fourier else None)
 
     def _tensor(self, a):
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -119,9 +119,10 @@ class Renderer:
 
         ``orientation`` (N, 4) are unit quaternions and ``translation``
         (N, 3) camera positions; ``mode`` is the shader index (0..7, wraps
-        mod 8), ``degree`` the winding degree of the tangent/spin colouring,
-        ``marching_steps`` overrides the configuration's. ``axis_names``
-        must be empty (sharded reductions are not ported)."""
+        mod 8) or a lighting mode's name, ``degree`` the winding degree of
+        the tangent/spin colouring, ``marching_steps`` overrides the
+        configuration's. ``axis_names`` must be empty (sharded reductions
+        are not ported)."""
         orientation = self._tensor(orientation)
         translation = self._tensor(translation)
         pixel_pos, pixel_frames, ray_pos, ray_dirs = self.camera.pose(
@@ -144,13 +145,23 @@ class Renderer:
             normals = autodiff_normals(self.sdf_vec, params, surface_coords)
         return distances, normals, laplacian
 
-    def _shade(self, mode, degree, axis_names, **fields):
-        if isinstance(mode, str) and mode in EXTRA_MODES:
-            raise not_ported(f"lighting mode {mode!r}")
-        image = shaders.shade(mode, cyclic_cmap=self.cyclic_cmap,
-                              cmap_coeffs=self.cmap_coeffs, degree=degree,
-                              axis_names=axis_names, **fields)
+    def _shade(self, mode, degree, axis_names, params, **fields):
+        if isinstance(mode, str) and mode in lighting.EXTRA_MODES:
+            image = self._shade_extra(mode, params, fields["surface_coords"],
+                                      fields["surface_normals"])
+        else:
+            image = shaders.shade(mode, cyclic_cmap=self.cyclic_cmap,
+                                  cmap_coeffs=self.cmap_coeffs, degree=degree,
+                                  axis_names=axis_names, **fields)
         return self._broadcast(image)
+
+    def _shade_extra(self, name, params, surface_coords, surface_normals):
+        """One lighting mode on the (N, H, W, 3) grids → (N, H, W, 1)."""
+        return lighting.shade_extra(
+            name, self.sdf_c, params,
+            tuple(surface_coords[..., i] for i in range(3)),
+            tuple(surface_normals[..., i] for i in range(3)),
+            self.config)[..., None]
 
     def _broadcast(self, image):
         h, w = self.config.px_height, self.config.px_width
@@ -167,7 +178,7 @@ class Renderer:
         distances, normals, laplacian = self._surface(
             params, surface_coords, self.config.use_autodiff_normals)
         return self._shade(
-            mode, degree, axis_names,
+            mode, degree, axis_names, params,
             px_coords=pixel_pos, camera_orientation=orientation,
             pixel_frames=pixel_frames, ray_directions=ray_dirs,
             surface_coords=surface_coords, surface_normals=normals,
@@ -211,7 +222,7 @@ class Renderer:
                 remat=cfg.remat)
         distances, normals, laplacian = self._surface(params, surface_coords)
         image = self._shade(
-            mode, degree, axis_names,
+            mode, degree, axis_names, params,
             px_coords=pixel_pos, camera_orientation=orientation,
             pixel_frames=pixel_frames, ray_directions=ray_dirs,
             surface_coords=surface_coords, surface_normals=normals,
@@ -220,9 +231,8 @@ class Renderer:
 
     def render_all_modes(self, params, orientation, translation, *, degree=1,
                          marching_steps=None, axis_names=(), extras=False):
-        """All 8 shader modes from one march: ``{mode_name: image}``."""
-        if extras:
-            raise not_ported("render_all_modes(extras=True)")
+        """All 8 shader modes from one march: ``{mode_name: image}``;
+        ``extras=True`` adds the named lighting modes from the same march."""
         orientation = self._tensor(orientation)
         translation = self._tensor(translation)
         pixel_pos, pixel_frames, ray_pos, ray_dirs = self.camera.pose(
@@ -237,6 +247,10 @@ class Renderer:
             surface_laplacian=laplacian, surface_distances=distances,
             cyclic_cmap=self.cyclic_cmap, cmap_coeffs=self.cmap_coeffs,
             degree=degree, axis_names=axis_names)
+        if extras:
+            for name in lighting.EXTRA_MODES:
+                images[name] = self._shade_extra(name, params, surface_coords,
+                                                 normals)
         return {k: self._broadcast(v) for k, v in images.items()}
 
     # -- internals ---------------------------------------------------------

@@ -10,8 +10,10 @@ package. Formula-exact including the quirks the golden images depend on: the
 normalisations (``utils.rmin``/``rmax``), the spin shader's ``(im, re)``
 passed into the ``(real, imag)`` slots, and the 4096-row colourmap
 (``data/cyclic_cmap.npy``, this package's own copy) gathered exactly by
-``floor → int → mod``. Not ported yet: the Fourier colourmap
-(``cmap_coeffs``) and reductions across mesh axes (``axis_names``).
+``floor → int → mod``. ``cmap_coeffs`` (``RenderConfig.cmap_fourier``)
+swaps the gather for an 8-harmonic Fourier fit of the same table, evaluated
+without a gather or a transcendental. Not ported yet: reductions across mesh
+axes (``axis_names``).
 """
 
 from __future__ import annotations
@@ -61,11 +63,83 @@ def angle_colouring(real, imag, cyclic_cmap, degree):
     return [rows[..., c] for c in range(3)]
 
 
-def domain_colouring(real, imag, cyclic_cmap, degree):
-    """Angle colouring scaled by the modulus, as 3 channel planes."""
-    cols = angle_colouring(real, imag, cyclic_cmap, degree)
+def domain_colouring(real, imag, cyclic_cmap, degree, cmap_coeffs=None):
+    """Angle colouring scaled by the modulus, as 3 channel planes (the
+    Fourier hue when ``cmap_coeffs`` is given)."""
+    cols = (angle_colouring(real, imag, cyclic_cmap, degree)
+            if cmap_coeffs is None
+            else angle_colouring_fourier(real, imag, cmap_coeffs, degree))
     brightness = torch.sqrt(real * real + imag * imag)
     return [brightness * c for c in cols]
+
+
+# -- gather-free colourmap (Fourier evaluation) -----------------------------
+#
+# The colourmap is band-limited: an 8-harmonic Fourier fit matches it to
+# 0.02/255, far below the table's own 1/4096-turn quantization. Evaluating
+# the series takes ~60 multiply-adds, no gather and no atan2 (the angle
+# enters through cos/sin, from re/im by normalization and de Moivre), and
+# is differentiable in the angle where the gather is piecewise constant.
+# Opt-in (RenderConfig.cmap_fourier): golden parity pins the gather.
+
+FOURIER_HARMONICS = 8
+
+
+def fourier_cmap_coeffs(cmap=None, harmonics: int = FOURIER_HARMONICS):
+    """Least-squares Fourier fit of a cyclic colourmap (default: this
+    package's ``data/cyclic_cmap.npy``).
+
+    Returns (1 + 2·harmonics, 3) numpy float64 coefficients ordered
+    [dc, cos 1θ, sin 1θ, cos 2θ, sin 2θ, …], table row ``i`` placed at the
+    bin-centre angle ``(i + 0.5)·2π/K``."""
+    cm = np.asarray(np.load(_CMAP_PATH) if cmap is None else cmap,
+                    np.float64)
+    k = cm.shape[0]
+    theta = (np.arange(k) + 0.5) * (2.0 * np.pi / k)
+    cols = [np.ones(k)]
+    for h in range(1, harmonics + 1):
+        cols += [np.cos(h * theta), np.sin(h * theta)]
+    coef, *_ = np.linalg.lstsq(np.stack(cols, axis=1), cm, rcond=None)
+    return coef
+
+
+def angle_colouring_fourier(real, imag, coeffs, degree):
+    """Gather-free :func:`angle_colouring`: the Fourier fit at the
+    continuous angle ``degree·(atan2(im, re) + π)``. ``cos``/``sin`` of the
+    base angle come from normalizing (re, im), the degree multiple and the
+    harmonics from angle-addition recurrences. Returns 3 channel tensors
+    shaped like ``real``."""
+    r = torch.sqrt(real * real + imag * imag)
+    pos = r > 0
+    safe = torch.where(pos, r, torch.ones_like(r))
+    # Base angle a + π: cos = −re/r, sin = −im/r; r == 0 gives the gather's
+    # atan2(0, 0) = 0, so the angle π.
+    c0 = torch.where(pos, -real / safe, -torch.ones_like(r))
+    s0 = torch.where(pos, -imag / safe, torch.zeros_like(r))
+    cd, sd = torch.ones_like(c0), torch.zeros_like(s0)
+    for _ in range(abs(int(degree))):
+        cd, sd = cd * c0 - sd * s0, cd * s0 + sd * c0
+    if degree < 0:
+        sd = -sd
+    # The coefficients rounded to the tensors' dtype, as JAX's
+    # jnp.asarray(c, dtype) does.
+    coef = torch.as_tensor(np.asarray(coeffs), dtype=real.dtype).tolist()
+    harmonics = (len(coef) - 1) // 2
+    out = [torch.full_like(real, coef[0][j]) for j in range(3)]
+    ch, sh = cd, sd
+    for h in range(1, harmonics + 1):
+        for j in range(3):
+            out[j] = out[j] + coef[2 * h - 1][j] * ch + coef[2 * h][j] * sh
+        if h < harmonics:
+            ch, sh = ch * cd - sh * sd, ch * sd + sh * cd
+    return out
+
+
+def domain_colouring_fourier(real, imag, coeffs, degree):
+    """Gather-free domain colouring, vector form: (..., 3)."""
+    cols = angle_colouring_fourier(real, imag, coeffs, degree)
+    brightness = torch.sqrt(real**2 + imag**2)
+    return torch.stack([brightness * c for c in cols], dim=-1)
 
 
 # -- vector-form shaders: (N, H, W, ·) tensors ------------------------------
@@ -131,14 +205,15 @@ def tangent(camera_orientation_conj, ray_directions, surface_normals,
             cyclic_cmap, degree=1, cmap_coeffs=None):
     """Screen-space tangent field: N projected onto the sensor plane, rotated
     into the camera frame with q̄, domain-coloured → 3 channels."""
-    if cmap_coeffs is not None:
-        raise not_ported("cmap_fourier")
     projected = quat.rotation(
         surface_normals
         - torch.sum(surface_normals * ray_directions, dim=-1, keepdim=True)
         * ray_directions,
         camera_orientation_conj,
     )
+    if cmap_coeffs is not None:
+        return domain_colouring_fourier(projected[..., 0], projected[..., 1],
+                                        cmap_coeffs, degree)
     return _domain_colouring_vec(projected[..., 0], projected[..., 1],
                                  cyclic_cmap, degree)
 
@@ -147,8 +222,6 @@ def spin(camera_orientation_conj, surface_normals, cyclic_cmap, degree=1,
          cmap_coeffs=None):
     """S³→S¹ fibration colouring of ``q̄·(0, N)``; the ``(im, re)`` pair goes
     into domain colouring's ``(real, imag)`` slots, as in the reference."""
-    if cmap_coeffs is not None:
-        raise not_ported("cmap_fourier")
     zeros = torch.zeros(surface_normals.shape[:-1] + (1,),
                         dtype=surface_normals.dtype,
                         device=surface_normals.device)
@@ -157,6 +230,9 @@ def spin(camera_orientation_conj, surface_normals, cyclic_cmap, degree=1,
     a, bcd = value[..., 0], value[..., 1:]
     real_part = a**2 - torch.sum(bcd**2, dim=-1)
     imag_part = torch.linalg.norm(bcd, dim=-1) * a * 2.0
+    if cmap_coeffs is not None:
+        return domain_colouring_fourier(imag_part, real_part, cmap_coeffs,
+                                        degree)
     return _domain_colouring_vec(imag_part, real_part, cyclic_cmap, degree)
 
 

@@ -293,6 +293,13 @@ def param_paths(params, prefix=""):
     return out
 
 
+def map_params(params, fn):
+    """The parameter dict with ``fn`` applied to every leaf."""
+    if isinstance(params, dict):
+        return {k: map_params(v, fn) for k, v in params.items()}
+    return fn(params)
+
+
 def params_from_jax(tree, dtype=torch.float32, device="cpu"):
     """The JAX package's parameter pytree, given as nested dicts of numpy
     arrays (``jax.device_get`` of it, or ``np.asarray`` per leaf), as this

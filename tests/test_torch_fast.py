@@ -156,9 +156,11 @@ def test_default_device_needs_cuda():
 @pytest.mark.parametrize("what", ["implicit", "cmap_fourier", "occlusion",
                                   "alpha", "extras"])
 def test_unported_options_raise(what):
-    """What the port does not run yet raises NotImplementedError; what the
-    training slice ported (``backward="implicit"``, ``render_with_alpha``)
-    now runs, and only rejects what the JAX package rejects too."""
+    """What a slice has ported runs, and only rejects what the JAX package
+    rejects too: ``backward="implicit"`` and ``render_with_alpha`` since the
+    training slice, ``cmap_fourier``, the ``occlusion`` mode and
+    ``render_all_modes(extras=True)`` since the lighting slice
+    (tests/test_torch_lighting.py holds their values against JAX)."""
     scene = treg.make_scene("test_scene2")
     kw = _cfg_kwargs(16, 8)
     if what == "implicit":
@@ -179,14 +181,20 @@ def test_unported_options_raise(what):
         return
     if what == "cmap_fourier":
         kw["cmap_fourier"] = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        r = FastRenderer(scene, RenderConfig(**kw), dtype=torch.float64,
-                         device="cpu")
-        q, t = r.default_pose()
-        if what == "occlusion":
-            r.render(r.init_params, q, t, mode="occlusion")
-        elif what == "extras":
-            r.render_all_modes(r.init_params, q, t, extras=True)
+    r = FastRenderer(scene, RenderConfig(**kw), dtype=torch.float64,
+                     device="cpu")
+    q, t = r.default_pose()
+    if what == "occlusion":
+        img = r.render(r.init_params, q, t, mode="occlusion")
+        assert img.shape == (1, 8, 16, 3) and bool(torch.isfinite(img).all())
+        with pytest.raises(ValueError, match="unknown"):
+            r.render(r.init_params, q, t, mode="glossy")
+    elif what == "extras":
+        images = r.render_all_modes(r.init_params, q, t, extras=True)
+        assert set(images) == set(MODES) | {"occlusion", "shaded"}
+    else:
+        assert r.cmap_coeffs is not None
+        assert r.render(r.init_params, q, t, mode=7).shape == (1, 8, 16, 3)
 
 
 def test_cli_render_writes_png(tmp_path):

@@ -331,6 +331,10 @@ def test_camera_and_normals_default_to_the_card(which):
 @pytest.mark.parametrize("what", ["cmap_fourier", "occlusion", "extras",
                                   "axis_names", "backward"])
 def test_unported_options_raise(what):
+    """``axis_names`` (the parallel slice) still raises NotImplementedError;
+    ``cmap_fourier``, the ``occlusion`` mode and ``extras=True`` run since
+    the lighting slice (tests/test_torch_lighting.py holds their values
+    against JAX); a bad ``backward`` is rejected as in JAX."""
     scene = treg.make_scene("test_scene2")
     kw = _cfg_kwargs(16, 8, marching_steps=4)
     if what == "backward":
@@ -340,16 +344,20 @@ def test_unported_options_raise(what):
         return
     if what == "cmap_fourier":
         kw["cmap_fourier"] = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        r = Renderer(scene, RenderConfig(**kw), dtype=torch.float64,
-                     device="cpu")
-        q, t = r.default_pose()
-        if what == "occlusion":
-            r.render(r.init_params, q, t, mode="occlusion")
-        elif what == "extras":
-            r.render_all_modes(r.init_params, q, t, extras=True)
-        else:
+    r = Renderer(scene, RenderConfig(**kw), dtype=torch.float64, device="cpu")
+    q, t = r.default_pose()
+    if what == "axis_names":
+        with pytest.raises(NotImplementedError, match="not ported"):
             r.render(r.init_params, q, t, mode=1, axis_names=("x",))
+    elif what == "occlusion":
+        img = r.render(r.init_params, q, t, mode="occlusion")
+        assert img.shape == (1, 8, 16, 3) and bool(torch.isfinite(img).all())
+    elif what == "extras":
+        images = r.render_all_modes(r.init_params, q, t, extras=True)
+        assert {"occlusion", "shaded"} <= set(images)
+    else:
+        assert r.cmap_coeffs is not None
+        assert r.render(r.init_params, q, t, mode=6).shape == (1, 8, 16, 3)
 
 
 def test_default_pose_and_init_params_match_jax(tmp_path):
