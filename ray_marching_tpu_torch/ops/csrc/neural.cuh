@@ -317,10 +317,11 @@ __device__ __forceinline__ T rm_mlp_last(const T* __restrict__ b,
 //    (2 units x 4 rows per k-step) from the rays' positions, which one
 //    __shfl_sync each brings; the hidden vector never goes to memory;
 //  - the hidden layer N1 -> N2 runs on mma.sync: f32 in 3xTF32, each operand
-//    split as hi = tf32(v), lo = tf32(v - hi) (cvt.rna) and the product taken
-//    as lo*hi + hi*lo + hi*hi into f32 accumulators (one TF32 pass keeps
-//    about 3 decimal digits: it moves the w256 distance by 4.8e-5, three by
-//    2.4e-7, tests/test_torch_neural_tc.py); bf16 operands
+//    split as hi = tf32(v), lo = tf32(v - hi) (cvt.rna) and each k-step's
+//    product taken as lo*hi + hi*lo + hi*hi from zero and added to the
+//    running sum in SIMT f32 (rm_mma_3xtf32; one TF32 pass keeps about 3
+//    decimal digits: it moves the w256 distance by 4.8e-5, three by 2.4e-7,
+//    tests/test_torch_neural_tc.py); bf16 operands
 //    (matmul_dtype='bfloat16') one m16n8k16 pass, the operands rounded by
 //    __float2bfloat16_rn as rm_operand rounds them;
 //  - B (the weights) comes prepared by the wrapper in fragment order
@@ -363,6 +364,19 @@ __device__ __forceinline__ void rm_mma_tf32(float (&d)[4], const float (&a)[4],
         "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
 }
 
+// d = a b on one m16n8k8 tile, TF32 operands: the accumulators start at
+// zero (a constant C operand; no registers to clear).
+__device__ __forceinline__ void rm_mma_tf32_z(float (&d)[4],
+                                              const float (&a)[4], float b0,
+                                              float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)), "f"(0.0f));
+}
+
 // d += a b on one m16n8k16 tile, bf16 operands, f32 accumulators.
 __device__ __forceinline__ void rm_mma_bf16(float (&d)[4],
                                             const unsigned int (&a)[4],
@@ -373,10 +387,63 @@ __device__ __forceinline__ void rm_mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// How an f32 (3xTF32) product on the tensor cores sums its k-steps. An
+// mma adds its products to its C operand inside the tensor core, whose
+// accumulation is not IEEE round-to-nearest: it truncates (Ootomo and
+// Yokota, IJHPCA 2022, on Ampere). Chained through one accumulator tile
+// over all three passes of every k-step (the first design: 96 truncations
+// at the running sum's size for a 256-deep product), the w256 field's f32
+// gradient lay 14x further from f64 than plain f32's. So the primal's
+// hidden layer takes each k-step's three passes into a tile that starts at
+// zero and adds it to the running sum in SIMT f32 (round to nearest), as
+// the bf16 primal does (rm_mma_3xtf32); the VJP's W1·δ2 and the sink take
+// hi·hi the same way and chain the two correction passes in a second tile,
+// added at the end (rm_mma_3xtf32_split; it holds twice the accumulators,
+// so a pass takes half the columns). Measured on the w256 field (H100;
+// PERF.md §6 lists the other schemes tried, tools/torch_tc_variants.py
+// accuracy rebuilds them): the training loss's gradient 5.7e-2 -> 8.9e-3
+// from f64 (per thread 4.2e-3) for 1.32x the serving forward's time, the
+// cheapest scheme to reach 1e-2; the VJP's and the sink's bring the
+// converged pixels' gradient to the per-thread route's (4.4e-6 -> 2.5e-7)
+// for 1.01x the backward's time, where the primal's would cost it 1.4x.
+
+// One k-step of a 3xTF32 product on one m16n8k8 tile: lo(a)·hi(b) +
+// hi(a)·lo(b) + hi(a)·hi(b) into a tile from zero, added to acc in SIMT
+// f32.
+__device__ __forceinline__ void rm_mma_3xtf32(float (&acc)[4],
+                                              const float (&ahi)[4],
+                                              const float (&alo)[4],
+                                              float bhi0, float bhi1,
+                                              float blo0, float blo1) {
+  float t[4];
+  rm_mma_tf32_z(t, alo, bhi0, bhi1);
+  rm_mma_tf32(t, ahi, blo0, blo1);
+  rm_mma_tf32(t, ahi, bhi0, bhi1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = acc[e] + t[e];
+}
+
+// The same k-step with the corrections lo(a)·hi(b) + hi(a)·lo(b) chained
+// in cor and hi(a)·hi(b) from zero, added to acc in SIMT f32: the product
+// is acc + cor after the last k-step.
+__device__ __forceinline__ void rm_mma_3xtf32_split(float (&acc)[4],
+                                                    float (&cor)[4],
+                                                    const float (&ahi)[4],
+                                                    const float (&alo)[4],
+                                                    float bhi0, float bhi1,
+                                                    float blo0, float blo1) {
+  rm_mma_tf32(cor, alo, bhi0, bhi1);
+  rm_mma_tf32(cor, ahi, blo0, blo1);
+  float t[4];
+  rm_mma_tf32_z(t, ahi, bhi0, bhi1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = acc[e] + t[e];
+}
+
 // Columns per pass: the largest multiple of 8 that divides n and keeps a
-// lane's accumulators (cols over the two m-tiles) within 128.
-__host__ __device__ constexpr int rm_tc_cols(int n) {
-  int c = 128;
+// lane's accumulators (cols over the two m-tiles) within cap.
+__host__ __device__ constexpr int rm_tc_cols(int n, int cap = 128) {
+  int c = cap;
   while (n % c != 0) c -= 8;
   return c;
 }
@@ -549,26 +616,12 @@ __device__ __forceinline__ float rm_mlp_tc(
             b[j] = __ldg(reinterpret_cast<const float4*>(F1) +
                          (frag + g + j) * 32 + lane);
           }
-          // The small terms first, each over independent tiles.
 #pragma unroll
           for (int j = 0; j < G; ++j) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_tf32(acc[mt][g + j], alo[mt], b[j].x, b[j].y);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < G; ++j) {
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_tf32(acc[mt][g + j], ahi[mt], b[j].z, b[j].w);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < G; ++j) {
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_tf32(acc[mt][g + j], ahi[mt], b[j].x, b[j].y);
+              rm_mma_3xtf32(acc[mt][g + j], ahi[mt], alo[mt], b[j].x, b[j].y,
+                            b[j].z, b[j].w);
             }
           }
         }
@@ -906,7 +959,7 @@ __device__ __forceinline__ void rm_mlp_delta(const T* g, T* slope, T w0) {
 //     (rounded to bf16 for bf16 operands).
 // Precision: every product with δ runs in TF32 with δ split as hi + lo
 // (cvt.rna), so δ is never rounded to TF32 or bf16: f32 takes lo·hi + hi·lo +
-// hi·hi (3xTF32, as the primal); bf16 operands (exact in TF32) take op·lo +
+// hi·hi (3xTF32, summed as rm_mma_3xtf32_split); bf16 operands (exact in TF32) take op·lo +
 // op·hi, which keeps the bf16 rule (scene/neural.py): a and W rounded to
 // bf16, δ and the a ⊗ δ sums f32, the input cotangents rounded.
 // Bound on an H100: the three 256 x 256 products per evaluation on the
@@ -997,7 +1050,8 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
     const RmSink<float>& s, float* dW0, float* db0, float* dW1, float* db1,
     float* dW2, float* db2) {
   static_assert(N1 % 16 == 0 && N2 % 8 == 0 && N2 <= 256, "layer sizes");
-  constexpr int NC = rm_tc_cols(N1);  // columns of δ1 per pass
+  // Columns of δ1 per pass (f32 holds a second tile, cor, for each).
+  constexpr int NC = rm_tc_cols(N1, BF16 ? 128 : 64);
   constexpr int NT = NC / 8;
   constexpr int G = NT % 4 == 0 ? 4 : (NT % 2 == 0 ? 2 : 1);
   const int lane = threadIdx.x & 31;
@@ -1114,13 +1168,16 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
   }
 #pragma unroll 1
   for (int np = 0; np < N1 / NC; ++np) {
-    float acc[2][NT][4];
+    float acc[2][NT][4], cor[2][BF16 ? 1 : NT][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          acc[mt][nt][e] = 0.0f;
+          if constexpr (!BF16) cor[mt][nt][e] = 0.0f;
+        }
       }
     }
     float next[8];  // δ2's n-tile kt, loaded one k-step ahead
@@ -1175,21 +1232,8 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
           for (int j = 0; j < G; ++j) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_tf32(acc[mt][g0 + j], alo[mt], b[j].x, b[j].y);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < G; ++j) {
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_tf32(acc[mt][g0 + j], ahi[mt], b[j].z, b[j].w);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < G; ++j) {
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              rm_mma_tf32(acc[mt][g0 + j], ahi[mt], b[j].x, b[j].y);
+              rm_mma_3xtf32_split(acc[mt][g0 + j], cor[mt][g0 + j], ahi[mt],
+                                  alo[mt], b[j].x, b[j].y, b[j].z, b[j].w);
             }
           }
         }
@@ -1210,7 +1254,9 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
         for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float gh = rm_operand<float, BF16>(acc[mt][nt][2 * h + c]);
+            float sum = acc[mt][nt][2 * h + c];
+            if constexpr (!BF16) sum = sum + cor[mt][nt][2 * h + c];
+            const float gh = rm_operand<float, BF16>(sum);
             const float v = rm_tc_pre0<BF16, SCALE>(w, w0, p[mt][h]);
             const float dz = gh * rm_act_slope<float, ACT>(v);
             const float d1 = ar[mt][h] ? (SCALE ? dz * w0 : dz) : 0.0f;
@@ -1269,13 +1315,16 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
       const int nts = jw / 8;
       rm_tc_stage(keep, j0 / 8, nts, bufD, RM_TC_LDD, 0);
       __syncthreads();
-      float acc[2][RM_TC_JC / 8][4];
+      float acc[2][RM_TC_JC / 8][4], cor[2][BF16 ? 1 : RM_TC_JC / 8][4];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
 #pragma unroll
         for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[q][nt][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) {
+            acc[q][nt][e] = 0.0f;
+            if constexpr (!BF16) cor[q][nt][e] = 0.0f;
+          }
         }
       }
 #pragma unroll 1
@@ -1321,19 +1370,9 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
 #pragma unroll
             for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
               if (nt < nts) {
-                rm_mma_tf32(acc[q][nt], alo, bhi[nt][0], bhi[nt][1]);
-              }
-            }
-#pragma unroll
-            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
-              if (nt < nts) {
-                rm_mma_tf32(acc[q][nt], ahi, blo[nt][0], blo[nt][1]);
-              }
-            }
-#pragma unroll
-            for (int nt = 0; nt < RM_TC_JC / 8; ++nt) {
-              if (nt < nts) {
-                rm_mma_tf32(acc[q][nt], ahi, bhi[nt][0], bhi[nt][1]);
+                rm_mma_3xtf32_split(acc[q][nt], cor[q][nt], ahi, alo,
+                                    bhi[nt][0], bhi[nt][1], blo[nt][0],
+                                    blo[nt][1]);
               }
             }
           }
@@ -1364,8 +1403,10 @@ __device__ __forceinline__ RmVec3<float> rm_mlp_tc_vjp(
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             if (mt < mts && nt < nts) {
+              float sum = acc[q][nt][e];
+              if constexpr (!BF16) sum = sum + cor[q][nt][e];
               dW1[(long long)(i0 + mt * 16 + gid + 8 * (e >> 1)) * N2 + j0 +
-                  nt * 8 + 2 * tig + (e & 1)] = old[q][nt][e] + acc[q][nt][e];
+                  nt * 8 + 2 * tig + (e & 1)] = old[q][nt][e] + sum;
             }
           }
         }

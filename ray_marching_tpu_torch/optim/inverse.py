@@ -9,7 +9,9 @@ target image through pixel-loss gradients (counterpart of
 * **manifold projection**: quaternion leaves are renormalized after every
   update;
 * **checkpoint/resume**: params, pose, optimizer state and step counter via
-  :mod:`ray_marching_tpu_torch.io.checkpoint`;
+  :mod:`ray_marching_tpu_torch.io.checkpoint`, as one ``.npz`` file or (the
+  JAX package's orbax backend) a ``torch.distributed.checkpoint``
+  directory;
 * **metrics**: JSONL per-step records (loss, grad norm, wall time).
 
 The optimizers take the JAX package's hyperparameters: Adam and AdamW with
@@ -28,7 +30,12 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from ray_marching_tpu_torch.io.checkpoint import load_pytree, save_pytree
+from ray_marching_tpu_torch.io.checkpoint import (
+    load_pytree,
+    load_pytree_dcp,
+    save_pytree,
+    save_pytree_dcp,
+)
 from ray_marching_tpu_torch.render.silhouette import composite
 from ray_marching_tpu_torch.scene.graph import map_params, param_paths
 
@@ -47,7 +54,9 @@ class InverseConfig:
     optimize_pose: bool = False
     checkpoint_every: int = 50
     checkpoint_dir: Optional[str] = None
-    checkpoint_backend: str = "npz"  # the orbax backend is not ported
+    # npz | dcp (torch.distributed.checkpoint, in place of the JAX
+    # package's orbax)
+    checkpoint_backend: str = "npz"
     metrics_path: Optional[str] = None
     loss: str = "l2"  # l2 | l1
     # Silhouette-aware loss: with beta > 0 the render is composited with a
@@ -109,10 +118,16 @@ def optimize(renderer, target, orientation, translation,
         dict with final ``params``, ``orientation``, ``translation``,
         ``losses`` list, and ``steps_run``.
     """
-    if config.checkpoint_backend != "npz":
-        raise NotImplementedError(
-            f"checkpoint_backend={config.checkpoint_backend!r}: the orbax "
-            "backend is not ported yet (see ROADMAP.md); use 'npz'")
+    if config.checkpoint_backend == "orbax":
+        raise ValueError(
+            "checkpoint_backend='orbax' needs jax; this package's directory "
+            "checkpoints are checkpoint_backend='dcp' "
+            "(torch.distributed.checkpoint)")
+    if config.checkpoint_backend not in ("npz", "dcp"):
+        raise ValueError(
+            f"checkpoint_backend={config.checkpoint_backend!r}: one of "
+            "'npz', 'dcp'")
+    dcp = config.checkpoint_backend == "dcp"
     tensor = renderer._tensor
 
     def fresh(leaf):
@@ -140,8 +155,9 @@ def optimize(renderer, target, orientation, translation,
     if resume_from:
         template = (map_params(state, torch.Tensor.detach),
                     _opt_state_tree(optimizer, named))
-        (loaded, opt_state), extra = load_pytree(resume_from, template,
-                                                 with_extra=True)
+        (loaded, opt_state), extra = (load_pytree_dcp if dcp else
+                                      load_pytree)(resume_from, template,
+                                                   with_extra=True)
         with torch.no_grad():
             for leaf, value in zip(param_paths(state).values(),
                                    param_paths(loaded).values()):
@@ -227,8 +243,9 @@ def optimize(renderer, target, orientation, translation,
                 callback(step, loss, state)
             if (config.checkpoint_dir
                     and (step + 1) % config.checkpoint_every == 0):
-                save_pytree(
-                    Path(config.checkpoint_dir) / f"ckpt_{step + 1:06d}.npz",
+                name = f"ckpt_{step + 1:06d}" + ("" if dcp else ".npz")
+                (save_pytree_dcp if dcp else save_pytree)(
+                    Path(config.checkpoint_dir) / name,
                     (map_params(state, torch.Tensor.detach),
                      _opt_state_tree(optimizer, named)),
                     extra={"step": step + 1})

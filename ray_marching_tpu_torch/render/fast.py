@@ -156,6 +156,7 @@ class FastRenderer:
         self.device = resolve_device(device)
         self.config = config
         self.dtype = dtype
+        self.grid_dtype = np.dtype(grid_dtype)
         self.scene = scene
         self.program = SdfProgram(scene)
         _, self.sdf_c, self.init_params = compile_scene(scene, dtype,

@@ -91,6 +91,7 @@ class Renderer:
         self.device = resolve_device(device)
         self.config = config
         self.dtype = dtype
+        self.grid_dtype = np.dtype(grid_dtype)
         self.scene = scene
         self.sdf_vec, self.sdf_c, self.init_params = compile_scene(
             scene, dtype, self.device)

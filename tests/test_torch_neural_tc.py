@@ -4,10 +4,15 @@
 The kernel cannot run here, so its arithmetic is emulated in plain torch
 (:func:`_tc_distance`): layer 0 in the kernel's operation order, the hidden
 layer from the prepared fragments (``ops/params.py`` ``tc_fragments``, read
-back), summed one k-step at a time in f32 (3xTF32: ``lo·hi + hi·lo + hi·hi``
-with ``cvt.rna`` rounding; bf16: one product of rounded operands), then the
-bias, the activation and the output dot. Inputs: the trained w256 field of
-``docs/neural_fit_w256`` at 4,096 seeded points.
+back), summed one k-step at a time in f32 (3xTF32: each k-step's
+``lo·hi + hi·lo + hi·hi`` from zero, then added to the running sum, as
+``neural.cuh``'s ``rm_mma_3xtf32`` does; ``cvt.rna`` rounding; bf16: one
+product of rounded operands), then the bias, the activation and the output
+dot. The tensor core's own accumulation inside a k-step is modelled in true
+f32; the kernel's truncates, which is why the running sum is not left to it
+(``"3xtf32_chain"`` models the chained order of the first design).
+Inputs: the trained w256 field of ``docs/neural_fit_w256`` at 4,096 seeded
+points.
 
 Tolerances: ``chip_smoke.py`` holds the tensor-core kernel to ``TOL_F32``
 and, with its control (the fragments' lo zeroed), to ``TOL_F32 / 10``,
@@ -17,6 +22,7 @@ is 2e-7 from f64). bf16 operands: ``TOL_BF16``'s distance plane, 1e-3.
 """
 
 import hashlib
+import importlib.util
 import re
 import sys
 from pathlib import Path
@@ -99,9 +105,11 @@ def _bf16(t):
 
 def _tc_distance(node, params, pts, mode):
     """The kernel's arithmetic in plain torch: the distance at ``pts``
-    (3, N). ``mode``: ``"3xtf32"`` (the f32 kernel), ``"1xtf32"`` (one TF32
-    pass), ``"hi_only"`` (the fragments' lo zeroed, as chip_smoke.py's
-    control feeds the kernel) or ``"bf16"``."""
+    (3, N). ``mode``: ``"3xtf32"`` (the f32 kernel: each k-step's three
+    passes from zero, added to the running sum), ``"3xtf32_chain"`` (every
+    pass of every k-step into one running sum: the order before the
+    repair), ``"1xtf32"`` (one TF32 pass), ``"hi_only"`` (the fragments' lo
+    zeroed, as chip_smoke.py's control feeds the kernel) or ``"bf16"``."""
     x, y, z = (torch.as_tensor(c)[:, None] for c in pts)
     bf16 = mode == "bf16"
     op = _bf16 if bf16 else (lambda t: t)
@@ -123,11 +131,18 @@ def _tc_distance(node, params, pts, mode):
         h_hi, h_lo = tf32(h), tf32(h - tf32(h))
         a_parts, w_parts, ks = {
             "3xtf32": ([h_lo, h_hi, h_hi], [hi, lo, hi]),
+            "3xtf32_chain": ([h_lo, h_hi, h_hi], [hi, lo, hi]),
             "hi_only": ([h_lo, h_hi], [hi, hi]),
             "1xtf32": ([h_hi], [hi]),
         }[mode] + (8,)
     acc = torch.zeros((h.shape[0], nout), dtype=torch.float32)
     for k in range(0, nin, ks):
+        if mode == "3xtf32":  # rm_mma_3xtf32
+            t = torch.zeros_like(acc)
+            for a, w in zip(a_parts, w_parts):
+                t = t + a[:, k:k + ks] @ w[k:k + ks]
+            acc = acc + t
+            continue
         for a, w in zip(a_parts, w_parts):
             acc = acc + a[:, k:k + ks] @ w[k:k + ks]
     a = act(acc + params["b1"])
@@ -162,6 +177,52 @@ def test_3xtf32_within_the_f32_tolerance_of_plain_and_jax(w256):
     assert got.dtype == torch.float32
     assert float((got - plain).abs().max()) <= TOL_F32
     assert float((got - jax_d).abs().max()) <= TOL_F32
+
+
+def test_kernel_sums_each_k_step_from_zero_as_the_model():
+    """The summation order the model takes is the kernel's: neural.cuh's
+    primal k-step (rm_mma_3xtf32) starts its tile from zero
+    (rm_mma_tf32_z) and then adds the tile to the running sum in SIMT f32.
+    The order's effect on the card is chip_smoke.py's w256_witness."""
+    src = (CSRC / "neural.cuh").read_text()
+    body = src[src.index("void rm_mma_3xtf32("):]
+    body = body[:body.index("\n}\n")]
+    assert body.index("rm_mma_tf32_z(t,") < body.index(
+        "acc[e] = acc[e] + t[e]")
+
+
+def test_variant_tool_restores_the_accumulation_schemes():
+    """tools/torch_tc_variants.py rebuilds the f32 accumulation schemes the
+    kernel does not ship (PERF.md §6's table) by a diff of neural.cuh: it
+    still applies, and it selects the shipped schemes, so a variant's
+    baseline is the shipped kernel."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_tc_variants", REPO / "tools" / "torch_tc_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.acc_schemes_source((CSRC / "neural.cuh").read_text())
+    for line in ("constexpr int RM_ACC_PRIMAL = RM_ACC_FRESH;",
+                 "constexpr int RM_ACC_VJP = RM_ACC_BOTH;",
+                 "constexpr int RM_ACC_SINK = RM_ACC_BOTH;",
+                 "constexpr int RM_ACC_CHAIN = 0;",
+                 "constexpr int RM_ACC_FRESH2 = 4;"):
+        assert line in src
+    assert "rm_mma_3xtf32_split" not in src
+
+
+def test_fresh_and_chained_orders_differ_but_both_meet_f32(w256):
+    """The two summation orders give other bits (the order is observable),
+    and each stays within the f32 tolerance of the plain evaluator: in true
+    f32 both are fine; the chained order strays only through the tensor
+    core's truncating accumulation, which the CPU cannot model."""
+    params, pts = w256
+    node = _w256_node()
+    fresh = _tc_distance(node, params, pts, "3xtf32")
+    chain = _tc_distance(node, params, pts, "3xtf32_chain")
+    plain = _plain_distance(node, params, pts)
+    assert not torch.equal(fresh, chain)
+    for got in (fresh, chain):
+        assert float((got - plain).abs().max()) <= TOL_F32
 
 
 @pytest.mark.parametrize("mode", ["1xtf32", "hi_only"])

@@ -13,8 +13,9 @@ The kernels cannot run here, so:
 - the VJP's arithmetic is emulated in plain torch (:func:`_tc_vjp`): the
   primal as the serving kernel computes it, δ split as TF32 hi + lo in every
   product with it (3xTF32 in f32; bf16 operands, exact in TF32, times δ's
-  two halves), summed one k-step (8) at a time in f32, and held against
-  ``scene/neural.py`` ``mlp_vjp`` and the JAX package's ``jax.vjp`` of
+  two halves), summed one k-step (8) at a time in f32 (in f32 the
+  corrections and hi·hi in two sums, ``neural.cuh``'s
+  ``rm_mma_3xtf32_split``), and held against ``scene/neural.py`` ``mlp_vjp`` and the JAX package's ``jax.vjp`` of
   ``neural_sdf_matmul`` on the trained w256 field at 64 seeded points.
 
 Tolerances, relative to each output's largest entry (the point cotangent,
@@ -289,6 +290,34 @@ def _ksteps(a_parts, w_parts, k):
     return acc
 
 
+def _fresh_ksteps(a_parts, w_parts, k):
+    """As :func:`_ksteps`, each step's parts summed from zero first and then
+    added to the running sum: the primal's order (neural.cuh
+    ``rm_mma_3xtf32``)."""
+    acc = torch.zeros((a_parts[0].shape[0], w_parts[0].shape[1]),
+                      dtype=torch.float32)
+    for s in range(0, a_parts[0].shape[1], k):
+        t = torch.zeros_like(acc)
+        for a, w in zip(a_parts, w_parts):
+            t = t + a[:, s:s + k] @ w[s:s + k]
+        acc = acc + t
+    return acc
+
+
+def _both_ksteps(a_parts, w_parts, k):
+    """The VJP's and the sink's order (neural.cuh ``rm_mma_3xtf32_split``):
+    the two correction parts of every step into one sum, the third part
+    (hi·hi) into another, the two added at the end."""
+    cor = torch.zeros((a_parts[0].shape[0], w_parts[0].shape[1]),
+                      dtype=torch.float32)
+    acc = torch.zeros_like(cor)
+    for s in range(0, a_parts[0].shape[1], k):
+        for a, w in zip(a_parts[:2], w_parts[:2]):
+            cor = cor + a[:, s:s + k] @ w[s:s + k]
+        acc = acc + a_parts[2][:, s:s + k] @ w_parts[2][s:s + k]
+    return acc + cor
+
+
 def _split(t):
     hi = tf32(t)
     return hi, tf32(t - hi)
@@ -317,7 +346,7 @@ def _tc_vjp(node, params, pts, g, mode):
         z2 = _ksteps([op(h1)], [op(w1)], 16)
     else:
         (hh, hl), (wh, wl) = _split(h1), _split(w1)
-        z2 = _ksteps([hl, hh, hh], [wh, wl, wh], 8)
+        z2 = _fresh_ksteps([hl, hh, hh], [wh, wl, wh], 8)
     v2 = z2 + b1
     h2, s2 = act(v2), tneural._act_slope(node, v2)
     d2 = op(op(wo) * g) * s2
@@ -326,8 +355,8 @@ def _tc_vjp(node, params, pts, g, mode):
         gh = _ksteps([dl, dh], [op(w1).T] * 2, 8)
         sink = _ksteps([dl.T, dh.T], [op(h1)] * 2, 8).T
     elif mode == "3xtf32":
-        gh = _ksteps([dl, dh, dh], [wh.T, wl.T, wh.T], 8)
-        sink = _ksteps([dh.T, dl.T, dh.T], [hl, hh, hh], 8).T
+        gh = _both_ksteps([dl, dh, dh], [wh.T, wl.T, wh.T], 8)
+        sink = _both_ksteps([dh.T, dl.T, dh.T], [hl, hh, hh], 8).T
     else:
         gh = _ksteps([dh], [wh.T], 8)
         sink = _ksteps([dh.T], [tf32(h1)], 8).T
