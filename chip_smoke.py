@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
+import functools
 import hashlib
 import json
 import re
@@ -4537,6 +4539,433 @@ def host_side(card, out_dir: Path):
     return counts, figures
 
 
+# -- the parallel phase: the sharded paths on torch.distributed -------------
+
+#: Shader modes of the parallel phase: lambertian and two modes whose
+#: whole-image min/max reduce across the ranks.
+PARALLEL_MODES = (0, 1, 5)
+PARALLEL_STEPS, PARALLEL_LR = 3, 1e-2
+#: Losses of a sharded train step against the unsharded step, f32: each
+#: rank sums its shard's squared errors in plane space and the all-reduce
+#: adds the sums, where the unsharded loss is one mean over 6.2M elements,
+#: and each rank's backward sums its own block partials; f32 sums of this
+#: length round at ~1e-6 relative, and three Adam steps carry that into the
+#: parameters the later losses see.
+PARALLEL_LOSS_RTOL = 1e-4
+#: Parameters after those steps: an Adam step moves a leaf by about the rate
+#: (1e-2) whatever the rounding of its gradient, unless that is near zero.
+PARALLEL_PARAM_ATOL = 1e-5
+#: The sharded tiled frame: 3840×2160 in 512-row strips, mode 1 (distance:
+#: pass 1's bounds reduce across the ranks).
+PARALLEL_TILED = dict(width=3840, height=2160, strip_height=512, mode=1)
+PARALLEL_CHILD_TIMEOUT = 240
+
+
+def bits_digest(t):
+    """sha256 of a tensor's bytes (on the host)."""
+    return hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def params_digest(tree):
+    """sha256 of every leaf's path and bytes, in path order."""
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    h = hashlib.sha256()
+    for k, v in param_paths(tree).items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def params_distance(a, b):
+    """Largest absolute difference between two parameter trees."""
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    pb = param_paths(b)
+    return max(float((v.detach() - pb[k].detach()).abs().max())
+               for k, v in param_paths(a).items())
+
+
+def reset_launches():
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    rk.LAUNCHES = rk.TC_LAUNCHES = 0
+    bk.LAUNCHES = bk.TC_LAUNCHES = bk.MARCH_LAUNCHES = 0
+    mk.LAUNCHES = 0
+
+
+def launches():
+    """The launch counters since :func:`reset_launches`."""
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import march_kernel as mk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    return {"fwd": rk.LAUNCHES, "fwd_tc": rk.TC_LAUNCHES, "bwd": bk.LAUNCHES,
+            "bwd_tc": bk.TC_LAUNCHES, "march": mk.LAUNCHES,
+            "march_bwd": bk.MARCH_LAUNCHES}
+
+
+def unsharded_steps(r, target, q, t, steps):
+    """``steps`` Adam steps on the whole image's MSE through
+    ``FastRenderer.render``, built by hand: ``(losses, params, step)``."""
+    import torch
+
+    from ray_marching_tpu_torch.scene.graph import param_paths
+
+    params = leaf_params(r.init_params)
+    opt = torch.optim.Adam(list(param_paths(params).values()),
+                           lr=PARALLEL_LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((r.render(params, q, t, mode=0, degree=2)
+                           - target) ** 2)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(step()) for _ in range(steps)]
+    return losses, params, step
+
+
+def sharded_steps(r, mesh, target, q, t, steps):
+    """``steps`` of ``fast_train_step`` on the same objective: ``(losses,
+    params, launches per step, one step from the start)``."""
+    import torch
+
+    from ray_marching_tpu_torch.parallel import fast_sharding as fs
+
+    step = fs.fast_train_step(r, mesh, functools.partial(
+        torch.optim.Adam, lr=PARALLEL_LR), mode=0, degree=2)
+    tp = fs.target_planes(r, mesh, target)
+    p, state, losses = r.init_params, None, []
+    reset_launches()
+    for _ in range(steps):
+        p, state, loss = step(p, state, tp, q, t)
+        losses.append(float(loss))
+    per_step = {k: v / steps for k, v in launches().items()}
+    return losses, p, per_step, lambda: step(r.init_params, None, tp, q, t)
+
+
+def parallel_one_rank(card, main, modular, q, t, target, figures, counts):
+    """(a) One rank on NCCL, in this process: the sharded frames and steps
+    against the unsharded ones, and what the wrappers cost at world size 1."""
+    import torch
+
+    from ray_marching_tpu_torch.parallel import fast_sharding as fs
+    from ray_marching_tpu_torch.parallel import (make_mesh, make_train_step,
+                                                 shard_render)
+
+    mesh = make_mesh((1,), ("rows",))
+    p0 = main.init_params
+    for mode in PARALLEL_MODES:
+        render = fs.fast_shard_render(main, mesh, mode=mode, degree=2)
+        with torch.no_grad():
+            want = main.render(p0, q, t, mode=mode, degree=2)
+            reset_launches()
+            got = render(p0, q, t)
+            counts[f"fast_frame_mode{mode}"] = launches()
+        check(bool(same_bits(got, want).all()),
+              f"parallel: the one-rank sharded frame in mode {mode} is not "
+              "FastRenderer.render's, bit for bit")
+        check(counts[f"fast_frame_mode{mode}"]["fwd"] == 1,
+              f"parallel: mode {mode} frame launched "
+              f"{counts[f'fast_frame_mode{mode}']}")
+        if mode == 0:
+            with torch.no_grad():
+                figures["frame_ms_1rank"] = cuda_ms(lambda: render(p0, q, t),
+                                                    20)
+                figures["frame_ms_unsharded"] = cuda_ms(
+                    lambda: main.render(p0, q, t, mode=0, degree=2), 20)
+
+    want_losses, want_params, unsharded = unsharded_steps(
+        main, target, q, t, PARALLEL_STEPS)
+    losses, params, per_step, sharded = sharded_steps(
+        main, mesh, target, q, t, PARALLEL_STEPS)
+    counts["fast_step_1rank_per_step"] = per_step
+    check(per_step["fwd"] == 1 and per_step["bwd"] == 1,
+          f"parallel: a one-rank step launched {per_step}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    param_err = params_distance(params, want_params)
+    check(loss_err <= PARALLEL_LOSS_RTOL and param_err <= PARALLEL_PARAM_ATOL,
+          f"parallel: one-rank steps {losses} against {want_losses} (rel "
+          f"{loss_err:.3e}), parameters {param_err:.3e} apart")
+    figures.update(
+        losses_1rank=losses, losses_unsharded=want_losses,
+        loss_rel_err_1rank=loss_err, param_err_1rank=param_err,
+        losses_bitwise_1rank=losses == want_losses,
+        params_bitwise_1rank=params_digest(params) == params_digest(
+            want_params),
+        step_ms_1rank=cuda_ms(sharded, 10),
+        step_ms_unsharded=cuda_ms(unsharded, 10))
+
+    # The modular path: the march kernel and its march-only backward.
+    with torch.no_grad():
+        want = modular.render(modular.init_params, q, t, mode=0, degree=2)
+        reset_launches()
+        got = shard_render(modular, mesh, mode=0, degree=2)(
+            modular.init_params, q, t)
+        counts["modular_frame"] = launches()
+    check(bool(same_bits(got, want).all()),
+          "parallel: the one-rank modular frame is not Renderer.render's")
+    step = make_train_step(modular, mesh, functools.partial(
+        torch.optim.Adam, lr=PARALLEL_LR), mode=0, degree=2)
+    reset_launches()
+    _, _, loss = step(modular.init_params, None, target, q, t)
+    counts["modular_step"] = launches()
+    check(bool(torch.isfinite(loss)) and counts["modular_frame"]["march"] == 1
+          and counts["modular_step"]["march"] == 1
+          and counts["modular_step"]["march_bwd"] == 1,
+          f"parallel: modular launches {counts['modular_frame']}, "
+          f"{counts['modular_step']}, loss {float(loss)}")
+    print(f"parallel (a) one rank on NCCL, {card}: sharded frame "
+          f"{figures['frame_ms_1rank']:.4f} ms against "
+          f"{figures['frame_ms_unsharded']:.4f} ms; sharded step "
+          f"{figures['step_ms_1rank']:.4f} ms against the hand-built "
+          f"{figures['step_ms_unsharded']:.4f} ms; losses bitwise "
+          f"{figures['losses_bitwise_1rank']}, parameters bitwise "
+          f"{figures['params_bitwise_1rank']} (rel {loss_err:.3e}, "
+          f"{param_err:.3e})")
+    return want_losses
+
+
+def parallel_rank(rank, store, out_dir: Path):
+    """(b)'s rank ``rank`` of two on the one card, over gloo: writes what it
+    saw to ``out_dir/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_marching_tpu_torch.io.export import (export_train_step,
+                                                  load_train_step)
+    from ray_marching_tpu_torch.parallel import fast_sharding as fs
+    from ray_marching_tpu_torch.parallel import make_mesh, multihost
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.tiled import TiledRenderer
+    from ray_marching_tpu_torch.scene import registry
+
+    # A rank that hangs prints its stacks and exits before the parent's
+    # limit.
+    faulthandler.dump_traceback_later(PARALLEL_CHILD_TIMEOUT - 30, exit=True)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank)
+    res = {"counts": {}}
+    try:
+        mesh = make_mesh((2,), ("rows",))
+        main = FastRenderer(registry.make_scene("test_scene2"),
+                            config(1920, 1080), dtype=torch.float32,
+                            row_multiple=fs.SHARD_ROWS * 2)
+        q, t = main._pose(BENCH_Q, BENCH_T)
+        p0 = main.init_params
+        for mode in PARALLEL_MODES:
+            render = fs.fast_shard_render(main, mesh, mode=mode, degree=2)
+            with torch.no_grad():
+                reset_launches()
+                res[f"frame{mode}"] = bits_digest(render(p0, q, t))
+                res["counts"][f"fast_frame_mode{mode}"] = launches()
+                if mode == 0:
+                    res["frame_ms"] = cuda_ms(lambda: render(p0, q, t), 10)
+        with torch.no_grad():
+            target = main.render(perturbed(p0, "c1/c0/radius", 1.2), q, t,
+                                 mode=0, degree=2)
+        losses, params, per_step, step = sharded_steps(
+            main, mesh, target, q, t, PARALLEL_STEPS)
+        res.update(losses=losses, params=params_digest(params),
+                   step_ms=cuda_ms(step, 5))
+        res["counts"]["fast_step_per_step"] = per_step
+
+        # The w256 field on the tensor-core entries.
+        w256, wp = neural_renderer(NEURAL_RES, torch.float32,
+                                   row_multiple=fs.SHARD_ROWS * 2)
+        nq, nt = w256._pose(NEURAL_Q, NEURAL_T)
+        with torch.no_grad():
+            reset_launches()
+            frame = fs.fast_shard_render(w256, mesh, mode=0, degree=2)(
+                wp, nq, nt)
+            res["counts"]["w256_frame"] = launches()
+        res["w256_frame"] = bits_digest(frame)
+        step = fs.fast_train_step(w256, mesh, functools.partial(
+            torch.optim.Adam, lr=PARALLEL_LR), mode=0, degree=2)
+        reset_launches()
+        _, _, loss = step(wp, None, fs.target_planes(w256, mesh, frame * 0.9),
+                          nq, nt)
+        res["counts"]["w256_step"] = launches()
+        res["w256_loss"] = float(loss)
+        del w256, wp, frame
+
+        # Strips of the 4K frame sharded over the two ranks.
+        cfg = PARALLEL_TILED
+        tiled = TiledRenderer(registry.make_scene("test_scene2"),
+                              config(cfg["width"], cfg["height"]),
+                              strip_height=cfg["strip_height"],
+                              dtype=torch.float32, mesh=mesh)
+        reset_launches()
+        res["tiled"] = bits_digest(tiled.render(tiled.init_params, q, t,
+                                                mode=cfg["mode"], degree=2))
+        res["counts"]["tiled_4k"] = launches()
+        del tiled
+
+        # The exported step, loaded by both ranks, against the direct one.
+        path = out_dir / "step2.rmxs"
+        adam = functools.partial(torch.optim.Adam, lr=PARALLEL_LR)
+        if rank == 0:
+            export_train_step(main, mesh, path, optimizer=adam)
+        multihost.barrier(120)
+        loaded, meta = load_train_step(path)
+        direct = fs.fast_train_step(main, mesh, adam)
+        tp = fs.target_planes(main, mesh, target)
+        pd, _, ld = direct(p0, None, tp, q, t)
+        pl, _, ll = loaded(loaded.params, None, tp, q, t)
+        res.update(export_loss_bitwise=float(ld) == float(ll),
+                   export_params_bitwise=params_digest(pd)
+                   == params_digest(pl),
+                   export_meta={k: meta[k] for k in (
+                       "kind", "mesh_shape", "num_devices", "rows")})
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def parallel_two_ranks(card, main, q, t, target, want_losses, out_dir,
+                       figures, counts):
+    """(b) Two ranks on the one card over gloo, spawned as this script with
+    ``--parallel-rank``: frames, steps, the w256 shards, the sharded 4K
+    tiled frame and the exported step, against this process's unsharded
+    results."""
+    import torch
+
+    from ray_marching_tpu_torch.render.tiled import TiledRenderer
+    from ray_marching_tpu_torch.scene import registry
+
+    p0 = main.init_params
+    with torch.no_grad():
+        want = {f"frame{m}": bits_digest(main.render(p0, q, t, mode=m,
+                                                     degree=2))
+                for m in PARALLEL_MODES}
+        w256, wp = neural_renderer(NEURAL_RES, torch.float32)
+        nq, nt = w256._pose(NEURAL_Q, NEURAL_T)
+        want["w256_frame"] = bits_digest(w256.render(wp, nq, nt, mode=0,
+                                                     degree=2))
+        del w256, wp
+        cfg = PARALLEL_TILED
+        tiled = TiledRenderer(registry.make_scene("test_scene2"),
+                              config(cfg["width"], cfg["height"]),
+                              strip_height=cfg["strip_height"],
+                              dtype=torch.float32)
+        want["tiled"] = bits_digest(tiled.render(tiled.init_params, q, t,
+                                                 mode=cfg["mode"], degree=2))
+        del tiled
+    torch.cuda.synchronize()
+    rank_dir = (out_dir / "parallel").resolve()
+    shutil.rmtree(rank_dir, ignore_errors=True)
+    rank_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for rank in range(2):
+            log = open(rank_dir / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--parallel-rank", str(rank), "--store",
+                 str(rank_dir / "store"), "--out", str(rank_dir)],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log))
+        for proc, log in procs:
+            rc = proc.wait(timeout=PARALLEL_CHILD_TIMEOUT)
+            log.close()
+            check(rc == 0, f"parallel: a rank exited with {rc}:\n"
+                  + (rank_dir / Path(log.name).name).read_text()[-4000:])
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    figures["two_ranks_s"] = time.perf_counter() - t0
+    ranks = [json.loads((rank_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for r, res in enumerate(ranks):
+        for key in want:
+            check(res[key] == want[key],
+                  f"parallel: rank {r}'s {key} is not one process's, bit "
+                  "for bit")
+        err = max(abs(a - b) / abs(b)
+                  for a, b in zip(res["losses"], want_losses))
+        check(err <= PARALLEL_LOSS_RTOL,
+              f"parallel: rank {r}'s losses {res['losses']} against one "
+              f"process's {want_losses} (rel {err:.3e})")
+        c = res["counts"]
+        check(all(c[f"fast_frame_mode{m}"]["fwd"] == 1
+                  for m in PARALLEL_MODES)
+              and c["fast_step_per_step"]["fwd"] == 1
+              and c["fast_step_per_step"]["bwd"] == 1,
+              f"parallel: rank {r} launched {c}")
+        check(c["w256_frame"]["fwd_tc"] == 1 and c["w256_step"]["fwd_tc"] == 1
+              and c["w256_step"]["bwd_tc"] == 1,
+              f"parallel: rank {r}'s w256 shards left the tensor cores: "
+              f"{c['w256_frame']}, {c['w256_step']}")
+        check(res["export_loss_bitwise"] and res["export_params_bitwise"],
+              f"parallel: rank {r}'s loaded step is not the direct step")
+        check(res["export_meta"]["num_devices"] == 2,
+              f"parallel: exported meta {res['export_meta']}")
+        figures[f"loss_rel_err_rank{r}"] = err
+    check(ranks[0]["params"] == ranks[1]["params"],
+          "parallel: the ranks' parameters differ after the steps")
+    counts.update({f"two_ranks_{k}": v for k, v in ranks[0]["counts"].items()})
+    figures.update(losses_2ranks=ranks[0]["losses"],
+                   frame_ms_2ranks=[res["frame_ms"] for res in ranks],
+                   step_ms_2ranks=[res["step_ms"] for res in ranks])
+    print(f"parallel (b) two ranks on one card over gloo, {card}: frames "
+          "(modes " + ", ".join(map(str, PARALLEL_MODES)) + "), the w256 "
+          "frame and the 4K tiled frame bitwise one process's; parameters "
+          "bitwise equal across the ranks after "
+          f"{PARALLEL_STEPS} steps; losses {ranks[0]['losses']} against "
+          f"{want_losses}; frame {figures['frame_ms_2ranks']} ms, step "
+          f"{figures['step_ms_2ranks']} ms per rank (two ranks share the "
+          "card: no scaling figure)")
+
+
+def parallel_phase(card, out_dir: Path):
+    """The sharded paths (``parallel/``) on torch.distributed: (a) one rank
+    on NCCL in this process, (b) two ranks on the one card over gloo. The
+    process group is destroyed before it returns."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.render.pipeline import Renderer
+    from ray_marching_tpu_torch.scene import registry
+
+    t0 = time.perf_counter()
+    check(not dist.is_initialized(), "parallel: a process group exists "
+          "before the phase")
+    counts, figures = {}, {}
+    main = FastRenderer(registry.make_scene("test_scene2"), config(1920, 1080),
+                        dtype=torch.float32)
+    modular = Renderer(registry.make_scene("test_scene2"),
+                       config(1920, 1080, use_pallas=True),
+                       dtype=torch.float32)
+    q, t = main._pose(BENCH_Q, BENCH_T)
+    with torch.no_grad():
+        target = main.render(perturbed(main.init_params, "c1/c0/radius", 1.2),
+                             q, t, mode=0, degree=2)
+    try:
+        want_losses = parallel_one_rank(card, main, modular, q, t, target,
+                                        figures, counts)
+    finally:
+        dist.destroy_process_group()
+    del modular
+    parallel_two_ranks(card, main, q, t, target, want_losses, out_dir,
+                       figures, counts)
+    check(not dist.is_initialized(), "parallel: a process group is left")
+    figures["seconds"] = time.perf_counter() - t0
+    print(f"parallel: {figures['seconds']:.1f} s")
+    return counts, figures
+
+
 def _scaled_tree(tree, factor):
     """Every leaf of ``tree`` times ``factor``."""
     return {k: _scaled_tree(v, factor) if isinstance(v, dict) else v * factor
@@ -5149,6 +5578,23 @@ def run(out_dir: Path):
         launches_cli_optimize_png=h_counts["cli_optimize_png"][1])
     print("host_side figures: " + json.dumps(
         {"counts": h_counts, "figures": h_figures}))
+    # 11. The sharded paths on torch.distributed: one rank on NCCL, two
+    # ranks on the one card over gloo.
+    p_counts, p_figures = parallel_phase(card, out_dir)
+    rows["render_fwd"].update(launches_sharded_per_rank={
+        k: v["fwd"] for k, v in p_counts.items() if v["fwd"]},
+        launches_sharded_tc_per_rank={
+        k: v["fwd_tc"] for k, v in p_counts.items() if v["fwd_tc"]})
+    rows["render_bwd"].update(launches_sharded_per_rank={
+        k: v["bwd"] for k, v in p_counts.items() if v["bwd"]},
+        launches_sharded_tc_per_rank={
+        k: v["bwd_tc"] for k, v in p_counts.items() if v["bwd_tc"]})
+    rows["march"].update(launches_sharded_per_rank={
+        k: v["march"] for k, v in p_counts.items() if v["march"]})
+    rows["march_bwd"].update(launches_sharded_per_rank={
+        k: v["march_bwd"] for k, v in p_counts.items() if v["march_bwd"]})
+    print("parallel figures: " + json.dumps(
+        {"counts": p_counts, "figures": p_figures}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)
@@ -5162,6 +5608,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="chiprun_out/chip_smoke",
                         help="directory for the rendered PNGs")
+    parser.add_argument("--parallel-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)  # a rank of the phase's (b)
+    parser.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     import torch
 
@@ -5169,6 +5618,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:
+        parallel_rank(args.parallel_rank, args.store, Path(args.out))
+        return 0
     result = run(Path(args.out))
     print(json.dumps(result))
     return 0

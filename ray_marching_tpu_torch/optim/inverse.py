@@ -82,8 +82,9 @@ def _make_optimizer(cfg: InverseConfig, leaves):
 
 
 def _opt_state_tree(optimizer, named):
-    """The optimizer's per-leaf state as ``{name: {key: tensor}}`` (zeros
-    where the optimizer has not initialised it yet: the checkpoint template)."""
+    """The optimizer's per-leaf state as ``{name: {key: tensor}}``: Adam's
+    and AdamW's with zeros where the optimizer has not initialised it yet
+    (the checkpoint template), another optimizer's as it holds it."""
     adam = isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
     out = {}
     for name, leaf in named.items():
@@ -94,6 +95,8 @@ def _opt_state_tree(optimizer, named):
                 "exp_avg": st.get("exp_avg", torch.zeros_like(leaf)),
                 "exp_avg_sq": st.get("exp_avg_sq", torch.zeros_like(leaf)),
             }
+        elif st:
+            out[name] = dict(st)
     return out
 
 

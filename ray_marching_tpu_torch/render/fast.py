@@ -30,13 +30,17 @@ name, differentiated by autograd with every step rematerialized, or with
 The tiled renderer (:mod:`.tiled`) drives one of these per strip through
 the hooks :func:`bake_ray_planes`, :func:`pose_plane_group`,
 ``_march_planes(valid=)``, :meth:`FastRenderer.norm_bounds` and
-``_shade(valid_b=, norm_bounds=)``.
+``_shade(valid_b=, norm_bounds=)``; the sharded paths
+(:mod:`ray_marching_tpu_torch.parallel.fast_sharding`) drive one row shard
+per rank through the same hooks with ``axis_names`` and ``cameras=1``.
 """
 
 from __future__ import annotations
 
 from functools import partial
 from typing import Optional
+
+import math
 
 import numpy as np
 import torch
@@ -61,7 +65,14 @@ from ray_marching_tpu_torch.render.silhouette import soft_coverage
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
 from ray_marching_tpu_torch.scene.graph import Node, compile_scene
 from ray_marching_tpu_torch.scene.neural import NeuralSDF, resolve_impl
-from ray_marching_tpu_torch.utils import clamp, resolve_device, rmax, rmin
+from ray_marching_tpu_torch.utils import (
+    clamp,
+    prmax,
+    prmin,
+    resolve_device,
+    rmax,
+    rmin,
+)
 
 LANES = 128
 ROWS_PER_TILE = 256
@@ -136,11 +147,21 @@ class FastRenderer:
     Multi-camera batches stack each camera's ray grid along the plane rows;
     the kernel runs once over all cameras, and the global min/max shader
     normalizations span the whole batch.
+
+    ``row_multiple`` makes each camera's row count a multiple of it too (the
+    JAX rule: the least common multiple with the tile). The sharded paths
+    need ``parallel.fast_sharding.SHARD_ROWS`` (8) × shards per camera: then
+    every rank's shard is a whole number of 8-row groups, that is whole
+    blocks of every kernel launch on the H100 (the largest block is 256
+    threads, two 128-ray rows; a tensor-core launch takes whole rows), so a
+    shard's launch runs the same blocks over the same rays as one process's
+    launch would, and the planes are laid out as the JAX renderer's with the
+    same ``row_multiple``.
     """
 
     def __init__(self, scene: Node, config: RenderConfig, dtype=torch.float32,
                  grid_dtype=np.float32, device="cuda",
-                 march_impl: str = "auto"):
+                 march_impl: str = "auto", row_multiple: Optional[int] = None):
         if config.backward not in ("unroll", "implicit"):
             raise ValueError(f"backward must be unroll|implicit, got "
                              f"{config.backward!r}")
@@ -169,6 +190,9 @@ class FastRenderer:
         self.num_cameras = config.num_cameras
         self.total = h * w  # rays per camera
         tile = ROWS_PER_TILE if self.total >= ROWS_PER_TILE * LANES else 8
+        self.row_multiple = row_multiple
+        if row_multiple:
+            tile = tile * row_multiple // math.gcd(tile, row_multiple)
         self.rows_per_cam = -(-self.total // (LANES * tile)) * tile
         self.rows = self.rows_per_cam * self.num_cameras
 
@@ -206,45 +230,55 @@ class FastRenderer:
             tuple(torch.cat([d[i] for d in dirs], dim=0) for i in range(3)),
         )
 
-    def _per_camera(self, fn, *plane_groups):
-        """Apply fn(cam_idx, *per-camera plane slices) and re-concat rows."""
-        if self.num_cameras == 1:
+    def _per_camera(self, fn, *plane_groups, cameras=None):
+        """Apply fn(cam_idx, *per-camera plane slices) and re-concat rows.
+        ``cameras`` overrides the camera count (a row shard is one camera's
+        rows, shaded with that camera's pose row as camera 0)."""
+        cameras = self.num_cameras if cameras is None else cameras
+        if cameras == 1:
             return fn(0, *plane_groups)
         outs = []
-        for n in range(self.num_cameras):
+        for n in range(cameras):
             lo = n * self.rows_per_cam
             hi = lo + self.rows_per_cam
             outs.append(fn(n, *[[p[lo:hi] for p in group]
                                 for group in plane_groups]))
         return [torch.cat([o[c] for o in outs], dim=0) for c in range(3)]
 
-    def _masked_min(self, v, valid_b=None):
+    def _masked_min(self, v, valid_b=None, axis_names=()):
         """Whole-batch min over the valid slots (``valid_b`` overrides the
-        renderer's own mask: a tiled strip's)."""
+        renderer's own mask: a tiled strip's or a row shard's).
+        ``axis_names`` (process groups) extends it across the ranks; a
+        shard without a valid slot joins with ``big``."""
         valid_b = self._valid_b if valid_b is None else valid_b
         big = float(np.finfo(np.float32).max)
-        return rmin(torch.where(valid_b, v, big))
+        filled = torch.where(valid_b, v, big)
+        return prmin(filled, axis_names) if axis_names else rmin(filled)
 
-    def _masked_max(self, v, valid_b=None):
+    def _masked_max(self, v, valid_b=None, axis_names=()):
         valid_b = self._valid_b if valid_b is None else valid_b
         big = float(np.finfo(np.float32).max)
-        return rmax(torch.where(valid_b, v, -big))
+        filled = torch.where(valid_b, v, -big)
+        return prmax(filled, axis_names) if axis_names else rmax(filled)
 
-    def _log_minmax_norm(self, dists, valid_b=None, bounds=None):
+    def _log_minmax_norm(self, dists, valid_b=None, axis_names=(),
+                         bounds=None):
         log_d = torch.log(clamp(dists, 1e-2))
         if bounds is not None:  # precomputed whole-image bounds (tiled)
             lo, hi = bounds
         else:
-            lo = self._masked_min(log_d, valid_b)
-            hi = self._masked_max(log_d, valid_b)
+            lo = self._masked_min(log_d, valid_b, axis_names)
+            hi = self._masked_max(log_d, valid_b, axis_names)
         return ((log_d - lo) / (hi - lo)) ** _GAMMA
 
-    def norm_bounds(self, mode, origin, hit, valid_b=None):
+    def norm_bounds(self, mode, origin, hit, valid_b=None, axis_names=()):
         """``(lo, hi)`` of ``mode``'s whole-image normalization statistic over
         this renderer's valid rays: pass 1 of the tiled renderer's two
         passes, where the whole-image min/max must span every strip before
         any strip can shade. The formulas of the matching :meth:`_shade`
-        branches; modes without a normalization give ``(0, 1)``."""
+        branches; modes without a normalization give ``(0, 1)``.
+        ``axis_names`` extends the reductions across ranks (a sharded
+        strip's)."""
         name = mode if isinstance(mode, str) \
             else shaders.MODES[mode % len(shaders.MODES)]
         if name == "distance":
@@ -256,17 +290,22 @@ class FastRenderer:
         else:
             zero = torch.zeros((), dtype=hit[0].dtype, device=hit[0].device)
             return zero, zero + 1.0
-        return (self._masked_min(raw, valid_b),
-                self._masked_max(raw, valid_b))
+        return (self._masked_min(raw, valid_b, axis_names),
+                self._masked_max(raw, valid_b, axis_names))
 
     def _shade(self, mode, degree, orientation, origin, dirs, hit,
-               valid_b=None, norm_bounds=None, params=None):
+               valid_b=None, axis_names=(), cameras=None, norm_bounds=None,
+               params=None):
         """Componentwise shaders on planes; returns [r, g, b] planes.
 
-        ``valid_b`` overrides the mask of the whole-batch normalizations and
-        ``norm_bounds`` replaces them with precomputed whole-image bounds
-        (:meth:`norm_bounds`; the tiled renderer's pass 2). ``params`` is
-        needed by the lighting modes only (they query the SDF again)."""
+        ``valid_b`` overrides the mask of the whole-batch normalizations,
+        ``axis_names`` (process groups) extends them across the ranks that
+        hold the other row shards, and ``norm_bounds`` replaces them with
+        precomputed whole-image bounds (:meth:`norm_bounds`; the tiled
+        renderer's pass 2). ``cameras`` overrides the camera count (a row
+        shard is one camera's, with that camera's ``orientation`` row).
+        ``params`` is needed by the lighting modes only (they query the SDF
+        again)."""
         x, y, z, d, nx, ny, nz, lap = hit
         dx, dy, dz = dirs
         name = mode if isinstance(mode, str) \
@@ -283,10 +322,10 @@ class FastRenderer:
             return [v, v, v]
         if name == "distance":
             v = self._log_minmax_norm(_travel(origin, hit), valid_b,
-                                      norm_bounds)
+                                      axis_names, norm_bounds)
             return [v, v, v]
         if name == "proximity":
-            v = self._log_minmax_norm(d, valid_b, norm_bounds)
+            v = self._log_minmax_norm(d, valid_b, axis_names, norm_bounds)
             return [v, v, v]
         if name == "vignette":
             def vignette_cam(n, dirs_n):
@@ -298,12 +337,13 @@ class FastRenderer:
                 s = dxn * ax + dyn * ay + dzn * az
                 v = s * s * s
                 return [v, v, v]
-            return self._per_camera(vignette_cam, [dx, dy, dz])
+            return self._per_camera(vignette_cam, [dx, dy, dz],
+                                    cameras=cameras)
         if name == "normal":
             return [clamp(torch.abs(c), 0.0, 1.0) for c in (nx, ny, nz)]
         if name == "laplacian":
             hi = (norm_bounds[1] if norm_bounds is not None
-                  else self._masked_max(torch.abs(lap), valid_b))
+                  else self._masked_max(torch.abs(lap), valid_b, axis_names))
             v = clamp((1.0 - lap / hi) / 2.0, 0.0, 1.0) ** _GAMMA
             return [v, v, v]
         if name == "tangent":
@@ -319,7 +359,8 @@ class FastRenderer:
                 prx, pry, _ = quat.rotate_c(*qc, tx_, ty_, tz_)
                 return shaders.domain_colouring(prx, pry, self.cyclic_cmap,
                                                 degree, self.cmap_coeffs)
-            return self._per_camera(tangent_cam, [dx, dy, dz], [nx, ny, nz])
+            return self._per_camera(tangent_cam, [dx, dy, dz], [nx, ny, nz],
+                                    cameras=cameras)
         if name != "spin":
             raise ValueError(f"unknown shader mode {mode!r}")
 
@@ -336,7 +377,7 @@ class FastRenderer:
             return shaders.domain_colouring(imag_part, real_part,
                                             self.cyclic_cmap, degree,
                                             self.cmap_coeffs)
-        return self._per_camera(spin_cam, [nx, ny, nz])
+        return self._per_camera(spin_cam, [nx, ny, nz], cameras=cameras)
 
     # -- public API --------------------------------------------------------
 

@@ -122,8 +122,11 @@ class Renderer:
         (N, 3) camera positions; ``mode`` is the shader index (0..7, wraps
         mod 8) or a lighting mode's name, ``degree`` the winding degree of
         the tangent/spin colouring, ``marching_steps`` overrides the
-        configuration's. ``axis_names`` must be empty (sharded reductions
-        are not ported)."""
+        configuration's. ``axis_names`` is a tuple of ``torch.distributed``
+        process groups (a mesh's per-dimension groups) over which the
+        distance, proximity and laplacian normalizations reduce, for a grid
+        sharded across ranks (:func:`ray_marching_tpu_torch.parallel.
+        shard_render`); empty, the frame is this process's alone."""
         orientation = self._tensor(orientation)
         translation = self._tensor(translation)
         pixel_pos, pixel_frames, ray_pos, ray_dirs = self.camera.pose(
@@ -164,9 +167,11 @@ class Renderer:
             tuple(surface_normals[..., i] for i in range(3)),
             self.config)[..., None]
 
-    def _broadcast(self, image):
-        h, w = self.config.px_height, self.config.px_width
-        return image.expand(image.shape[0], h, w, 3)
+    @staticmethod
+    def _broadcast(image):
+        """(N, H, W, 1 or 3) → (N, H, W, 3); H and W are the image's (a
+        rank's block of the frame when sharded)."""
+        return image.expand(*image.shape[:3], 3)
 
     def render_from_rays(self, params, orientation, pixel_pos, pixel_frames,
                          ray_pos, ray_dirs, *, mode: int = 0, degree: int = 1,

@@ -12,8 +12,10 @@ passed into the ``(real, imag)`` slots, and the 4096-row colourmap
 (``data/cyclic_cmap.npy``, this package's own copy) gathered exactly by
 ``floor → int → mod``. ``cmap_coeffs`` (``RenderConfig.cmap_fourier``)
 swaps the gather for an 8-harmonic Fourier fit of the same table, evaluated
-without a gather or a transcendental. Not ported yet: reductions across mesh
-axes (``axis_names``).
+without a gather or a transcendental. ``axis_names`` (a tuple of
+``torch.distributed`` process groups, the mesh's per-dimension groups)
+extends the whole-tensor reductions across the ranks that hold the other
+shards of the image (``utils.prmin``/``prmax``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ray_marching_tpu_torch import quat
-from ray_marching_tpu_torch.utils import clamp, not_ported, rmax, rmin
+from ray_marching_tpu_torch.utils import clamp, prmax, prmin, rmax, rmin
 
 _GAMMA = 1.0 / 2.33
 _CMAP_PATH = Path(__file__).resolve().parent.parent / "data" / "cyclic_cmap.npy"
@@ -145,9 +147,13 @@ def domain_colouring_fourier(real, imag, coeffs, degree):
 # -- vector-form shaders: (N, H, W, ·) tensors ------------------------------
 
 
-def _no_axis_names(axis_names):
+def _global_reduce(x, reduce_fn, sharded_fn, axis_names):
+    """Whole-tensor reduction, extended across the process groups of
+    ``axis_names`` when there are any (the differentiable ``prmin``/
+    ``prmax``, with the single-process path's tie splitting)."""
     if axis_names:
-        raise not_ported("axis_names (shader reductions across mesh axes)")
+        return sharded_fn(x, tuple(axis_names))
+    return reduce_fn(x)
 
 
 def lambertian(ray_directions, surface_normals):
@@ -156,24 +162,23 @@ def lambertian(ray_directions, surface_normals):
                             keepdim=True), 0.0, 1.0)
 
 
-def _log_minmax_norm(values):
+def _log_minmax_norm(values, axis_names):
     log_d = torch.log(clamp(values, 1e-2))
-    lo, hi = rmin(log_d), rmax(log_d)
+    lo = _global_reduce(log_d, rmin, prmin, axis_names)
+    hi = _global_reduce(log_d, rmax, prmax, axis_names)
     return ((log_d - lo) / (hi - lo)) ** _GAMMA
 
 
 def distance(px_coords, surface_coords, axis_names=()):
     """Log travel distance, min-max normalized over the whole tensor,
     gamma-corrected → 1 channel."""
-    _no_axis_names(axis_names)
     return _log_minmax_norm(torch.linalg.norm(
-        px_coords - surface_coords, dim=-1, keepdim=True))
+        px_coords - surface_coords, dim=-1, keepdim=True), axis_names)
 
 
 def proximity(surface_distances, axis_names=()):
     """The same normalization on the terminal SDF values → 1 channel."""
-    _no_axis_names(axis_names)
-    return _log_minmax_norm(surface_distances)
+    return _log_minmax_norm(surface_distances, axis_names)
 
 
 def vignette(ray_directions, pixel_frames):
@@ -191,8 +196,8 @@ def normal(surface_normals):
 def laplacian(surface_laplacian, axis_names=()):
     """Laplacian mapped ``(1 − L/max|L|)/2``, clamped, gamma-corrected →
     1 channel."""
-    _no_axis_names(axis_names)
-    x = surface_laplacian / rmax(torch.abs(surface_laplacian))
+    x = surface_laplacian / _global_reduce(torch.abs(surface_laplacian),
+                                           rmax, prmax, axis_names)
     return clamp((1.0 - x) / 2.0, 0.0, 1.0) ** _GAMMA
 
 

@@ -20,6 +20,14 @@ cropped.
 :meth:`TiledRenderer.loss_and_grad` sums a pixel loss and its gradients
 strip by strip, in a fixed order, for resolutions whose one-pass backward
 (the march history and the planes) would not fit.
+
+With ``mesh`` (a ``DeviceMesh`` over every rank of the process group) each
+strip's pass runs row-sharded over the ranks, as
+:mod:`ray_marching_tpu_torch.parallel.fast_sharding` shards a frame: pass
+1's statistics reduce across the ranks (``norm_bounds(axis_names=)``),
+pass 2 shades without a collective under the merged bounds, the strips'
+shards are gathered, and every rank returns the whole frame;
+``loss_and_grad`` sums the gradients across the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +40,16 @@ import numpy as np
 import torch
 
 from ray_marching_tpu_torch.camera import pixel_center_rows
+from ray_marching_tpu_torch.parallel.fast_sharding import (
+    SHARD_ROWS,
+    gather_planes,
+    shard_rows,
+)
+from ray_marching_tpu_torch.parallel.sharding import (
+    _check_world,
+    allreduce_sum,
+    mesh_groups,
+)
 from ray_marching_tpu_torch.render import lighting, shaders
 from ray_marching_tpu_torch.render.fast import (
     LANES,
@@ -57,8 +75,8 @@ class TiledRenderer:
     One single-camera :class:`FastRenderer` of ``(px_width, strip_height)``
     does all device work; multi-camera batches loop (camera, strip) pairs on
     the host, and the whole-image normalizations span the whole batch, as in
-    the one-pass renderers. ``mesh`` (strips sharded over several devices)
-    is not ported.
+    the one-pass renderers. ``mesh`` shards each strip's rows over the ranks
+    of a ``DeviceMesh`` (every rank calls every method, in the same order).
     """
 
     def __init__(self, scene: Node, config: RenderConfig, *,
@@ -66,19 +84,23 @@ class TiledRenderer:
                  grid_dtype=np.float32, device="cuda", mesh=None):
         if strip_height < 1:
             raise ValueError(f"strip_height must be >= 1, got {strip_height}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "TiledRenderer(mesh=...) is not ported yet: strips sharded "
-                "over a mesh come with the parallel slice (ROADMAP.md queue "
-                "1 item 8)")
         self.config = config
         self.num_cameras = config.num_cameras
         self.strip_height = min(strip_height, config.px_height)
         self.grid_dtype = grid_dtype
         strip_cfg = dataclasses.replace(config, px_height=self.strip_height,
                                         num_cameras=1)
-        self.fast = FastRenderer(scene, strip_cfg, dtype=dtype,
-                                 grid_dtype=grid_dtype, device=device)
+        self.mesh = mesh
+        self.fast = FastRenderer(
+            scene, strip_cfg, dtype=dtype, grid_dtype=grid_dtype,
+            device=device,
+            # Every rank's shard of a strip: whole SHARD_ROWS-row groups.
+            row_multiple=None if mesh is None else SHARD_ROWS * mesh.size())
+        self._groups = ()
+        if mesh is not None:
+            _check_world(mesh)
+            _, self._rows = shard_rows(self.fast, mesh)
+            self._groups = mesh_groups(mesh)
         self.dtype = dtype
         self.device = self.fast.device
         self.init_params = self.fast.init_params
@@ -87,7 +109,8 @@ class TiledRenderer:
     # -- per-strip constants -------------------------------------------------
 
     def _strip_planes(self, s: int):
-        """Strip ``s``'s ray planes, validity plane and its real row count."""
+        """Strip ``s``'s ray planes, validity plane and its real row count
+        (with a mesh, this rank's row shard of the planes)."""
         cfg = self.config
         fast = self.fast
         r0 = s * self.strip_height
@@ -98,8 +121,13 @@ class TiledRenderer:
                                      self.device)
         rows_real = min(self.strip_height, cfg.px_height - r0)
         slot = torch.arange(fast.rows_per_cam * LANES, device=self.device)
-        valid = (slot < rows_real * cfg.px_width).to(self.dtype)
-        return pos0, dir0, valid.reshape(fast.rows_per_cam, LANES), rows_real
+        valid = (slot < rows_real * cfg.px_width).to(self.dtype).reshape(
+            fast.rows_per_cam, LANES)
+        if self.mesh is not None:
+            pos0 = tuple(p[self._rows] for p in pos0)
+            dir0 = tuple(p[self._rows] for p in dir0)
+            valid = valid[self._rows]
+        return pos0, dir0, valid, rows_real
 
     def _strips(self, poses):
         """``(camera, strip, q row, t row, planes...)`` in the fixed order."""
@@ -115,10 +143,18 @@ class TiledRenderer:
         return (origin,) + tuple(out)
 
     def _shade(self, mode, degree, params, q, t, pos0, dir0, valid, bounds):
+        """The strip's (3, rows, 128) channel planes (this rank's shard)."""
         origin, hit, dirs = self._march(params, q, t, pos0, dir0, valid)
-        return self.fast._assemble(self.fast._shade(
+        return torch.stack(self.fast._shade(
             mode, degree, q, origin, dirs, hit, valid_b=valid > 0.5,
             norm_bounds=bounds, params=params))
+
+    def _image(self, planes):
+        """Channel planes (with a mesh, this rank's shard, gathered first)
+        → the strip's (1, strip_height, W, C) image."""
+        if self.mesh is not None:
+            planes = gather_planes(self.mesh, planes)
+        return self.fast._assemble(list(planes))
 
     def _merged_bounds(self, modes, params, poses):
         """Pass 1: every (camera, strip) pair's statistics of ``modes``,
@@ -132,7 +168,8 @@ class TiledRenderer:
                                              valid)
                 for m in modes:
                     lo, hi = self.fast.norm_bounds(m, origin, hit,
-                                                   valid_b=valid > 0.5)
+                                                   valid_b=valid > 0.5,
+                                                   axis_names=self._groups)
                     per_mode[m][0].append(lo)
                     per_mode[m][1].append(hi)
         return {m: (torch.stack(lo).amin(), torch.stack(hi).amax())
@@ -166,8 +203,8 @@ class TiledRenderer:
         frame = self._host_frame()
         with torch.no_grad():
             for n, s, qn, tn, pos0, dir0, valid, rows in self._strips(poses):
-                img = self._shade(mode, degree, params, qn, tn, pos0, dir0,
-                                  valid, bounds)
+                img = self._image(self._shade(mode, degree, params, qn, tn,
+                                              pos0, dir0, valid, bounds))
                 r0 = s * self.strip_height
                 frame[n, r0:r0 + rows].copy_(img[0, :rows])
         return frame
@@ -191,12 +228,14 @@ class TiledRenderer:
                 origin, hit, dirs = self._march(params, qn, tn, pos0, dir0,
                                                 valid)
                 r0 = s * self.strip_height
-                for m, name in modes:
-                    img = fast._assemble(fast._shade(
-                        m, degree, qn, origin, dirs, hit,
-                        valid_b=valid > 0.5, norm_bounds=bounds.get(m),
-                        params=params))
-                    frames[name][n, r0:r0 + rows].copy_(img[0, :rows])
+                # Every mode's planes in one tensor: one gather per strip.
+                img = self._image(torch.cat([torch.stack(fast._shade(
+                    m, degree, qn, origin, dirs, hit, valid_b=valid > 0.5,
+                    norm_bounds=bounds.get(m), params=params))
+                    for m, _ in modes]))
+                for i, (_, name) in enumerate(modes):
+                    frames[name][n, r0:r0 + rows].copy_(
+                        img[0, :rows, :, 3 * i:3 * i + 3])
         return frames
 
     def loss_and_grad(self, params, orientation, translation, target, *,
@@ -210,7 +249,9 @@ class TiledRenderer:
         squared error with render NaNs compared as 0, normalized by the
         whole batch's pixel count, so the value is the one-pass MSE.
         ``loss_fn(img_rows, tgt_rows)`` replaces it (summed, same
-        normalization). ``alpha_target`` (N, H, W, 1) adds ``alpha_weight ·
+        normalization); with a mesh it sees this rank's pixels in plane
+        layout, (rows, 128, 3), and must be per pixel, so that the pad slots
+        it also sees can be dropped. ``alpha_target`` (N, H, W, 1) adds ``alpha_weight ·
         MSE(soft_coverage(min_f, beta), alpha_target)`` from one more march
         per strip with the closest-approach plane (``min_f`` is per ray, so
         strips compose exactly). For distance, proximity and laplacian the
@@ -219,7 +260,8 @@ class TiledRenderer:
 
         Returns ``(loss, grads)``, a 0-d tensor and a gradient tree shaped
         like ``params``; with ``with_pose``, ``(loss, (grads, grad_q
-        (N, 4), grad_t (N, 3)))``."""
+        (N, 4), grad_t (N, 3)))``. With a mesh, the loss and the gradients
+        are summed across the ranks: every rank returns the same."""
         cfg = self.config
         if alpha_target is not None and cfg.reflection_bounces:
             raise ValueError("alpha_target: reflection bounces unsupported")
@@ -243,17 +285,21 @@ class TiledRenderer:
             qn = qn.detach().requires_grad_(with_pose)
             tn = tn.detach().requires_grad_(with_pose)
             r0 = s * self.strip_height
-            img = self._shade(mode, degree, work, qn, tn, pos0, dir0, valid,
-                              bounds)
-            strip_loss = torch.sum(loss_fn(
-                img[0, :rows], target[n, r0:r0 + rows])) / (n_apx * 3)
+            planes = self._shade(mode, degree, work, qn, tn, pos0, dir0,
+                                 valid, bounds)
+            pixels, strip_target = self._loss_layout(
+                planes, target[n, r0:r0 + rows], rows)
+            strip_loss = self._masked_sum(
+                loss_fn(pixels, strip_target), valid) / (n_apx * 3)
             if alpha_target is not None:
                 _, _, _, minf = self._march(work, qn, tn, pos0, dir0, valid,
                                             with_closest=True)
-                alpha = self.fast._assemble([soft_coverage(minf, beta)])
-                aerr = torch.square(alpha[0, :rows]
-                                    - alpha_target[n, r0:r0 + rows])
-                strip_loss = strip_loss + alpha_weight * torch.sum(aerr) / n_apx
+                alpha, strip_alpha = self._loss_layout(
+                    soft_coverage(minf, beta)[None],
+                    alpha_target[n, r0:r0 + rows], rows)
+                aerr = torch.square(alpha - strip_alpha)
+                strip_loss = (strip_loss + alpha_weight
+                              * self._masked_sum(aerr, valid) / n_apx)
             inputs = leaves + ([qn, tn] if with_pose else [])
             got = torch.autograd.grad(strip_loss, inputs, allow_unused=True)
             for i, g in enumerate(got[:len(leaves)]):
@@ -263,12 +309,35 @@ class TiledRenderer:
                 gq, gt = pose_sums[n]
                 pose_sums[n] = (gq + got[-2], gt + got[-1])
             loss = loss + strip_loss.detach()
+        allreduce_sum(sums + [g for pair in pose_sums for g in pair] + [loss],
+                      self._groups)
         by_leaf = {id(v): g for v, g in zip(leaves, sums)}
         grads = map_params(work, lambda v: by_leaf[id(v)])
         if with_pose:
             return loss, (grads, torch.cat([g[0] for g in pose_sums]),
                           torch.cat([g[1] for g in pose_sums]))
         return loss, grads
+
+    def _loss_layout(self, planes, target_rows, rows):
+        """A strip's (C, rows, 128) planes and its (rows, W, C) target rows
+        in the loss's layout: image rows without a mesh, this rank's slots
+        (rows / n, 128, C) with one (the target's pad slots zero)."""
+        if self.mesh is None:
+            return self.fast._assemble(list(planes))[0, :rows], target_rows
+        fast = self.fast
+        flat = target_rows.reshape(-1, target_rows.shape[-1])
+        slots = torch.zeros((fast.rows_per_cam * LANES, flat.shape[1]),
+                            dtype=flat.dtype, device=flat.device)
+        slots[:flat.shape[0]] = flat
+        return (planes.permute(1, 2, 0),
+                slots.reshape(fast.rows_per_cam, LANES, -1)[self._rows])
+
+    def _masked_sum(self, per_pixel, valid):
+        """Sum of a per-pixel loss; with a mesh, over the valid slots."""
+        if self.mesh is None:
+            return torch.sum(per_pixel)
+        return torch.sum(torch.where((valid > 0.5)[..., None], per_pixel,
+                                     0.0))
 
     def jitted(self, **render_kwargs):
         """``f(params, orientation, translation) -> image`` with

@@ -331,10 +331,12 @@ def test_camera_and_normals_default_to_the_card(which):
 @pytest.mark.parametrize("what", ["cmap_fourier", "occlusion", "extras",
                                   "axis_names", "backward"])
 def test_unported_options_raise(what):
-    """``axis_names`` (the parallel slice) still raises NotImplementedError;
-    ``cmap_fourier``, the ``occlusion`` mode and ``extras=True`` run since
-    the lighting slice (tests/test_torch_lighting.py holds their values
-    against JAX); a bad ``backward`` is rejected as in JAX."""
+    """What a slice has ported runs: ``cmap_fourier``, the ``occlusion``
+    mode and ``extras=True`` since the lighting slice
+    (tests/test_torch_lighting.py holds their values against JAX), and
+    ``axis_names`` since the parallel slice: empty, it is the default,
+    bit for bit (tests/test_torch_parallel_*.py hold the sharded
+    reductions against JAX); a bad ``backward`` is rejected as in JAX."""
     scene = treg.make_scene("test_scene2")
     kw = _cfg_kwargs(16, 8, marching_steps=4)
     if what == "backward":
@@ -347,8 +349,10 @@ def test_unported_options_raise(what):
     r = Renderer(scene, RenderConfig(**kw), dtype=torch.float64, device="cpu")
     q, t = r.default_pose()
     if what == "axis_names":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            r.render(r.init_params, q, t, mode=1, axis_names=("x",))
+        for mode in (1, 2, 5):  # mode 2 is all NaN here: compare bits
+            got = r.render(r.init_params, q, t, mode=mode, axis_names=())
+            want = r.render(r.init_params, q, t, mode=mode)
+            assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     elif what == "occlusion":
         img = r.render(r.init_params, q, t, mode="occlusion")
         assert img.shape == (1, 8, 16, 3) and bool(torch.isfinite(img).all())

@@ -317,7 +317,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('ops.march_kernel', 'render.march', 'render.implicit',\n"
-        "          'render.pipeline', 'camera', 'quat'):\n"
+        "          'render.pipeline', 'camera', 'quat', 'parallel.sharding',\n"
+        "          'parallel.fast_sharding', 'parallel.multihost'):\n"
         "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -21,6 +21,7 @@ from ray_marching_tpu.scene import graph as jgraph
 from ray_marching_tpu.scene import registry as jreg
 from ray_marching_tpu_torch.camera import _pixel_center_grid
 from ray_marching_tpu_torch.cli import main as cli_main
+from ray_marching_tpu_torch.parallel.fast_sharding import _check_rows
 from ray_marching_tpu_torch.render.fast import FastRenderer
 from ray_marching_tpu_torch.render.pipeline import RenderConfig
 from ray_marching_tpu_torch.render.shaders import MODES
@@ -265,17 +266,30 @@ def test_loss_and_grad_matches_jax_tiled(case):
                                    err_msg=k)
 
 
+class _SizedMesh:
+    """What ``fast_sharding._check_rows`` reads of a ``DeviceMesh``."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+
 def test_tiled_rejects_bad_strip_height_and_mesh():
     cfg = RenderConfig(**_kw(w=16, h=8, steps=4))
     for bad in (0, -5):
         with pytest.raises(ValueError, match="strip_height"):
             TiledRenderer(treg.make_scene("single_sphere"), cfg,
                           strip_height=bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TiledRenderer(treg.make_scene("single_sphere"), cfg, device="cpu",
-                      mesh=object())
     tr = TiledRenderer(treg.make_scene("single_sphere"), cfg, device="cpu",
                        strip_height=3)
+    # A mesh whose ranks cannot split a strip's rows into whole 8-row
+    # groups, as JAX's _check_rows rejects it (TiledRenderer(mesh=...) pads
+    # its strips for its own mesh; tests/test_torch_parallel_train.py runs
+    # one over two ranks).
+    with pytest.raises(ValueError, match="row_multiple=16"):
+        _check_rows(tr.fast, _SizedMesh(2))
     q, t = tr.default_pose()
     assert q.shape == (1, 4) and t.shape == (1, 3)
     assert tr.jitted(mode=4)(tr.init_params, q, t).shape == (1, 8, 16, 3)
