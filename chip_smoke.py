@@ -27,7 +27,11 @@ tiled renderer and the XLA route's backwards through the same kernels:
 renderers, tiled 8K frames and a tiled 4K gradient against one pass, and
 the XLA route's training step against the kernel pair; I/O and the host
 side: the 1080p and w256 artifacts served over HTTP, the browser and
-orbit viewers, ``cli optimize --target <png>`` and ``cli profile``),
+orbit viewers, ``cli optimize --target <png>`` and ``cli profile``; the
+parallel modules: one rank on NCCL and two ranks on the card over gloo;
+the union short-circuit: the main path built under ``RM_TPU_CSG_PRUNE=1``
+against the same without it, kernels, gradients, frames and ``optimize``
+bit for bit, and a tensor-core scene with a guarded union),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -45,6 +49,7 @@ Without a CUDA device it exits non-zero and prints no result. PNGs go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
 import functools
@@ -102,6 +107,9 @@ TOL_BWD = {"f32": 1e-4, "f64": 1e-10}
 #: log/pow/atan2 may differ from the CPU libm behind the golden by an ulp.
 GOLDEN_GRAD_RTOL, GOLDEN_GRAD_ATOL = 1e-6, 1e-9
 TRAIN_STEPS, SILHOUETTE_STEPS, IMPLICIT_STEPS, TWO_LEVEL_STEPS = 5, 3, 3, 3
+#: optimize steps of the prune phase on each backward path (history,
+#: recompute, two levels).
+TRAIN_STEPS_PRUNE = 3
 #: The modular frame (plain torch normals and shading around the march
 #: kernel) against the plane-native frame (everything in the fused kernel)
 #: of the same configuration, f32, lambertian in [0, 1], on converged
@@ -2923,6 +2931,18 @@ __global__ void probe_vjp(const T* __restrict__ P, T* __restrict__ io, int n) {
 }
 template __global__ void probe_sdf<float>(const float*, float*, int);
 template __global__ void probe_vjp<float>(const float*, float*, int);
+#ifdef SCENE_PRUNE
+// The union short-circuit's SDF with its guards; the bounds a parameter.
+template <typename T>
+__global__ void probe_sdf_fwd(const T* __restrict__ P, const SceneBounds<T> B,
+                              T* __restrict__ io, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  io[i] = scene_sdf_fwd<T>(P, nullptr, B, io[i], io[n + i], io[2 * n + i]);
+}
+template __global__ void probe_sdf_fwd<float>(const float*,
+                                              const SceneBounds<float>,
+                                              float*, int);
+#endif
 """
 
 
@@ -3056,7 +3076,8 @@ def sass_report(label, prog, probe):
     trips = list(getattr(prog, "loop_trips", ()))
     report = {}
     for name, (instrs, labels) in sass_functions(cubin).items():
-        kind = "sdf" if "probe_sdf" in name else "vjp"
+        kind = ("sdf_fwd" if "probe_sdf_fwd" in name else
+                "sdf" if "probe_sdf" in name else "vjp")
         # The VJP runs each loop forward (its tape) and then in reverse.
         report[kind] = sass_summary(
             instrs, labels, trips if kind == "sdf" else trips + trips[::-1])
@@ -4965,6 +4986,506 @@ def parallel_phase(card, out_dir: Path):
     print(f"parallel: {figures['seconds']:.1f} s")
     return counts, figures
 
+#: The prune phase's tensor-core scene: a w256 tensor-core leaf before a
+#: guarded analytic union, at the neural configuration's 512² and steps.
+PRUNE_TC_RES = NEURAL_RES
+#: Timing rounds of the prune phase (unpruned, pruned, pruned, unpruned).
+PRUNE_TURNS = ("unpruned", "pruned", "pruned", "unpruned")
+
+
+@contextlib.contextmanager
+def prune_switch():
+    """``RM_TPU_CSG_PRUNE=1`` around the constructions that read it."""
+    import os
+
+    old = os.environ.get("RM_TPU_CSG_PRUNE")
+    os.environ["RM_TPU_CSG_PRUNE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RM_TPU_CSG_PRUNE"]
+        else:
+            os.environ["RM_TPU_CSG_PRUNE"] = old
+
+
+def mixed_tc_scene():
+    """``Union(room, Affine(NeuralSDF w256), Union(sphere, torus))``: the
+    MLP (tensor cores in f32) comes before a guarded analytic union, so a
+    warp's divergent guard precedes the next step's ``mma.sync``. Random
+    weights from the leaf's seed."""
+    from ray_marching_tpu_torch.scene.graph import (
+        Affine,
+        Sphere,
+        Torus,
+        Union,
+    )
+
+    room, leaf = neural_scene().children
+    return Union(children=(
+        room,
+        Affine(child=leaf, orientation=(1.0, 0.0, 0.0, 0.0),
+               translation=(-1.2, 0.0, 0.0)),
+        Union(children=(Sphere(radius=0.5),
+                        Torus(radius1=1.0, radius2=0.25)))))
+
+
+def guard_skip_shares(node, params, points):
+    """Share of the points at which the kernels' short-circuit skips each
+    guarded child of the scene's top-level union (the scenes of this phase
+    have no other guard): ``lb > d`` per point, from the port's
+    ``bounding_sphere_fn`` and the running minimum of the children before
+    it, as a thread of the pruned kernels decides. ``points``: an iterable
+    of (x, y, z) plane triples, every valid ray's evaluation points."""
+    import torch
+
+    from ray_marching_tpu_torch.scene import graph
+    from ray_marching_tpu_torch.utils import vmin
+
+    bounds = graph.pruned_children(node)
+    fns = [graph.compile_node(c) for c in node.children]
+    skipped = [0] * len(fns)
+    total = 0
+    with torch.no_grad():
+        for x, y, z in points:
+            d = fns[0](params["c0"], x, y, z)
+            for i in range(1, len(fns)):
+                pi = params[f"c{i}"]
+                if bounds[i] is not None:
+                    lb = graph.guard_lower_bound(bounds[i](pi), x, y, z)
+                    skipped[i] += int((lb > d).sum())
+                d = vmin(d, fns[i](pi, x, y, z))
+            total += x.numel()
+    return [n / total for i, n in enumerate(skipped) if bounds[i] is not None]
+
+
+def prune_optimize(r, steps, path):
+    """``optimize`` on ``c1/c0/radius`` (the selftest target, radius 1.2×)
+    through ``r``'s kernels with the backward's ``path`` (history,
+    recompute or two-level), counted: ``(result, launch counts)``."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.optim.inverse import InverseConfig, optimize
+
+    with torch.no_grad():
+        target = r.render(perturbed(r.init_params, "c1/c0/radius", 1.2),
+                          BENCH_Q, BENCH_T, mode=0, degree=2)
+    cfg = InverseConfig(learning_rate=1e-2, steps=steps, mode=0, degree=2,
+                        trainable=["c1/c0/radius"])
+    torch.cuda.synchronize()
+    rk.LAUNCHES = rk.PRUNE_LAUNCHES = bk.LAUNCHES = bk.PRUNE_LAUNCHES = 0
+    saved = rk.BWD_TWO_LEVEL, rk.BWD_HIST
+    rk.BWD_TWO_LEVEL, rk.BWD_HIST = path == "two-level", path == "history"
+    try:
+        out = optimize(r, target, BENCH_Q, BENCH_T, cfg)
+    finally:
+        rk.BWD_TWO_LEVEL, rk.BWD_HIST = saved
+    torch.cuda.synchronize()
+    check(bk.LAST_PATH.get("two_level") is (path == "two-level")
+          and bk.LAST_PATH.get("use_hist") is (path == "history"),
+          f"prune optimize ({path}): LAST_PATH says {bk.LAST_PATH}")
+    return out, {"fwd": rk.LAUNCHES, "fwd_pruned": rk.PRUNE_LAUNCHES,
+                 "bwd": bk.LAUNCHES, "bwd_pruned": bk.PRUNE_LAUNCHES}
+
+
+def prune_phase(card, main, sass):
+    """The union short-circuit on the card, at the main path's
+    configuration (test_scene2, 1080p, 32 steps, tau = 0, f32, mode 0,
+    degree 2): ``FastRenderer`` built under ``RM_TPU_CSG_PRUNE=1`` against
+    ``main``, built without it. The pruned forward kernels (serving,
+    training) bitwise their plain versions and sha256-equal to the unpruned
+    kernels' outputs; the backward's history, recompute and two-level
+    gradients sha256-equal across both libraries, and the pruned recompute
+    and two-level kernels within TOL_BWD of their plain versions; 3
+    ``optimize`` steps on each backward path bitwise the unpruned
+    parameters, one pruned forward launch a step and one pruned backward
+    launch a recompute or two-level step; a tensor-core scene with a guarded
+    union frame bitwise; the skip share from the plain march's history; the
+    kernels and the frame timed in turns; the SASS with the guard. Returns
+    the three kernel rows and the phase's figures."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.scene import registry
+
+    t0 = time.perf_counter()
+    with prune_switch():
+        pr = FastRenderer(registry.make_scene("test_scene2"),
+                          config(1920, 1080), dtype=torch.float32)
+    prog, plain_prog = pr.program, main.program
+    check(prog.pruned and not plain_prog.pruned
+          and rk.kernel_key(prog) != rk.kernel_key(plain_prog),
+          "prune: the renderer built under the switch has no pruned library")
+    figures = {"guard_ops": prog.guard_ops, "ops_per_eval": prog.ops_per_eval}
+    flat, rays7 = main_rays(main, BENCH_Q, BENCH_T)
+    valid = rays7[6] > 0.5
+    n_valid = int(valid.sum())
+
+    def digest(*tensors):
+        return hashlib.sha256(b"".join(
+            t.detach().contiguous().cpu().numpy().tobytes()
+            for t in tensors)).hexdigest()
+
+    # (a) The forward kernels: serving and training configuration, pruned
+    # against unpruned (sha256) and against the plain version, whose plain
+    # SDF gives the same values (bitwise on the valid rays).
+    rk.PRUNE_LAUNCHES = 0
+    serve = {p: rk.march_forward(p, flat, rays7, STEPS, 0.0, 5e-2)[0]
+             for p in (plain_prog, prog)}
+    train = {p: rk.march_forward(p, flat, rays7, STEPS, 0.0, 5e-2,
+                                 track_min=True, log_hist=True,
+                                 track_argpos=True) for p in (plain_prog, prog)}
+    check(rk.PRUNE_LAUNCHES == 2, f"prune: {rk.PRUNE_LAUNCHES} pruned "
+                                  "launches of 2")
+    plain_serve = rk.reference_march_normals(prog, flat, rays7, STEPS, 0.0,
+                                             5e-2)
+    plain_train = rk._reference_march(prog, flat, rays7, STEPS, 0.0, 5e-2,
+                                      track_min=True, log_hist=True,
+                                      track_argpos=True)
+    torch.cuda.synchronize()
+    outs = {}
+    for p in (plain_prog, prog):
+        out, ex = train[p]
+        # A pad slot's history holds its terminal entry only.
+        outs[p] = [serve[p], out, ex["hist"][:, :, valid], ex["amin"],
+                   ex["argpos"], ex["nlive"]]
+    names = ("planes", "training planes", "history", "arg-min", "arg-min "
+             "position", "live steps")
+    for name, a, b in zip(names, outs[plain_prog], outs[prog]):
+        check(digest(a) == digest(b), f"prune: the pruned forward's {name} "
+                                      "differ from the unpruned kernel's")
+    for name, got, want in (
+            ("serving planes", serve[prog], plain_serve),
+            ("training planes", train[prog][0], plain_train[0]),
+            ("history", train[prog][1]["hist"], plain_train[1]["hist"]),
+            ("arg-min", train[prog][1]["amin"], plain_train[1]["amin"]),
+            ("arg-min position", train[prog][1]["argpos"],
+             plain_train[1]["argpos"]),
+            ("live steps", train[prog][1]["nlive"], plain_train[1]["nlive"])):
+        eq = same_bits(got, want)
+        while eq.dim() > 2:
+            eq = eq.all(0)
+        check(bool(eq[valid].all()), f"prune: the pruned kernel's {name} "
+                                     "differ from its plain version")
+    # Serving planes on the valid rays, a NaN against a NaN counted as 0.
+    fwd_diff = (serve[prog] - plain_serve)[:, valid].abs()
+    fwd_err = float(torch.where(
+        torch.isnan(serve[prog][:, valid]) & torch.isnan(plain_serve[:, valid]),
+        0.0, fwd_diff).max())
+    print("prune forward (f32 1080p test_scene2 tau=0): serving and training "
+          "kernels sha256-equal to the unpruned kernels' (planes, history, "
+          "min_f, arg-min, arg-min position, live steps) and bitwise equal "
+          "to its plain version on every valid ray")
+
+    # The skip share, from the history of the march and the tail's points.
+    hist = train[plain_prog][1]["hist"]
+    off, _, _, _ = rk._plain_consts(torch.float32, 0.0, 5e-2)
+    params = pr.init_params
+    pick = lambda t: t[valid]  # noqa: E731
+    march_pts = ([pick(hist[s, c]) for c in range(3)] for s in range(STEPS))
+    end = [pick(hist[STEPS, c]) for c in range(3)]
+    tail_pts = [end] + [[end[c] + off[k][c] for c in range(3)]
+                        for k in range(4)]
+    march_share = guard_skip_shares(pr.scene, params, march_pts)
+    tail_share = guard_skip_shares(pr.scene, params, tail_pts)
+    check(len(march_share) == len(prog.guard_ops) == 1,
+          "prune: test_scene2 has one guard, at its top-level union")
+    evals = STEPS + 5
+    share = (STEPS * march_share[0] + 5 * tail_share[0]) / evals
+    figures.update(skip_share=share, skip_share_march=march_share[0],
+                   skip_share_tail=tail_share[0])
+    (test_ops, region_ops), = prog.guard_ops
+    ev = prog.ops_per_eval
+
+    def pruned_ev(s):
+        return ev + test_ops - s * region_ops
+
+    fwd_ops = (n_valid * (STEPS * pruned_ev(march_share[0])
+                          + 5 * pruned_ev(tail_share[0])
+                          + STEPS * rk.OPS_PER_STEP + rk.OPS_TAIL))
+    plane_bytes = rays7.shape[1] * rays7.shape[2] * rays7.element_size()
+    bound = lambda ops, nbytes: (  # noqa: E731
+        max(ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3),
+        "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
+        else "bytes")
+    print(f"prune skip share (guard of c1, from the history and the tail's "
+          f"points): {share:.6f} of {evals} evaluations a ray (march "
+          f"{march_share[0]:.6f}, tail {tail_share[0]:.6f}); the guard's test "
+          f"{test_ops} ops, its region {region_ops} of the SDF's {ev}; ops "
+          f"per evaluation run {pruned_ev(share):.3f}")
+
+    # (b) The backward: history, recompute and two levels on both
+    # libraries, all six sha256-equal.
+    g8 = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (8,) + tuple(rays7.shape[1:])), dtype=rays7.dtype).to(rays7.device)
+    grads, pruned_grads = {}, {}
+    bk.PRUNE_LAUNCHES = 0
+    for p in (plain_prog, prog):
+        ex = train[p][1]
+        for path, kw in (("history", dict(hist=ex["hist"],
+                                          nlive=ex["nlive"])),
+                         ("recompute", {}), ("two-level",
+                                             dict(two_level=True))):
+            gflat, _, grays = bk.fused_backward(p, flat, rays7, g8, STEPS,
+                                                0.0, 5e-2, **kw)
+            check(bk.LAST_PATH["two_level"] == (path == "two-level"),
+                  f"prune: {path} ran {bk.LAST_PATH}")
+            grads[(p.pruned, path)] = digest(gflat, grays)
+            if p is prog:
+                pruned_grads[path] = (gflat, grays)
+    # The history path marches nothing: only the other two ran the guard.
+    check(bk.PRUNE_LAUNCHES == 2, f"prune: {bk.PRUNE_LAUNCHES} pruned "
+                                  "backward launches of 2")
+    check(len(set(grads.values())) == 1, f"prune: backward digests differ: "
+                                         f"{grads}")
+    # The pruned recompute and two-level kernels against their plain
+    # versions (the same plain SDF: the values the guard keeps), as
+    # compare_backward and compare_two_level hold the unpruned ones.
+    conv = valid & (plain_train[0][3].abs() < CONVERGED)
+    tol = TOL_BWD["f32"]
+    bwd_errs = {}
+    for path, kw in (("recompute", {}), ("two-level", dict(two_level=True))):
+        want = bk.reference_backward(prog, flat, rays7, g8, STEPS, 0.0, 5e-2,
+                                     **kw)[::2]
+        got = pruned_grads[path]
+        e_flat = float((got[0] - want[0]).abs().max())
+        s_flat = float(want[0].abs().max())
+        e_rays = float((got[1] - want[1])[:, conv].abs().max())
+        s_rays = float(want[1][:, conv].abs().max())
+        print(f"prune backward {path} vs plain: ray cotangents max abs diff "
+              f"{e_rays:.3e} of {s_rays:.3e}, parameter cotangent "
+              f"{e_flat:.3e} of {s_flat:.3e} (tolerance {tol:g} relative)")
+        check(bool(torch.isfinite(got[0]).all())
+              and bool(torch.isfinite(got[1][:, conv]).all()),
+              f"prune: the pruned {path} backward's cotangents are not finite")
+        check(e_rays <= tol * s_rays and e_flat <= tol * s_flat,
+              f"prune: the pruned {path} backward and its plain version "
+              "disagree")
+        bwd_errs[path] = (e_rays, e_flat)
+    del pruned_grads
+    print("prune backward: history, recompute and two-level gradients of "
+          "both libraries sha256-equal " + next(iter(grads.values()))[:16])
+
+    # (c) The main path with the switch on: 3 frames and 3 optimize steps
+    # on each backward path (history, recompute, two levels), counted,
+    # bitwise the unpruned ones.
+    poses = [(BENCH_Q, BENCH_T),
+             ([[0.9914449, 0.0, 0.1305262, 0.0]], [[0.3, 0.1, -2.4]]),
+             ([[0.0, 0.0, 0.9659258, 0.258819]], [[-0.4, 0.5, 2.2]])]
+    rk.LAUNCHES = rk.PRUNE_LAUNCHES = 0
+    frames = [pr.render(pr.init_params, q, t, mode=0, degree=2)
+              for q, t in poses]
+    torch.cuda.synchronize()
+    frame_launches = (rk.LAUNCHES, rk.PRUNE_LAUNCHES)
+    check(frame_launches == (3, 3), f"prune: frames launched {frame_launches}")
+    want = [main.render(main.init_params, q, t, mode=0, degree=2)
+            for q, t in poses]
+    check(all(digest(a) == digest(b) for a, b in zip(frames, want)),
+          "prune: a pruned frame differs from the unpruned one")
+    opt = {}
+    n = TRAIN_STEPS_PRUNE
+    bwd_paths = ("history", "recompute", "two-level")
+    for name, r in (("unpruned", main), ("pruned", pr)):
+        for path in bwd_paths:
+            out, counts = prune_optimize(r, n, path)
+            opt[(name, path)] = (params_digest(out["params"]), out["losses"],
+                                 counts)
+    for path in bwd_paths:
+        counts = opt[("pruned", path)][2]
+        # The history path's backward launches run no short-circuit.
+        want = {"fwd": n, "fwd_pruned": n, "bwd": n,
+                "bwd_pruned": 0 if path == "history" else n}
+        check(counts == want,
+              f"prune: optimize ({path}) launched {counts} in {n} steps")
+    check(len({v[0] for v in opt.values()}) == 1,
+          "prune: optimize's parameters differ between the libraries or "
+          "the backward paths")
+    print(f"prune main path: 3 frames bitwise the unpruned ones (3 pruned "
+          f"launches); {n} optimize steps on each backward path, parameters "
+          f"bitwise the unpruned runs' (losses "
+          + " ".join(f"{v:.6e}" for v in opt[("pruned", "history")][1])
+          + "), launches " + "; ".join(
+              f"{path} {opt[('pruned', path)][2]}" for path in bwd_paths))
+
+    # (d) The tensor-core scene: the frame pruned against unpruned.
+    scene = mixed_tc_scene()
+    tc_cfg = dataclasses.replace(config(PRUNE_TC_RES, PRUNE_TC_RES),
+                                 marching_steps=NEURAL_STEPS)
+    tc_plain = FastRenderer(scene, tc_cfg, dtype=torch.float32)
+    with prune_switch():
+        tc_pr = FastRenderer(scene, tc_cfg, dtype=torch.float32)
+    check(tc_pr.program.pruned and tc_pr.program.tc
+          and not tc_plain.program.pruned, "prune: the tensor-core scene")
+    rk.TC_LAUNCHES = rk.PRUNE_LAUNCHES = 0
+    tc_frames = [r.render(r.init_params, NEURAL_Q, NEURAL_T, mode=0, degree=1)
+                 for r in (tc_plain, tc_pr)]
+    torch.cuda.synchronize()
+    check(rk.TC_LAUNCHES == 2 and rk.PRUNE_LAUNCHES == 1,
+          f"prune: tensor-core launches {rk.TC_LAUNCHES}, pruned "
+          f"{rk.PRUNE_LAUNCHES}")
+    check(digest(tc_frames[0]) == digest(tc_frames[1])
+          and bool(torch.isfinite(tc_frames[1]).all()),
+          "prune: the tensor-core scene's pruned frame differs")
+    tc_ms = {name: cuda_ms(lambda r=r: r.render(
+        r.init_params, NEURAL_Q, NEURAL_T, mode=0, degree=1), 10)
+        for name, r in (("unpruned", tc_plain), ("pruned", tc_pr))}
+    figures["tc_frame_ms"] = tc_ms
+    print(f"prune tensor-core scene ({PRUNE_TC_RES}², {NEURAL_STEPS} steps, "
+          f"w256 leaf before a guarded union): frame bitwise the unpruned "
+          f"one; {tc_ms['pruned']:.4f} ms against {tc_ms['unpruned']:.4f}")
+    del tc_plain, tc_pr, tc_frames
+
+    # (e) Timings in turns, and the plain versions.
+    ex_h = {p: train[p][1] for p in (plain_prog, prog)}
+    by = {"unpruned": plain_prog, "pruned": prog}
+    rend = {"unpruned": main, "pruned": pr}
+    q, t = BENCH_Q, BENCH_T
+    work = {
+        "serving": lambda p: rk.march_forward(p, flat, rays7, STEPS, 0.0,
+                                              5e-2),
+        "training": lambda p: rk.march_forward(p, flat, rays7, STEPS, 0.0,
+                                               5e-2, log_hist=True),
+        "history": lambda p: bk.fused_backward(
+            p, flat, rays7, g8, STEPS, 0.0, 5e-2, hist=ex_h[p]["hist"],
+            nlive=ex_h[p]["nlive"]),
+        "recompute": lambda p: bk.fused_backward(p, flat, rays7, g8, STEPS,
+                                                 0.0, 5e-2),
+        "two-level": lambda p: bk.fused_backward(p, flat, rays7, g8, STEPS,
+                                                 0.0, 5e-2, two_level=True),
+    }
+    times = {}
+    for name, fn in work.items():
+        reps = 50 if name in ("serving", "training") else 10
+        for turn in PRUNE_TURNS:
+            times.setdefault((name, turn), []).append(
+                kernel_ms(lambda: fn(by[turn]), reps))
+    for turn in PRUNE_TURNS:
+        times.setdefault(("frame", turn), []).append(cuda_ms(
+            lambda: rend[turn].render(rend[turn].init_params, q, t, mode=0,
+                                      degree=2), 50))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    figures["turns_ms"] = {f"{k[0]} {k[1]}": v for k, v in times.items()}
+    plain_ms = {
+        "serving": cuda_ms(lambda: rk.reference_march_normals(
+            prog, flat, rays7, STEPS, 0.0, 5e-2), 2),
+        "recompute": cuda_ms(lambda: bk.reference_backward(
+            prog, flat, rays7, g8, STEPS, 0.0, 5e-2), 1),
+        "two-level": cuda_ms(lambda: bk.reference_backward(
+            prog, flat, rays7, g8, STEPS, 0.0, 5e-2, two_level=True), 1),
+    }
+    print(f"prune timings on {card} (unpruned, pruned, pruned, unpruned): "
+          + "; ".join(f"{name} " + " ".join(
+              f"{v:.4f}" for v in (times[(name, PRUNE_TURNS[0])][0],
+                                   times[(name, "pruned")][0],
+                                   times[(name, "pruned")][1],
+                                   times[(name, PRUNE_TURNS[0])][1]))
+              + f" ms ({mean[(name, 'unpruned')] / mean[(name, 'pruned')]:.3f}"
+              "x)" for name in list(work) + ["frame"])
+          + "; plain versions " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in plain_ms.items()))
+
+    # Bounds: the evaluations run, the skip share's regions left out.
+    swept = n_valid * STEPS
+    k = bk.CKPT_INTERVAL
+    n_blocks = -(-rays7.shape[1] * rays7.shape[2] // 128)
+    partial_bytes = n_blocks * len(prog.scalar_offsets) * rays7.element_size()
+    saved = ev - pruned_ev(march_share[0])  # per recomputed march step
+    rec_ops = (bk.backward_ops(prog, n_valid, swept, recomputed_steps=swept)
+               - swept * saved)
+    tl_steps = swept + swept * (k - 1) // k
+    tl_ops = (bk.backward_ops(prog, n_valid, swept,
+                              recomputed_steps=tl_steps) - tl_steps * saved)
+    rec_bytes = 21 * plane_bytes + partial_bytes
+    bounds = {"serving": bound(fwd_ops, 15 * plane_bytes),
+              "recompute": bound(rec_ops, rec_bytes),
+              "two-level": bound(tl_ops, rec_bytes)}
+    figures["bounds_ms"] = bounds
+    sdf = sass["test_scene2 pruned"]
+    figures["sass"] = {kind: sdf[kind]["instructions"]
+                       for kind in ("sdf", "sdf_fwd", "forward", "backward")
+                       if kind in sdf}
+    print(f"prune SASS (f32): scene_sdf {sdf['sdf']['instructions']}, "
+          f"scene_sdf_fwd with its guard {sdf['sdf_fwd']['instructions']} "
+          "instructions (static; a skip jumps over the region)")
+    src = "ray_marching_tpu_torch/ops/csrc/"
+    fwd_opt = sum(opt[("pruned", path)][2]["fwd_pruned"]
+                  for path in bwd_paths)
+    bwd_opt = {path: opt[("pruned", path)][2]["bwd_pruned"]
+               for path in bwd_paths}
+    common = dict(scene="test_scene2, pruned", skip_share=share,
+                  sass_per_eval_unpruned=figures["sass"].get("sdf"),
+                  sass_per_eval_with_guard=figures["sass"].get("sdf_fwd"))
+    rows = [
+        kernel_row("render_fwd_pruned", src + "render_fwd.cu",
+                   "ray_marching_tpu/ops/pallas_render.py:227",
+                   frame_launches[1] + fwd_opt, mean[("serving", "pruned")],
+                   plain_ms["serving"], bounds["serving"], card, row="1p",
+                   max_abs_err=fwd_err,
+                   ms_unpruned=mean[("serving", "unpruned")],
+                   ms_training=mean[("training", "pruned")],
+                   ms_training_unpruned=mean[("training", "unpruned")],
+                   frame_ms=mean[("frame", "pruned")],
+                   frame_ms_unpruned=mean[("frame", "unpruned")],
+                   launches_frames=frame_launches[1],
+                   launches_optimize=fwd_opt, **common),
+        kernel_row("render_bwd_pruned", src + "render_bwd.cu",
+                   "ray_marching_tpu/ops/pallas_backward.py:119",
+                   bwd_opt["recompute"], mean[("recompute", "pruned")],
+                   plain_ms["recompute"], bounds["recompute"], card,
+                   row="2p", max_abs_err=bwd_errs["recompute"][0],
+                   max_abs_err_params=bwd_errs["recompute"][1],
+                   launches_history_path=opt[("pruned", "history")][2]["bwd"],
+                   launches_history_path_pruned=bwd_opt["history"],
+                   ms_unpruned=mean[("recompute", "unpruned")],
+                   ms_history=mean[("history", "pruned")],
+                   ms_history_unpruned=mean[("history", "unpruned")],
+                   **common),
+        kernel_row("render_bwd_two_level_pruned", src + "render_bwd.cu",
+                   "ray_marching_tpu/ops/pallas_backward.py:377",
+                   bwd_opt["two-level"], mean[("two-level", "pruned")],
+                   plain_ms["two-level"], bounds["two-level"], card,
+                   row="3p", max_abs_err=bwd_errs["two-level"][0],
+                   max_abs_err_params=bwd_errs["two-level"][1],
+                   ms_unpruned=mean[("two-level", "unpruned")], **common)]
+    figures["seconds"] = time.perf_counter() - t0
+    print(f"prune: {figures['seconds']:.1f} s")
+    return rows, figures
+
+
+#: The libraries of :func:`run_programs` that only the prune phase uses.
+PRUNE_BUILDS = ("test_scene2 pruned", "mixed tc", "mixed tc pruned")
+#: The scenes whose SDF the SASS probes compile beside the build.
+SASS_SCENES = ("test_scene2", "mandelbulb", "test_scene2 pruned")
+
+
+def run_programs():
+    """Every scene program the run builds, by label: the analytic scenes,
+    the neural slices' scenes, the analytic target of the weights check,
+    the Mandelbulb, and the prune phase's (test_scene2 with the union
+    short-circuit, and a tensor-core scene with a guarded union, without
+    and with it)."""
+    from ray_marching_tpu_torch.scene import registry
+    from ray_marching_tpu_torch.scene.codegen import SdfProgram
+
+    programs = {s: SdfProgram(registry.make_scene(s))
+                for s in ("test_scene2", "test_scene")}
+    programs.update({
+        "neural w256": SdfProgram(neural_scene()),
+        "neural w256 bf16": SdfProgram(neural_scene("bfloat16")),
+        "neural_demo": SdfProgram(registry.make_scene("neural_demo")),
+        "distillation target": SdfProgram(target_scene()),
+        "mandelbulb": SdfProgram(registry.make_scene("mandelbulb")),
+        "test_scene2 pruned": SdfProgram(registry.make_scene("test_scene2"),
+                                         prune=True),
+        "mixed tc": SdfProgram(mixed_tc_scene()),
+        "mixed tc pruned": SdfProgram(mixed_tc_scene(), prune=True),
+    })
+    return programs
+
 
 def _scaled_tree(tree, factor):
     """Every leaf of ``tree`` times ``factor``."""
@@ -4985,7 +5506,6 @@ def run(out_dir: Path):
     from ray_marching_tpu_torch.render.pipeline import Renderer
     from ray_marching_tpu_torch.render.shaders import MODES
     from ray_marching_tpu_torch.scene import registry
-    from ray_marching_tpu_torch.scene.codegen import SdfProgram
 
     card = card_line()
     print(f"card: {card}")
@@ -4996,25 +5516,15 @@ def run(out_dir: Path):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. Build every kernel of the run, all nvcc processes together: the
-    # analytic scenes, the neural slices' scenes, the analytic target of
-    # the weights check and the Mandelbulb.
+    # 1. Build every kernel of the run, all nvcc processes together.
     scenes = ("test_scene2", "test_scene")
-    programs = {s: SdfProgram(registry.make_scene(s)) for s in scenes}
-    programs.update({
-        "neural w256": SdfProgram(neural_scene()),
-        "neural w256 bf16": SdfProgram(neural_scene("bfloat16")),
-        "neural_demo": SdfProgram(registry.make_scene("neural_demo")),
-        "distillation target": SdfProgram(target_scene()),
-        "mandelbulb": SdfProgram(registry.make_scene("mandelbulb")),
-    })
+    programs = run_programs()
     t0 = time.perf_counter()
     # The bulb's spill check reads this run's ptxas report: a library left by
     # an earlier run is built again.
     shutil.rmtree(rk.BUILD_DIR / rk.kernel_key(programs["mandelbulb"]),
                   ignore_errors=True)
-    probes = start_sass_probes({s: programs[s] for s in ("test_scene2",
-                                                         "mandelbulb")})
+    probes = start_sass_probes({s: programs[s] for s in SASS_SCENES})
     rk.build_kernels(programs.values())
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(programs)} "
           "scene libraries")
@@ -5595,6 +6105,10 @@ def run(out_dir: Path):
         k: v["march_bwd"] for k, v in p_counts.items() if v["march_bwd"]})
     print("parallel figures: " + json.dumps(
         {"counts": p_counts, "figures": p_figures}))
+    # 12. The union short-circuit at the main path's configuration.
+    prune_rows, prune_figures = prune_phase(card, main, sass)
+    kernels["kernels"] += prune_rows
+    print("prune figures: " + json.dumps(prune_figures))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)

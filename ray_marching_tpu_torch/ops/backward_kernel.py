@@ -56,6 +56,11 @@ LAUNCHES = 0
 MARCH_LAUNCHES = 0
 TC_LAUNCHES = 0
 MARCH_TC_LAUNCHES = 0
+#: Launches by :func:`fused_backward` that ran the union short-circuit: a
+#: pruned program's kernel (``SdfProgram.pruned``) on the recompute or the
+#: two-level path, whose marches skip guarded union children (render_kernel's
+#: module doc). The history path marches nothing and is not counted.
+PRUNE_LAUNCHES = 0
 #: The two-level backward keeps every ``CKPT_INTERVAL``-th march position and
 #: marches each segment again when the sweep reaches it (defined once, in
 #: ``render_kernel``, which also hands it to the kernel's build).
@@ -216,7 +221,7 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     consts = rk._host_consts(dtype, tau, normals_eps)
 
     def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
-        global LAUNCHES, TC_LAUNCHES
+        global LAUNCHES, TC_LAUNCHES, PRUNE_LAUNCHES
         if route == "tc":
             fn = lib.rm_render_bwd_tc_f32
             TC_LAUNCHES += 1
@@ -224,6 +229,8 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
             fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
                   else lib.rm_render_bwd_f64)
         LAUNCHES += 1
+        if program.pruned and (recompute or two_level):
+            PRUNE_LAUNCHES += 1
         return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
                   g.data_ptr(), int(track_min), rk._ptr(hist),
                   int(recompute), rk._ptr(ckpt), int(two_level),

@@ -27,15 +27,48 @@
 // That is the JAX kernels' own semantics, and rows of the MLP's matrix
 // products are independent, so every ray gets the bits of the per-ray
 // break; the observer sees the same steps.
+//
+// Bounds (the union short-circuit, SCENE_PRUNE in the generated header of a
+// program built with prune=True that has a guarded union child): a kernel
+// computes scene_bounds(P) once per thread and hands it to its marches and
+// evaluations, which then take scene_sdf_fwd, skipping a guarded child
+// where its bounding sphere lies strictly beyond the running minimum (the
+// same values; scene/codegen.py). NoBounds, the default, takes the plain
+// scene_sdf: march.cu, the backward's march-only mode, segment replays,
+// normals tail and min_f tie test, and every VJP keep it (render_bwd.cu says
+// why the replays do). A guarded region makes no sink call, so the
+// block-synchronous backward's order of sink calls does not change.
 #pragma once
 
 #include "sdf_prims.cuh"
 #include "scene_sdf.cuh"
 
+struct NoBounds {};
+#ifndef SCENE_PRUNE
+template <typename T>
+using SceneBounds = NoBounds;
+
+template <typename T>
+__device__ __forceinline__ NoBounds scene_bounds(const T* __restrict__) {
+  return {};
+}
+#endif
+
+// The bounds a kernel's marches take: scene_bounds(P), or NoBounds (the
+// plain SDF) without PRUNE.
+template <typename T, bool PRUNE = true>
+__device__ __forceinline__ auto march_bounds(const T* __restrict__ P) {
+  if constexpr (PRUNE) {
+    return scene_bounds<T>(P);
+  } else {
+    return NoBounds{};
+  }
+}
+
 template <typename T, bool TC>
 __device__ __forceinline__ T march_sdf(const T* __restrict__ P,
                                        const T* __restrict__ M, T x, T y,
-                                       T z) {
+                                       T z, NoBounds = {}) {
 #ifdef SCENE_TC
   return scene_sdf<T, TC>(P, M, x, y, z);
 #else
@@ -43,6 +76,20 @@ __device__ __forceinline__ T march_sdf(const T* __restrict__ P,
   return scene_sdf<T>(P, M, x, y, z);
 #endif
 }
+
+#ifdef SCENE_PRUNE
+template <typename T, bool TC>
+__device__ __forceinline__ T march_sdf(const T* __restrict__ P,
+                                       const T* __restrict__ M, T x, T y,
+                                       T z, const SceneBounds<T>& B) {
+#ifdef SCENE_TC
+  return scene_sdf_fwd<T, TC>(P, M, B, x, y, z);
+#else
+  static_assert(!TC, "the scene has no tensor-core MLP leaf");
+  return scene_sdf_fwd<T>(P, M, B, x, y, z);
+#endif
+}
+#endif
 
 struct NoObserver {
   template <typename T>
@@ -110,20 +157,22 @@ __device__ __forceinline__ bool march_step(T& x, T& y, T& z, const T vx,
   return true;
 }
 
-template <typename T, typename Observer, bool TC = false>
+template <typename T, typename Observer, bool TC = false,
+          typename Bounds = NoBounds>
 __device__ __forceinline__ int march_ray(const T* __restrict__ P,
                                          const T* __restrict__ M, T& x, T& y,
                                          T& z, const T vx, const T vy,
                                          const T vz, const int steps,
                                          const T tau, Observer& observe,
-                                         bool live = true) {
+                                         bool live = true,
+                                         const Bounds& bounds = Bounds()) {
   const bool freeze = tau != static_cast<T>(0);
   int s = 0;
   for (int k = 0; k < steps; ++k) {
     if constexpr (TC) {
       if (!__any_sync(0xffffffffu, live)) break;
     }
-    const T d = march_sdf<T, TC>(P, M, x, y, z);
+    const T d = march_sdf<T, TC>(P, M, x, y, z, bounds);
     if (live) {
       observe(k, x, y, z, d);
       if (freeze && march_freezes(d, tau)) live = false;

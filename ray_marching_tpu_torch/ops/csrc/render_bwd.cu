@@ -84,6 +84,16 @@
 // three ways stay bitwise equal. Bound on an H100: operations, the MLP's
 // VJP (scene/codegen.py counts it: one forward, the slopes, W·δ, a ⊗ δ).
 //
+// The union short-circuit (SCENE_PRUNE): the recompute and the two-level
+// checkpoints march on scene_sdf_fwd with scene_bounds computed just before
+// the march (march_loop.cuh), so they give the pruned forward's positions,
+// which are the unpruned ones; the history path computes no bounds. The
+// segment replays, the tail's evaluations, the min_f tie test, every VJP
+// and the march-only mode keep the plain SDF: pruned replays inside the
+// sweep made the two-level backward 2.4 % slower on test_scene2 at 1080p,
+// where plain ones make it 0.7 % faster than the unpruned kernel (PERF.md,
+// tools/torch_prune_variants.py).
+//
 // TC (f32, a scene with a tensor-core MLP leaf, SCENE_TC): the same kernel
 // with the MLP on the tensor cores (neural.cuh): every march (the
 // recompute, the two-level checkpoints and segment replays) is the
@@ -300,13 +310,14 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       y = a.rays[plane + i];
       z = a.rays[2 * plane + i];
       CheckpointObserver<T> keep = {a.ckpt, plane, i};
+      const auto B = march_bounds<T>(a.P);
       if constexpr (TC) {
         nlive = march_ray<T, CheckpointObserver<T>, true>(
-            a.P, a.M, x, y, z, vx, vy, vz, steps, zero, keep, !skip);
+            a.P, a.M, x, y, z, vx, vy, vz, steps, zero, keep, !skip, B);
       } else {
         nlive = skip ? 0
                      : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps,
-                                    zero, keep);
+                                    zero, keep, true, B);
       }
     } else if (a.recompute) {
       x = a.rays[i];
@@ -314,13 +325,15 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
       z = a.rays[2 * plane + i];
       HistoryObserver<T, TRACK_MIN> seen = {a.hist, plane, i, big, -1,
                                             x,      y,     z};
+      // The march-only mode keeps march.cu's plain SDF.
+      const auto B = march_bounds<T, !MARCH_ONLY>(a.P);
       if constexpr (TC) {
         nlive = march_ray<T, HistoryObserver<T, TRACK_MIN>, true>(
-            a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau, seen, !skip);
+            a.P, a.M, x, y, z, vx, vy, vz, steps, c.tau, seen, !skip, B);
       } else {
         nlive = skip ? 0
                      : march_ray<T>(a.P, a.M, x, y, z, vx, vy, vz, steps,
-                                    c.tau, seen);
+                                    c.tau, seen, true, B);
       }
       minf = seen.minf;
       amin = seen.amin;
@@ -422,7 +435,8 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         T py = skip ? zero : ck[plane + i];
         T pz = skip ? zero : ck[2 * plane + i];
         // The segment's last step is not marched: the sweep needs the
-        // position before it, not after.
+        // position before it, not after. The replay keeps the plain SDF
+        // (the head comment says why); the positions are the same.
         ReplayObserver<T> replay = {rx, ry, rz};
         if constexpr (TC) {
           march_ray<T, ReplayObserver<T>, true>(a.P, a.M, px, py, pz, vx, vy,

@@ -63,6 +63,13 @@
 // the positions render_bwd.cu's TC instantiation recomputes and replays, bit
 // for bit.
 //
+// The union short-circuit (a scene built with prune=True, SCENE_PRUNE):
+// every kernel here computes scene_bounds once per thread and marches and
+// evaluates the tail on scene_sdf_fwd (march_loop.cuh), which skips a
+// guarded union child per thread where it cannot be the minimum: the same
+// planes and training outputs, bit for bit. Without SCENE_PRUNE the bounds
+// are empty and the SDF the plain one.
+//
 // Parity traps, kept deliberately:
 //  - min/max/clamp/relu are selects (sdf_prims.cuh), not fminf/fmaxf;
 //  - built with --fmad=false and without --use_fast_math: no contraction
@@ -131,19 +138,20 @@ __device__ __forceinline__ void store_planes(T* __restrict__ out,
 // Terminal distance, tetrahedral normals and Laplacian at (x, y, z):
 // planes 0..7 of out. TC: every lane evaluates, an invalid one stores the
 // pad outputs.
-template <typename T, bool TC = false>
+template <typename T, bool TC = false, typename Bounds = NoBounds>
 __device__ __forceinline__ void store_hit(const T* __restrict__ P,
                                           const T* __restrict__ M,
                                           T* __restrict__ out, long long plane,
                                           long long i, T x, T y, T z,
                                           const RenderConsts<T>& c,
-                                          bool valid = true) {
-  const T d_centre = march_sdf<T, TC>(P, M, x, y, z);
+                                          bool valid = true,
+                                          const Bounds& bounds = Bounds()) {
+  const T d_centre = march_sdf<T, TC>(P, M, x, y, z, bounds);
   T f[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     f[k] = march_sdf<T, TC>(P, M, x + c.off[k][0], y + c.off[k][1],
-                            z + c.off[k][2]);
+                            z + c.off[k][2], bounds);
   }
   if (!valid) {
     store_pad<T>(out, plane, i, x, y, z);
@@ -170,9 +178,10 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ M,
   const T dx = rays[3 * plane + i];
   const T dy = rays[4 * plane + i];
   const T dz = rays[5 * plane + i];
+  const auto B = march_bounds<T>(P);
   NoObserver none;
-  march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, none);
-  store_hit<T>(P, M, out, plane, i, x, y, z, c);
+  march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, none, true, B);
+  store_hit<T>(P, M, out, plane, i, x, y, z, c, true, B);
 }
 
 // The serving configuration at tau > 0 with lane refill. With one thread per
@@ -204,6 +213,7 @@ render_fwd_refill_kernel(const T* __restrict__ P, const T* __restrict__ M,
   T dc = x, f0 = x, f1 = x, f2 = x;
   int k = 0;   // march step
   int j = -1;  // tail evaluation, -1 while marching
+  const auto B = march_bounds<T>(P);
   for (;;) {
     // Lanes without a ray take the next slots; a pad slot is stored at once
     // and its lane asks again.
@@ -249,7 +259,7 @@ render_fwd_refill_kernel(const T* __restrict__ P, const T* __restrict__ M,
     const T pz = j > 0 ? z + rm_pick5(j - 1, c.off[0][2], c.off[1][2],
                                       c.off[2][2], c.off[3][2], o)
                        : z;
-    const T d = march_sdf<T, false>(P, M, px, py, pz);
+    const T d = march_sdf<T, false>(P, M, px, py, pz, B);
     if (done) continue;
     if (j < 0) {
       // march_ray's step at tau > 0: freeze without moving, or move.
@@ -285,11 +295,12 @@ render_fwd_tc_kernel(const float* __restrict__ P, const float* __restrict__ M,
   float y = rays[plane + i];
   float z = rays[2 * plane + i];
   const bool valid = rays[6 * plane + i] > 0.5f;
+  const auto B = march_bounds<float>(P);
   NoObserver none;
   march_ray<float, NoObserver, true>(P, M, x, y, z, rays[3 * plane + i],
                                      rays[4 * plane + i], rays[5 * plane + i],
-                                     steps, c.tau, none, valid);
-  store_hit<float, true>(P, M, out, plane, i, x, y, z, c, valid);
+                                     steps, c.tau, none, valid, B);
+  store_hit<float, true>(P, M, out, plane, i, x, y, z, c, valid, B);
 }
 #endif
 
@@ -326,8 +337,10 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ M,
   const T dx = rays[3 * plane + i];
   const T dy = rays[4 * plane + i];
   const T dz = rays[5 * plane + i];
+  const auto B = march_bounds<T>(P);
   HistoryObserver<T, true> seen = {t.hist, plane, i, big, -1, x, y, z};
-  const int s = march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, seen);
+  const int s = march_ray<T>(P, M, x, y, z, dx, dy, dz, steps, c.tau, seen,
+                             true, B);
   if (t.minf) t.minf[i] = seen.minf;
   if (t.amin) t.amin[i] = seen.amin;
   if (t.argpos) {
@@ -342,7 +355,7 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ M,
     h[2 * plane + i] = z;
   }
   if (t.nlive) t.nlive[i] = s;
-  store_hit<T>(P, M, out, plane, i, x, y, z, c);
+  store_hit<T>(P, M, out, plane, i, x, y, z, c, true, B);
 }
 
 #ifdef SCENE_TC
@@ -365,10 +378,11 @@ render_fwd_train_tc_kernel(const float* __restrict__ P,
   float y = rays[plane + i];
   float z = rays[2 * plane + i];
   const bool valid = rays[6 * plane + i] > 0.5f;
+  const auto B = march_bounds<float>(P);
   HistoryObserver<float, true> seen = {t.hist, plane, i, big, -1, x, y, z};
   const int s = march_ray<float, HistoryObserver<float, true>, true>(
       P, M, x, y, z, rays[3 * plane + i], rays[4 * plane + i],
-      rays[5 * plane + i], steps, c.tau, seen, valid);
+      rays[5 * plane + i], steps, c.tau, seen, valid, B);
   if (t.minf) t.minf[i] = seen.minf;
   if (t.amin) t.amin[i] = seen.amin;
   if (t.argpos) {
@@ -383,7 +397,7 @@ render_fwd_train_tc_kernel(const float* __restrict__ P,
     h[2 * plane + i] = z;
   }
   if (t.nlive) t.nlive[i] = s;
-  store_hit<float, true>(P, M, out, plane, i, x, y, z, c, valid);
+  store_hit<float, true>(P, M, out, plane, i, x, y, z, c, valid, B);
 }
 #endif
 

@@ -43,6 +43,14 @@ forward's planes equal the serving forward's, and its history equals the
 backward's recompute and two-level replay, bit for bit. The tensor-core
 entries take the packed matrices followed by the fragments of
 :func:`ops.params.pack_tc`.
+
+A program built with the union short-circuit (``SdfProgram(scene,
+prune=True)`` where some union child qualifies; ``FastRenderer`` builds one
+when ``RM_TPU_CSG_PRUNE=1``) gets a library of its own whose forward kernels
+and backward marches skip a guarded child per thread where it cannot be the
+minimum (``scene_sdf_fwd``): the same outputs, bit for bit. Its plain
+version keeps the plain ``sdf_c``, which gives those values by
+construction.
 """
 
 from __future__ import annotations
@@ -89,6 +97,8 @@ NVCC_FLAGS = (
 LAUNCHES = 0
 #: Those of them that launched the tensor-core entry (render_fwd_tc_kernel).
 TC_LAUNCHES = 0
+#: Those of them that launched a pruned program's kernels (SdfProgram.pruned).
+PRUNE_LAUNCHES = 0
 #: Whether a differentiated forward logs its march history for the backward
 #: kernel; the counterpart of the JAX package's RM_TPU_BWD_HIST, and the one
 #: default (the ``bwd_hist`` argument of the two entry points is the one
@@ -380,7 +390,7 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     MLP ``route`` (by default :func:`mlp_route`), which ``tc_mats`` may hand
     a prepared buffer (:func:`tc_buffer`). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    global LAUNCHES, TC_LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, PRUNE_LAUNCHES
     _check(program, params_flat, rays7, steps, mats)
     if route is None:
         route = mlp_route(program, rays7.dtype)
@@ -423,6 +433,8 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
         LAUNCHES += 1
         if route == "tc":
             TC_LAUNCHES += 1
+        if program.pruned:
+            PRUNE_LAUNCHES += 1
         if route == "tc" and not (track_min or extras):
             err = lib.rm_render_fwd_tc_f32(
                 params_flat.data_ptr(), packed.data_ptr(), rays7.data_ptr(),

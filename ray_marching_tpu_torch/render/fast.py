@@ -63,7 +63,11 @@ from ray_marching_tpu_torch.render import lighting, shaders
 from ray_marching_tpu_torch.render.pipeline import RenderConfig
 from ray_marching_tpu_torch.render.silhouette import soft_coverage
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
-from ray_marching_tpu_torch.scene.graph import Node, compile_scene
+from ray_marching_tpu_torch.scene.graph import (
+    Node,
+    _prune_enabled,
+    compile_scene,
+)
 from ray_marching_tpu_torch.scene.neural import NeuralSDF, resolve_impl
 from ray_marching_tpu_torch.utils import (
     clamp,
@@ -179,7 +183,13 @@ class FastRenderer:
         self.dtype = dtype
         self.grid_dtype = np.dtype(grid_dtype)
         self.scene = scene
-        self.program = SdfProgram(scene)
+        # The union short-circuit (RM_TPU_CSG_PRUNE=1, read here as the JAX
+        # renderer reads it): the fused route's forward kernels and the
+        # backward's marches skip a guarded union child where it cannot be
+        # the minimum; same values. The XLA route keeps the plain SDF, and
+        # the tiled and sharded renderers inherit this program.
+        self.program = SdfProgram(
+            scene, prune=_prune_enabled() and self.march_impl == "fused")
         _, self.sdf_c, self.init_params = compile_scene(scene, dtype,
                                                         self.device)
         self.cyclic_cmap = shaders.load_cyclic_cmap(dtype, self.device)

@@ -79,6 +79,23 @@ run as a Python loop on tensors.
 Without one, a registered custom node raises ``NotImplementedError`` here
 (``Renderer`` without ``use_pallas`` still runs it through its torch SDF).
 
+The union short-circuit (``SdfProgram(node, prune=True)``, the JAX
+package's ``compile_node(node, prune=True)``, :func:`graph.pruned_children`)
+is a second op list of the same scene, ``scene_sdf_fwd``, emitted only when
+some union child qualifies: each guarded child is a region of the list
+(:meth:`_Builder.guard`) that the C++ enters per thread only where ``!(lb >
+d)``, ``lb = |p - c|·(1 - 32 eps) - R`` against the running minimum ``d``;
+the tensor evaluator (:meth:`SdfProgram.evaluate_fwd`) runs the region on
+every point and selects, so both give the unpruned values. A region holds no
+``mlp`` op and no loop (a bounded subtree has neither). The bounds ``(c,
+R)`` come from the current parameters through a prologue of their own,
+``scene_bounds`` (:func:`_lower_bound`, :func:`graph.bounding_sphere_fn`'s
+rules), which a kernel runs once per thread; on the tensor cores the warp
+meets at ``__syncwarp()`` after each region, before the next ``mma.sync``.
+Only the forward kernels and the backward's marches take ``scene_sdf_fwd``;
+``scene_sdf`` and ``scene_sdf_vjp`` are those of the unpruned program, and a
+program without a guard generates the unpruned source byte for byte.
+
 Op count convention (:meth:`SdfProgram.op_counts`, over the program with
 its loops written out): one per add, sub, mul,
 div, sqrt, exp, log, abs, neg, max and compare-select whose inputs depend on
@@ -98,6 +115,7 @@ primal evaluation holds, each hidden unit's activation slope and δ,
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, NamedTuple, Tuple
 
 import torch
@@ -120,6 +138,7 @@ from ray_marching_tpu_torch.scene.graph import (
     compile_node,
     init_params,
     most_derived,
+    pruned_children,
 )
 from ray_marching_tpu_torch.scene.neural import (
     NeuralSDF,
@@ -254,13 +273,47 @@ class _Loop:
         return range(self.carry[-1] + 1, self.end)
 
 
+class _Guard(NamedTuple):
+    """A guarded union child (:meth:`_Builder.guard`): the ops between the
+    ``begin`` marker and ``end`` run only where ``lb > d`` does not hold;
+    ``m`` is ``vmin(d, child)`` inside the region, and ``end`` holds ``m``
+    there and ``d`` where the region was skipped. ``bound``: the guard's
+    slot in the bounds prologue (``4 * bound`` .. ``4 * bound + 3`` hold cx,
+    cy, cz, R); the ops from ``test`` to ``lb`` compute ``lb``."""
+
+    bound: int
+    test: int
+    lb: int
+    d: int
+    begin: int
+    m: int
+    end: int
+
+
+class _Form(NamedTuple):
+    """One op list of a program: the ops, whether each depends on the ray,
+    its counted loops and guarded regions, the id of the SDF's value and the
+    length of the primal part (the adjoint follows it in the main list)."""
+
+    ops: List[Tuple]
+    dep: List[bool]
+    loops: Tuple
+    guards: Tuple
+    out: int
+    n_primal: int
+
+
 class _Builder:
     """Appends SSA ops; value ids index the op list. Ids 0-2 are x, y, z.
     ``unroll``: :meth:`loop` writes its body out ``n`` times instead of
-    emitting a loop (the op counts are taken from such a twin)."""
+    emitting a loop (the op counts are taken from such a twin). ``prune``:
+    unions guard the children :func:`graph.pruned_children` picks
+    (:meth:`guard`), their bounds lowered into the parameter-only list
+    ``bounds`` (:func:`_lower_bound`)."""
 
     def __init__(self, offsets: Dict[str, int],
-                 mat_offsets: Dict[str, int] = None, unroll: bool = False):
+                 mat_offsets: Dict[str, int] = None, unroll: bool = False,
+                 prune: bool = False):
         self.offsets = offsets
         self.mat_offsets = mat_offsets or {}
         self.unroll = unroll
@@ -268,9 +321,13 @@ class _Builder:
         self.dep: List[bool] = [True, True, True]
         self.mlps: List[MlpLeaf] = []
         self.loops: List[_Loop] = []
+        self.guards: List[_Guard] = []
+        self.bounds = _Builder(offsets) if prune else None
+        #: Ids in ``bounds`` of cx, cy, cz, R of each guard, in slot order.
+        self.bound_ids: List[int] = []
         self._memo: Dict[Tuple, int] = {}
         self._in_body = False
-        self._closed: List[range] = []  # the finished loop bodies
+        self._closed: List[range] = []  # the finished loop bodies, regions
 
     def loop(self, n: int, state, body):
         """A counted loop with carried state: ``body(builder, *state) ->
@@ -315,6 +372,49 @@ class _Builder:
                     for k in range(len(state)))
         self.loops.append(_Loop(index, n, state, begin, carry, end, new, out))
         return out
+
+    def guard(self, node, prefix, d, x, y, z, body):
+        """Union child ``node`` at ``prefix`` behind the short-circuit (a
+        child :func:`graph.pruned_children` picks; the builder was made with
+        ``prune``): ``body(builder) -> id`` emits the child; returns the id
+        of ``vmin(d, child)``, which is ``d`` wherever the guard skipped the
+        child. Its bound's arithmetic goes to :attr:`bounds`; ``lb`` is
+        computed ahead of the region, the region (the child and the vmin)
+        holds no ``mlp`` op and no loop, and nothing after it reads its
+        values but the result. Parameters and constants first read inside
+        it are read there (and again after it, if needed)."""
+        if self._in_body:
+            raise ValueError("a guarded region inside a loop body")
+        k = len(self.guards)
+        self.guards.append(None)
+        self.bound_ids += _lower_bound(node, self.bounds, prefix)
+        cx, cy, cz, radius = (self._push(("bound", 4 * k + j), False)
+                              for j in range(4))
+        test = len(self.ops)
+        ex, ey, ez = self.sub(x, cx), self.sub(y, cy), self.sub(z, cz)
+        s = self.add(self.add(self.mul(ex, ex), self.mul(ey, ey)),
+                     self.mul(ez, ez))
+        eps = (torch.finfo(torch.float32).eps, torch.finfo(torch.float64).eps)
+        shrink = self.tconst(*(1.0 - 32 * e for e in eps))
+        lb = self.sub(self.mul(self.sqrt(s), shrink), radius)
+        begin = self._push(("guard", k), True)
+        memo = dict(self._memo)
+        m = self.vmin(d, body(self))
+        self._memo = memo
+        if any(op[0] in ("mlp", "loop") for op in self.ops[begin + 1:]):
+            raise ValueError("a guarded region may not hold an mlp op or a "
+                             "loop")
+        end = self._push(("guard_end", k), True)
+        self._closed.append(range(begin, end))
+        self.guards[k] = _Guard(k, test, lb, d, begin, m, end)
+        return end
+
+    def tconst(self, f32, f64):
+        """A constant whose value depends on the evaluation's type."""
+        key = ("tconst", float(f32), float(f64))
+        if key not in self._memo:
+            self._memo[key] = self._push(key, False)
+        return self._memo[key]
 
     def _check_scope(self, args):
         for a in args:
@@ -440,9 +540,17 @@ def _lower(node: Node, b: _Builder, prefix: str, x: int, y: int, z: int) -> int:
         lx, ly, lz = _rotate(b, qw, qx, qy, qz, vx, vy, vz)
         return _lower(node.child, b, _path(prefix, "child"), lx, ly, lz)
     if isinstance(node, Union):
+        guarded = (pruned_children(node) if b.bounds is not None
+                   else [None] * len(node.children))
         out = _lower(node.children[0], b, _path(prefix, "c0"), x, y, z)
         for i, c in enumerate(node.children[1:], start=1):
-            out = b.vmin(out, _lower(c, b, _path(prefix, f"c{i}"), x, y, z))
+            cp = _path(prefix, f"c{i}")
+            if guarded[i] is None:
+                out = b.vmin(out, _lower(c, b, cp, x, y, z))
+            else:
+                out = b.guard(c, cp, out, x, y, z,
+                              lambda bb, c=c, cp=cp: _lower(c, bb, cp, x, y,
+                                                            z))
         return out
     if isinstance(node, SmoothUnion):
         ds = [_lower(c, b, _path(prefix, f"c{i}"), x, y, z)
@@ -478,6 +586,73 @@ def _lower(node: Node, b: _Builder, prefix: str, x: int, y: int, z: int) -> int:
             "codegen.register_lowering(node_type, lower_fn) lets the kernels "
             "take it")
     return _unknown(node)
+
+
+def _lower_bound(node: Node, b: _Builder, prefix: str) -> List[int]:
+    """Emit ``node``'s bounding sphere (cx, cy, cz, R) from the parameters
+    into the parameter-only list ``b``, by :func:`graph.bounding_sphere_fn`'s
+    rules and expressions; the caller has checked that it has one."""
+    p = lambda key, i=0: b.param(_path(prefix, key), i)  # noqa: E731
+    zero = b.const(0.0)
+
+    def norm(vx, vy, vz):
+        return b.sqrt(b.add(b.add(b.mul(vx, vx), b.mul(vy, vy)),
+                            b.mul(vz, vz)))
+
+    if isinstance(node, (Sphere, Disk)):
+        return [zero, zero, zero, b.abs(p("radius"))]
+    if isinstance(node, Box):
+        return [zero, zero, zero, norm(*(p("halfsides", i) for i in range(3)))]
+    if isinstance(node, Torus):
+        return [zero, zero, zero, b.add(b.abs(p("radius1")),
+                                        b.abs(p("radius2")))]
+    if isinstance(node, Line):
+        half_c = b.const(0.5)
+        c = [b.mul(b.add(p("start", i), p("end", i)), half_c)
+             for i in range(3)]
+        half = b.mul(norm(*(b.sub(p("end", i), p("start", i))
+                            for i in range(3))), half_c)
+        return c + [b.add(half, b.abs(p("radius")))]
+    if isinstance(node, Affine):
+        cx, cy, cz, r = _lower_bound(node.child, b, _path(prefix, "child"))
+        q = [p("orientation", i) for i in range(4)]
+        u = b.add(b.add(b.mul(q[1], q[1]), b.mul(q[2], q[2])),
+                  b.mul(q[3], q[3]))
+        a = b.sub(b.const(1.0), b.mul(b.const(2.0), u))
+        m = b.sqrt(b.add(b.mul(a, a),
+                         b.mul(b.mul(b.const(4.0), b.mul(q[0], q[0])), u)))
+        eps = (torch.finfo(torch.float32).eps, torch.finfo(torch.float64).eps)
+        # where(m >= 1 - 16 eps, |c| + r, inf), NaN m included.
+        r_eff = b.sel_le(b.tconst(*(1.0 - 16 * e for e in eps)), m,
+                         b.add(norm(cx, cy, cz), r), b.const(math.inf))
+        return [p("translation", i) for i in range(3)] + [r_eff]
+    if isinstance(node, (Union, SmoothUnion)):
+        n = len(node.children)
+        balls = [_lower_bound(c, b, _path(prefix, f"c{i}"))
+                 for i, c in enumerate(node.children)]
+        centre = []
+        for j in range(3):
+            total = balls[0][j]
+            for ball in balls[1:]:
+                total = b.add(total, ball[j])
+            centre.append(b.div(total, b.const(n)))
+        r = None
+        for ball in balls:
+            reach = b.add(ball[3], norm(*(b.sub(ball[j], centre[j])
+                                          for j in range(3))))
+            r = reach if r is None else b.max(r, reach)
+        if isinstance(node, SmoothUnion):
+            k = p("blend_k")
+            r = b.sel_gt(k, zero, b.add(r, b.div(b.const(math.log(n)), k)),
+                         b.const(math.inf))
+        return centre + [r]
+    if isinstance(node, Rounding):
+        *c, r = _lower_bound(node.child, b, _path(prefix, "child"))
+        return c + [b.add(r, p("rounding"))]
+    if isinstance(node, Onion):
+        *c, r = _lower_bound(node.child, b, _path(prefix, "child"))
+        return c + [b.add(r, b.abs(p("radius")))]
+    raise AssertionError(f"no bounding sphere: {node!r}")
 
 
 #: Kernel lowerings of custom nodes: node type -> lower_fn.
@@ -679,21 +854,33 @@ def _append_adjoint(b, out):
 
 
 def _c_literal(value: float) -> str:
+    if value == math.inf:  # a bound that never skips
+        return "static_cast<T>(__int_as_float(0x7f800000))"
     return f"static_cast<T>({float(value).hex()})"
+
+
+def _c_tconst(f32: float, f64: float) -> str:
+    """A constant of the evaluation's type, chosen at compile time."""
+    return (f"(sizeof(T) == 4 ? static_cast<T>({float(f32).hex()}) : "
+            f"static_cast<T>({float(f64).hex()}))")
 
 
 class SdfProgram:
     """A scene lowered to SSA ops, with its parameter layout; ``unroll``
-    writes every loop of the lowering out (:meth:`_Builder.loop`).
+    writes every loop of the lowering out (:meth:`_Builder.loop`);
+    ``prune`` adds the union short-circuit's form ``scene_sdf_fwd`` where
+    some union child qualifies (module doc; :attr:`pruned` says whether one
+    did, with ``RM_TPU_PRUNE_MIN_LEAVES`` read now).
 
     ``specs`` is the flat-vector layout of
     :func:`ray_marching_tpu_torch.ops.params.split_params_padded` and
     ``n_flat`` the flat vector's length; ``mat_specs`` the packed matrix
     layout of :func:`ray_marching_tpu_torch.ops.params.pack_mats`;
     ``sdf_c``/:meth:`rebuild` give the plain SDF over the same inputs (the
-    kernels' plain versions use them)."""
+    kernels' plain versions use them, pruned or not: the values are the
+    same)."""
 
-    def __init__(self, node: Node, unroll: bool = False):
+    def __init__(self, node: Node, unroll: bool = False, prune: bool = False):
         from ray_marching_tpu_torch.ops.params import (
             mat_specs,
             split_params_padded,
@@ -714,6 +901,20 @@ class SdfProgram:
         self.n_primal = len(b.ops)
         #: The program's neural leaves, indexed by the ``mlp`` ops.
         self.mlps = tuple(b.mlps)
+        # The short-circuit's form and its bounds prologue (None: no guard).
+        self._fwd = self._bounds = None
+        self._bound_ids = ()
+        if prune:
+            fb = _Builder(b.offsets, b.mat_offsets, unroll, prune=True)
+            out = _lower(node, fb, "", 0, 1, 2)
+            if fb.guards:
+                assert tuple(fb.mlps) == self.mlps
+                self._fwd = _Form(fb.ops, fb.dep, tuple(fb.loops),
+                                  tuple(fb.guards), out, len(fb.ops))
+                bb = fb.bounds
+                self._bounds = _Form(bb.ops, bb.dep, (), (), None,
+                                     len(bb.ops))
+                self._bound_ids = tuple(fb.bound_ids)
         #: Flat-vector offset of every parameter scalar the scene has, in
         #: layout order: the compact index of the kernels' parameter
         #: cotangent (the 128-padding of the segments left out).
@@ -737,6 +938,8 @@ class SdfProgram:
         self.ray_dependent = b.dep
         #: The program's counted loops (:meth:`_Builder.loop`).
         self.loops = tuple(b.loops)
+        self._main = _Form(self.ops, self.ray_dependent, self.loops, (),
+                           self.out, self.n_primal)
         # The op counts are those of the same scene with its loops written
         # out (``unroll``: the program the generator gave before it rolled
         # loops): the work itself, whatever the emitted code repeats.
@@ -818,17 +1021,22 @@ class SdfProgram:
         """The trip count of each loop, in program order."""
         return tuple(lp.n for lp in self.loops)
 
-    def _run(self, flat, vals, start, stop, mats=(), sink=None, tapes=None):
-        """Run ops[start:stop] on tensors into ``vals`` (a list indexed by
-        op id); an MLP's VJP appends ``(leaf index, its parameter
-        cotangents)`` to ``sink``; a forward loop keeps each trip's start
-        state in ``tapes`` (by loop index) for its reverse loop."""
+    def _run(self, flat, vals, start, stop, mats=(), sink=None, tapes=None,
+             form=None, bounds=None):
+        """Run ops[start:stop] of ``form`` (the main list by default) on
+        tensors into ``vals`` (a list indexed by op id); an MLP's VJP
+        appends ``(leaf index, its parameter cotangents)`` to ``sink``; a
+        forward loop keeps each trip's start state in ``tapes`` (by loop
+        index) for its reverse loop. ``bounds``: the values of the bounds
+        prologue's slots. A guarded region runs on every point, and its end
+        selects ``d`` where ``lb > d``, as the kernel's branch skips it."""
+        form = form or self._main
         i = start
         while i < stop:
-            kind, args = self.ops[i][0], self.ops[i][1:]
+            kind, args = form.ops[i][0], form.ops[i][1:]
             if kind == "loop":
-                i = self._run_loop(flat, vals, self.loops[args[0]], mats,
-                                   tapes)
+                i = self._run_loop(flat, vals, form.loops[args[0]], mats,
+                                   tapes, form)
                 continue
             if kind == "rloop":
                 i = self._run_rloop(flat, vals, self.loops[args[0]], mats,
@@ -840,6 +1048,17 @@ class SdfProgram:
                 v = tapes[("h", args[0])][args[1]]
             elif kind == "const":
                 v = torch.tensor(args[0], dtype=flat.dtype, device=flat.device)
+            elif kind == "tconst":
+                v = torch.tensor(args[0] if flat.dtype == torch.float32
+                                 else args[1], dtype=flat.dtype,
+                                 device=flat.device)
+            elif kind == "bound":
+                v = bounds[args[0]]
+            elif kind == "guard":
+                v = None
+            elif kind == "guard_end":
+                g = form.guards[args[0]]
+                v = torch.where(vals[g.lb] > vals[g.d], vals[g.d], vals[g.m])
             elif kind == "mlp":
                 leaf = self.mlps[args[0]]
                 v = mlp(leaf.node)(self._leaf_params(flat, mats, leaf),
@@ -888,7 +1107,7 @@ class SdfProgram:
             i += 1
         return vals
 
-    def _run_loop(self, flat, vals, lp, mats, tapes):
+    def _run_loop(self, flat, vals, lp, mats, tapes, form):
         """Loop ``lp`` on tensors; returns the id after its ``out`` ops."""
         state = [vals[a] for a in lp.init]
         tape = []
@@ -896,7 +1115,8 @@ class SdfProgram:
             tape.append(state)
             for c, v in zip(lp.carry, state):
                 vals[c] = v
-            self._run(flat, vals, lp.body.start, lp.body.stop, mats)
+            self._run(flat, vals, lp.body.start, lp.body.stop, mats,
+                      form=form)
             state = [vals[a] for a in lp.new]
         if tapes is not None:
             tapes[lp.index] = tape
@@ -927,8 +1147,8 @@ class SdfProgram:
             vals[r] = v
         return lp.input_out[-1] + 1 if lp.input_out else lp.trips[1][2] + 1
 
-    def _values(self, x, y, z):
-        vals = [None] * len(self.ops)
+    def _values(self, x, y, z, form=None):
+        vals = [None] * len((form or self._main).ops)
         vals[:3] = x, y, z
         return vals
 
@@ -936,6 +1156,27 @@ class SdfProgram:
         """Backend (b): run the primal op list on tensors."""
         return self._run(flat, self._values(x, y, z), 3, self.n_primal,
                          mats)[self.out]
+
+    @property
+    def pruned(self) -> bool:
+        """Whether the program has the short-circuit's form (a guard)."""
+        return self._fwd is not None
+
+    def bound_values(self, flat):
+        """The bounds prologue on ``flat``: cx, cy, cz, R of each guard."""
+        vals = self._run(flat, self._values(None, None, None, self._bounds),
+                         3, self._bounds.n_primal, form=self._bounds)
+        return [vals[i] for i in self._bound_ids]
+
+    def evaluate_fwd(self, flat, x, y, z, mats=()):
+        """Backend (b) of ``scene_sdf_fwd``: the short-circuit's form on
+        tensors, each guard a select (:meth:`_run`); the unpruned
+        :meth:`evaluate` for a program without a guard."""
+        if not self.pruned:
+            return self.evaluate(flat, x, y, z, mats)
+        f = self._fwd
+        return self._run(flat, self._values(x, y, z, f), 3, f.n_primal,
+                         mats, form=f, bounds=self.bound_values(flat))[f.out]
 
     def evaluate_vjp(self, flat, x, y, z, g, mats=()):
         """Backend (b) of the adjoint: ``(d, gx, gy, gz, gp)`` for the
@@ -969,7 +1210,8 @@ class SdfProgram:
                     grads[f"w{layer}"]
         return (d, *gxyz, gp)
 
-    def _loop_source(self, names, lp: _Loop, vjp, tape) -> List[str]:
+    def _loop_source(self, names, lp: _Loop, vjp, tape,
+                     form=None) -> List[str]:
         """C++ of loop ``lp``: the state in variables ``c<L>_<k>``, the
         body once, unrolled by ``rm_sdf_loop_unroll`` (sdf_prims.cuh); with
         ``tape`` (the VJP) rolled, each trip's start state going to the
@@ -987,7 +1229,8 @@ class SdfProgram:
         lines += [f"    const T {names[c]} = c{L}_{k};"
                   for k, c in enumerate(lp.carry)]
         lines += ["  " + ln for ln in self._emit(names, lp.body.start,
-                                                  lp.body.stop, vjp)]
+                                                  lp.body.stop, vjp,
+                                                  form=form)]
         lines += [f"    c{L}_{k} = {names[a]};" for k, a in enumerate(lp.new)]
         return lines + ["  }"] + [f"  const T {names[o]} = c{L}_{k};"
                                   for k, o in enumerate(lp.out)]
@@ -1031,20 +1274,33 @@ class SdfProgram:
         return lines + [f"  const T {names[r]} = h{L}_{j};"
                         for j, r in enumerate(lp.input_out)]
 
-    def _emit(self, names, start, stop, vjp=False, tape=False):
-        """C++ of ops[start:stop]; ``vjp``: inside ``scene_sdf_vjp``, where
-        an MLP's forward keeps its hidden layers for its VJP (``keep<k>``)
-        and an inactive thread skips it; ``tape``: the forward loops keep
-        their trips' start states for the reverse loops."""
+    def _emit(self, names, start, stop, vjp=False, tape=False, form=None):
+        """C++ of ops[start:stop] of ``form`` (the main list by default);
+        ``vjp``: inside ``scene_sdf_vjp``, where an MLP's forward keeps its
+        hidden layers for its VJP (``keep<k>``) and an inactive thread skips
+        it; ``tape``: the forward loops keep their trips' start states for
+        the reverse loops."""
+        form = form or self._main
         lines = []
         nxt = start
         while nxt < stop:
             i = nxt
-            kind, args = self.ops[i][0], self.ops[i][1:]
+            kind, args = form.ops[i][0], form.ops[i][1:]
             if kind == "loop":
-                lp = self.loops[args[0]]
-                lines += self._loop_source(names, lp, vjp, tape)
+                lp = form.loops[args[0]]
+                lines += self._loop_source(names, lp, vjp, tape, form)
                 nxt = lp.out[-1] + 1
+                continue
+            if kind == "guard":
+                g = form.guards[args[0]]
+                lines += [f"  T {names[g.end]} = {names[g.d]};",
+                          f"  if (!({names[g.lb]} > {names[g.d]})) {{"]
+                lines += ["  " + ln for ln in self._emit(
+                    names, g.begin + 1, g.m + 1, form=form)]
+                lines += [f"    {names[g.end]} = {names[g.m]};", "  }"]
+                if self.tc:  # the warp meets again before the next mma.sync
+                    lines.append("  if constexpr (TC) __syncwarp();")
+                nxt = g.end + 1
                 continue
             if kind == "rloop":
                 lp = self.loops[args[0]]
@@ -1054,11 +1310,16 @@ class SdfProgram:
                 continue
             nxt = i + 1
             ctype = "T"
-            xyz = ", ".join(names[a] for a in args[1:4])
+            xyz = (", ".join(names[a] for a in args[1:4])
+                   if kind in ("mlp", "mlp_vjp") else None)
             if kind == "param":
                 expr = f"P[{args[0]}]"
             elif kind == "const":
                 expr = _c_literal(args[0])
+            elif kind == "tconst":
+                expr = _c_tconst(*args)
+            elif kind == "bound":
+                expr = f"B.v[{args[0]}]"
             elif kind == "mlp" and vjp and args[0] in self.tc:
                 lines += [
                     f"  T {names[i]};",
@@ -1401,7 +1662,49 @@ class SdfProgram:
         for k, a in self.adj_params:
             lines.append(f"  {guard}gP[{acc[k]}] = gP[{acc[k]}] + {names[a]};")
         lines += [f"  return {names[self.out]};", "}", ""]
+        if self.pruned:
+            lines += self._fwd_source()
         return "\n".join(lines)
+
+    def _fwd_source(self) -> List[str]:
+        """The short-circuit's C++ (module doc): ``SceneBounds<T>`` and its
+        prologue ``scene_bounds``, and ``scene_sdf_fwd``, which reads them
+        from ``B``."""
+        bf, f = self._bounds, self._fwd
+        n = len(self._bound_ids)
+        bnames = ["x", "y", "z"] + [f"b{i}" for i in range(3, bf.n_primal)]
+        names = ["x", "y", "z"] + [f"v{i}" for i in range(3, f.n_primal)]
+        return [
+            "// The union short-circuit: each guarded child's bounding sphere",
+            "// (cx, cy, cz, R) from the parameters, once per thread, and the",
+            "// SDF that skips a guarded child where lb > d.",
+            "#define SCENE_PRUNE 1",
+            f"constexpr int SCENE_N_BOUNDS = {n // 4};",
+            "template <typename T>",
+            "struct SceneBounds {",
+            f"  T v[{n}];",
+            "};",
+            "",
+            "template <typename T>",
+            "__device__ __forceinline__ SceneBounds<T> scene_bounds(const T* "
+            "__restrict__ P) {",
+            *self._emit(bnames, 3, bf.n_primal, form=bf),
+            "  SceneBounds<T> B;",
+            *(f"  B.v[{j}] = {bnames[i]};"
+              for j, i in enumerate(self._bound_ids)),
+            "  return B;",
+            "}",
+            "",
+            ("template <typename T, bool TC = false>" if self.tc
+             else "template <typename T>"),
+            "__device__ __forceinline__ T scene_sdf_fwd(const T* __restrict__ "
+            "P, const T* __restrict__ M, const SceneBounds<T>& B, T x, T y, "
+            "T z) {",
+            *self._emit(names, 3, f.n_primal, form=f),
+            f"  return {names[f.out]};",
+            "}",
+            "",
+        ]
 
     def op_counts(self) -> Dict[str, int]:
         """Ray-dependent ops of one SDF evaluation, by class (a loop's body
@@ -1435,6 +1738,27 @@ class SdfProgram:
         adjoint += sum(_mlp_vjp_op_count(self.mlps[op[1]])
                        for op in ops[n_primal + 1:] if op[0] == "mlp_vjp")
         return self.ops_per_eval + adjoint + len(self.adj_params)
+
+    @property
+    def guard_ops(self) -> Tuple[Tuple[int, int], ...]:
+        """Per guard, in slot order: the ray-dependent ops of its own test
+        (``lb`` and the compare) and those its region holds (the child and
+        the vmin, which a skip saves), by :meth:`op_counts`' convention.
+        :attr:`ops_per_eval` counts the unpruned SDF; an evaluation of
+        ``scene_sdf_fwd`` costs it plus each reached guard's test, less each
+        skipped region."""
+        f = self._fwd
+        if f is None:
+            return ()
+
+        def count(ids):
+            return sum(1 for i in ids if f.dep[i] and f.ops[i][0] in _OPS)
+
+        out = []
+        for g in f.guards:
+            test = count(range(g.test, g.lb + 1)) + 1
+            out.append((test, count(range(g.begin + 1, g.m + 1))))
+        return tuple(out)
 
     @property
     def vjp_recompute_ops(self) -> int:
