@@ -31,7 +31,9 @@ orbit viewers, ``cli optimize --target <png>`` and ``cli profile``; the
 parallel modules: one rank on NCCL and two ranks on the card over gloo;
 the union short-circuit: the main path built under ``RM_TPU_CSG_PRUNE=1``
 against the same without it, kernels, gradients, frames and ``optimize``
-bit for bit, and a tensor-core scene with a guarded union),
+bit for bit, and a tensor-core scene with a guarded union; the backward's
+bounded scratch: every backward path bit for bit on three scenes, and the
+peak memory of 1080p and 4K training steps under the history size rule),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -121,6 +123,12 @@ MODULAR_VS_FAST_ATOL = 1e-3
 #: Where the history stops fitting comfortably: the backward at this step
 #: count is timed with the history and with two levels.
 LONG_STEPS = 128
+#: The scratch phase: the most a 1080p, 32-step, f32 recompute's scratch
+#: slots may take (bytes; the frame's history is 821 MB), and the 4K
+#: training steps at each step count, whose 64-step history (6.49 GB in
+#: f32) is above the default RM_TPU_BWD_HIST_MAX.
+SCRATCH_MAX_1080P = 64 * 2**20
+SCRATCH_4K_STEPS = (32, 64)
 #: The neural slice's main configuration: the trained width-256 NeuralSDF
 #: of docs/neural_fit_w256 beside the room, its weights from the file, at
 #: the demo's own resolution, step count and pose (view 0 of
@@ -2237,9 +2245,11 @@ def neural_bf16_backward(prog, flat, mats, rays7, seed):
 
 def backward_recompute_history(prog, flat, mats, rays7, steps, tau):
     """The positions the tensor-core backward marches when it is given no
-    history: the scratch history of one launch of ``rm_render_bwd_tc_f32``
-    in its recompute mode, (steps + 1, 3, rows, 128), NaN where the kernel
-    wrote nothing. A comparison launch, outside the wrappers' counts."""
+    history: the scratch of one launch of ``rm_render_bwd_tc_f32`` in its
+    recompute mode with one block per ray block (so one slot each), laid
+    out as the forward's history (steps + 1, 3, rows, 128), NaN where the
+    kernel wrote nothing. A comparison launch, outside the wrappers'
+    counts."""
     import ctypes
 
     import torch
@@ -2253,19 +2263,22 @@ def backward_recompute_history(prog, flat, mats, rays7, steps, tau):
     n = rays7.shape[1] * rays7.shape[2]
     n_blocks = -(-n // lib.rm_render_bwd_block())
     dev = rays7.device
-    hist = torch.full((steps + 1, 3) + plane, float("nan"), device=dev)
+    slots = torch.full((n_blocks, steps + 1, 3, rays7.shape[2]),
+                       float("nan"), device=dev)
     g = torch.zeros((8,) + plane, device=dev)
     out = torch.empty((7,) + plane, device=dev)
     partials = torch.empty((n_blocks, bk.partial_cols(prog)), device=dev)
     consts = rk._host_consts(torch.float32, tau, 5e-2)
     err = lib.rm_render_bwd_tc_f32(
         flat.data_ptr(), packed.data_ptr(), rays7.data_ptr(), g.data_ptr(),
-        0, hist.data_ptr(), 1, None, 0, None, None, None, out.data_ptr(),
-        partials.data_ptr(), n_blocks, bk.partial_cols(prog), n, steps,
-        consts.ctypes.data_as(ctypes.c_void_p),
+        0, slots.data_ptr(), 1, None, 0, None, None, None, out.data_ptr(),
+        partials.data_ptr(), n_blocks, n_blocks, bk.partial_cols(prog), n,
+        steps, consts.ctypes.data_as(ctypes.c_void_p),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err == 0, f"recompute launch failed: cudaError {err}")
-    return hist
+    # Slot b holds ray block b (rows of 128 rays): (block, step, xyz, lane)
+    # -> (step, xyz, row, lane).
+    return slots.permute(1, 2, 0, 3).contiguous()
 
 
 def neural_training_forward(prog, flat, mats, rays7):
@@ -2620,13 +2633,13 @@ def neural_training(card, out_dir: Path):
     log = rk.BUILD_LOG.get(rk.kernel_key(prog), "")
     regs = {name: ptxas_entry(log, kernel, args) for name, kernel, args in (
         ("backward history, tensor cores", "render_bwd_kernel",
-         "IfLb0ELb0ELb0ELb1EE"),
+         "IfLb0ELb0ELb0ELb1ELb0EE"),
         ("backward two-level, tensor cores", "render_bwd_kernel",
-         "IfLb0ELb1ELb0ELb1EE"),
+         "IfLb0ELb1ELb0ELb1ELb1EE"),
         ("backward march-only, tensor cores", "render_bwd_kernel",
-         "IfLb0ELb0ELb1ELb1EE"),
+         "IfLb0ELb0ELb1ELb1ELb1EE"),
         ("backward history, per thread", "render_bwd_kernel",
-         "IfLb0ELb0ELb0ELb0EE"),
+         "IfLb0ELb0ELb0ELb0ELb0EE"),
         ("training forward, tensor cores", "render_fwd_train_tc_kernel",
          "PKf"),
         ("training forward, per thread", "render_fwd_train_kernel", "IfE"))}
@@ -3087,7 +3100,7 @@ def sass_report(label, prog, probe):
                           ("march", r"_Z\d+march_kernelIfLb1EE"),
                           ("march_refill", r"_Z\d+march_refill_kernelIfE"),
                           ("backward", r"_Z\d+render_bwd_kernelIfLb0ELb0E"
-                                       r"Lb0ELb0EE")):
+                                       r"Lb0ELb0ELb0EE")):
         # A package from before the lane-refill forward (march) has no
         # refill (march_refill).
         name = next((n for n in lib if re.match(pattern, n)), None)
@@ -3197,8 +3210,8 @@ def bulb_slice(card, out_dir: Path, sass):
           "bytes, spill store bytes): "
           + "; ".join(f"{e[:40]} {r} {f} {sp}" for e, r, f, sp in entries))
     simt_bwd = [(e, sp) for e, r, f, sp in entries if re.match(
-        r"_Z\d+render_bwd_kernelIfLb\dELb\dELb\dELb0EE", e)]
-    check(len(simt_bwd) == 4, f"bulb: no ptxas report of the four f32 "
+        r"_Z\d+render_bwd_kernelIfLb\dELb\dELb\dELb0ELb\dEE", e)]
+    check(len(simt_bwd) == 6, f"bulb: no ptxas report of the six f32 "
           f"per-thread backward instantiations ({len(simt_bwd)} found)")
     check(all(sp == 0 for _, sp in simt_bwd),
           f"bulb: spill stores in the f32 per-thread backward: {simt_bwd}")
@@ -3530,16 +3543,16 @@ def bulb_slice(card, out_dir: Path, sass):
              {"max_abs_err": errs["march"]}),
             ("render_bwd_bulb", "render_bwd.cu", "pallas_backward.py:119",
              train_launches, times["history"], times["plain"], "history",
-             ("render_bwd_kernel", "IfLb0ELb0ELb0ELb0EE"),
+             ("render_bwd_kernel", "IfLb0ELb0ELb0ELb0ELb0EE"),
              errs[("history", s2, 0.0, False)]),
             ("render_bwd_two_level_bulb", "render_bwd.cu",
              "pallas_backward.py:377", two_level_launches,
              times["two-level"], times["plain two-level"], "two-level",
-             ("render_bwd_kernel", "IfLb0ELb1ELb0ELb0EE"),
+             ("render_bwd_kernel", "IfLb0ELb1ELb0ELb0ELb1EE"),
              errs[("two-level", s2, 0.0, False)]),
             ("march_bwd_bulb", "render_bwd.cu", "pallas_march.py:358",
              mod_counts[3], times["march-only"], times["plain march-only"],
-             "march-only", ("render_bwd_kernel", "IfLb0ELb0ELb1ELb0EE"),
+             "march-only", ("render_bwd_kernel", "IfLb0ELb0ELb1ELb0ELb1EE"),
              errs[("march-only", s2, 0.0, False)]))]
     rows[0].update(ms_tau_0=ms_tau0, frame_ms=frame_ms,
                    lane_efficiency_one_thread_per_ray=lanes[0],
@@ -5462,6 +5475,236 @@ PRUNE_BUILDS = ("test_scene2 pruned", "mixed tc", "mixed tc pruned")
 SASS_SCENES = ("test_scene2", "mandelbulb", "test_scene2 pruned")
 
 
+class OneBlockPerRayBlock:
+    """While active, a backward launch that marches again runs one block
+    per ray block, each in a scratch slot of its own, in place of the
+    persistent grid, which must give the same bits."""
+
+    def __enter__(self):
+        from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+        self._fn, bk._resident = bk._resident, lambda *args: 1 << 62
+        return self
+
+    def __exit__(self, *exc):
+        from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+        bk._resident = self._fn
+
+
+def grads_digest(grads):
+    """sha256 of a backward's cotangents (flat, matrices, rays), in order."""
+    flat, mats, rays = grads
+    h = hashlib.sha256()
+    for t in (flat, *mats, rays):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def scratch_paths(label, prog, flat, rays7, steps, seed, mats=()):
+    """Every backward path at one configuration (tau 0): the recompute and
+    the two levels sha256-equal to the history path, and the recompute, the
+    two levels and the march-only mode sha256-equal to their launches with
+    one block per ray block (:class:`OneBlockPerRayBlock`). Returns the
+    digests and each launch's grid and scratch bytes."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    _, ex = rk.march_forward(prog, flat, rays7, steps, 0.0, 5e-2,
+                             log_hist=True, mats=mats)
+    rng = np.random.default_rng(seed)
+    shape = tuple(rays7.shape[1:])
+    g8, g4 = (torch.as_tensor(rng.standard_normal((n,) + shape),
+                              dtype=rays7.dtype).to(rays7.device)
+              for n in (8, 4))
+    calls = {
+        "history": lambda: bk.fused_backward(
+            prog, flat, rays7, g8, steps, 0.0, 5e-2, hist=ex["hist"],
+            nlive=ex["nlive"], mats=mats),
+        "recompute": lambda: bk.fused_backward(prog, flat, rays7, g8, steps,
+                                               0.0, 5e-2, mats=mats),
+        "two-level": lambda: bk.fused_backward(prog, flat, rays7, g8, steps,
+                                               0.0, 5e-2, two_level=True,
+                                               mats=mats),
+        "march-only": lambda: bk.march_backward(prog, flat, rays7, g4,
+                                                steps, 0.0, mats=mats),
+    }
+    digests, launches = {}, {}
+    for name, fn in calls.items():
+        digests[name] = grads_digest(fn())
+        launches[name] = dict(bk.LAST_LAUNCH)
+        if name != "history":
+            with OneBlockPerRayBlock():
+                digests[name + " one block per ray block"] = grads_digest(
+                    fn())
+                launches[name + " one block per ray block"] = dict(
+                    bk.LAST_LAUNCH)
+    del ex
+    n_blocks = rays7.shape[1]
+    for name in ("recompute", "two-level"):
+        check(digests[name] == digests["history"],
+              f"scratch {label}: {name} differs from the history path")
+    for name in ("recompute", "two-level", "march-only"):
+        check(digests[name] == digests[name + " one block per ray block"],
+              f"scratch {label}: {name} differs from its launch with one "
+              "block per ray block")
+        check(1 <= launches[name]["grid"] <= n_blocks
+              and launches[name + " one block per ray block"]["grid"]
+              == n_blocks, f"scratch {label}: {name} grid {launches[name]}")
+    check(launches["history"] == {"grid": n_blocks, "scratch_bytes": 0},
+          f"scratch {label}: history launch {launches['history']}")
+    print(f"scratch {label}: recompute == two-level == history, and each "
+          f"of recompute, two-level, march-only == its launch with one "
+          f"block per ray block (sha256 {digests['history'][:16]}, "
+          f"march-only {digests['march-only'][:16]}); grids and scratch "
+          "bytes: " + json.dumps(launches))
+    return {"sha256": digests, "launches": launches}
+
+
+def scratch_step(renderer, hist=None):
+    """One training step of ``renderer`` (render, pixel MSE against a grey
+    target, ``backward()``) on ``c1/c0/radius``, with the history decision
+    as ``hist`` says: None the default rule, True or False the module's
+    switch. Returns a function that runs it and records
+    ``backward_kernel.LAST_PATH``."""
+    import torch
+
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    params = leaf_params(renderer.init_params)
+    leaf = params["c1"]["c0"]["radius"]
+    paths = []
+
+    def step():
+        leaf.grad = None
+        default = rk.BWD_HIST
+        if hist is not None:
+            rk.BWD_HIST = hist
+        try:
+            img = renderer.render(params, BENCH_Q, BENCH_T, mode=0, degree=2)
+            torch.mean((img - 0.5) ** 2).backward()
+        finally:
+            rk.BWD_HIST = default
+        paths.append(dict(bk.LAST_PATH))
+        return leaf.grad
+
+    step.paths = paths
+    return step
+
+
+def scratch_phase(card, main, bulb_prog):
+    """The backward's bounded scratch: every backward path sha256-equal to
+    the history path (recompute, two levels) and to its launch with one
+    block per ray block (also the march-only mode) on the analytic 1080p
+    main path, the bulb at 1440×900 (24 steps) and the w256 field at 512² on
+    the tensor cores; the 1080p recompute's scratch against the frame's
+    history; peak memory and time of training steps at 1080p and at 4K
+    with 32 and 64 steps, where the 64-step history is above the default
+    cap and the forward must log none. Returns the figures."""
+    import os
+
+    import torch
+
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+    from ray_marching_tpu_torch.render.fast import FastRenderer
+    from ray_marching_tpu_torch.scene import registry
+
+    t0 = time.perf_counter()
+    figures = {"card": card}
+    flat, rays7 = main_rays(main, BENCH_Q, BENCH_T)
+    figures["analytic 1080p"] = scratch_paths(
+        "analytic 1080p", main.program, flat, rays7, STEPS, 160)
+    rec = figures["analytic 1080p"]["launches"]["recompute"]
+    frame_bytes = rk.hist_bytes(rays7, STEPS)
+    figures["analytic 1080p"]["history_bytes"] = frame_bytes
+    check(rec["scratch_bytes"] <= SCRATCH_MAX_1080P
+          and rec["grid"] < rays7.shape[1],
+          f"scratch: the 1080p recompute took {rec}, the frame's history "
+          f"{frame_bytes} bytes")
+    del flat, rays7
+    bulb = bulb_renderer(FastRenderer, BULB_W, BULB_H, torch.float32,
+                         steps=BULB_TRAIN_MARCH, tau=0.0)
+    check(bulb.program.cuda_source() == bulb_prog.cuda_source(),
+          "scratch: the bulb's program is not the built one")
+    flat, rays7 = main_rays(bulb, BENCH_Q, BENCH_T)
+    figures["bulb 1440x900"] = scratch_paths(
+        "bulb 1440x900", bulb.program, flat, rays7, BULB_TRAIN_MARCH, 161)
+    del bulb, flat, rays7
+    nr, nparams = neural_renderer(NEURAL_RES, torch.float32)
+    check(rk.mlp_route(nr.program, torch.float32) == "tc",
+          "scratch: the w256 field is not on the tensor cores")
+    flat, mats, rays7 = neural_rays(nr, nparams)
+    figures["w256 512 tc"] = scratch_paths(
+        "w256 512 tc", nr.program, flat, rays7, NEURAL_STEPS, 162, mats)
+    del nr, nparams, flat, mats, rays7
+
+    # Peak memory (measured(), one step after a warm-up) and time (CUDA
+    # events over 5 steps, cuda_ms) of training steps. 1080p: the recompute
+    # against the history. 4K: each step count with the default rule
+    # against the other path (the switch off at 32 steps; the cap raised at
+    # 64).
+    steps_fig = {}
+    for label, hist in (("1080p recompute", False),
+                        ("1080p history", True)):
+        step = scratch_step(main, hist)
+        _, peak, _ = measured(step)
+        ms = cuda_ms(step, 5)
+        steps_fig[label] = {"step_ms": ms, "peak_bytes": peak,
+                            "use_hist": step.paths[-1]["use_hist"],
+                            "scratch_bytes":
+                            step.paths[-1].get("scratch_bytes")}
+    check(not steps_fig["1080p recompute"]["use_hist"]
+          and steps_fig["1080p history"]["use_hist"],
+          f"scratch: 1080p paths {steps_fig}")
+    cap = os.environ.get("RM_TPU_BWD_HIST_MAX")
+    for n in SCRATCH_4K_STEPS:
+        r4k = FastRenderer(registry.make_scene("test_scene2"),
+                           dataclasses.replace(config(3840, 2160),
+                                               marching_steps=n),
+                           dtype=torch.float32)
+        hist_bytes = rk.hist_bytes(main_rays(r4k, BENCH_Q, BENCH_T)[1], n)
+        for label, hist, raise_cap in (("default", None, False),
+                                       ("recompute", False, False),
+                                       ("history", True, True)):
+            if raise_cap:
+                os.environ["RM_TPU_BWD_HIST_MAX"] = str(1 << 40)
+            try:
+                step = scratch_step(r4k, hist)
+                _, peak, _ = measured(step)
+                ms = cuda_ms(step, 5)
+            finally:
+                if cap is None:
+                    os.environ.pop("RM_TPU_BWD_HIST_MAX", None)
+                else:
+                    os.environ["RM_TPU_BWD_HIST_MAX"] = cap
+            last = step.paths[-1]
+            steps_fig[f"4k {n} steps {label}"] = {
+                "step_ms": ms, "peak_bytes": peak,
+                "use_hist": last["use_hist"], "grid": last.get("grid"),
+                "scratch_bytes": last.get("scratch_bytes"),
+                "history_bytes": hist_bytes}
+        over = hist_bytes > rk.HIST_MAX_DEFAULT
+        default = steps_fig[f"4k {n} steps default"]
+        check(default["use_hist"] == (not over),
+              f"scratch: 4K {n} steps, history {hist_bytes} bytes, cap "
+              f"{rk.HIST_MAX_DEFAULT}: use_hist {default['use_hist']}")
+        if over:
+            check(default["peak_bytes"] is not None
+                  and default["peak_bytes"] < hist_bytes,
+                  f"scratch: 4K {n} steps peak {default['peak_bytes']} "
+                  f"bytes, the history alone {hist_bytes}")
+        del r4k
+    figures["steps"] = steps_fig
+    for label, v in steps_fig.items():
+        print(f"scratch step {label} on {card}: {v}")
+    figures["phase_s"] = time.perf_counter() - t0
+    print(f"scratch phase: {figures['phase_s']:.1f} s")
+    return figures
+
+
 def run_programs():
     """Every scene program the run builds, by label: the analytic scenes,
     the neural slices' scenes, the analytic target of the weights check,
@@ -5820,6 +6063,8 @@ def run(out_dir: Path):
         ("recompute", lambda: bwd(False)), ("recompute", lambda: bwd(False)),
         ("two-level", bwd_two_level), ("history", lambda: bwd(True)))]
     two_level_ms = sum(v for n, v in turns_2l if n == "two-level") / 2
+    bwd_two_level()
+    ckpt_bytes = bk.LAST_LAUNCH["scratch_bytes"]
     two_level_plain_ms = cuda_ms(lambda: bk.reference_backward(
         prog, flat, rays7, g8, STEPS, 0.0, 5e-2, two_level=True), 1)
     k = bk.CKPT_INTERVAL
@@ -5852,13 +6097,13 @@ def run(out_dir: Path):
           + ", ".join(f"{n} {v:.4f}" for n, v in turns_2l)
           + f" ms; plain {two_level_plain_ms:.3f} ms; bound: {tl_ops} ops -> "
           f"{t2_ops:.4f} ms, {tl_bytes} bytes -> {t2_bytes:.4f} ms; scratch "
-          f"{STEPS // k * 3 * plane_bytes} bytes against a history of "
+          f"{ckpt_bytes} bytes (frame-wide checkpoints "
+          f"{STEPS // k * 3 * plane_bytes}) against a history of "
           f"{hist_bytes}")
     del out_h, ex_h
 
     # 5e. Where the history stops being small: 128 steps.
     long_hist_bytes = (LONG_STEPS + 1) * 3 * plane_bytes
-    long_ckpt_bytes = LONG_STEPS // k * 3 * plane_bytes
     _, ex_long = rk.march_forward(prog, flat, rays7, LONG_STEPS, 0.0, 5e-2,
                                   log_hist=True)
     long_hist_ms = kernel_ms(lambda: bk.fused_backward(
@@ -5870,6 +6115,7 @@ def run(out_dir: Path):
     long_2l_ms = kernel_ms(lambda: bk.fused_backward(
         prog, flat, rays7, g8, LONG_STEPS, 0.0, 5e-2, two_level=True), 3)
     check(bk.LAST_PATH["two_level"], "two levels did not engage at 128 steps")
+    long_ckpt_bytes = bk.LAST_PATH["scratch_bytes"]
     print(f"backward at 1080p x {LONG_STEPS} steps on {card}: history "
           f"{long_hist_bytes} bytes, two-level scratch {long_ckpt_bytes} "
           f"bytes; with the history {long_hist_ms:.4f} ms, with the full "
@@ -6109,6 +6355,19 @@ def run(out_dir: Path):
     prune_rows, prune_figures = prune_phase(card, main, sass)
     kernels["kernels"] += prune_rows
     print("prune figures: " + json.dumps(prune_figures))
+    # 13. The backward's bounded scratch and the history size rule.
+    s_fig = scratch_phase(card, main, programs["mandelbulb"])
+    s_launch = s_fig["analytic 1080p"]["launches"]
+    rows["render_bwd"].update(
+        grid_recompute=s_launch["recompute"]["grid"],
+        scratch_bytes_recompute=s_launch["recompute"]["scratch_bytes"],
+        history_bytes=s_fig["analytic 1080p"]["history_bytes"],
+        step_peak_bytes={k: v["peak_bytes"]
+                         for k, v in s_fig["steps"].items()})
+    rows["render_bwd_two_level"].update(
+        grid=s_launch["two-level"]["grid"],
+        scratch_bytes=s_launch["two-level"]["scratch_bytes"])
+    print("scratch figures: " + json.dumps(s_fig))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)

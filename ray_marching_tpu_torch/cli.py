@@ -92,11 +92,14 @@ def _build_renderer(args, fast):
     else:
         scene = registry.make_scene(args.scene)
     dtype = getattr(torch, args.dtype)
+    grid_dtype = getattr(np, args.grid_dtype)
     if getattr(args, "strip_height", None):
         return TiledRenderer(scene, cfg, strip_height=args.strip_height,
-                             dtype=dtype, device=args.device)
+                             dtype=dtype, grid_dtype=grid_dtype,
+                             device=args.device)
     cls = FastRenderer if fast else Renderer
-    return cls(scene, cfg, dtype=dtype, device=args.device)
+    return cls(scene, cfg, dtype=dtype, grid_dtype=grid_dtype,
+               device=args.device)
 
 
 def _initial_params(args, renderer):
@@ -430,6 +433,11 @@ def _add_render_args(p):
     p.add_argument("--pose", default="0,0,1,0/0,0.2,2.5",
                    help="qw,qx,qy,qz/x,y,z (default looks at the origin)")
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    p.add_argument("--grid-dtype", default="float32",
+                   choices=["float32", "float64"],
+                   help="camera ray-grid construction dtype (float32 "
+                        "reproduces the reference's f32 grid quirk, "
+                        "camera.py; float64 builds exact pixel centers)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")

@@ -19,6 +19,17 @@ block into rows of partials (one row per block, the scalars then the packed
 matrices, allocated per launch), which the wrapper sums over the blocks in
 their order.
 
+Scratch: where the kernel marches again (the recompute, the two levels, the
+march-only mode) it keeps the positions per block, not per frame, as the
+TPU kernel keeps them per tile in VMEM. The launch then runs one block per
+block the card holds at once (:func:`scratch_slots`, from the kernel's
+occupancy), each walking the ray blocks ``b, b + grid, ...`` in a scratch
+slot of its own (:func:`scratch_shape`): on an H100, 660 slots of 50,688 B
+(33.5 MB) for test_scene2 at 32 steps in f32, where a 1080p frame's
+history is 821 MB.
+Each ray block's row of partials is the same whichever block ran it, so
+the gradients keep their bits.
+
 Both take the MLP ``route`` of the forward they differentiate (by default
 :func:`render_kernel.mlp_route`): ``"tc"`` launches the kernel's tensor-core
 instantiation (``render_bwd.cu`` with ``TC``: its marches warp-masked on the
@@ -67,11 +78,19 @@ PRUNE_LAUNCHES = 0
 CKPT_INTERVAL = rk.CKPT_INTERVAL
 #: Which path the most recent :func:`fused_backward` took: ``use_hist``,
 #: ``two_level``, ``tau``, ``track_min`` (the JAX package keeps the same
-#: record, ``pallas_backward.LAST_PATH``).
+#: record, ``pallas_backward.LAST_PATH``); on the card also
+#: :data:`LAST_LAUNCH`'s ``grid`` and ``scratch_bytes``.
 LAST_PATH: dict = {}
+#: The most recent launch of either wrapper: its ``grid`` and the bytes of
+#: its ``scratch`` slots (0 with the forward's history).
+LAST_LAUNCH: dict = {}
+#: The kernel's modes, as ``rm_render_bwd_resident`` takes them.
+MODE_FULL, MODE_TWO_LEVEL, MODE_MARCH_ONLY = 0, 1, 2
 
 # (SdfProgram -> {device: flat offsets of the scene's scalars, on device}).
 _SCALAR_INDEX = weakref.WeakKeyDictionary()
+# (library, device index, f64, route, mode, track_min) -> resident blocks.
+_RESIDENT: dict = {}
 
 
 def _scalar_index(program, device):
@@ -123,18 +142,54 @@ def _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
             raise ValueError(f"{name} on {t.device}, rays7 on {rays7.device}")
 
 
+def scratch_slots(n_blocks: int, resident: int) -> int:
+    """The grid of a backward launch that marches again, which is also its
+    number of scratch slots: one block per block the card holds at once
+    (``resident``: its SMs times the instantiation's occupancy), never more
+    than the ``n_blocks`` ray blocks, and at least one."""
+    return max(1, min(int(n_blocks), int(resident)))
+
+
+def scratch_shape(slots: int, steps: int, two_level: bool = False):
+    """The scratch of a launch on ``slots`` blocks: per slot ``(steps + 1,
+    3, 128)`` positions, or with ``two_level`` ``(steps / CKPT_INTERVAL, 3,
+    128)`` checkpoints, lane-minor."""
+    n_pos = int(steps) // CKPT_INTERVAL if two_level else int(steps) + 1
+    return (int(slots), n_pos, 3, LANES)
+
+
+def _resident(lib, dev, dtype, route, mode, track_min) -> int:
+    """Blocks of the instantiation the card ``dev`` holds at once (the
+    kernel's occupancy query, cached)."""
+    key = (lib._name, dev.index, dtype, route, mode, bool(track_min))
+    if key not in _RESIDENT:
+        blocks = ctypes.c_longlong(0)
+        with torch.cuda.device(dev):
+            err = lib.rm_render_bwd_resident(
+                int(dtype == torch.float64), int(route == "tc"), mode,
+                int(track_min), ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"render_bwd occupancy query failed: "
+                               f"cudaError {err}")
+        _RESIDENT[key] = blocks.value
+    return _RESIDENT[key]
+
+
 def partial_cols(program: SdfProgram) -> int:
     """Columns of the kernel's partials: the scene's scalars, then its
     packed matrices (none for an analytic scene)."""
     return len(program.scalar_offsets) + program.mat_size
 
 
-def _launch(program, params_flat, rays7, call, mats, route):
-    """Allocate the outputs, run ``call(lib, packed, out, partials,
-    n_blocks, n_cols, n, stream)`` (one kernel launch, returning its
-    cudaError) and assemble ``(params_flat cotangent, matrix cotangents,
-    rays7 cotangent)``: the rows of partials summed over the blocks in
-    their order. ``packed`` is the matrix buffer of the MLP ``route``."""
+def _launch(program, params_flat, rays7, call, mats, route, mode=None,
+            steps=0, track_min=False):
+    """Allocate the outputs and, for a ``mode`` that marches again (None:
+    the forward's history), the scratch slots; run ``call(lib, packed, out,
+    partials, n_blocks, grid, scratch, n_cols, n, stream)`` (one kernel
+    launch, returning its cudaError) and assemble ``(params_flat cotangent,
+    matrix cotangents, rays7 cotangent)``: the rows of partials summed over
+    the blocks in their order. ``packed`` is the matrix buffer of the MLP
+    ``route``; ``scratch`` is None with the forward's history."""
     lib = rk._load(program)
     packed = (rk.tc_buffer(program, mats, backward=True) if route == "tc"
               else rk._packed(mats))
@@ -145,11 +200,21 @@ def _launch(program, params_flat, rays7, call, mats, route):
     out = torch.empty((7,) + tuple(rays7.shape[1:]), dtype=dtype, device=dev)
     out[6].zero_()
     partials = torch.empty((n_blocks, n_cols), dtype=dtype, device=dev)
+    grid, scratch = n_blocks, None
+    if mode is not None:
+        grid = scratch_slots(n_blocks, _resident(lib, dev, dtype, route,
+                                                 mode, track_min))
+        scratch = torch.empty(scratch_shape(grid, steps,
+                                            mode == MODE_TWO_LEVEL),
+                              dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = call(lib, rk._ptr(packed), out, partials, n_blocks, n_cols, n,
+        err = call(lib, rk._ptr(packed), out, partials, n_blocks, grid,
+                   scratch, n_cols, n,
                    torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_bwd kernel launch failed: cudaError {err}")
+    LAST_LAUNCH.update(grid=grid, scratch_bytes=0 if scratch is None else
+                       scratch.numel() * scratch.element_size())
     total = partials.sum(0)
     gflat = torch.zeros_like(params_flat)
     if n_scalars:
@@ -177,12 +242,12 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     history and live-step counts (:func:`render_kernel.march_forward` with
     ``log_hist``), and with ``track_min`` ``minf`` and ``amin`` its closest
     approach and arg-min step; without a history the positions are
-    recomputed (in the kernel, into a scratch history allocated here).
-    ``two_level`` asks for the recompute that keeps only every
-    :data:`CKPT_INTERVAL`-th position, in a scratch of ``steps /
-    CKPT_INTERVAL`` positions, and marches each segment again during the
-    sweep; it runs where :func:`two_level_engages` allows and ignores a
-    history, otherwise the ordinary path runs. All three give bitwise the
+    recomputed in the kernel, into scratch slots allocated here (the module
+    doc). ``two_level`` asks for the recompute that keeps only every
+    :data:`CKPT_INTERVAL`-th position, ``steps / CKPT_INTERVAL`` positions
+    a slot, and marches each segment again during the sweep; it runs where
+    :func:`two_level_engages` allows and ignores a history, otherwise the
+    ordinary path runs. All three give bitwise the
     same result. :data:`LAST_PATH` records which one ran. ``mats`` are the
     scene's matrix parameters (``split_params_padded``). ``route`` is the
     MLP route of the forward that made the history (see the module doc).
@@ -208,19 +273,14 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                                   two_level=two_level, mats=mats)
     _contiguous_cuda(rays7, [params_flat, rays7, g]
                      + [t for t in (hist, minf, amin, nlive) if t is not None])
-    dev, dtype = rays7.device, rays7.dtype
-    plane_shape = tuple(rays7.shape[1:])
+    dtype = rays7.dtype
     recompute = hist is None and not two_level
-    ckpt = None
-    if two_level:
-        ckpt = torch.empty((int(steps) // CKPT_INTERVAL, 3) + plane_shape,
-                           dtype=dtype, device=dev)
-    elif recompute:
-        hist = torch.empty((int(steps) + 1, 3) + plane_shape, dtype=dtype,
-                           device=dev)
+    mode = (MODE_TWO_LEVEL if two_level else MODE_FULL if recompute
+            else None)
     consts = rk._host_consts(dtype, tau, normals_eps)
 
-    def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
+    def call(lib, packed, out, partials, n_blocks, grid, scratch, n_cols, n,
+             stream):
         global LAUNCHES, TC_LAUNCHES, PRUNE_LAUNCHES
         if route == "tc":
             fn = lib.rm_render_bwd_tc_f32
@@ -232,22 +292,28 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
         if program.pruned and (recompute or two_level):
             PRUNE_LAUNCHES += 1
         return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
-                  g.data_ptr(), int(track_min), rk._ptr(hist),
-                  int(recompute), rk._ptr(ckpt), int(two_level),
+                  g.data_ptr(), int(track_min),
+                  rk._ptr(scratch if recompute else hist), int(recompute),
+                  rk._ptr(scratch if two_level else None), int(two_level),
                   rk._ptr(minf), rk._ptr(amin), rk._ptr(nlive),
-                  out.data_ptr(), partials.data_ptr(), n_blocks, n_cols, n,
-                  int(steps), consts.ctypes.data_as(ctypes.c_void_p), stream)
+                  out.data_ptr(), partials.data_ptr(), n_blocks, grid,
+                  n_cols, n, int(steps),
+                  consts.ctypes.data_as(ctypes.c_void_p), stream)
 
-    return _launch(program, params_flat, rays7, call, mats, route)
+    result = _launch(program, params_flat, rays7, call, mats, route, mode,
+                     steps, track_min)
+    LAST_PATH.update(LAST_LAUNCH)
+    return result
 
 
 def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                    mats=(), route=None):
     """Backward of :func:`march_kernel.march_planes`: ``g`` holds the
     cotangents of its 4 output planes (x y z d). The kernel marches again
-    into a scratch history allocated here, seeds the terminal position with
-    the position cotangent plus one SDF VJP weighted by the distance's, and
-    runs the reverse sweep: the backward kernel without its normals tail.
+    into scratch slots allocated here (the module doc), seeds the terminal
+    position with the position cotangent plus one SDF VJP weighted by the
+    distance's, and runs the reverse sweep: the backward kernel without its
+    normals tail.
     ``route`` as in :func:`fused_backward`.
 
     Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
@@ -262,10 +328,9 @@ def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                                   None, march_only=True, mats=mats)
     _contiguous_cuda(rays7, [params_flat, rays7, g])
     dtype = rays7.dtype
-    hist = torch.empty((int(steps) + 1, 3) + tuple(rays7.shape[1:]),
-                       dtype=dtype, device=rays7.device)
 
-    def call(lib, packed, out, partials, n_blocks, n_cols, n, stream):
+    def call(lib, packed, out, partials, n_blocks, grid, scratch, n_cols, n,
+             stream):
         global MARCH_LAUNCHES, MARCH_TC_LAUNCHES
         if route == "tc":
             fn = lib.rm_march_bwd_tc_f32
@@ -275,11 +340,12 @@ def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
                   else lib.rm_march_bwd_f64)
         MARCH_LAUNCHES += 1
         return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
-                  g.data_ptr(), hist.data_ptr(), out.data_ptr(),
-                  partials.data_ptr(), n_blocks, n_cols, n, int(steps),
+                  g.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                  partials.data_ptr(), n_blocks, grid, n_cols, n, int(steps),
                   float(tau), stream)
 
-    return _launch(program, params_flat, rays7, call, mats, route)
+    return _launch(program, params_flat, rays7, call, mats, route,
+                   MODE_MARCH_ONLY, steps)
 
 
 def _two_level_positions(sdf, params, start, dirs, steps):

@@ -27,7 +27,8 @@ nothing inside the kernel; the wrapper allocates the outputs.
 :func:`fused_march_normals` and :func:`fused_march_normals_cov` are
 differentiable: when an input requires grad the forward launches the
 training configuration of the kernel (with the march history when
-``bwd_hist``; without one when the two-level backward engages,
+``bwd_hist`` and the history fits under ``RM_TPU_BWD_HIST_MAX``,
+:func:`hist_enabled`; without one when the two-level backward engages,
 ``bwd_two_level``) and ``backward()`` launches the backward kernel. Both take
 the plain versions only for tensors on the CPU. For CUDA tensors they launch the
 kernels or raise; they never fall back.
@@ -102,11 +103,15 @@ PRUNE_LAUNCHES = 0
 #: Whether a differentiated forward logs its march history for the backward
 #: kernel; the counterpart of the JAX package's RM_TPU_BWD_HIST, and the one
 #: default (the ``bwd_hist`` argument of the two entry points is the one
-#: override). The other choice is the backward kernel's own recompute; the
-#: two give bitwise the same gradients. PERF.md has both times on the H100.
-#: There is no size cap: a history that does not fit fails in its
-#: allocation with the card's out-of-memory error.
+#: override). The other choice is the backward kernel's own recompute in
+#: bounded scratch; the two give bitwise the same gradients. PERF.md has
+#: both times on the H100. Above ``RM_TPU_BWD_HIST_MAX`` bytes no history is
+#: logged, whatever this says (:func:`hist_enabled`).
 BWD_HIST = True
+#: The largest history in bytes a differentiated forward logs when the
+#: environment does not set ``RM_TPU_BWD_HIST_MAX``: the JAX package's
+#: default (4 GiB), not retuned for the H100.
+HIST_MAX_DEFAULT = 2**32
 #: Whether a differentiated forward asks for the two-level backward
 #: (checkpoints every :data:`CKPT_INTERVAL` steps and segment
 #: replay, for step counts whose history does not fit); the counterpart of
@@ -141,12 +146,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def scene_flags(program: SdfProgram) -> tuple:
+    """The nvcc flags of one scene's library beside :data:`NVCC_FLAGS`: the
+    blocks an SM must hold of the backward's per-thread f32 instantiations
+    that march into a scratch slot (``RM_BWD_OWN_MIN_BLOCKS``,
+    ``csrc/render_bwd.cu``): 5 for an SDF without a rolled loop, 4 for one
+    with (its checkpointed VJP needs 128 registers)."""
+    return (f"-DRM_BWD_OWN_MIN_BLOCKS={4 if program.loops else 5}",)
+
+
 def kernel_key(program: SdfProgram) -> str:
     """Hash of everything the scene's library is built from."""
     h = hashlib.sha256(program.cuda_source().encode())
     for name in KERNEL_SOURCES:
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + scene_flags(program)).encode())
     return h.hexdigest()[:16]
 
 
@@ -188,8 +202,9 @@ def build_kernels(programs) -> None:
             for unit in KERNEL_UNITS:
                 obj = out_dir / f"{unit}.{os.getpid()}.o"
                 compiles.append((key, obj, start(
-                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
-                     "-c", "-o", str(obj), str(CSRC / unit)])))
+                    [nvcc, *NVCC_FLAGS, *scene_flags(program), "-I",
+                     str(CSRC), "-I", str(out_dir), "-c", "-o", str(obj),
+                     str(CSRC / unit)])))
         for key, _, proc in compiles:
             finish(key, proc)
         links = []
@@ -237,15 +252,19 @@ def _load(program: SdfProgram):
         for name in ("rm_render_bwd_f32", "rm_render_bwd_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
-                           ptr, ptr, ptr, ptr, i64, i64, i64, i32, ptr, ptr]
+                           ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, ptr,
+                           ptr]
             fn.restype = i32
         for name in ("rm_march_bwd_f32", "rm_march_bwd_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                           i32, f64, ptr]
+                           i64, i32, f64, ptr]
             fn.restype = i32
         lib.rm_render_bwd_block.argtypes = []
         lib.rm_render_bwd_block.restype = i32
+        lib.rm_render_bwd_resident.argtypes = [i32, i32, i32, i32,
+                                               ctypes.POINTER(i64)]
+        lib.rm_render_bwd_resident.restype = i32
         if program.tc:
             lib.rm_render_fwd_tc_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
                                                  ptr, ptr]
@@ -259,11 +278,11 @@ def _load(program: SdfProgram):
             lib.rm_march_tc_f32.restype = i32
             lib.rm_render_bwd_tc_f32.argtypes = [
                 ptr, ptr, ptr, ptr, i32, ptr, i32, ptr, i32, ptr, ptr, ptr,
-                ptr, ptr, i64, i64, i64, i32, ptr, ptr]
+                ptr, ptr, i64, i64, i64, i64, i32, ptr, ptr]
             lib.rm_render_bwd_tc_f32.restype = i32
             lib.rm_march_bwd_tc_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                                ptr, i64, i64, i64, i32, f64,
-                                                ptr]
+                                                ptr, i64, i64, i64, i64, i32,
+                                                f64, ptr]
             lib.rm_march_bwd_tc_f32.restype = i32
             lib.rm_render_bwd_tc_smem.argtypes = []
             lib.rm_render_bwd_tc_smem.restype = i32
@@ -513,6 +532,31 @@ def _requires_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def hist_bytes(rays7, steps) -> int:
+    """Bytes of the march history of a forward over ``rays7``:
+    ``(steps + 1) · 3 · rows · 128 · itemsize``."""
+    return ((int(steps) + 1) * 3 * rays7.shape[1] * LANES
+            * rays7.element_size())
+
+
+def hist_enabled(rays7, steps, bwd_hist=None, two_level=False) -> bool:
+    """Whether a differentiated forward logs its march history for the
+    backward kernel: ``bwd_hist`` (None: :data:`BWD_HIST`), unless the
+    two-level backward engages (``two_level``, already decided) or the
+    history would exceed ``RM_TPU_BWD_HIST_MAX`` bytes (read at each call,
+    default :data:`HIST_MAX_DEFAULT`), which overrides even
+    ``bwd_hist=True``; the backward then recomputes in bounded scratch.
+    The rule of the JAX package's ``pallas_render._hist_enabled``, over the
+    port's own rows (JAX counts rows padded to its tile). JAX's clause that
+    turns the history off at tau != 0 with ``track_min`` is not carried
+    over: it exists because a TPU tile shares one exit step, while the
+    port's history keeps each ray's own, so neither is read here."""
+    if two_level or not (BWD_HIST if bwd_hist is None else bool(bwd_hist)):
+        return False
+    cap = int(os.environ.get("RM_TPU_BWD_HIST_MAX", str(HIST_MAX_DEFAULT)))
+    return hist_bytes(rays7, steps) <= cap
+
+
 def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
            bwd_hist, bwd_two_level, mats):
     if _requires_grad(params_flat, rays7, *mats):
@@ -523,8 +567,7 @@ def _fused(program, params_flat, rays7, steps, tau, normals_eps, track_min,
         two_level = (
             (BWD_TWO_LEVEL if bwd_two_level is None else bool(bwd_two_level))
             and two_level_engages(steps, tau, track_min))
-        log_hist = not two_level and (BWD_HIST if bwd_hist is None
-                                      else bool(bwd_hist))
+        log_hist = hist_enabled(rays7, steps, bwd_hist, two_level)
         return _FusedMarch.apply(params_flat, rays7, program, steps, tau,
                                  normals_eps, track_min, log_hist, two_level,
                                  *mats)
@@ -542,7 +585,8 @@ def fused_march_normals(program: SdfProgram, params_flat, rays7, steps, tau,
     parameters (:func:`ops.params.split_params_padded`). CPU tensors take
     the plain version; CUDA tensors launch the kernel. Differentiable in
     ``params_flat`` and ``rays7``; ``bwd_hist`` chooses between the history
-    handoff and the backward kernel's recompute (see :data:`BWD_HIST`),
+    handoff and the backward kernel's recompute (see :data:`BWD_HIST` and
+    :func:`hist_enabled`),
     ``bwd_two_level`` asks for the two-level backward (see
     :data:`BWD_TWO_LEVEL`)."""
     return _fused(program, params_flat, rays7, steps, tau, normals_eps, False,

@@ -85,6 +85,18 @@ def _cfg_kwargs(w=W, h=H, **kw):
                 sensor_width=PX * w, sensor_height=PX * h, **kw)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the module (its module fixtures included):
+    the suite runs in several workers, whose torch threads otherwise fight
+    (the 512×512 golden march took about 150 s in a parallel run, 5 s
+    alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_pallas(monkeypatch):
     """Route the JAX pipeline's Pallas march through the interpreter."""
@@ -277,10 +289,13 @@ def test_render_with_alpha_rejects_bounces():
         tr.render_with_alpha(tr.init_params, q, t)
 
 
-@pytest.mark.parametrize("mode", [0, 4])
-def test_golden_scene2_bounce_image(mode):
-    """The port straight against the reference-made fixture (512×512, one
-    reflection bounce), through the march kernel's plain version."""
+@pytest.fixture(scope="module")
+def golden_bounce():
+    """The reference-made fixture (512×512, one reflection bounce) and the
+    port's frames of it in every mode, through the march kernel's plain
+    version: one march for all modes (``render_all_modes`` gives
+    ``render``'s bits, test_render_equals_render_all_modes), where a march
+    per mode took about 150 s each on one test worker."""
     g = np.load(GOLDEN / "scene2_bounce_512.npz")
     w, h = int(g["meta_width"]), int(g["meta_height"])
     cfg = RenderConfig(**_cfg_kwargs(
@@ -291,9 +306,19 @@ def test_golden_scene2_bounce_image(mode):
     r = Renderer(treg.make_scene(str(g["meta_scene"])), cfg,
                  dtype=torch.float64, grid_dtype=np.float64, device="cpu")
     with torch.no_grad():
-        img = r.render(r.init_params, g["meta_orientation"][None],
-                       g["meta_translation"][None], mode=mode,
-                       degree=int(g["meta_degree"])).numpy()
+        images = r.render_all_modes(r.init_params,
+                                    g["meta_orientation"][None],
+                                    g["meta_translation"][None],
+                                    degree=int(g["meta_degree"]))
+    return g, {k: v.numpy() for k, v in images.items()}
+
+
+@pytest.mark.parametrize("mode", [0, 4])
+def test_golden_scene2_bounce_image(golden_bounce, mode):
+    """The port straight against the reference-made fixture (512×512, one
+    reflection bounce), through the march kernel's plain version."""
+    g, images = golden_bounce
+    img = images[MODES[mode]]
     want = g[f"image_{mode}"]
     mask = np.broadcast_to(g["stable_mask"], want.shape)
     np.testing.assert_allclose(img[mask], want[mask], rtol=1e-9, atol=1e-11,

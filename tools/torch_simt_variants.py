@@ -55,7 +55,12 @@ and 0), serving frame, forward with history, backward with history and
 recompute (2b), march-only (2b′), two levels (3b), march (4b; serving, and
 the training configuration at tau = 0; the host's time per march call),
 modular frame and training step; the w256 field's per-thread march at tau
-= 1e-3 in f32 and f64 (4n). The fmad
+= 1e-3 in f32 and f64 (4n); test_scene2 with the union short-circuit, its
+backward with history and recompute (2p) and two levels (3p); the w256
+field's backward on the tensor cores at 512², 24 steps: history,
+recompute, march-only and two levels (2n, 2n′, 3n). Every backward row
+also gives the sha256 of its cotangents (which must agree across builds
+and turns) and the device memory one call allocates at its peak. The fmad
 build also gives its parity cost against the plain version: the share of
 converged rays outside ``TOL_F32`` and the largest error of the forward
 planes, and of the backward's ray cotangents (the share outside
@@ -85,6 +90,12 @@ FMAD_FLAGS = "--fmad=true"
 MARCH_ROWS = ("4 march", "4 march tau 1e-3", "4b march", "4b march tau 0",
               "4n march f32 thread tau 1e-3", "4n march f64 tau 1e-3",
               "4b march wrapper host")
+def _indent(text: str, by: int = 2) -> str:
+    """``text`` with ``by`` more spaces before each non-empty line."""
+    return "".join(" " * by + line if line.strip() else line
+                   for line in text.splitlines(keepends=True))
+
+
 #: This checkout's builds beside its own: name -> (replacements (exact
 #: text, new text, count of matches) per kernel source, FMA contraction,
 #: attributes of ops/render_kernel.py to set, the rows to time (all when
@@ -122,7 +133,38 @@ VARIANTS = {
         MARCH_ROWS),
     # The backward's tail with its offsets and cotangents chosen by selects
     # (registers) in place of the local arrays (its stack frame).
-    "tail-selects": ({"render_bwd.cu": [
+    # The backward's loop over ray blocks on 32-bit indices (the
+    # persistent grid's loop-carried values in fewer registers).
+    "bwd-int-blk": ({"render_bwd.cu": [
+        ("  for (long long blk = blockIdx.x; blk < n_blocks;\n"
+         "       blk += OWN ? gridDim.x : n_blocks) {",
+         "  for (int blk = blockIdx.x; blk < (int)n_blocks;\n"
+         "       blk += OWN ? (int)gridDim.x : (int)n_blocks) {", 1),
+        ("    const long long i = blk * BWD_BLOCK + threadIdx.x;",
+         "    const long long i = (long long)blk * BWD_BLOCK + threadIdx.x;",
+         1)]}, False),
+    # The per-thread f32 instantiations that march into a slot at the
+    # history path's four blocks an SM for every scene (101-103 registers
+    # on test_scene2), where the build gives a scene without a rolled loop
+    # five (render_kernel.scene_flags).
+    "bwd-own-min4": ({"render_bwd.cu": [
+        ("constexpr int BWD_OWN_MIN_BLOCKS = RM_BWD_OWN_MIN_BLOCKS;",
+         "constexpr int BWD_OWN_MIN_BLOCKS = BWD_MIN_BLOCKS;", 1)]}, False),
+    # The two-level instantiation at the marching ones' blocks an SM too.
+    "bwd-2l-own-min": ({"render_bwd.cu": [
+        ("               : (OWN && !TWO_LEVEL && sizeof(T) == 4) ? "
+         "BWD_OWN_MIN_BLOCKS",
+         "               : (OWN && sizeof(T) == 4) ? BWD_OWN_MIN_BLOCKS", 1)]},
+        False),
+    # ... and at five for every scene, the bulb's rolled loop included (its
+    # VJP then spills).
+    "bwd-own-min5": ({"render_bwd.cu": [
+        ("constexpr int BWD_OWN_MIN_BLOCKS = RM_BWD_OWN_MIN_BLOCKS;",
+         "constexpr int BWD_OWN_MIN_BLOCKS = 5;", 1)]}, False),
+    # (Written at the tail's indentation before the kernel's loop over ray
+    # blocks, _indent adds the loop's level.)
+    "tail-selects": ({"render_bwd.cu": [(_indent(old), _indent(new), n)
+                                         for old, new, n in [
         ("      T ox[5], oy[5], oz[5], gf[5];\n", "", 1),
         ("        ox[k] = c.off[k][0];\n"
          "        oy[k] = c.off[k][1];\n"
@@ -165,7 +207,7 @@ VARIANTS = {
          "        sdf_vjp<T, TC>(a.P, a.M, x + ox, y + oy, z + oz,\n"
          "                       rm_pick5(k, gf0, gf1, gf2, gf3, gf4), sx, "
          "sy, sz, gP,\n"
-         "                       sink);\n", 1)]}, False),
+         "                       sink);\n", 1)]]}, False),
 }
 #: The rows: name -> (scene, repetitions). "4b march wrapper host" is the
 #: host's time per call of the march's wrapper on one row of the bulb's
@@ -195,7 +237,17 @@ ROWS = {
     "4b march wrapper host": ("bulb", 200),
     "bulb modular frame": ("bulb", 20),
     "bulb training step": ("bulb", 5),
+    "2p backward history": ("pruned", 10),
+    "2p backward recompute": ("pruned", 10),
+    "3p two-level": ("pruned", 10),
+    "2n backward history tc": ("neural", 2),
+    "2n backward recompute tc": ("neural", 2),
+    "2n' march-only tc": ("neural", 2),
+    "3n two-level tc": ("neural", 2),
 }
+#: The backward rows: each turn also records the sha256 of their
+#: cotangents and the device memory one call allocates at its peak.
+BACKWARD_ROWS = tuple(r for r in ROWS if r.startswith(("2", "3")))
 
 
 def load_smoke():
@@ -473,6 +525,9 @@ def build_one(name: str) -> None:
     r = scenes(cs)
     labels = ["analytic", "bulb"]
     progs = [r["analytic"].program, r["bulb"].program]
+    if any(ROWS[row][0] == "pruned" for row in variant_rows(name)):
+        labels.append("pruned")
+        progs.append(pruned_program())
     if any(ROWS[row][0] == "neural" for row in variant_rows(name)):
         labels.append("neural")
         progs.append(cs.neural_renderer(cs.NEURAL_RES,
@@ -486,6 +541,33 @@ def build_one(name: str) -> None:
     path = rk.BUILD_DIR / "simt_variants" / f"{name}.ptxas.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out))
+
+
+def pruned_program():
+    """test_scene2 with the union short-circuit (rows 2p and 3p)."""
+    from ray_marching_tpu_torch.scene import registry
+    from ray_marching_tpu_torch.scene.codegen import SdfProgram
+
+    return SdfProgram(registry.make_scene("test_scene2"), prune=True)
+
+
+def digest_and_peak(fn):
+    """sha256 of a backward's cotangents (flat, matrices, rays) and the
+    device bytes one call allocates at its peak."""
+    import hashlib
+
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flat, mats, rays = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    h = hashlib.sha256()
+    for t in (flat, *mats, rays):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest(), peak
 
 
 def host_ms(fn, reps):
@@ -539,6 +621,8 @@ class Rows:
                 r["bulb"].init_params, cs.BENCH_Q, cs.BENCH_T, mode=0,
                 degree=2)
         self._neural = {}
+        self.pruned = pruned_program()
+        self.ng8 = self.ng4 = None
 
     def neural(self, dtype):
         """The w256 field's program, flat parameters, matrices and planes
@@ -552,6 +636,7 @@ class Rows:
     def calls(self):
         """{row: (a call, repetitions, events around calls (True) or
         kernel_ms (False))}."""
+        import numpy as np
         import torch
 
         from ray_marching_tpu_torch.ops import backward_kernel as bk
@@ -598,6 +683,34 @@ class Rows:
 
         one_row = self.bm_rays7[:, :1].contiguous()
         f, a, b = self.flat, self.rays7, self.b_rays7
+        pp = self.pruned
+        _, ph = rk.march_forward(pp, f, a, steps, 0.0, 5e-2, log_hist=True)
+        nsteps = cs.NEURAL_STEPS
+
+        def neural_bwd(**kw):
+            def run():
+                prog, flat, mats, rays = self.neural(torch.float32)
+                if self.ng8 is None:
+                    rng = np.random.default_rng(39)
+                    self.ng8, self.ng4 = (torch.as_tensor(
+                        rng.standard_normal((n,) + tuple(rays.shape[1:])),
+                        dtype=torch.float32).to(rays.device) for n in (8, 4))
+                if kw.get("hist"):
+                    _, ex = rk.march_forward(prog, flat, rays, nsteps, 0.0,
+                                             5e-2, log_hist=True, mats=mats)
+                    self._neural_hist = dict(hist=ex["hist"],
+                                             nlive=ex["nlive"])
+                    return lambda: bk.fused_backward(
+                        prog, flat, rays, self.ng8, nsteps, 0.0, 5e-2,
+                        mats=mats, **self._neural_hist)
+                if kw.get("march_only"):
+                    return lambda: bk.march_backward(
+                        prog, flat, rays, self.ng4, nsteps, 0.0, mats=mats)
+                return lambda: bk.fused_backward(
+                    prog, flat, rays, self.ng8, nsteps, 0.0, 5e-2, mats=mats,
+                    two_level=kw.get("two_level", False))
+            return LazyCall(run)
+
         return {
             "1 forward": lambda: rk.fused_march_normals(ap, f, a, steps, 0.0,
                                                         5e-2),
@@ -640,15 +753,28 @@ class Rows:
                 bp, self.bm_flat, one_row, bsteps, cs.BULB_TAU),
             "bulb modular frame": lambda: frame("bulb modular"),
             "bulb training step": train_step,
+            "2p backward history": bwd(pp, f, a, self.g8, steps, ph),
+            "2p backward recompute": bwd(pp, f, a, self.g8, steps),
+            "3p two-level": bwd(pp, f, a, self.g8, steps, two_level=True),
+            "2n backward history tc": neural_bwd(hist=True),
+            "2n backward recompute tc": neural_bwd(),
+            "2n' march-only tc": neural_bwd(march_only=True),
+            "3n two-level tc": neural_bwd(two_level=True),
         }
 
-    def time_all(self, label, rows):
+    def time_all(self, label, rows, checks=None):
+        """{row: ms}; with ``checks`` (a dict) also each backward row's
+        sha256 and peak bytes into ``checks[row]``."""
         out = {}
         events = ("1b serving frame", "bulb modular frame",
                   "bulb training step")
         for name, fn in self.calls().items():
             if name not in rows:
                 continue
+            if isinstance(fn, LazyCall):
+                fn = fn.resolve()
+            if checks is not None and name in BACKWARD_ROWS:
+                checks[name] = digest_and_peak(fn)
             reps = ROWS[name][1]
             if name == "4b march wrapper host":
                 ms = host_ms(fn, reps)
@@ -659,6 +785,19 @@ class Rows:
             out[name] = ms
             print(f"{label}: {name} {ms:.4f} ms", flush=True)
         return out
+
+
+class LazyCall:
+    """A row's call whose inputs are made at its first use (the w256
+    field's only for the turns that time it)."""
+
+    def __init__(self, make):
+        self.make, self.fn = make, None
+
+    def resolve(self):
+        if self.fn is None:
+            self.fn = self.make()
+        return self.fn
 
 
 def parity(cs, rows: Rows) -> dict:
@@ -718,12 +857,14 @@ def run_turn(names, label) -> dict:
     for name in names:
         use_variant(name)
         rows[name] = Rows(cs)
-    result = {"card": cs.card_line(), "times": {}}
+    result = {"card": cs.card_line(), "times": {}, "checks": {}}
     order = list(names) + list(reversed(names))
     for k, name in enumerate(order):
         use_variant(name)
+        checks = result["checks"].setdefault(name, {}) if k == 0 else None
         result["times"].setdefault(name, []).append(
-            rows[name].time_all(f"{label} {name} ({k})", variant_rows(name)))
+            rows[name].time_all(f"{label} {name} ({k})", variant_rows(name),
+                                checks))
     if "fmad" in names:
         result["fmad_parity"] = parity(cs, rows["fmad"])
     return result
@@ -759,7 +900,9 @@ def run_variants(parent: Path, out: Path, rounds: int = 1) -> dict:
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
     ptxas = {}
-    for path in sorted((rk.BUILD_DIR / "simt_variants").glob("*.ptxas.json")):
+    parent_dir = (parent / rk.BUILD_DIR.relative_to(ROOT) / "simt_variants")
+    for path in sorted([*(rk.BUILD_DIR / "simt_variants").glob("*.ptxas.json"),
+                        *parent_dir.glob("parent.ptxas.json")]):
         name = path.name.split(".")[0]
         ptxas[name] = json.loads(path.read_text())
         for label, entries in ptxas[name].items():
@@ -794,8 +937,20 @@ def run_variants(parent: Path, out: Path, rounds: int = 1) -> dict:
             if row in summary[n]) + " ms (change / parent "
             f"{summary['change'][row] / summary['parent'][row]:.4f})",
             flush=True)
+    checks = {}
+    for t in turns:
+        for name, rows in t["checks"].items():
+            for row, (digest, peak) in rows.items():
+                checks.setdefault(row, {}).setdefault(name, []).append(
+                    (digest, peak))
+    for row, by_name in checks.items():
+        digests = {d for runs in by_name.values() for d, _ in runs}
+        print(f"{row}: sha256 {'equal' if len(digests) == 1 else 'DIFFER'} "
+              "across builds and turns; peak bytes " + ", ".join(
+                  f"{n} {max(p for _, p in runs)}"
+                  for n, runs in by_name.items()), flush=True)
     return {"card": card, "mean_ms": summary, "min_max_ms": spread,
-            "ptxas": ptxas, "turns": turns}
+            "ptxas": ptxas, "checks": checks, "turns": turns}
 
 
 def main(argv=None) -> int:

@@ -130,7 +130,7 @@ VARIANTS["acc-fresh-primal-g2"] = {"neural.cuh": [
      "  // bf16: each k-step",
      "  constexpr int G = NT % 2 == 0 ? 2 : 1;\n  // bf16: each k-step", 1)]}
 #: The f32 tensor-core history backward's mangled template arguments.
-BWD_TC_ARGS = "IfLb0ELb0ELb0ELb1EE"
+BWD_TC_ARGS = "IfLb0ELb0ELb0ELb1ELb0EE"
 
 
 def load_smoke():
