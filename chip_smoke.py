@@ -33,7 +33,10 @@ the union short-circuit: the main path built under ``RM_TPU_CSG_PRUNE=1``
 against the same without it, kernels, gradients, frames and ``optimize``
 bit for bit, and a tensor-core scene with a guarded union; the backward's
 bounded scratch: every backward path bit for bit on three scenes, and the
-peak memory of 1080p and 4K training steps under the history size rule),
+peak memory of 1080p and 4K training steps under the history size rule;
+the analytic per-thread kernels' redesign: the issue share of the main
+path's forward, backward and march from their SASS loops, registers and
+blocks an SM, the parameter loads left in their loops, no spill),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -244,6 +247,23 @@ PROFILE_MAX_DROPPED = 3
 #: H100's 1.98 GHz boost clock, longer than the host takes to queue a
 #: timing loop's calls.
 SPIN_CYCLES = 20_000_000
+#: The H100 SXM's instruction issue: 132 SMs, 4 schedulers each issuing at
+#: most one warp-instruction a cycle, at the 1,980 MHz boost clock
+#: (simt_issue; 1.045e12 warp-instructions a second).
+SM_COUNT, SCHEDULERS_PER_SM, BOOST_MHZ = 132, 4, 1980.0
+#: simt_issue's rows: the kernel the sass report names (sass_report), the
+#: loops one ray runs besides the straight-line code (its march at tau = 0,
+#: its reverse sweep, its tail's VJPs), and the loads each trip makes that
+#: are not parameter reads (the sweep's three history components).
+SIMT_ROWS = {
+    "1 forward": "forward",
+    "1 forward with history": "forward_train",
+    "2 backward history": "backward",
+    "2 backward recompute": "recompute",
+    "4 march": "march_tau0",
+}
+#: The tail of the backward runs one SDF VJP per offset and the centre.
+TAIL_VJPS = 5
 #: The Mandelbulb slice: the registry's ``mandelbulb`` scene (the room and
 #: Affine(Mandelbulb(power=8, iterations=10, scale=1.0)) about 45° about y),
 #: f32, the CLI's default pose and 1440×900, served by the README's command
@@ -3038,9 +3058,24 @@ def sass_summary(instrs, labels, trips=None):
             loops.append((start, addr, sum(1 for a, _, _ in main
                                            if start <= a <= addr)))
     loops.sort()
+
+    def detail(a, b, n):
+        body = [(op.split(".")[0], text) for addr, op, text in main
+                if a <= addr <= b]
+        return {"instructions": n,
+                "inner": not any(a <= c and d <= b and (c, d) != (a, b)
+                                 for c, d, _ in loops),
+                "mufu": sum(1 for op, _ in body if op == "MUFU"),
+                "global_loads": sum(1 for op, _ in body if op == "LDG"),
+                "global_stores": sum(1 for op, _ in body if op == "STG"),
+                "constant_bank_reads": sum(1 for _, t in body
+                                           if "c[0x3]" in t),
+                "local": sum(1 for op, _ in body if op in ("LDL", "STL"))}
+
     out = {"instructions": len(main), "code_bytes": len(main) * SASS_BYTES,
            "classes": classes, "slow_paths": slow,
            "loop_bytes": [(b - a + SASS_BYTES) for a, b, _ in loops],
+           "loops": [detail(*lp) for lp in loops],
            "local_memory": sum(1 for _, op, _ in main
                                if op.split(".")[0] in ("LDL", "STL"))}
     if trips is not None:
@@ -3100,7 +3135,12 @@ def sass_report(label, prog, probe):
                           ("march", r"_Z\d+march_kernelIfLb1EE"),
                           ("march_refill", r"_Z\d+march_refill_kernelIfE"),
                           ("backward", r"_Z\d+render_bwd_kernelIfLb0ELb0E"
-                                       r"Lb0ELb0ELb0EE")):
+                                       r"Lb0ELb0ELb0EE"),
+                          ("forward_train",
+                           r"_Z\d+render_fwd_train_kernelIfE"),
+                          ("recompute", r"_Z\d+render_bwd_kernelIfLb0ELb0E"
+                                        r"Lb0ELb0ELb1EE"),
+                          ("march_tau0", r"_Z\d+march_kernelIfLb0EE")):
         # A package from before the lane-refill forward (march) has no
         # refill (march_refill).
         name = next((n for n in lib if re.match(pattern, n)), None)
@@ -3111,8 +3151,145 @@ def sass_report(label, prog, probe):
         f"call), {v['code_bytes']} code bytes, classes {v['classes']}, "
         f"slow paths {v['slow_paths']}, loops (bytes) "
         f"{v['loop_bytes']}, local loads/stores {v['local_memory']}"
+        + (f", inner loops {[lp for lp in v['loops'] if lp['inner']]}"
+           if v.get("loops") else "")
         for k, v in report.items()))
     return report
+
+
+def instructions_per_ray(report, kind, steps):
+    """SASS instructions one ray runs in the loops of the kernel ``kind`` of
+    a scene's sass_report: each innermost loop it runs times its trips.
+    The straight-line code (the forward's five tail evaluations, the
+    backward's four) is left out: which of it runs cannot be told from the
+    code alone, so the count, and the issue share made of it, is a lower
+    bound. The loops are told apart by their global
+    loads and their MUFU count against the scene's SDF evaluation and VJP
+    (the probes): the reverse sweep loads the history and holds u VJPs (u
+    steps a trip, ``steps / u`` trips); the tail's loop holds one VJP and
+    no global load (TAIL_VJPS trips); a march loop holds u SDF evaluations
+    and no global load, and of several (the loop at tau = 0 and the one
+    that tests tau, each with and without the history stores where the
+    compiler splits on the history pointer) the one with the fewest
+    instructions a step runs, ``steps / u`` trips, among those that store
+    where the kernel writes a history (``forward_train``, ``recompute``).
+    Returns (instructions, the loops it counted: (name, loop, trips))."""
+    summary = report[kind]
+    m_sdf, m_vjp = (report[k]["classes"].get("mufu", 0) for k in ("sdf",
+                                                                  "vjp"))
+    inner = [lp for lp in summary["loops"] if lp["inner"] and lp["mufu"]]
+    writes = kind in ("forward_train", "recompute")
+    counted, marches = [], []
+    for lp in inner:
+        if lp["global_loads"] and lp["mufu"] % m_vjp == 0:
+            counted.append(("sweep", lp, steps * m_vjp // lp["mufu"]))
+        elif lp["mufu"] == m_vjp:
+            counted.append(("tail", lp, TAIL_VJPS))
+        elif (lp["mufu"] % m_sdf == 0 and not lp["global_loads"]
+              and (lp["global_stores"] > 0 or not writes)):
+            marches.append((lp["instructions"] * m_sdf / lp["mufu"], lp))
+    if marches:
+        lp = min(marches, key=lambda m: m[0])[1]
+        counted.append(("march", lp, steps * m_sdf // lp["mufu"]))
+    return sum(lp["instructions"] * n for _, lp, n in counted), counted
+
+
+def busy_clock_mhz(fn, seconds=1.5):
+    """The median of nvidia-smi's clocks.sm samples (100 ms apart) taken
+    while back-to-back calls of ``fn`` keep the card busy (samples at a
+    utilization.gpu of 90 % or more); None without such a sample."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    busy = sorted(float(a) for a, b in (line.split(",") for line in
+                                        out.splitlines() if "," in line)
+                  if float(b) >= 90.0)
+    return busy[len(busy) // 2] if busy else None
+
+
+def occupancy(lib, row):
+    """(registers a thread, blocks an SM) of the row's kernel from the
+    library's occupancy entries (cudaFuncGetAttributes and the occupancy
+    query)."""
+    import ctypes
+
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    fn, args = {
+        "1 forward": (lib.rm_render_fwd_occupancy, (0, 0)),
+        "1 forward with history": (lib.rm_render_fwd_occupancy, (0, 1)),
+        "2 backward history": (lib.rm_render_bwd_occupancy, (0, 0, 0, 0)),
+        "2 backward recompute": (lib.rm_render_bwd_occupancy, (0, 0, 0, 1)),
+        "4 march": (lib.rm_march_occupancy, (0,)),
+    }[row]
+    fn.restype = ctypes.c_int
+    err = fn(*args, ctypes.byref(regs), ctypes.byref(blocks))
+    check(err == 0, f"{row}: occupancy query failed (cudaError {err})")
+    return regs.value, blocks.value
+
+
+def simt_issue(card, prog, report, calls, times, n_rays):
+    """The issue share of the analytic main path's f32 per-thread kernels
+    (rows 1, 2 and 4): the warp-instructions their loops issue (SASS
+    instructions per ray, instructions_per_ray, times the rays over 32; a
+    lower bound of what the kernel issues) over their time
+    and the card's issue rate, at the boost clock and at clocks.sm sampled
+    while the kernel runs; with each kernel's registers and blocks an SM
+    (the occupancy query) and its loops' reads of the scene's parameters
+    a trip: global loads beyond the sweep's three history components, and
+    constant-bank reads. The backward takes the bank on the constant route
+    (the forward and the march never do): there no loop may load a
+    parameter from global memory."""
+    from ray_marching_tpu_torch.ops import render_kernel as rk
+
+    lib = rk._load(prog)
+    out = {"route": rk.param_route(prog), "boost_mhz": BOOST_MHZ}
+    for row, kind in SIMT_ROWS.items():
+        bank = out["route"] == "constant" and row.startswith("2 ")
+        per_ray, counted = instructions_per_ray(report, kind, STEPS)
+        warp_instr = per_ray * n_rays[row] / 32
+        rate = SM_COUNT * SCHEDULERS_PER_SM * 1e6
+        mhz = busy_clock_mhz(calls[row])
+        regs, blocks = occupancy(lib, row)
+        p_loads = {name: lp["global_loads"] - (3 if name == "sweep" else 0)
+                   for name, lp, _ in counted}
+        out[row] = {
+            "ms": times[row],
+            "instructions_per_ray": per_ray,
+            "loops": {name: {"instructions": lp["instructions"],
+                             "trips": n, "mufu": lp["mufu"],
+                             "parameter_loads_per_trip": p_loads[name],
+                             "constant_bank_reads_per_trip":
+                                 lp["constant_bank_reads"],
+                             "local_per_trip": lp["local"]}
+                      for name, lp, n in counted},
+            "warp_instructions": warp_instr,
+            "issue_share_boost": warp_instr / (times[row] * 1e-3 * rate
+                                               * BOOST_MHZ),
+            "clocks_sm_mhz": mhz,
+            "issue_share_clock": (warp_instr / (times[row] * 1e-3 * rate
+                                                * mhz) if mhz else None),
+            "registers": regs,
+            "blocks_per_sm": blocks,
+            "parameters": "constant bank" if bank else "pointer",
+        }
+        print(f"issue {row} on {card}: {json.dumps(out[row])}")
+        if bank:
+            check(all(v == 0 for v in p_loads.values()),
+                  f"{row}: a loop loads a parameter from global memory on "
+                  f"the constant route: {p_loads}")
+    return out
 
 
 def lane_efficiency(nlive, valid, steps, tail=5):
@@ -5763,10 +5940,11 @@ def run(out_dir: Path):
     scenes = ("test_scene2", "test_scene")
     programs = run_programs()
     t0 = time.perf_counter()
-    # The bulb's spill check reads this run's ptxas report: a library left by
-    # an earlier run is built again.
-    shutil.rmtree(rk.BUILD_DIR / rk.kernel_key(programs["mandelbulb"]),
-                  ignore_errors=True)
+    # The spill checks read this run's ptxas report: a library left by an
+    # earlier run is built again.
+    for s in ("mandelbulb", "test_scene2"):
+        shutil.rmtree(rk.BUILD_DIR / rk.kernel_key(programs[s]),
+                      ignore_errors=True)
     probes = start_sass_probes({s: programs[s] for s in SASS_SCENES})
     rk.build_kernels(programs.values())
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(programs)} "
@@ -5778,6 +5956,15 @@ def run(out_dir: Path):
         print(f"ptxas report ({s}, {key}, units "
               f"{', '.join(rk.KERNEL_UNITS)}):")
         print(rk.BUILD_LOG.get(key, "(built before this run)").strip())
+    # No f32 per-thread kernel of the main path's library spills.
+    main_ptx = bulb_ptxas(rk.BUILD_LOG.get(rk.kernel_key(
+        programs["test_scene2"]), ""))
+    f32_simt = [(e, sp) for e, _, _, sp in main_ptx if re.match(
+        r"_Z\d+(render_fwd\w*_kernel|march\w*_kernel)If(E|Lb\dEE)|"
+        r"_Z\d+render_bwd_kernelIfLb\dELb\dELb\dELb0ELb\dEE", e)]
+    check(len(f32_simt) == 12 and all(sp == 0 for _, sp in f32_simt),
+          f"test_scene2: spill stores in its f32 per-thread kernels (or no "
+          f"ptxas report): {f32_simt}")
     for s, digest in PER_THREAD_SOURCES.items():
         check(not programs[s].tc and hashlib.sha256(
             programs[s].cuda_source().encode()).hexdigest() == digest,
@@ -6100,6 +6287,22 @@ def run(out_dir: Path):
           f"{ckpt_bytes} bytes (frame-wide checkpoints "
           f"{STEPS // k * 3 * plane_bytes}) against a history of "
           f"{hist_bytes}")
+    # 5g. The issue share of rows 1, 2 and 4, the kernels' registers and
+    # blocks an SM, and their loops' parameter reads.
+    issue = simt_issue(card, prog, sass["test_scene2"], {
+        "1 forward": lambda: rk.fused_march_normals(prog, flat, rays7, STEPS,
+                                                    0.0, 5e-2),
+        "1 forward with history": fwd_hist,
+        "2 backward history": lambda: bwd(True),
+        "2 backward recompute": lambda: bwd(False),
+        "4 march": lambda: mk.march_planes(m_prog, m_flat, m_rays7, STEPS,
+                                           0.0),
+    }, {"1 forward": ms, "1 forward with history": fwd_hist_ms,
+        "2 backward history": bwd_hist_ms, "2 backward recompute": bwd_rec_ms,
+        "4 march": march_ms}, {
+        "1 forward": n_valid, "1 forward with history": n_valid,
+        "2 backward history": n_valid, "2 backward recompute": n_valid,
+        "4 march": m_valid})
     del out_h, ex_h
 
     # 5e. Where the history stops being small: 128 steps.
@@ -6216,6 +6419,8 @@ def run(out_dir: Path):
         "ms_with_history": fwd_hist_ms,
         "profiler_kernel_ms": kernel_dev_ms,
         "profiler_train_kernel_ms": fwd_train_dev_ms,
+        "issue": issue["1 forward"],
+        "issue_with_history": issue["1 forward with history"],
         "card": card,
     }, {
         "name": "render_bwd",
@@ -6241,6 +6446,8 @@ def run(out_dir: Path):
         "optimize_silhouette_step_ms": sil_step_s * 1e3,
         "optimize_implicit_step_ms": ift_step_s * 1e3,
         "profiler_kernel_ms": bwd_dev_ms,
+        "issue": issue["2 backward history"],
+        "issue_recompute": issue["2 backward recompute"],
         "card": card,
     }, {
         "name": "march",
@@ -6259,6 +6466,7 @@ def run(out_dir: Path):
         "frame_ms": modular_ms,
         "frame_ms_one_bounce": bounce_ms,
         "profiler_kernel_ms": march_dev_ms,
+        "issue": issue["4 march"],
         "card": card,
     }, {
         "name": "render_bwd_two_level",

@@ -89,6 +89,7 @@ __global__ void __launch_bounds__(256)
 march_kernel(const T* __restrict__ P, const T* __restrict__ M,
              const T* __restrict__ rays, T* __restrict__ out, long long plane,
              int steps, T tau) {
+  P = scene_params(P);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   T x = rays[i];
@@ -119,6 +120,7 @@ march_refill_kernel(const T* __restrict__ P, const T* __restrict__ M,
                     const T* __restrict__ rays, T* __restrict__ out,
                     long long plane, int steps, T tau,
                     unsigned int* __restrict__ next) {
+  P = scene_params(P);
   const unsigned full = 0xffffffffu;
   const unsigned lane = threadIdx.x & 31;
   long long i = -1;   // the lane's ray slot; -1: it needs one
@@ -177,6 +179,7 @@ __global__ void __launch_bounds__(128)
 march_tc_kernel(const float* __restrict__ P, const float* __restrict__ M,
                 const float* __restrict__ rays, float* __restrict__ out,
                 long long plane, int steps, float tau) {
+  P = scene_params(P);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   float x = rays[i];
@@ -217,20 +220,24 @@ static int launch(const T* P, const T* M, const T* rays, T* out,
         (plane + MARCH_REFILL_BLOCK - 1) / MARCH_REFILL_BLOCK;
     if (grid > need) grid = need;
     if (grid < 1) grid = 1;
-    march_refill_kernel<T><<<(unsigned int)grid, MARCH_REFILL_BLOCK, 0, st>>>(
-        P, M, rays, out, plane, steps, t, next);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(rm_launch_with_params(P, st, [&] {
+      march_refill_kernel<T><<<(unsigned int)grid, MARCH_REFILL_BLOCK, 0,
+                               st>>>(P, M, rays, out, plane, steps, t, next);
+      return cudaGetLastError();
+    }));
   }
   const int block = 256;
   const unsigned int grid = (unsigned int)((plane + block - 1) / block);
-  if (t != static_cast<T>(0)) {
-    march_kernel<T, true><<<grid, block, 0, st>>>(P, M, rays, out, plane,
-                                                  steps, t);
-  } else {
-    march_kernel<T, false><<<grid, block, 0, st>>>(P, M, rays, out, plane,
-                                                   steps, t);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rm_launch_with_params(P, st, [&] {
+    if (t != static_cast<T>(0)) {
+      march_kernel<T, true><<<grid, block, 0, st>>>(P, M, rays, out, plane,
+                                                    steps, t);
+    } else {
+      march_kernel<T, false><<<grid, block, 0, st>>>(P, M, rays, out, plane,
+                                                     steps, t);
+    }
+    return cudaGetLastError();
+  }));
 }
 
 // Plain C interface (bound with ctypes). M is the packed matrix buffer, null
@@ -260,9 +267,18 @@ extern "C" int rm_march_tc_f32(const float* P, const float* M,
                                const float* rays, float* out, long long plane,
                                int steps, double tau, void* stream) {
   const int block = 128;
-  march_tc_kernel<<<(unsigned int)(plane / block), block, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      P, M, rays, out, plane, steps, static_cast<float>(tau));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(rm_launch_with_params(P, st, [&] {
+    march_tc_kernel<<<(unsigned int)(plane / block), block, 0, st>>>(
+        P, M, rays, out, plane, steps, static_cast<float>(tau));
+    return cudaGetLastError();
+  }));
 }
 #endif
+
+// Registers a thread and blocks an SM (of 256 threads) of the per-thread
+// march at tau = 0 (march_kernel<T, false>) in f32 or f64.
+extern "C" int rm_march_occupancy(int f64, int* regs, int* blocks) {
+  return f64 ? rm_occupancy(march_kernel<double, false>, 256, 0, regs, blocks)
+             : rm_occupancy(march_kernel<float, false>, 256, 0, regs, blocks);
+}

@@ -40,6 +40,7 @@
 // block-synchronous backward's order of sink calls does not change.
 #pragma once
 
+#include "scene_params.cuh"
 #include "sdf_prims.cuh"
 #include "scene_sdf.cuh"
 
@@ -157,16 +158,26 @@ __device__ __forceinline__ bool march_step(T& x, T& y, T& z, const T vx,
   return true;
 }
 
-template <typename T, typename Observer, bool TC = false,
-          typename Bounds = NoBounds>
-__device__ __forceinline__ int march_ray(const T* __restrict__ P,
-                                         const T* __restrict__ M, T& x, T& y,
-                                         T& z, const T vx, const T vy,
-                                         const T vz, const int steps,
-                                         const T tau, Observer& observe,
-                                         bool live = true,
-                                         const Bounds& bounds = Bounds()) {
-  const bool freeze = tau != static_cast<T>(0);
+// The march loop, with the freeze test at tau > 0 (FREEZE) or with none.
+// march_ray takes the one with none where the launch's tau is 0, when the
+// build sets RM_MARCH_TAU0_LOOP (ops/render_kernel.py scene_flags: an SDF
+// without a rolled loop, whose body a second copy would double): fewer
+// instructions a step, the same positions. The tensor-core entries keep the
+// one loop.
+#ifndef RM_MARCH_TAU0_LOOP
+#define RM_MARCH_TAU0_LOOP 0
+#endif
+constexpr bool MARCH_TAU0_LOOP = RM_MARCH_TAU0_LOOP;
+
+template <bool FREEZE, typename T, typename Observer, bool TC,
+          typename Bounds>
+__device__ __forceinline__ int march_loop(const T* __restrict__ P,
+                                          const T* __restrict__ M, T& x,
+                                          T& y, T& z, const T vx, const T vy,
+                                          const T vz, const int steps,
+                                          const T tau, Observer& observe,
+                                          bool live, const Bounds& bounds) {
+  const bool freeze = FREEZE && tau != static_cast<T>(0);
   int s = 0;
   for (int k = 0; k < steps; ++k) {
     if constexpr (TC) {
@@ -188,4 +199,40 @@ __device__ __forceinline__ int march_ray(const T* __restrict__ P,
     s = k + 1;
   }
   return s;
+}
+
+template <typename T, typename Observer, bool TC = false,
+          typename Bounds = NoBounds>
+__device__ __forceinline__ int march_ray(const T* __restrict__ P,
+                                         const T* __restrict__ M, T& x, T& y,
+                                         T& z, const T vx, const T vy,
+                                         const T vz, const int steps,
+                                         const T tau, Observer& observe,
+                                         bool live = true,
+                                         const Bounds& bounds = Bounds()) {
+  if constexpr (!TC && MARCH_TAU0_LOOP) {
+    if (tau == static_cast<T>(0)) {
+      return march_loop<false, T, Observer, TC, Bounds>(
+          P, M, x, y, z, vx, vy, vz, steps, tau, observe, live, bounds);
+    }
+  }
+  return march_loop<true, T, Observer, TC, Bounds>(
+      P, M, x, y, z, vx, vy, vz, steps, tau, observe, live, bounds);
+}
+
+// Registers a thread and blocks an SM of kernel at block threads and smem
+// bytes of dynamic shared memory (cudaFuncGetAttributes and the occupancy
+// query): the kernels' occupancy entries report them. Returns a
+// cudaError_t.
+template <typename K>
+static int rm_occupancy(K kernel, int block, size_t smem, int* regs,
+                        int* blocks) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    *regs = attr.numRegs;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, block,
+                                                        smem);
+  }
+  return static_cast<int>(err);
 }

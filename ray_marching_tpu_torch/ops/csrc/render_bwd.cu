@@ -49,7 +49,12 @@
 // ray and step it runs one scene_sdf_vjp (226 operations for test_scene2
 // against 65 for the SDF alone, scene/codegen.py counts them) and reads 12
 // bytes of history. With the history the start position planes of rays are
-// never read: every position comes from the history.
+// never read: every position comes from the history. What binds the
+// per-thread f32 kernel is neither: a sweep step is one VJP, about 450 SASS
+// instructions on test_scene2 in a dependent chain through its IEEE square
+// roots and divisions (13 MUFU, --fmad=false), and at five blocks an SM its
+// loops issued about half the card's rate (PERF.md §6): the latency
+// of that chain, which only more warps hide.
 //
 // Design: one thread per ray slot, every plane access coalesced. Each
 // thread keeps the parameter cotangent of the scalars the scene really has
@@ -71,13 +76,23 @@
 // either through a base and a component stride. Every thread of a block
 // runs the same trips, so the block's barriers hold. With the forward's
 // history there is no scratch and the grid is one block per ray block. The
-// TPU kernels' unrolled sweep is not carried over. Per-thread
-// instantiations: the launch bounds fit the registers to BWD_MIN_BLOCKS
-// blocks an SM; the sweep loads the next step's history position before the
-// current step's VJP;
-// the tail's offsets and cotangents stay in small local arrays indexed by
-// its loop (80 B of stack; selects in their place measured no faster and
-// the two-level mode 1.8 % slower, PERF.md). A scene
+// TPU kernels' unrolled sweep is not carried over.
+//
+// Per-thread instantiations: the launch bounds fit the registers to
+// more blocks an SM for an SDF without a rolled loop (bwd_min_blocks, from
+// the build): the f32 history path to RM_BWD_HIST_BLOCKS, the recompute and
+// the march-only mode to RM_BWD_OWN_BLOCKS, one fewer with TRACK_MIN, with
+// no spill. What makes the room: the scene's parameters come from the
+// constant bank (scene_params.cuh; through a pointer the compiler holds
+// them in registers, 14 on test_scene2), and the sweep loads each step's
+// position right before its VJP (the prefetch of the next one took three
+// registers; more warps hide the load). On the bank the two-level
+// instantiation ran 17 % slower, so it keeps the pointer and BWD_MIN_BLOCKS;
+// so does a rolled loop, whose VJP needs 128 registers (PERF.md). Unrolled
+// by two (the next step's primal beside this step's adjoint) the sweep
+// measured slower; the tail's offsets and cotangents stay in small local
+// arrays indexed by its loop (80 B of stack; selects in their place
+// measured no faster and the two-level mode 1.8 % slower, PERF.md). A scene
 // whose SDF holds a rolled loop (the bulb's iterations) brings a
 // checkpointed VJP (scene/codegen.py): a 10 x 5-value tape per thread and
 // one copy of the body's recompute and adjoint, where the unrolled VJP held
@@ -125,32 +140,42 @@
 #include <limits>
 #include <type_traits>
 
+// The scene's parameters in the constant bank on the constant route
+// (scene_params.cuh), but for the two-level instantiation. The marches keep
+// the one loop at tau = 0 (march_loop.cuh): the second one cost the
+// marching instantiations registers and no time (PERF.md).
+#define RM_P_BANK 1
+#undef RM_MARCH_TAU0_LOOP
 #include "neural.cuh"
 #include "march_loop.cuh"
 #include "render_consts.cuh"
 
 constexpr int BWD_BLOCK = 128;
 // Blocks of BWD_BLOCK threads an SM must hold for the per-thread (neither
-// SYNC nor TC) instantiations: ptxas fits their registers to it, 128 at
-// most, which the bulb's checkpointed VJP (its body's recompute and adjoint
-// live at once) needs to run without a spill; the analytic scenes stay at
-// 93-99. Five blocks (96 registers) spill and measured slower on both
-// (PERF.md). The SYNC and TC ones leave it to ptxas.
+// SYNC nor TC) instantiations in f64, the two-level one and those of an SDF
+// with a rolled loop: ptxas fits their registers to it, 128 at most, which
+// the bulb's checkpointed VJP (its body's recompute and adjoint live at
+// once) needs to run without a spill; at five (96 registers) it spills. The
+// SYNC and TC ones leave it to ptxas.
 constexpr int BWD_MIN_BLOCKS = 4;
-// The same for the per-thread f32 instantiations that march into a scratch
-// slot (OWN, not TWO_LEVEL), from the build (ops/render_kernel.py
-// scene_flags): 5 (96 registers) for an SDF without a rolled loop, which
-// under BWD_MIN_BLOCKS take 101-103 registers, so that an SM holds 4 blocks
-// and they run 9 % slower (PERF.md); BWD_MIN_BLOCKS for a rolled loop,
-// whose VJP needs 128 registers.
-#ifndef RM_BWD_OWN_MIN_BLOCKS
-#define RM_BWD_OWN_MIN_BLOCKS BWD_MIN_BLOCKS
+// The same for the other per-thread f32 instantiations, of an SDF without a
+// rolled loop, from the build (ops/render_kernel.py scene_flags):
+// RM_BWD_HIST_BLOCKS for the history path, RM_BWD_OWN_BLOCKS for the
+// recompute and the march-only mode, one fewer with TRACK_MIN (the min_f
+// tie test's evaluation and carry). On the constant bank they fit without
+// a spill, and the latency of each step's VJP chain hides behind more warps
+// (PERF.md).
+#ifndef RM_BWD_HIST_BLOCKS
+#define RM_BWD_HIST_BLOCKS BWD_MIN_BLOCKS
 #endif
-constexpr int BWD_OWN_MIN_BLOCKS = RM_BWD_OWN_MIN_BLOCKS;
+#ifndef RM_BWD_OWN_BLOCKS
+#define RM_BWD_OWN_BLOCKS BWD_MIN_BLOCKS
+#endif
 // Whether the per-thread instantiations' reverse sweep loads the next step's
 // history position before the current step's VJP (a register double buffer;
-// the same bits).
-constexpr bool BWD_PREFETCH = true;
+// the same bits). Its three registers cost more than it hides once an SM
+// holds more blocks (PERF.md).
+constexpr bool BWD_PREFETCH = false;
 #ifndef RM_CKPT_INTERVAL
 #error "build with -DRM_CKPT_INTERVAL=<steps between checkpoints>"
 #endif
@@ -277,6 +302,15 @@ __device__ __forceinline__ void sweep_step(const T* __restrict__ P,
   gz = gz + sz;
 }
 
+// The blocks an SM an instantiation's launch bounds ask for.
+template <typename T, bool TRACK_MIN, bool TWO_LEVEL, bool TC, bool OWN>
+constexpr int bwd_min_blocks() {
+  if (SYNC || TC) return 1;
+  if (TWO_LEVEL || sizeof(T) != 4) return BWD_MIN_BLOCKS;
+  const int blocks = OWN ? RM_BWD_OWN_BLOCKS : RM_BWD_HIST_BLOCKS;
+  return TRACK_MIN && blocks > BWD_MIN_BLOCKS ? blocks - 1 : blocks;
+}
+
 // OWN: the positions are marched here into the block's scratch slot (the
 // recompute, TWO_LEVEL, MARCH_ONLY) and the grid is persistent; otherwise
 // they are the forward's history and the grid is one block per ray block,
@@ -286,11 +320,10 @@ __device__ __forceinline__ void sweep_step(const T* __restrict__ P,
 template <typename T, bool TRACK_MIN, bool TWO_LEVEL, bool MARCH_ONLY, bool TC,
           bool OWN>
 __global__ void __launch_bounds__(
-    BWD_BLOCK, (SYNC || TC) ? 1
-               : (OWN && !TWO_LEVEL && sizeof(T) == 4) ? BWD_OWN_MIN_BLOCKS
-                                                      : BWD_MIN_BLOCKS)
+    BWD_BLOCK, bwd_min_blocks<T, TRACK_MIN, TWO_LEVEL, TC, OWN>())
 render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
   static_assert(OWN || !(TWO_LEVEL || MARCH_ONLY), "they march their own");
+  a.P = scene_params<T, !TWO_LEVEL>(a.P);
   const long long plane = a.plane;
   const long long n_blocks = (plane + BWD_BLOCK - 1) / BWD_BLOCK;
   const T zero = static_cast<T>(0);
@@ -520,17 +553,20 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
         int n_sweep = n;
         if constexpr (SYNC) n_sweep = block_max(n);
         // The position before step s: the history's, or the terminal one for
-        // a step after the ray froze.
+        // a step after the ray froze (the lane's entries, 3 * hs apart a
+        // step from hl; the terminal one steps on, computed where it is
+        // read: a pointer held through the loop cost registers).
+        const T* const hl = hbase + hi;
         auto at = [&](int s) {
-          return s < nlive ? hbase + s * (3 * hs) : hend;
+          return hl + (s < nlive ? s : steps) * (3 * hs);
         };
         constexpr bool PREFETCH = BWD_PREFETCH && !SYNC && !TC;
         T px = zero, py = zero, pz = zero;
         if (PREFETCH && n_sweep > 0) {
           const T* h = at(n_sweep - 1);
-          px = h[hi];
-          py = h[hs + hi];
-          pz = h[2 * hs + hi];
+          px = h[0];
+          py = h[hs];
+          pz = h[2 * hs];
         }
 #pragma unroll 1
         for (int s = n_sweep - 1; s >= 0; --s) {
@@ -539,9 +575,9 @@ render_bwd_kernel(BwdArgs<T> a, RenderConsts<T> c, T big) {
           T qx, qy, qz;  // the next step's position, loaded ahead of this VJP
           {
             const T* h = at(PREFETCH ? (s > 0 ? s - 1 : 0) : s);
-            qx = h[hi];
-            qy = h[hs + hi];
-            qz = h[2 * hs + hi];
+            qx = h[0];
+            qy = h[hs];
+            qz = h[2 * hs];
           }
           if (!PREFETCH) {
             px = qx;
@@ -700,14 +736,16 @@ static int launch(BwdArgs<T> a, int mode, int track_min, int recompute,
   }
   const T big = std::numeric_limits<T>::max();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  by_mode(mode, track_min, recompute, [&](auto tm, auto tl, auto mo,
-                                           auto own) {
-    launch_one<T, decltype(tm)::value, decltype(tl)::value,
-               decltype(mo)::value, TC, decltype(own)::value>(
-        (unsigned int)grid, a, c, big, st);
-    return 0;
-  });
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rm_launch_with_params(a.P, st, [&] {
+    by_mode(mode, track_min, recompute, [&](auto tm, auto tl, auto mo,
+                                             auto own) {
+      launch_one<T, decltype(tm)::value, decltype(tl)::value,
+                 decltype(mo)::value, TC, decltype(own)::value>(
+          (unsigned int)grid, a, c, big, st);
+      return 0;
+    });
+    return cudaGetLastError();
+  }, mode != BWD_TWO_LEVEL));
 }
 
 // Plain C interface (bound with ctypes). partials is (n_blocks, n_cols)
@@ -752,6 +790,33 @@ extern "C" int rm_render_bwd_resident(int f64, int tc, int mode,
     return f64 ? resident_one<double, TM, TL, MO, false, true>(blocks)
                : resident_one<float, TM, TL, MO, false, true>(blocks);
   }));
+}
+
+// Registers a thread and blocks an SM (of BWD_BLOCK threads) of the
+// per-thread instantiation that runs mode (0 the full backward, 1 two
+// levels, 2 the march-only mode) with track_min, own (the full backward:
+// its recompute; otherwise the forward's history), in f64 or f32. Returns a
+// cudaError_t (0 on success).
+extern "C" int rm_render_bwd_occupancy(int f64, int mode, int track_min,
+                                       int own, int* regs, int* blocks) {
+  if (mode < BWD_FULL || mode > BWD_MARCH_ONLY ||
+      (mode != BWD_FULL && track_min)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return by_mode(mode, track_min, own, [&](auto tm, auto tl, auto mo,
+                                           auto ow) {
+    constexpr bool TM = decltype(tm)::value, TL = decltype(tl)::value,
+                   MO = decltype(mo)::value, OW = decltype(ow)::value;
+    void (*k32)(BwdArgs<float>, RenderConsts<float>, float);
+    void (*k64)(BwdArgs<double>, RenderConsts<double>, double);
+    size_t smem;
+    cudaError_t err =
+        f64 ? prepare<double, TM, TL, MO, false, OW>(&k64, &smem)
+            : prepare<float, TM, TL, MO, false, OW>(&k32, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return f64 ? rm_occupancy(k64, BWD_BLOCK, smem, regs, blocks)
+               : rm_occupancy(k32, BWD_BLOCK, smem, regs, blocks);
+  });
 }
 
 // Backward of render_fwd.cu. g has 9 planes when track_min is set, else 8.

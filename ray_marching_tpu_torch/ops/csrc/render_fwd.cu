@@ -37,17 +37,28 @@
 // ray-dependent operations per evaluation (scene/codegen.py counts them),
 // about 2,600 per ray in all, so the operations outweigh the bytes (PERF.md
 // has the counted bound: 0.082 ms of operations against 0.038 ms of bytes at
-// 1080p on an H100 SXM).
+// 1080p on an H100 SXM). What binds it is instruction issue: a march step
+// of test_scene2 is about 149 SASS instructions (the IEEE square roots and
+// division with their range checks among them), and the loop alone issues
+// near the SMs' one warp-instruction a cycle per scheduler (PERF.md §6).
+// So only fewer instructions a step make it faster.
 //
 // Design: one thread per ray slot of the (rows, 128) planes, so every
 // plane load and store is coalesced. Position, direction and validity stay
 // in registers through all steps; the SDF is inlined straight-line code
 // whose parameters are read through a runtime pointer (new parameter values
-// never rebuild). tau > 0: a ray breaks out of its loop once |d| < tau,
-// which gives exactly the masked march of the JAX kernel, where a frozen ray
-// re-evaluates the same position. The loop itself is march_ray of
-// march_loop.cuh, shared with march.cu and render_bwd.cu. The TPU kernel's
-// 64-row tiles, EXIT_SEG segments and static unroll are not carried over.
+// never rebuild), and the compiler keeps them in registers through the
+// loop: read from the constant bank (scene_params.cuh), as the backward
+// reads them, the kernels measured 2-5 % slower (a uniform load in the loop
+// and the bank's copy before each launch; PERF.md), so they keep the
+// pointer. At tau = 0 the march runs a loop without the freeze test for an
+// SDF without a rolled loop (march_loop.cuh, RM_MARCH_TAU0_LOOP): fewer
+// instructions a step, the same positions. tau > 0: a ray breaks out of
+// its loop once |d| < tau, which gives exactly the masked march of the JAX
+// kernel, where a frozen ray re-evaluates the same position. The loop
+// itself is march_ray of march_loop.cuh, shared with march.cu and
+// render_bwd.cu. The TPU kernel's 64-row tiles, EXIT_SEG segments and
+// static unroll are not carried over.
 //
 // Tensor cores (render_fwd_tc_kernel, f32, built for a scene with a
 // tensor-core MLP leaf, SCENE_TC): the serving configuration with the MLP
@@ -166,6 +177,7 @@ render_fwd_kernel(const T* __restrict__ P, const T* __restrict__ M,
                   const T* __restrict__ rays,
                   T* __restrict__ out, long long plane, int steps,
                   RenderConsts<T> c) {
+  P = scene_params(P);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   T x = rays[i];
@@ -205,6 +217,7 @@ render_fwd_refill_kernel(const T* __restrict__ P, const T* __restrict__ M,
                          const T* __restrict__ rays, T* __restrict__ out,
                          long long plane, int steps, RenderConsts<T> c,
                          unsigned int* __restrict__ next) {
+  P = scene_params(P);
   const unsigned full = 0xffffffffu;
   const unsigned lane = threadIdx.x & 31;
   long long i = -1;   // the lane's ray slot; -1: it needs one
@@ -289,6 +302,7 @@ __global__ void __launch_bounds__(128)
 render_fwd_tc_kernel(const float* __restrict__ P, const float* __restrict__ M,
                      const float* __restrict__ rays, float* __restrict__ out,
                      long long plane, int steps, RenderConsts<float> c) {
+  P = scene_params(P);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   float x = rays[i];
@@ -310,6 +324,7 @@ render_fwd_train_kernel(const T* __restrict__ P, const T* __restrict__ M,
                         const T* __restrict__ rays,
                         T* __restrict__ out, long long plane, int steps,
                         RenderConsts<T> c, T big, TrainOuts<T> t) {
+  P = scene_params(P);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   T x = rays[i];
@@ -372,6 +387,7 @@ render_fwd_train_tc_kernel(const float* __restrict__ P,
                            float* __restrict__ out, long long plane,
                            int steps, RenderConsts<float> c, float big,
                            TrainOuts<float> t) {
+  P = scene_params(P);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= plane) return;
   float x = rays[i];
@@ -423,15 +439,20 @@ static int launch(const T* P, const T* M, const T* rays, T* out,
     const long long need = (plane + REFILL_BLOCK - 1) / REFILL_BLOCK;
     if (grid > need) grid = need;
     if (grid < 1) grid = 1;
-    render_fwd_refill_kernel<T><<<(unsigned int)grid, REFILL_BLOCK, 0, st>>>(
-        P, M, rays, out, plane, steps, c, next);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(rm_launch_with_params(P, st, [&] {
+      render_fwd_refill_kernel<T><<<(unsigned int)grid, REFILL_BLOCK, 0,
+                                    st>>>(P, M, rays, out, plane, steps, c,
+                                          next);
+      return cudaGetLastError();
+    }));
   }
   const int block = 256;
   const long long grid = (plane + block - 1) / block;
-  render_fwd_kernel<T><<<(unsigned int)grid, block, 0, st>>>(
-      P, M, rays, out, plane, steps, c);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rm_launch_with_params(P, st, [&] {
+    render_fwd_kernel<T><<<(unsigned int)grid, block, 0, st>>>(
+        P, M, rays, out, plane, steps, c);
+    return cudaGetLastError();
+  }));
 }
 
 template <typename T, bool TC = false>
@@ -449,20 +470,22 @@ static int launch_train(const T* P, const T* M, const T* rays, T* out,
   t.nlive = nlive;
   const T big = std::numeric_limits<T>::max();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(rm_launch_with_params(P, st, [&] {
 #ifdef SCENE_TC
-  if constexpr (TC) {
-    const int block = 128;
-    render_fwd_train_tc_kernel<<<(unsigned int)(plane / block), block, 0,
-                                 st>>>(P, M, rays, out, plane, steps, c, big,
-                                       t);
-    return static_cast<int>(cudaGetLastError());
-  }
+    if constexpr (TC) {
+      const int block = 128;
+      render_fwd_train_tc_kernel<<<(unsigned int)(plane / block), block, 0,
+                                   st>>>(P, M, rays, out, plane, steps, c,
+                                         big, t);
+      return cudaGetLastError();
+    }
 #endif
-  const int block = 256;
-  const long long grid = (plane + block - 1) / block;
-  render_fwd_train_kernel<T><<<(unsigned int)grid, block, 0, st>>>(
-      P, M, rays, out, plane, steps, c, big, t);
-  return static_cast<int>(cudaGetLastError());
+    const int block = 256;
+    const long long grid = (plane + block - 1) / block;
+    render_fwd_train_kernel<T><<<(unsigned int)grid, block, 0, st>>>(
+        P, M, rays, out, plane, steps, c, big, t);
+    return cudaGetLastError();
+  }));
 }
 
 #ifdef SCENE_TC
@@ -471,10 +494,12 @@ static int launch_tc(const float* P, const float* M, const float* rays,
                      const float* host_consts, void* stream) {
   const RenderConsts<float> c = unpack_consts<float>(host_consts);
   const int block = 128;
-  render_fwd_tc_kernel<<<(unsigned int)(plane / block), block, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      P, M, rays, out, plane, steps, c);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(rm_launch_with_params(P, st, [&] {
+    render_fwd_tc_kernel<<<(unsigned int)(plane / block), block, 0, st>>>(
+        P, M, rays, out, plane, steps, c);
+    return cudaGetLastError();
+  }));
 }
 #endif
 
@@ -551,3 +576,18 @@ extern "C" int rm_render_fwd_train_tc_f32(const float* P, const float* M,
                                    nlive, stream);
 }
 #endif
+
+// Registers a thread and blocks an SM (of 256 threads) of the per-thread
+// serving (train = 0) or training (train = 1) kernel in f32 or f64.
+extern "C" int rm_render_fwd_occupancy(int f64, int train, int* regs,
+                                       int* blocks) {
+  if (f64) {
+    return train ? rm_occupancy(render_fwd_train_kernel<double>, 256, 0, regs,
+                                blocks)
+                 : rm_occupancy(render_fwd_kernel<double>, 256, 0, regs,
+                                blocks);
+  }
+  return train ? rm_occupancy(render_fwd_train_kernel<float>, 256, 0, regs,
+                              blocks)
+               : rm_occupancy(render_fwd_kernel<float>, 256, 0, regs, blocks);
+}

@@ -78,7 +78,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNEL_UNITS = ("render_fwd.cu", "render_bwd.cu", "march.cu")
 KERNEL_SOURCES = KERNEL_UNITS + ("sdf_prims.cuh", "render_consts.cuh",
-                                 "march_loop.cuh", "neural.cuh")
+                                 "march_loop.cuh", "neural.cuh",
+                                 "scene_params.cuh")
 #: The two-level backward keeps every ``CKPT_INTERVAL``-th march position and
 #: marches each segment again when the sweep reaches it. The one definition:
 #: the kernel gets it from the compiler's command line (so it is part of the
@@ -129,6 +130,16 @@ BWD_TWO_LEVEL = False
 #: (:func:`uses_refill` decides for both): with refill test_scene2's
 #: measured 1.56x slower at tau = 1e-3, the bulb's 1.17x faster.
 REFILL_MIN_OPS = 400
+#: The most flat parameters a scene may have for the constant route
+#: (:func:`param_route`): a copy of them in f32 and one in f64 per kernel
+#: source, 48 KiB of the 64 KiB constant bank at this count.
+PARAM_BANK_MAX = 4096
+#: Blocks of 128 threads an SM must hold of the backward's per-thread f32
+#: history instantiation and of its recompute and march-only ones, for an
+#: SDF without a rolled loop (:func:`scene_flags`; ptxas fits their
+#: registers to it, one block fewer with ``min_f``).
+BWD_HIST_BLOCKS = 7
+BWD_OWN_BLOCKS = 6
 #: nvcc/ptxas output of each build, keyed by build hash.
 BUILD_LOG: dict = {}
 
@@ -146,13 +157,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def param_route(program: SdfProgram) -> str:
+    """Where the scene's backward kernel reads its flat parameters, fixed
+    when its library is built: ``"constant"`` (a copy in the constant bank,
+    filled before each launch, ``csrc/scene_params.cuh``; the two-level
+    instantiation excepted) for at most :data:`PARAM_BANK_MAX` of them and
+    an SDF without a rolled loop, ``"pointer"`` (the caller's device tensor)
+    otherwise. The registers the bank frees buy the analytic backward more
+    blocks an SM; a rolled loop's VJP needs 128 registers at four blocks
+    whatever the parameters hold, and on the bank it ran 1-3 % slower
+    (PERF.md). The forward and march kernels read the pointer on either
+    route."""
+    fits = program.n_flat <= PARAM_BANK_MAX and not program.loops
+    return "constant" if fits else "pointer"
+
+
 def scene_flags(program: SdfProgram) -> tuple:
-    """The nvcc flags of one scene's library beside :data:`NVCC_FLAGS`: the
-    blocks an SM must hold of the backward's per-thread f32 instantiations
-    that march into a scratch slot (``RM_BWD_OWN_MIN_BLOCKS``,
-    ``csrc/render_bwd.cu``): 5 for an SDF without a rolled loop, 4 for one
-    with (its checkpointed VJP needs 128 registers)."""
-    return (f"-DRM_BWD_OWN_MIN_BLOCKS={4 if program.loops else 5}",)
+    """The nvcc flags of one scene's library beside :data:`NVCC_FLAGS`. For
+    an SDF without a rolled loop: the blocks an SM must hold of the
+    backward's per-thread f32 instantiations (``RM_BWD_HIST_BLOCKS``,
+    ``RM_BWD_OWN_BLOCKS``, ``csrc/render_bwd.cu``; with a rolled loop they
+    stay at 4, its checkpointed VJP needs 128 registers) and the forward's
+    and march's loop at tau = 0 without the freeze test
+    (``RM_MARCH_TAU0_LOOP``; a rolled loop's body would be doubled). On the
+    constant route (:func:`param_route`) the flat vector's length
+    (``RM_P_CONST``)."""
+    flags = ()
+    if not program.loops:
+        flags += (f"-DRM_BWD_HIST_BLOCKS={BWD_HIST_BLOCKS}",
+                  f"-DRM_BWD_OWN_BLOCKS={BWD_OWN_BLOCKS}",
+                  "-DRM_MARCH_TAU0_LOOP=1")
+    if param_route(program) == "constant":
+        flags += (f"-DRM_P_CONST={program.n_flat}",)
+    return flags
 
 
 def kernel_key(program: SdfProgram) -> str:

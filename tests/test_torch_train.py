@@ -41,6 +41,31 @@ Q = np.asarray([[0.99144486, 0.0, 0.13052619, 0.0]])
 T = np.asarray([[0.3, 0.1, -1.8]])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the module: the suite runs in several
+    workers, whose torch threads otherwise fight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def stable_pixels():
+    """_stable_pixels by (scene, tau), each computed once for the module:
+    the JAX march of the cases that share a scene and a tau is the same
+    (neither the mode, the alpha nor the backward enters it)."""
+    cache = {}
+
+    def get(scene, tau, jr, q, t):
+        if (scene, tau) not in cache:
+            cache[scene, tau] = _stable_pixels(jr, q, t)
+        return cache[scene, tau]
+
+    return get
+
+
 def _cfg_kwargs(w, h, **kw):
     return dict(px_width=w, px_height=h, focal_length=PX * h,
                 sensor_width=PX * w, sensor_height=PX * h, **kw)
@@ -101,7 +126,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_render_gradients_match_jax(case):
+def test_render_gradients_match_jax(case, stable_pixels):
     """d sum(render · w) / d (every leaf, q, t) against jax.grad through the
     JAX FastRenderer; with alpha the loss also weights the coverage mask."""
     scene, mode, tau, alpha, backward = CASES[case]
@@ -110,7 +135,7 @@ def test_render_gradients_match_jax(case):
                         backward=backward)
     jq, jt = jnp.asarray(Q), jnp.asarray(T)
     rng = np.random.default_rng(41)
-    mask = _stable_pixels(jr, jq, jt)
+    mask = stable_pixels(scene, tau, jr, jq, jt)
     assert mask.sum() >= 200, mask.sum()
     wt_img = rng.normal(size=(1, h, w, 3)) * mask
     wt_a = rng.normal(size=(1, h, w, 1)) * mask
@@ -142,14 +167,15 @@ def test_render_gradients_match_jax(case):
     _assert_grads_close(got, want, case)
 
 
-def test_render_with_alpha_matches_jax():
+def test_render_with_alpha_matches_jax(stable_pixels):
     jr, tr = _renderers("test_scene2", 48, 32, marching_steps=12)
     jimg, ja = jr.render_with_alpha(jr.init_params, jnp.asarray(Q),
                                     jnp.asarray(T), mode=0, degree=2, beta=0.1)
     img, a = tr.render_with_alpha(tr.init_params, Q, T, mode=0, degree=2,
                                   beta=0.1)
     assert a.shape == (1, 32, 48, 1)
-    mask = _stable_pixels(jr, jnp.asarray(Q), jnp.asarray(T))
+    mask = stable_pixels("test_scene2", 0.0, jr, jnp.asarray(Q),
+                         jnp.asarray(T))
     np.testing.assert_allclose(a.numpy()[mask], np.asarray(ja)[mask],
                                rtol=1e-9, atol=1e-11)
     m3 = np.broadcast_to(mask, img.shape)

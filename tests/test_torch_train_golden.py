@@ -35,6 +35,16 @@ GOLDEN = Path(__file__).parent / "golden" / "composite_512.npz"
 PX_SIZE = 3.45e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the module (its fixture included): the suite
+    runs in several workers, whose torch threads otherwise fight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fixture():
     g = np.load(GOLDEN)

@@ -41,9 +41,15 @@ turns (``--package-root``).
 ``variants`` times the per-thread rows of PERF.md §6 for the package under
 ``--parent`` (the parent commit) and for this checkout with each build of
 :data:`VARIANTS` (its own sources as they are, ``--fmad=true`` in place of
-``--fmad=false``, and patched copies that undo one design choice each; a
-variant may time only the rows it changes; ``--builds`` and ``--rows``
-narrow both). All
+``--fmad=false``, and patched copies or wrapper settings that undo or
+change one design choice each, among them every lever of the per-thread
+redesign: the constant bank (``pointer``, ``fwd-march-bank``,
+``bank-two-level``), the blocks an SM (``bwd-5``, ``hist6``, ``hist8``,
+``own5``, ``own7``, ``bwd-8``), the sweep unrolled by two
+(``sweep-unroll-2``), its history offset walked (``sweep-walk``), the
+prefetch (``prefetch``) and the loop at tau = 0 (``no-tau0-loop``,
+``bwd-tau0``, ``tau0-unroll-1``, ``tau0-unroll-2``); a variant may time
+only the rows it changes; ``--builds`` and ``--rows`` narrow both). All
 builds are made first, one process each, all started together. Then four
 processes time every row, in turns: the parent; this checkout's builds
 there and back; the same again; the parent (``--rounds`` times). The rows:
@@ -90,6 +96,50 @@ FMAD_FLAGS = "--fmad=true"
 MARCH_ROWS = ("4 march", "4 march tau 1e-3", "4b march", "4b march tau 0",
               "4n march f32 thread tau 1e-3", "4n march f64 tau 1e-3",
               "4b march wrapper host")
+#: The rows of the backward's reverse sweep on test_scene2 (the per-thread
+#: f32 instantiations but the two-level one), which its variants time.
+SWEEP_ROWS = ("2 backward history", "2 backward recompute", "2 march-only",
+              "2p backward history", "2p backward recompute")
+#: The forward and march rows (their kernel sources' variants).
+FORWARD_ROWS = ("1 forward", "1 forward tau 1e-3", "1 forward with history",
+                "4 march", "4 march tau 1e-3", "1b forward", "1b forward tau 0",
+                "bulb forward with history", "4b march", "4b march tau 0")
+#: The rows whose marches run at tau = 0 on test_scene2 and the bulb.
+TAU0_ROWS = ("1 forward", "1 forward with history", "2 backward recompute",
+             "2 march-only", "3 two-level", "4 march", "2p backward recompute",
+             "3p two-level", "1b forward tau 0", "bulb forward with history",
+             "2b backward recompute", "4b march tau 0")
+
+
+#: The sweep's position entries from the block's base and the lane's
+#: offset where a step reads them, in place of the lane's pointer.
+UNIFORM_BASE = [
+    ("        const T* const hl = hbase + hi;\n"
+     "        auto at = [&](int s) {\n"
+     "          return hl + (s < nlive ? s : steps) * (3 * hs);\n"
+     "        };",
+     "        auto at = [&](int s) {\n"
+     "          return hbase + (hi + (s < nlive ? s : steps) * (3 * hs));\n"
+     "        };", 1)]
+#: The loop over ray blocks counted by its trips (the ray block derived
+#: from the trip where it is read).
+TRIP_LOOP = [
+    ("  for (long long blk = blockIdx.x; blk < n_blocks;\n"
+     "       blk += OWN ? gridDim.x : n_blocks) {",
+     "  for (int trip = 0;; ++trip) {\n"
+     "    const long long blk =\n"
+     "        blockIdx.x + (long long)trip * (OWN ? gridDim.x : n_blocks);\n"
+     "    if (blk >= n_blocks) break;", 1)]
+#: The backward's loop over ray blocks on 32-bit indices.
+INT_BLK = [
+    ("  for (long long blk = blockIdx.x; blk < n_blocks;\n"
+     "       blk += OWN ? gridDim.x : n_blocks) {",
+     "  for (int blk = blockIdx.x; blk < (int)n_blocks;\n"
+     "       blk += OWN ? (int)gridDim.x : (int)n_blocks) {", 1),
+    ("    const long long i = blk * BWD_BLOCK + threadIdx.x;",
+     "    const long long i = (long long)blk * BWD_BLOCK + threadIdx.x;", 1)]
+
+
 def _indent(text: str, by: int = 2) -> str:
     """``text`` with ``by`` more spaces before each non-empty line."""
     return "".join(" " * by + line if line.strip() else line
@@ -105,10 +155,6 @@ VARIANTS = {
     "fmad": ({}, True),
     # The bulb's serving forward with one thread per ray (no lane refill).
     "no-refill": ({}, False, {"REFILL_MIN_OPS": 1 << 30}),
-    # The reverse sweep without the history prefetch.
-    "no-prefetch": ({"render_bwd.cu": [(
-        "constexpr bool BWD_PREFETCH = true;",
-        "constexpr bool BWD_PREFETCH = false;", 1)]}, False),
     # The per-thread backward's launch bounds at five blocks an SM (96
     # registers) in place of four (128).
     "min-blocks-5": ({"render_bwd.cu": [(
@@ -128,39 +174,132 @@ VARIANTS = {
         ("    } else {\n      store_march<T>(out, plane, i, x, y, z, d);\n"
          "      i = -1;\n    }\n", "    } else {\n      k = steps;\n    }\n",
          1),
-        ("  if (t != static_cast<T>(0)) {\n    march_kernel<T, true>",
-         "  if (false) {\n    march_kernel<T, true>", 1)]}, False, {},
+        ("    if (t != static_cast<T>(0)) {\n      march_kernel<T, true>",
+         "    if (false) {\n      march_kernel<T, true>", 1)]}, False, {},
         MARCH_ROWS),
     # The backward's tail with its offsets and cotangents chosen by selects
     # (registers) in place of the local arrays (its stack frame).
     # The backward's loop over ray blocks on 32-bit indices (the
     # persistent grid's loop-carried values in fewer registers).
-    "bwd-int-blk": ({"render_bwd.cu": [
-        ("  for (long long blk = blockIdx.x; blk < n_blocks;\n"
-         "       blk += OWN ? gridDim.x : n_blocks) {",
-         "  for (int blk = blockIdx.x; blk < (int)n_blocks;\n"
-         "       blk += OWN ? (int)gridDim.x : (int)n_blocks) {", 1),
-        ("    const long long i = blk * BWD_BLOCK + threadIdx.x;",
-         "    const long long i = (long long)blk * BWD_BLOCK + threadIdx.x;",
-         1)]}, False),
-    # The per-thread f32 instantiations that march into a slot at the
-    # history path's four blocks an SM for every scene (101-103 registers
-    # on test_scene2), where the build gives a scene without a rolled loop
-    # five (render_kernel.scene_flags).
-    "bwd-own-min4": ({"render_bwd.cu": [
-        ("constexpr int BWD_OWN_MIN_BLOCKS = RM_BWD_OWN_MIN_BLOCKS;",
-         "constexpr int BWD_OWN_MIN_BLOCKS = BWD_MIN_BLOCKS;", 1)]}, False),
+    "bwd-int-blk": ({"render_bwd.cu": INT_BLK}, False),
+    # ... and the recompute and march-only instantiations at seven blocks
+    # an SM.
+    "own7-int-blk": ({"render_bwd.cu": INT_BLK}, False, {"BWD_OWN_BLOCKS": 7},
+                     SWEEP_ROWS),
+    # What else might free registers for seven blocks of the recompute: the
+    # sweep's entries from the block's base where they are read, the loop
+    # over ray blocks counted by its trips, the direction cotangents in
+    # shared memory (none did; PERF.md).
+    "own7-ubase": ({"render_bwd.cu": UNIFORM_BASE}, False,
+                   {"BWD_OWN_BLOCKS": 7}, SWEEP_ROWS),
+    "own7-trip": ({"render_bwd.cu": TRIP_LOOP}, False, {"BWD_OWN_BLOCKS": 7},
+                  SWEEP_ROWS),
+    # The direction cotangents in shared memory (each thread its own slots)
+    # in place of registers.
+    "own7-gv-shared": ({"render_bwd.cu": [(
+        "      T gvx = zero, gvy = zero, gvz = zero;\n",
+        "      __shared__ T gv_smem[3][BWD_BLOCK];\n"
+        "      T& gvx = gv_smem[0][threadIdx.x];\n"
+        "      T& gvy = gv_smem[1][threadIdx.x];\n"
+        "      T& gvz = gv_smem[2][threadIdx.x];\n"
+        "      gvx = zero;\n      gvy = zero;\n      gvz = zero;\n", 1)]},
+        False, {"BWD_OWN_BLOCKS": 7}, SWEEP_ROWS),
+    # The per-thread f32 backward at four blocks an SM for every scene
+    # (the history path's before this design), where the build gives a
+    # scene without a rolled loop render_kernel.BWD_HIST_BLOCKS and
+    # BWD_OWN_BLOCKS (render_kernel.scene_flags).
+    "bwd-own-min4": ({}, False, {"BWD_HIST_BLOCKS": 4, "BWD_OWN_BLOCKS": 4}),
     # The two-level instantiation at the marching ones' blocks an SM too.
     "bwd-2l-own-min": ({"render_bwd.cu": [
-        ("               : (OWN && !TWO_LEVEL && sizeof(T) == 4) ? "
-         "BWD_OWN_MIN_BLOCKS",
-         "               : (OWN && sizeof(T) == 4) ? BWD_OWN_MIN_BLOCKS", 1)]},
-        False),
+        ("  if (TWO_LEVEL || sizeof(T) != 4) return BWD_MIN_BLOCKS;",
+         "  if (sizeof(T) != 4) return BWD_MIN_BLOCKS;", 1)]}, False),
     # ... and at five for every scene, the bulb's rolled loop included (its
     # VJP then spills).
     "bwd-own-min5": ({"render_bwd.cu": [
-        ("constexpr int BWD_OWN_MIN_BLOCKS = RM_BWD_OWN_MIN_BLOCKS;",
-         "constexpr int BWD_OWN_MIN_BLOCKS = 5;", 1)]}, False),
+        ("#define RM_BWD_OWN_BLOCKS BWD_MIN_BLOCKS",
+         "#define RM_BWD_OWN_BLOCKS 5", 1)]}, False),
+    # Lever A undone: every scene reads its flat parameters through the
+    # caller's pointer (render_kernel.param_route), not the constant bank.
+    "pointer": ({}, False, {"PARAM_BANK_MAX": -1}),
+    # ... at six blocks an SM (which spills there).
+    "pointer-6": ({}, False, {"PARAM_BANK_MAX": -1, "BWD_HIST_BLOCKS": 6,
+                              "BWD_OWN_BLOCKS": 6}, SWEEP_ROWS),
+    # Lever A where the design leaves it out: the forward and the march on
+    # the bank too, and the two-level backward.
+    "fwd-march-bank": ({"render_fwd.cu": [(
+        '#include <limits>\n\n#include "march_loop.cuh"',
+        '#include <limits>\n\n#define RM_P_BANK 1\n#include "march_loop.cuh"',
+        1)], "march.cu": [(
+        '#define RM_SDF_LOOP_UNROLL 5\n#include "march_loop.cuh"',
+        '#define RM_SDF_LOOP_UNROLL 5\n#define RM_P_BANK 1\n'
+        '#include "march_loop.cuh"', 1)]}, False, {}, FORWARD_ROWS),
+    "bank-two-level": ({"render_bwd.cu": [
+        ("a.P = scene_params<T, !TWO_LEVEL>(a.P);",
+         "a.P = scene_params<T, true>(a.P);", 1),
+        ("  }, mode != BWD_TWO_LEVEL));", "  }, true));", 1)]}, False, {},
+        ("3 two-level", "3p two-level", "3b two-level")),
+    # Lever B: the blocks an SM of the f32 history path and of the
+    # recompute and march-only ones, each a block apart from the design,
+    # both at five (the register budget the bank was to relieve), both at
+    # eight (64 registers: they spill).
+    "hist6": ({}, False, {"BWD_HIST_BLOCKS": 6}, SWEEP_ROWS),
+    "hist8": ({}, False, {"BWD_HIST_BLOCKS": 8}, SWEEP_ROWS),
+    "own5": ({}, False, {"BWD_OWN_BLOCKS": 5}, SWEEP_ROWS),
+    "own7": ({}, False, {"BWD_OWN_BLOCKS": 7}, SWEEP_ROWS),
+    "bwd-5": ({}, False, {"BWD_HIST_BLOCKS": 5, "BWD_OWN_BLOCKS": 5},
+              SWEEP_ROWS),
+    "bwd-8": ({}, False, {"BWD_HIST_BLOCKS": 8, "BWD_OWN_BLOCKS": 8},
+              SWEEP_ROWS),
+    # The parameter cotangents accumulated in shared memory (a thread's
+    # slots an odd count apart: no bank conflict) in place of registers, at
+    # eight blocks an SM.
+    "bwd-8-gp-shared": ({"render_bwd.cu": [(
+        "    T gP[N_ACC];\n",
+        "    __shared__ T gp_smem[BWD_BLOCK * (N_ACC | 1)];\n"
+        "    T* const gP = gp_smem + threadIdx.x * (N_ACC | 1);\n", 1)]},
+        False, {"BWD_HIST_BLOCKS": 8, "BWD_OWN_BLOCKS": 8}, SWEEP_ROWS),
+    # Lever C: the reverse sweep unrolled by two, so that the compiler may
+    # overlap the next step's primal with this step's adjoint.
+    "sweep-unroll-2": ({"render_bwd.cu": [(
+        "#pragma unroll 1\n        for (int s = n_sweep - 1; s >= 0; --s) {",
+        "#pragma unroll 2\n        for (int s = n_sweep - 1; s >= 0; --s) {",
+        1)]}, False, {}, SWEEP_ROWS),
+    # Lever D: the sweep's history offset walked down a step a trip in place
+    # of a product each trip (fewer instructions, three more registers).
+    "sweep-walk": ({"render_bwd.cu": [
+        ("#pragma unroll 1\n        for (int s = n_sweep - 1; s >= 0; --s) {",
+         "        int t = PREFETCH ? (n_sweep > 1 ? n_sweep - 2 : 0) "
+         ": n_sweep - 1;\n"
+         "        long long ho = (long long)t * (3 * hs);\n"
+         "#pragma unroll 1\n        for (int s = n_sweep - 1; s >= 0; --s) {",
+         1),
+        ("            const T* h = at(PREFETCH ? (s > 0 ? s - 1 : 0) : s);\n",
+         "            const T* h = hl + (t < nlive ? ho : steps * (3 * hs));\n"
+         "            if (t > 0) {\n"
+         "              --t;\n"
+         "              ho -= 3 * hs;\n"
+         "            }\n", 1)]}, False, {}, SWEEP_ROWS),
+    # The history prefetch back on (three registers).
+    "prefetch": ({"render_bwd.cu": [(
+        "constexpr bool BWD_PREFETCH = false;",
+        "constexpr bool BWD_PREFETCH = true;", 1)]}, False, {}, SWEEP_ROWS),
+    # Lever D undone: the forward and the march at tau = 0 keep the freeze
+    # test; and the backward's marches take the loop without it too.
+    "no-tau0-loop": ({"march_loop.cuh": [(
+        "constexpr bool MARCH_TAU0_LOOP = RM_MARCH_TAU0_LOOP;",
+        "constexpr bool MARCH_TAU0_LOOP = false;", 1)]}, False, {}, TAU0_ROWS),
+    "bwd-tau0": ({"render_bwd.cu": [(
+        "#undef RM_MARCH_TAU0_LOOP\n", "", 1)]}, False, {}, TAU0_ROWS),
+    # Lever D: the march at tau = 0 (no freeze test) unrolled by two, and
+    # not unrolled (the compiler's own choice otherwise).
+    "tau0-unroll-2": ({"march_loop.cuh": [(
+        "  int s = 0;\n  for (int k = 0; k < steps; ++k) {",
+        "  int s = 0;\n#pragma unroll (FREEZE ? 1 : 2)\n"
+        "  for (int k = 0; k < steps; ++k) {", 1)]}, False, {}, TAU0_ROWS),
+    "tau0-unroll-1": ({"march_loop.cuh": [(
+        "  int s = 0;\n  for (int k = 0; k < steps; ++k) {",
+        "  int s = 0;\n#pragma unroll 1\n"
+        "  for (int k = 0; k < steps; ++k) {", 1)]}, False, {}, TAU0_ROWS),
     # (Written at the tail's indentation before the kernel's loop over ray
     # blocks, _indent adds the loop's level.)
     "tail-selects": ({"render_bwd.cu": [(_indent(old), _indent(new), n)
@@ -209,6 +348,7 @@ VARIANTS = {
          "sy, sz, gP,\n"
          "                       sink);\n", 1)]]}, False),
 }
+
 #: The rows: name -> (scene, repetitions). "4b march wrapper host" is the
 #: host's time per call of the march's wrapper on one row of the bulb's
 #: modular rays (host clock, the launches queued, not waited for).
@@ -461,10 +601,16 @@ def use_variant(name: str):
     from ray_marching_tpu_torch.ops import render_kernel as rk
 
     if not _DEFAULTS:
-        _DEFAULTS.update(CSRC=rk.CSRC, NVCC_FLAGS=rk.NVCC_FLAGS,
-                         REFILL_MIN_OPS=getattr(rk, "REFILL_MIN_OPS", None))
+        # Every attribute a variant sets, so that each build starts from the
+        # package's own values (a variant's attributes never leak into the
+        # next one's; the parent's package may lack some).
+        _DEFAULTS.update(CSRC=rk.CSRC, NVCC_FLAGS=rk.NVCC_FLAGS)
+        for _, _, *rest in VARIANTS.values():
+            for key in (rest[0] if rest else {}):
+                _DEFAULTS[key] = getattr(rk, key, None)
     for key, value in _DEFAULTS.items():
-        setattr(rk, key, value)
+        if value is not None:
+            setattr(rk, key, value)
     if name == "parent":
         return
     _, fmad, *rest = VARIANTS[name]
