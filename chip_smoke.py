@@ -36,7 +36,9 @@ bounded scratch: every backward path bit for bit on three scenes, and the
 peak memory of 1080p and 4K training steps under the history size rule;
 the analytic per-thread kernels' redesign: the issue share of the main
 path's forward, backward and march from their SASS loops, registers and
-blocks an SM, the parameter loads left in their loops, no spill),
+blocks an SM, the parameter loads left in their loops, no spill;
+``cli bench``: the CLI's lines, each of its five routes counted and its
+peak memory, the headline step beside a running CPU leg),
 checks the outputs (golden images and golden gradients in f64),
 times kernels, plain versions, frames and training step with CUDA events
 and the profiler, and prints:
@@ -5882,6 +5884,178 @@ def scratch_phase(card, main, bulb_prog):
     return figures
 
 
+#: The routes of ``cli bench``'s flags: name -> (BENCH_* environment,
+#: use_pallas, the launches one step makes of each kernel, by
+#: :func:`launches`' names).
+BENCH_ROUTES = {
+    "default": ({}, False, {"fwd": 1, "bwd": 1}),
+    "--no-fast": ({"BENCH_FAST": "0"}, False, {}),
+    "--backward unroll": ({"BENCH_BACKWARD": "unroll"}, False, {}),
+    "--backward implicit": ({"BENCH_BACKWARD": "implicit"}, False, {}),
+    "--pallas": ({"BENCH_PALLAS": "1"}, True, {"march": 1, "march_bwd": 1}),
+}
+#: Timed steps a route in the process (after bench.WARMUP_ITERS).
+BENCH_ROUTE_ITERS = 3
+#: The CLI's own deadline (its watchdog), and the steps a round of the
+#: concurrent-leg reading times.
+BENCH_CLI_DEADLINE = 300
+BENCH_ROUND_ITERS = 100
+BENCH_ALONE_ROUNDS = 3
+#: A round counts as beside the CPU leg's work when the leg used at least
+#: this many cores over it (its torch import takes one).
+BENCH_LEG_CORES = 2.0
+
+
+def proc_cpu_s(pid):
+    """CPU seconds process ``pid`` has used, all its threads (``/proc``)."""
+    import os
+
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+@contextlib.contextmanager
+def bench_env(env):
+    """The BENCH_* variables exactly ``env`` inside, restored after."""
+    import os
+
+    old = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in old:
+        del os.environ[k]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(old)
+
+
+def bench_phase(card):
+    """``cli bench`` (``ray_marching_tpu_torch/bench.py``): (a) the CLI as a
+    user runs it, in a process of its own: rc 0, the forward line, then an
+    undegraded headline with a ``vs_baseline`` last; (b) each of its five
+    routes through ``bench.measure`` at 1080p, counted: the default step
+    launches the forward and backward kernels once each on the history
+    path, ``--pallas`` the march kernel and its march-only backward, the
+    modular routes none; each route's peak device memory; (c) the headline
+    step alone and beside a running CPU leg (the JAX bench runs its leg
+    concurrently; the port's runs after the card's timing). Returns the
+    launch counts by route and the figures."""
+    import os
+
+    import torch
+
+    from ray_marching_tpu_torch import bench
+    from ray_marching_tpu_torch.ops import backward_kernel as bk
+
+    t_phase = time.perf_counter()
+    figures = {"card": card}
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_DEADLINE"] = str(BENCH_CLI_DEADLINE)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ray_marching_tpu_torch.cli",
+                          "bench"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=BENCH_CLI_DEADLINE + 60)
+    cli_s = time.perf_counter() - t0
+    for line in out.stderr.splitlines():
+        print(f"bench cli stderr: {line}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        print(f"bench cli: {line}")
+    check(out.returncode == 0, f"cli bench exited {out.returncode}")
+    check(len(lines) >= 2, f"cli bench printed {len(lines)} lines")
+    head, fwd = json.loads(lines[-1]), json.loads(lines[-2])
+    check(head.get("metric") == "rays_per_sec_fwd_bwd_1080p"
+          and head.get("unit") == "rays/s/chip" and head.get("value")
+          and head.get("vs_baseline") and "degraded" not in head,
+          f"cli bench: headline {head}")
+    check(fwd.get("metric") == "rays_per_sec_fwd_1080p" and fwd.get("value"),
+          f"cli bench: forward line {fwd}")
+    cpu = re.search(r"CPU leg done: ([0-9.e+]+) rays/s", out.stderr)
+    figures["cli"] = {"headline": head, "forward": fwd, "seconds": cli_s,
+                      "cpu_rays_per_sec": float(cpu.group(1)) if cpu else None}
+
+    width, height = 1920, 1080
+    counts, routes = {}, {}
+    for name, (renv, use_pallas, per_step) in BENCH_ROUTES.items():
+        with bench_env(renv):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            bk.LAST_PATH.clear()
+            rays = bench.measure(width, height, BENCH_ROUTE_ITERS,
+                                 use_pallas=use_pallas)
+            torch.cuda.synchronize()
+        n = launches()
+        counts[name] = n
+        steps = bench.WARMUP_ITERS + BENCH_ROUTE_ITERS
+        want = {k: per_step.get(k, 0) * steps for k in n}
+        check(n == want, f"bench route {name}: launches {n}, want {want}")
+        if name == "default":
+            check(bk.LAST_PATH.get("use_hist") is True,
+                  f"bench default route: not the history path "
+                  f"({bk.LAST_PATH})")
+        routes[name] = {"rays_per_sec": rays, "steps": steps,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"bench route {name} on {card}: {rays:.1f} rays/s over "
+              f"{BENCH_ROUTE_ITERS} steps, peak "
+              f"{routes[name]['peak_bytes']} bytes, launches {n}")
+    figures["routes"] = routes
+    torch.cuda.empty_cache()
+
+    # (c) The headline's step in rounds of BENCH_ROUND_ITERS: alone, then
+    # while a CPU leg runs (every round until it exits, with the cores the
+    # leg used over it), then alone again.
+    with bench_env({}):
+        r, step = bench.build_step(width, height)
+        params = r.init_params
+
+        def round_rays():
+            return width * height / bench.time_step(step, params,
+                                                    BENCH_ROUND_ITERS)
+
+        before = [round_rays() for _ in range(BENCH_ALONE_ROUNDS)]
+        proc = bench.start_cpu_baseline()
+        beside = []
+        try:
+            while proc.poll() is None:
+                c0, w0 = proc_cpu_s(proc.pid), time.perf_counter()
+                rays = round_rays()
+                cores = ((proc_cpu_s(proc.pid) - c0)
+                         / (time.perf_counter() - w0))
+                beside.append((rays, cores))
+            cpu_beside = bench.collect_cpu_baseline(proc, 120.0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        after = [round_rays() for _ in range(BENCH_ALONE_ROUNDS)]
+    del r, step, params
+    working = [v for v, cores in beside if cores >= BENCH_LEG_CORES]
+    check(len(working) > 0, f"no round ran beside the CPU leg's work "
+                            f"(cores a round: {[c for _, c in beside]})")
+    alone = float(np.median(before + after))
+    figures["cpu_leg_concurrent"] = {
+        "rounds_before": before, "rounds_beside": beside,
+        "rounds_after": after, "alone_median": alone,
+        "working_median": float(np.median(working)),
+        "working_min": min(working), "working_rounds": len(working),
+        "working_over_alone": float(np.median(working)) / alone,
+        "cpu_rays_per_sec_beside": cpu_beside}
+    print(f"bench headline step on {card}: alone {alone:.1f} rays/s "
+          f"(median of {len(before + after)} rounds of {BENCH_ROUND_ITERS}), "
+          f"beside the CPU leg's work {np.median(working):.1f} (median of "
+          f"{len(working)} rounds with the leg on >= {BENCH_LEG_CORES} "
+          f"cores, min {min(working):.1f}; {len(beside)} rounds in all); "
+          f"the leg {cpu_beside:.1f} rays/s beside, "
+          f"{figures['cli']['cpu_rays_per_sec']} after (the CLI's)")
+    figures["seconds"] = time.perf_counter() - t_phase
+    print(f"bench phase: {figures['seconds']:.1f} s")
+    return counts, figures
+
+
 def run_programs():
     """Every scene program the run builds, by label: the analytic scenes,
     the neural slices' scenes, the analytic target of the weights check,
@@ -6576,6 +6750,13 @@ def run(out_dir: Path):
         grid=s_launch["two-level"]["grid"],
         scratch_bytes=s_launch["two-level"]["scratch_bytes"])
     print("scratch figures: " + json.dumps(s_fig))
+    # 14. cli bench and its five routes.
+    b_counts, b_figures = bench_phase(card)
+    for row, key in (("render_fwd", "fwd"), ("render_bwd", "bwd"),
+                     ("march", "march"), ("march_bwd", "march_bwd")):
+        rows[row]["launches_bench"] = {k: v[key] for k, v in b_counts.items()
+                                       if v[key]}
+    print("bench figures: " + json.dumps(b_figures))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           "builds included")
     print(card)

@@ -1,5 +1,6 @@
 """Command-line entry point of the PyTorch port (``render``, ``gallery``,
-``optimize``, ``interactive``, ``export``, ``serve``, ``profile``).
+``optimize``, ``interactive``, ``export``, ``serve``, ``profile``,
+``bench``).
 
 ``render`` builds the modular ``Renderer`` (``--pallas``: with the CUDA march
 kernel), with ``--fast`` the plane-native ``FastRenderer`` and with
@@ -8,8 +9,14 @@ kernel), with ``--fast`` the plane-native ``FastRenderer`` and with
 PNG each; ``optimize`` always runs on the ``FastRenderer``. Every command
 runs on ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions). The JAX package's ``--compile-cache`` has no counterpart: the
-kernels' nvcc build cache (``ops/_build/``) is always on. ``bench`` waits
-for the port's benchmark.
+kernels' nvcc build cache (``ops/_build/``) is always on. ``bench`` runs
+:mod:`ray_marching_tpu_torch.bench` on the card (rays/s of the 1080p
+training step and frame, and a CPU leg); its flags set the JAX bench's
+``BENCH_*`` variables and pick the renderer: none, the ``FastRenderer``'s
+forward and backward kernels; ``--no-fast``, the modular ``Renderer`` with
+``RenderConfig.remat``; ``--backward unroll|implicit``, the modular
+``Renderer`` with that backward; ``--pallas``, the modular ``Renderer``
+with the CUDA march kernel (``use_pallas``).
 
   python -m ray_marching_tpu_torch.cli render --scene test_scene2 -o out.png
   python -m ray_marching_tpu_torch.cli render --pallas --bounces 1 -o out.png
@@ -30,6 +37,7 @@ for the port's benchmark.
   python -m ray_marching_tpu_torch.cli serve --artifact model.rmx
   python -m ray_marching_tpu_torch.cli serve --interactive --fast
   python -m ray_marching_tpu_torch.cli profile --fast --grad -o trace_dir
+  python -m ray_marching_tpu_torch.cli bench --backward implicit
 """
 
 from __future__ import annotations
@@ -406,6 +414,20 @@ def cmd_profile(args):
     print(f"wrote Chrome trace {path}")
 
 
+def cmd_bench(args):
+    import os
+
+    from ray_marching_tpu_torch import bench
+
+    if args.backward:
+        os.environ["BENCH_BACKWARD"] = args.backward
+    if args.no_fast:
+        os.environ["BENCH_FAST"] = "0"
+    if args.pallas:
+        os.environ["BENCH_PALLAS"] = "1"
+    bench.main()
+
+
 def _add_render_args(p):
     p.add_argument("--scene", default="test_scene2")
     p.add_argument("--scene-file", default=None,
@@ -512,6 +534,20 @@ def main(argv=None):
                         "PNG")
     p.add_argument("--apng-fps", type=float, default=30.0)
     p.set_defaults(fn=cmd_interactive)
+
+    p = sub.add_parser("bench", help="rays/s of the 1080p training step and "
+                                     "frame on the card")
+    p.add_argument("--backward", choices=["remat", "unroll", "implicit"],
+                   default=None,
+                   help="backward mode (default remat: the FastRenderer's "
+                        "kernels; unroll and implicit: the modular Renderer)")
+    p.add_argument("--no-fast", action="store_true",
+                   help="the modular Renderer (remat) instead of the "
+                        "FastRenderer's kernels")
+    p.add_argument("--pallas", action="store_true",
+                   help="the modular Renderer's march through the CUDA "
+                        "march kernel")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("export", help="export a serving artifact (.rmx: "
                                       "scene, config and parameters)")

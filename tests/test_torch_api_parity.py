@@ -65,10 +65,10 @@ ELSEWHERE = {
     ("scene/neural.py", "neural_sdf_matmul"):
         ("scene/neural.py:mlp_matmul", "renamed"),
 }
-#: What still waits, and for what. The CLI's subcommand of the same
-#: function waits with it.
-WAITING = {("cli.py", "cmd_bench"): "waits for the port's benchmark"}
-WAITING_SUBCOMMANDS = {"bench": "cmd_bench"}
+#: What still waits, and for what (nothing since ``cmd_bench`` was
+#: ported). The CLI's subcommand of the same function waits with it.
+WAITING = {}
+WAITING_SUBCOMMANDS = {}
 #: JAX parameter names with no same-named port parameter, and why.
 PARAMETERS = {
     "interpret": "TPU-only: Pallas interpret mode (the port's plain "
@@ -192,12 +192,12 @@ def test_every_public_name_has_a_counterpart():
 
 def test_the_tables_hold_only_real_names():
     """Every table entry names something the JAX package still has, and
-    cmd_bench is the only entry still waiting."""
+    nothing waits."""
     for rel, name in list(ELSEWHERE) + list(WAITING):
         assert name in _public(JAX / rel), (rel, name)
     for rel in NO_MODULE:
         assert (JAX / rel).exists() and not (PORT / rel).exists()
-    assert set(WAITING) == {("cli.py", "cmd_bench")}
+    assert not WAITING and not WAITING_SUBCOMMANDS
     jax_params = set().union(*(
         p for rel in _jax_modules() for p in _public(JAX / rel).values()
         if p))
@@ -242,6 +242,7 @@ def _cli(path):
 def test_every_cli_subcommand_and_flag_has_a_counterpart():
     want, have = _cli(JAX / "cli.py"), _cli(PORT / "cli.py")
     assert "render" in want and "--grid-dtype" in want["render"]
+    assert want["bench"] == {"--backward", "--no-fast", "--pallas"}
     for sub, flags in want.items():
         if sub in WAITING_SUBCOMMANDS:
             assert ("cli.py", WAITING_SUBCOMMANDS[sub]) in WAITING
