@@ -1,0 +1,7 @@
+"""Share of the traced frame periods with the device idle."""
+
+from perfbench.harness.readers import device_idle_share
+
+
+def read(s):
+    return device_idle_share(s, "serve")

@@ -1,0 +1,7 @@
+"""The forward kernels' share of their roofline in a fit step."""
+
+from perfbench.harness.readers import kernel_roofline
+
+
+def read(s):
+    return kernel_roofline(s, "train", "forward")
