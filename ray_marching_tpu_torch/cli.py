@@ -375,7 +375,10 @@ def cmd_profile(args):
     """A ``torch.profiler`` Chrome trace of ``--frames`` renders (with
     ``--grad``: forward and backward of the frame's mean square against
     zero, w.r.t. the parameters and the pose, the JAX command's loss) in
-    ``--out``/trace.json."""
+    ``--out``/trace.json. The trace holds the program's ``rm.*`` spans
+    (:mod:`ray_marching_tpu_torch.spans`): ``rm.render.*`` the pose, march
+    and shade phases of a frame, ``rm.kernel.*`` each kernel wrapper's host
+    call named by its route, one per launch."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_marching_tpu_torch.scene.graph import map_params, param_paths

@@ -56,6 +56,7 @@ import torch
 
 from ray_marching_tpu_torch.ops import render_kernel as rk
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
+from ray_marching_tpu_torch.spans import KERNEL_BWD, span
 
 LANES = rk.LANES
 
@@ -255,55 +256,62 @@ def fused_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
     Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
     rays7 cotangent (7, rows, 128))``; the validity plane's cotangent is
     zero."""
-    _check(program, params_flat, rays7, g, steps, track_min, hist, minf, amin,
-           nlive, mats=mats)
     if route is None:
         route = rk.mlp_route(program, rays7.dtype)
-    rk._check_route(program, rays7, route)
     two_level = bool(two_level) and two_level_engages(steps, tau, track_min)
-    if two_level:
-        hist = minf = amin = nlive = None
-    LAST_PATH.clear()
-    LAST_PATH.update(use_hist=hist is not None, two_level=two_level, tau=tau,
-                     track_min=track_min)
-    if rays7.device.type == "cpu":
-        return reference_backward(program, params_flat, rays7, g, steps, tau,
-                                  normals_eps, track_min=track_min, hist=hist,
-                                  minf=minf, amin=amin, nlive=nlive,
-                                  two_level=two_level, mats=mats)
-    _contiguous_cuda(rays7, [params_flat, rays7, g]
-                     + [t for t in (hist, minf, amin, nlive) if t is not None])
-    dtype = rays7.dtype
-    recompute = hist is None and not two_level
-    mode = (MODE_TWO_LEVEL if two_level else MODE_FULL if recompute
-            else None)
-    consts = rk._host_consts(dtype, tau, normals_eps)
+    # The span is named by the path and route; an unknown route raises in
+    # the checks inside it.
+    names = KERNEL_BWD["two_level" if two_level else
+                       "hist" if hist is not None else "recompute"]
+    with span(names.get(route, names["thread"])):
+        _check(program, params_flat, rays7, g, steps, track_min, hist, minf,
+               amin, nlive, mats=mats)
+        rk._check_route(program, rays7, route)
+        if two_level:
+            hist = minf = amin = nlive = None
+        LAST_PATH.clear()
+        LAST_PATH.update(use_hist=hist is not None, two_level=two_level,
+                         tau=tau, track_min=track_min)
+        if rays7.device.type == "cpu":
+            return reference_backward(program, params_flat, rays7, g, steps,
+                                      tau, normals_eps, track_min=track_min,
+                                      hist=hist, minf=minf, amin=amin,
+                                      nlive=nlive, two_level=two_level,
+                                      mats=mats)
+        _contiguous_cuda(rays7, [params_flat, rays7, g]
+                         + [t for t in (hist, minf, amin, nlive)
+                            if t is not None])
+        dtype = rays7.dtype
+        recompute = hist is None and not two_level
+        mode = (MODE_TWO_LEVEL if two_level else MODE_FULL if recompute
+                else None)
+        consts = rk._host_consts(dtype, tau, normals_eps)
 
-    def call(lib, packed, out, partials, n_blocks, grid, scratch, n_cols, n,
-             stream):
-        global LAUNCHES, TC_LAUNCHES, PRUNE_LAUNCHES
-        if route == "tc":
-            fn = lib.rm_render_bwd_tc_f32
-            TC_LAUNCHES += 1
-        else:
-            fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
-                  else lib.rm_render_bwd_f64)
-        LAUNCHES += 1
-        if program.pruned and (recompute or two_level):
-            PRUNE_LAUNCHES += 1
-        return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
-                  g.data_ptr(), int(track_min),
-                  rk._ptr(scratch if recompute else hist), int(recompute),
-                  rk._ptr(scratch if two_level else None), int(two_level),
-                  rk._ptr(minf), rk._ptr(amin), rk._ptr(nlive),
-                  out.data_ptr(), partials.data_ptr(), n_blocks, grid,
-                  n_cols, n, int(steps),
-                  consts.ctypes.data_as(ctypes.c_void_p), stream)
+        def call(lib, packed, out, partials, n_blocks, grid, scratch,
+                 n_cols, n, stream):
+            global LAUNCHES, TC_LAUNCHES, PRUNE_LAUNCHES
+            if route == "tc":
+                fn = lib.rm_render_bwd_tc_f32
+                TC_LAUNCHES += 1
+            else:
+                fn = (lib.rm_render_bwd_f32 if dtype == torch.float32
+                      else lib.rm_render_bwd_f64)
+            LAUNCHES += 1
+            if program.pruned and (recompute or two_level):
+                PRUNE_LAUNCHES += 1
+            return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
+                      g.data_ptr(), int(track_min),
+                      rk._ptr(scratch if recompute else hist), int(recompute),
+                      rk._ptr(scratch if two_level else None), int(two_level),
+                      rk._ptr(minf), rk._ptr(amin), rk._ptr(nlive),
+                      out.data_ptr(), partials.data_ptr(), n_blocks, grid,
+                      n_cols, n, int(steps),
+                      consts.ctypes.data_as(ctypes.c_void_p), stream)
 
-    result = _launch(program, params_flat, rays7, call, mats, route, mode,
-                     steps, track_min)
-    LAST_PATH.update(LAST_LAUNCH)
-    return result
+        result = _launch(program, params_flat, rays7, call, mats, route, mode,
+                         steps, track_min)
+        LAST_PATH.update(LAST_LAUNCH)
+        return result
 
 
 def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
@@ -318,34 +326,36 @@ def march_backward(program: SdfProgram, params_flat, rays7, g, steps, tau,
 
     Returns ``(params_flat cotangent (P,), matrix cotangents (like mats),
     rays7 cotangent (7, rows, 128))``."""
-    _check(program, params_flat, rays7, g, steps, False, None, None, None,
-           None, n_g=4, mats=mats)
     if route is None:
         route = rk.mlp_route(program, rays7.dtype)
-    rk._check_route(program, rays7, route)
-    if rays7.device.type == "cpu":
-        return reference_backward(program, params_flat, rays7, g, steps, tau,
-                                  None, march_only=True, mats=mats)
-    _contiguous_cuda(rays7, [params_flat, rays7, g])
-    dtype = rays7.dtype
+    names = KERNEL_BWD["march"]
+    with span(names.get(route, names["thread"])):
+        _check(program, params_flat, rays7, g, steps, False, None, None,
+               None, None, n_g=4, mats=mats)
+        rk._check_route(program, rays7, route)
+        if rays7.device.type == "cpu":
+            return reference_backward(program, params_flat, rays7, g, steps,
+                                      tau, None, march_only=True, mats=mats)
+        _contiguous_cuda(rays7, [params_flat, rays7, g])
+        dtype = rays7.dtype
 
-    def call(lib, packed, out, partials, n_blocks, grid, scratch, n_cols, n,
-             stream):
-        global MARCH_LAUNCHES, MARCH_TC_LAUNCHES
-        if route == "tc":
-            fn = lib.rm_march_bwd_tc_f32
-            MARCH_TC_LAUNCHES += 1
-        else:
-            fn = (lib.rm_march_bwd_f32 if dtype == torch.float32
-                  else lib.rm_march_bwd_f64)
-        MARCH_LAUNCHES += 1
-        return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
-                  g.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                  partials.data_ptr(), n_blocks, grid, n_cols, n, int(steps),
-                  float(tau), stream)
+        def call(lib, packed, out, partials, n_blocks, grid, scratch,
+                 n_cols, n, stream):
+            global MARCH_LAUNCHES, MARCH_TC_LAUNCHES
+            if route == "tc":
+                fn = lib.rm_march_bwd_tc_f32
+                MARCH_TC_LAUNCHES += 1
+            else:
+                fn = (lib.rm_march_bwd_f32 if dtype == torch.float32
+                      else lib.rm_march_bwd_f64)
+            MARCH_LAUNCHES += 1
+            return fn(params_flat.data_ptr(), packed, rays7.data_ptr(),
+                      g.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                      partials.data_ptr(), n_blocks, grid, n_cols, n,
+                      int(steps), float(tau), stream)
 
-    return _launch(program, params_flat, rays7, call, mats, route,
-                   MODE_MARCH_ONLY, steps)
+        return _launch(program, params_flat, rays7, call, mats, route,
+                       MODE_MARCH_ONLY, steps)
 
 
 def _two_level_positions(sdf, params, start, dirs, steps):

@@ -34,6 +34,7 @@ import torch
 from ray_marching_tpu_torch.ops import render_kernel as rk
 from ray_marching_tpu_torch.ops.params import split_params_padded
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
+from ray_marching_tpu_torch.spans import KERNEL_MARCH, span
 
 LANES = rk.LANES
 
@@ -56,48 +57,56 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     CUDA tensors launch the kernel: the lane-refill entry where
     :func:`render_kernel.uses_refill` says so."""
     global LAUNCHES, TC_LAUNCHES, REFILL_LAUNCHES
-    rk._check(program, params_flat, rays7, steps, mats)
     if route is None:
         route = rk.mlp_route(program, rays7.dtype)
-    rk._check_route(program, rays7, route, tc_mats)
-    if rays7.device.type == "cpu":
-        return reference_march(program, params_flat, rays7, steps, tau, mats)
-    if rays7.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays7.device}")
-    if not (rays7.is_contiguous() and params_flat.is_contiguous()):
-        raise ValueError("rays7 and params_flat must be contiguous")
-    if route == "tc":
-        lib_fn = "rm_march_tc_f32"
-        packed = rk.tc_buffer(program, mats) if tc_mats is None else tc_mats
-    else:
-        lib_fn = ("rm_march_f32" if rays7.dtype == torch.float32
-                  else "rm_march_f64")
-        packed = rk._packed(mats)
-    fn = getattr(rk._load(program), lib_fn)
-    out = torch.empty((4,) + tuple(rays7.shape[1:]), dtype=rays7.dtype,
-                      device=rays7.device)
-    # The lane-refill entry's slot counter: without one the kernel marches
-    # one thread per ray.
-    refill = rk.uses_refill(program, rays7.dtype, tau, route)
-    with torch.cuda.device(rays7.device):
-        stream = torch.cuda.current_stream(rays7.device).cuda_stream
-        nxt = (torch.zeros(1, dtype=torch.int32, device=rays7.device)
-               if refill else None)
-        LAUNCHES += 1
+    # The span is named by the kernel's entry; an unknown route or dtype
+    # raises in the checks inside it.
+    refill = (rays7.dtype in (torch.float32, torch.float64)
+              and rk.uses_refill(program, rays7.dtype, tau, route))
+    with span(KERNEL_MARCH["refill"] if refill else
+              KERNEL_MARCH.get(route, KERNEL_MARCH["thread"])):
+        rk._check(program, params_flat, rays7, steps, mats)
+        rk._check_route(program, rays7, route, tc_mats)
+        if rays7.device.type == "cpu":
+            return reference_march(program, params_flat, rays7, steps, tau,
+                                   mats)
+        if rays7.device.type != "cuda":
+            raise ValueError(f"unsupported device {rays7.device}")
+        if not (rays7.is_contiguous() and params_flat.is_contiguous()):
+            raise ValueError("rays7 and params_flat must be contiguous")
         if route == "tc":
-            TC_LAUNCHES += 1
-            err = fn(params_flat.data_ptr(), packed.data_ptr(),
-                     rays7.data_ptr(), out.data_ptr(), rays7.shape[1] * LANES,
-                     int(steps), float(tau), stream)
+            lib_fn = "rm_march_tc_f32"
+            packed = (rk.tc_buffer(program, mats) if tc_mats is None
+                      else tc_mats)
         else:
-            if refill:
-                REFILL_LAUNCHES += 1
-            err = fn(params_flat.data_ptr(), rk._ptr(packed),
-                     rays7.data_ptr(), out.data_ptr(), rays7.shape[1] * LANES,
-                     int(steps), float(tau), rk._ptr(nxt), stream)
-    if err != 0:
-        raise RuntimeError(f"march kernel launch failed: cudaError {err}")
-    return out
+            lib_fn = ("rm_march_f32" if rays7.dtype == torch.float32
+                      else "rm_march_f64")
+            packed = rk._packed(mats)
+        fn = getattr(rk._load(program), lib_fn)
+        out = torch.empty((4,) + tuple(rays7.shape[1:]), dtype=rays7.dtype,
+                          device=rays7.device)
+        n = rays7.shape[1] * LANES
+        with torch.cuda.device(rays7.device):
+            stream = torch.cuda.current_stream(rays7.device).cuda_stream
+            # The lane-refill entry's slot counter: without one the kernel
+            # marches one thread per ray.
+            nxt = (torch.zeros(1, dtype=torch.int32, device=rays7.device)
+                   if refill else None)
+            LAUNCHES += 1
+            if route == "tc":
+                TC_LAUNCHES += 1
+                err = fn(params_flat.data_ptr(), packed.data_ptr(),
+                         rays7.data_ptr(), out.data_ptr(), n, int(steps),
+                         float(tau), stream)
+            else:
+                if refill:
+                    REFILL_LAUNCHES += 1
+                err = fn(params_flat.data_ptr(), rk._ptr(packed),
+                         rays7.data_ptr(), out.data_ptr(), n, int(steps),
+                         float(tau), rk._ptr(nxt), stream)
+        if err != 0:
+            raise RuntimeError(f"march kernel launch failed: cudaError {err}")
+        return out
 
 
 class _March(torch.autograd.Function):

@@ -72,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_marching_tpu_torch.ops.params import pack_mats, pack_tc
 from ray_marching_tpu_torch.render.normals import make_offsets
 from ray_marching_tpu_torch.scene.codegen import SdfProgram
+from ray_marching_tpu_torch.spans import KERNEL_FWD, span
 
 LANES = 128
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -447,77 +448,87 @@ def march_forward(program: SdfProgram, params_flat, rays7, steps, tau,
     a prepared buffer (:func:`tc_buffer`). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     global LAUNCHES, TC_LAUNCHES, PRUNE_LAUNCHES
-    _check(program, params_flat, rays7, steps, mats)
     if route is None:
         route = mlp_route(program, rays7.dtype)
-    _check_route(program, rays7, route, tc_mats)
-    if rays7.device.type == "cpu":
-        return _reference_march(program, params_flat, rays7, steps, tau,
-                                normals_eps, track_min, log_hist,
-                                track_argpos, mats)
-    if rays7.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays7.device}")
-    if not (rays7.is_contiguous() and params_flat.is_contiguous()):
-        raise ValueError("rays7 and params_flat must be contiguous")
-    if route == "tc":
-        packed = tc_buffer(program, mats) if tc_mats is None else tc_mats
-    else:
-        packed = _packed(mats)
-    lib = _load(program)
-    plane_shape = tuple(rays7.shape[1:])
-    dev, dtype = rays7.device, rays7.dtype
-    out = torch.empty((9 if track_min else 8,) + plane_shape, dtype=dtype,
-                      device=dev)
-    consts = _host_consts(dtype, tau, normals_eps)
-    consts_p = consts.ctypes.data_as(ctypes.c_void_p)
-    n = rays7.shape[1] * LANES
-    f32 = dtype == torch.float32
-    extras = {}
-    if track_min and log_hist:
-        extras["amin"] = torch.empty(plane_shape, dtype=torch.int32,
-                                     device=dev)
-    if track_min and track_argpos:
-        extras["argpos"] = torch.empty((3,) + plane_shape, dtype=dtype,
-                                       device=dev)
-    if log_hist:
-        extras["hist"] = torch.empty((int(steps) + 1, 3) + plane_shape,
-                                     dtype=dtype, device=dev)
-        extras["nlive"] = torch.empty(plane_shape, dtype=torch.int32,
-                                      device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES += 1
+    # The span is named by the kernel's entry; an unknown route or dtype
+    # raises in the checks inside it.
+    train = bool(track_min or log_hist)
+    refill = (not train and rays7.dtype in (torch.float32, torch.float64)
+              and uses_refill(program, rays7.dtype, tau, route))
+    names = KERNEL_FWD["train" if train else "serve"]
+    with span(names["refill"] if refill else names.get(route,
+                                                       names["thread"])):
+        _check(program, params_flat, rays7, steps, mats)
+        _check_route(program, rays7, route, tc_mats)
+        if rays7.device.type == "cpu":
+            return _reference_march(program, params_flat, rays7, steps, tau,
+                                    normals_eps, track_min, log_hist,
+                                    track_argpos, mats)
+        if rays7.device.type != "cuda":
+            raise ValueError(f"unsupported device {rays7.device}")
+        if not (rays7.is_contiguous() and params_flat.is_contiguous()):
+            raise ValueError("rays7 and params_flat must be contiguous")
         if route == "tc":
-            TC_LAUNCHES += 1
-        if program.pruned:
-            PRUNE_LAUNCHES += 1
-        if route == "tc" and not (track_min or extras):
-            err = lib.rm_render_fwd_tc_f32(
-                params_flat.data_ptr(), packed.data_ptr(), rays7.data_ptr(),
-                out.data_ptr(), n, int(steps), consts_p, stream)
-        elif track_min or extras:
-            if route == "tc":
-                fn = lib.rm_render_fwd_train_tc_f32
-            else:
-                fn = (lib.rm_render_fwd_train_f32 if f32
-                      else lib.rm_render_fwd_train_f64)
-            err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
-                     out.data_ptr(), n, int(steps), consts_p, int(track_min),
-                     _ptr(extras.get("amin")), _ptr(extras.get("argpos")),
-                     _ptr(extras.get("hist")), _ptr(extras.get("nlive")),
-                     stream)
+            packed = tc_buffer(program, mats) if tc_mats is None else tc_mats
         else:
-            # The lane-refill kernel's slot counter: without one the kernel
-            # marches one thread per ray.
-            nxt = (torch.zeros(1, dtype=torch.int32, device=dev)
-                   if uses_refill(program, dtype, tau, route) else None)
-            fn = lib.rm_render_fwd_f32 if f32 else lib.rm_render_fwd_f64
-            err = fn(params_flat.data_ptr(), _ptr(packed), rays7.data_ptr(),
-                     out.data_ptr(), n, int(steps), consts_p, _ptr(nxt),
-                     stream)
-    if err != 0:
-        raise RuntimeError(f"render_fwd kernel launch failed: cudaError {err}")
-    return out, extras
+            packed = _packed(mats)
+        lib = _load(program)
+        plane_shape = tuple(rays7.shape[1:])
+        dev, dtype = rays7.device, rays7.dtype
+        out = torch.empty((9 if track_min else 8,) + plane_shape, dtype=dtype,
+                          device=dev)
+        consts = _host_consts(dtype, tau, normals_eps)
+        consts_p = consts.ctypes.data_as(ctypes.c_void_p)
+        n = rays7.shape[1] * LANES
+        f32 = dtype == torch.float32
+        extras = {}
+        if track_min and log_hist:
+            extras["amin"] = torch.empty(plane_shape, dtype=torch.int32,
+                                         device=dev)
+        if track_min and track_argpos:
+            extras["argpos"] = torch.empty((3,) + plane_shape, dtype=dtype,
+                                           device=dev)
+        if log_hist:
+            extras["hist"] = torch.empty((int(steps) + 1, 3) + plane_shape,
+                                         dtype=dtype, device=dev)
+            extras["nlive"] = torch.empty(plane_shape, dtype=torch.int32,
+                                          device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            LAUNCHES += 1
+            if route == "tc":
+                TC_LAUNCHES += 1
+            if program.pruned:
+                PRUNE_LAUNCHES += 1
+            if route == "tc" and not (track_min or extras):
+                err = lib.rm_render_fwd_tc_f32(
+                    params_flat.data_ptr(), packed.data_ptr(),
+                    rays7.data_ptr(), out.data_ptr(), n, int(steps),
+                    consts_p, stream)
+            elif track_min or extras:
+                if route == "tc":
+                    fn = lib.rm_render_fwd_train_tc_f32
+                else:
+                    fn = (lib.rm_render_fwd_train_f32 if f32
+                          else lib.rm_render_fwd_train_f64)
+                err = fn(params_flat.data_ptr(), _ptr(packed),
+                         rays7.data_ptr(), out.data_ptr(), n, int(steps),
+                         consts_p, int(track_min), _ptr(extras.get("amin")),
+                         _ptr(extras.get("argpos")), _ptr(extras.get("hist")),
+                         _ptr(extras.get("nlive")), stream)
+            else:
+                # The lane-refill kernel's slot counter: without one the
+                # kernel marches one thread per ray.
+                nxt = (torch.zeros(1, dtype=torch.int32, device=dev)
+                       if refill else None)
+                fn = lib.rm_render_fwd_f32 if f32 else lib.rm_render_fwd_f64
+                err = fn(params_flat.data_ptr(), _ptr(packed),
+                         rays7.data_ptr(), out.data_ptr(), n, int(steps),
+                         consts_p, _ptr(nxt), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"render_fwd kernel launch failed: cudaError {err}")
+        return out, extras
 
 
 class _FusedMarch(torch.autograd.Function):

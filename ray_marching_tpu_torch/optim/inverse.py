@@ -38,6 +38,15 @@ from ray_marching_tpu_torch.io.checkpoint import (
 )
 from ray_marching_tpu_torch.render.silhouette import composite
 from ray_marching_tpu_torch.scene.graph import map_params, param_paths
+from ray_marching_tpu_torch.spans import (
+    OPTIMIZE_BACKWARD,
+    OPTIMIZE_LOSS,
+    OPTIMIZE_RENDER,
+    OPTIMIZE_STEP,
+    OPTIMIZE_SYNC,
+    OPTIMIZE_UPDATE,
+    span,
+)
 
 ADAMW_WEIGHT_DECAY = 1e-4
 
@@ -181,24 +190,28 @@ def optimize(renderer, target, orientation, translation,
         target_alpha = tensor(target_alpha)
 
     def loss_fn():
-        extra = 0.0
-        if config.silhouette_beta > 0:
-            image, alpha = renderer.render_with_alpha(
-                state["params"], state["orientation"], state["translation"],
-                mode=config.mode, degree=config.degree,
-                beta=config.silhouette_beta)
-            image = composite(image, alpha, config.background)
-            if target_alpha is not None:
+        alpha = None
+        with span(OPTIMIZE_RENDER):
+            if config.silhouette_beta > 0:
+                image, alpha = renderer.render_with_alpha(
+                    state["params"], state["orientation"],
+                    state["translation"], mode=config.mode,
+                    degree=config.degree, beta=config.silhouette_beta)
+                image = composite(image, alpha, config.background)
+            else:
+                image = renderer.render(
+                    state["params"], state["orientation"],
+                    state["translation"], mode=config.mode,
+                    degree=config.degree)
+        with span(OPTIMIZE_LOSS):
+            extra = 0.0
+            if alpha is not None and target_alpha is not None:
                 extra = config.silhouette_weight * torch.mean(
                     (alpha - target_alpha) ** 2)
-        else:
-            image = renderer.render(
-                state["params"], state["orientation"], state["translation"],
-                mode=config.mode, degree=config.degree)
-        err = image - target
-        if config.loss == "l1":
-            return torch.mean(torch.abs(err)) + extra
-        return torch.mean(err**2) + extra
+            err = image - target
+            if config.loss == "l1":
+                return torch.mean(torch.abs(err)) + extra
+            return torch.mean(err**2) + extra
 
     # Frozen leaves never change: their values are put back after every
     # update, which zeroes adamw's decay on them as well.
@@ -207,20 +220,21 @@ def optimize(renderer, target, orientation, translation,
     def step_fn():
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn()
-        loss.backward()
-        for name, leaf in named.items():
-            if name in frozen or leaf.grad is None:
-                leaf.grad = torch.zeros_like(leaf)
-        gnorm = torch.sqrt(sum((leaf.grad**2).sum()
-                               for leaf in named.values()))
-        optimizer.step()
-        with torch.no_grad():
-            for name, value in held.items():
-                named[name].copy_(value)
+        with span(OPTIMIZE_BACKWARD):
+            loss.backward()
+        with span(OPTIMIZE_UPDATE):
             for name, leaf in named.items():
-                if name.endswith("orientation"):
-                    leaf.div_(torch.linalg.norm(leaf, dim=-1, keepdim=True))
-        return loss.detach(), gnorm
+                if name in frozen or leaf.grad is None:
+                    leaf.grad = torch.zeros_like(leaf)
+            optimizer.step()
+            with torch.no_grad():
+                for name, value in held.items():
+                    named[name].copy_(value)
+                for name, leaf in named.items():
+                    if name.endswith("orientation"):
+                        leaf.div_(torch.linalg.norm(leaf, dim=-1,
+                                                    keepdim=True))
+        return loss.detach()
 
     metrics_file = None
     if config.metrics_path:
@@ -231,10 +245,16 @@ def optimize(renderer, target, orientation, translation,
     t_start = time.perf_counter()
     try:
         for step in range(start_step, config.steps):
-            loss, gnorm = step_fn()
-            loss = float(loss)
+            with span(OPTIMIZE_STEP):
+                loss = step_fn()
+                with span(OPTIMIZE_SYNC):
+                    loss = float(loss)
             losses.append(loss)
             if metrics_file:
+                # The step's gradients, which stay on the leaves until the
+                # next step's zero_grad.
+                gnorm = torch.sqrt(sum((leaf.grad**2).sum()
+                                       for leaf in named.values()))
                 metrics_file.write(json.dumps({
                     "step": step,
                     "loss": loss,

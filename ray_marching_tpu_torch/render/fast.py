@@ -69,6 +69,12 @@ from ray_marching_tpu_torch.scene.graph import (
     compile_scene,
 )
 from ray_marching_tpu_torch.scene.neural import NeuralSDF, resolve_impl
+from ray_marching_tpu_torch.spans import (
+    RENDER_MARCH,
+    RENDER_POSE,
+    RENDER_SHADE,
+    span,
+)
 from ray_marching_tpu_torch.utils import (
     clamp,
     prmax,
@@ -446,12 +452,15 @@ class FastRenderer:
         """Render one frame → (N, H, W, 3)."""
         cfg = self.config
         steps = cfg.marching_steps if marching_steps is None else marching_steps
-        orientation, translation = self._pose(orientation, translation)
-        origin, dirs = self._pose_planes(orientation, translation)
-        hit, final_dirs = self._march_planes(params, origin, dirs, steps)
-        channels = self._shade(mode, degree, orientation, origin, final_dirs,
-                               hit, params=params)
-        return self._assemble(channels)
+        with span(RENDER_POSE):
+            orientation, translation = self._pose(orientation, translation)
+            origin, dirs = self._pose_planes(orientation, translation)
+        with span(RENDER_MARCH):
+            hit, final_dirs = self._march_planes(params, origin, dirs, steps)
+        with span(RENDER_SHADE):
+            channels = self._shade(mode, degree, orientation, origin,
+                                   final_dirs, hit, params=params)
+            return self._assemble(channels)
 
     def render_with_alpha(self, params, orientation, translation, *,
                           mode: int = 0, degree: int = 1,
@@ -468,14 +477,17 @@ class FastRenderer:
             raise ValueError("render_with_alpha: reflection bounces unsupported")
         steps = cfg.marching_steps if marching_steps is None else marching_steps
         beta = cfg.silhouette_beta if beta is None else beta
-        orientation, translation = self._pose(orientation, translation)
-        origin, dirs = self._pose_planes(orientation, translation)
-        hit, final_dirs, minf = self._march_planes(params, origin, dirs, steps,
-                                                   with_closest=True)
-        channels = self._shade(mode, degree, orientation, origin, final_dirs,
-                               hit, params=params)
-        return (self._assemble(channels),
-                self._assemble([soft_coverage(minf, beta)]))
+        with span(RENDER_POSE):
+            orientation, translation = self._pose(orientation, translation)
+            origin, dirs = self._pose_planes(orientation, translation)
+        with span(RENDER_MARCH):
+            hit, final_dirs, minf = self._march_planes(
+                params, origin, dirs, steps, with_closest=True)
+        with span(RENDER_SHADE):
+            channels = self._shade(mode, degree, orientation, origin,
+                                   final_dirs, hit, params=params)
+            return (self._assemble(channels),
+                    self._assemble([soft_coverage(minf, beta)]))
 
     def _assemble(self, channels):
         h, w = self.config.px_height, self.config.px_width

@@ -29,6 +29,15 @@ from ray_marching_tpu_torch.control import (
     apply_input,
 )
 from ray_marching_tpu_torch.io.image import encode_png, write_apng, write_png
+from ray_marching_tpu_torch.spans import (
+    VIEWER_COPY,
+    VIEWER_FRAME,
+    VIEWER_INPUT,
+    VIEWER_RENDER,
+    VIEWER_SINK,
+    VIEWER_WAIT,
+    span,
+)
 
 
 class ScriptedInput:
@@ -272,11 +281,12 @@ def quantize(img, fetch_stride: int = 1):
 def _frame_fn(renderer, mode, steps, degree, transfer, fetch_stride):
     """``f(params, q, t)``: one frame as ``run_viewer`` fetches it."""
     def fn(p, q, t):
-        img = renderer.render(p, q, t, mode=mode, marching_steps=steps,
-                              degree=degree)
-        if transfer == "uint8":
-            return quantize(img, fetch_stride)
-        return img[:, ::fetch_stride, ::fetch_stride]
+        with span(VIEWER_RENDER):
+            img = renderer.render(p, q, t, mode=mode, marching_steps=steps,
+                                  degree=degree)
+            if transfer == "uint8":
+                return quantize(img, fetch_stride)
+            return img[:, ::fetch_stride, ::fetch_stride]
     return fn
 
 
@@ -288,19 +298,21 @@ class _HostCopy:
     wait for them too)."""
 
     def __init__(self, image):
-        self.event = None
-        if image.device.type == "cpu":
-            self.host = image
-            return
-        self.host = torch.empty(image.shape, dtype=image.dtype,
-                                pin_memory=True)
-        self.host.copy_(image, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
+        with span(VIEWER_COPY):
+            self.event = None
+            if image.device.type == "cpu":
+                self.host = image
+                return
+            self.host = torch.empty(image.shape, dtype=image.dtype,
+                                    pin_memory=True)
+            self.host.copy_(image, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
 
     def get(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
+        with span(VIEWER_WAIT):
+            if self.event is not None:
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -353,7 +365,9 @@ def run_viewer(renderer, input_source, sink: Callable, *,
     def flush(pending):
         nonlocal old_time
         idx, copy, sess = pending
-        sink(idx, copy.get(), sess)
+        image = copy.get()
+        with span(VIEWER_SINK):
+            sink(idx, image, sess)
         new_time = time.perf_counter()
         if print_fps:
             print(f"{1.0 / (new_time - old_time):.2f} frames per second")
@@ -364,27 +378,30 @@ def run_viewer(renderer, input_source, sink: Callable, *,
     with ctx, torch.no_grad():
         while session.running and (max_frames is None
                                    or frame_idx < max_frames):
-            snap = input_source.poll()
-            session = session.step(snap)
-            if not session.running:
-                break
-            with lock:
-                camera = apply_input(camera, snap, control)
-            if pose_callback is not None:
-                pose_callback(frame_idx, camera, session)
-            frame = _frame_fn(renderer, modes[session.mode % len(modes)],
-                              session.marching_steps, session.degree,
-                              transfer, fetch_stride)
-            with lock:
-                copy = _HostCopy(frame(params, camera.orientation,
-                                       camera.position))
-            if pending is not None:
-                flush(pending)
-            pending = (frame_idx, copy, session)
-            if not pipeline:
-                flush(pending)
-                pending = None
-            frame_idx += 1
+            with span(VIEWER_FRAME):
+                with span(VIEWER_INPUT):
+                    snap = input_source.poll()
+                    session = session.step(snap)
+                    if session.running:
+                        with lock:
+                            camera = apply_input(camera, snap, control)
+                if not session.running:
+                    break
+                if pose_callback is not None:
+                    pose_callback(frame_idx, camera, session)
+                frame = _frame_fn(renderer, modes[session.mode % len(modes)],
+                                  session.marching_steps, session.degree,
+                                  transfer, fetch_stride)
+                with lock:
+                    copy = _HostCopy(frame(params, camera.orientation,
+                                           camera.position))
+                if pending is not None:
+                    flush(pending)
+                pending = (frame_idx, copy, session)
+                if not pipeline:
+                    flush(pending)
+                    pending = None
+                frame_idx += 1
         if pending is not None:
             flush(pending)
     input_source.close()
